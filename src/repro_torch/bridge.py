@@ -1,0 +1,35 @@
+"""Weights across the two packages: nested dicts of arrays <-> tensors.
+
+The JAX package keeps ``params``/``state`` as nested dicts (and tuples) of
+arrays; after ``jax.tree_util.tree_map(np.asarray, tree)`` they are numpy
+arrays, which :func:`to_torch` turns into the port's tensors on a device.
+:func:`to_numpy` goes back.  The tree structure and key names are the same
+in both packages, so no renaming happens here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_torch(tree, device=None, dtype=torch.float32):
+    """Numpy arrays (or tensors) -> tensors of ``dtype`` on ``device``,
+    keeping the dict/tuple/list structure.  Arrays are copied, so the result
+    never aliases read-only numpy memory."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_torch(v, device, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+
+
+def to_numpy(tree):
+    """Tensors -> numpy arrays on the host, keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()

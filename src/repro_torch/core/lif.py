@@ -1,0 +1,97 @@
+"""Leaky integrate-and-fire neurons with parallel tick-batching (forward).
+
+Paper semantics (Sec. II): threshold theta = 0.5, leak lambda = 0.25 (a power
+of two -> a shift in the ASIC), hard reset to zero on fire:
+
+    u_t = lam * v_{t-1} + I_t
+    s_t = (u_t >= theta)
+    v_t = u_t * (1 - s_t)          (hard reset; soft reset: v_t = u_t - theta*s_t)
+
+``lif_serial`` steps the membrane through a loop over T (the serial
+tick-batching baseline); ``lif_parallel`` is the paper's unrolled chain with
+the reconfigurable ``chain_len`` mux (T slots form ``T // chain_len``
+independent chains whose membranes restart from zero).  Both are bit-equal.
+This module is the deploy (inference) view: no surrogate gradients.
+"""
+
+from __future__ import annotations
+
+import torch
+
+THETA_DEFAULT = 0.5
+LAM_DEFAULT = 0.25
+
+
+def _step(v, i_t, *, theta, lam, reset):
+    u = lam * v + i_t
+    s = (u >= theta).to(i_t.dtype)
+    v = u * (1.0 - s) if reset == "hard" else u - theta * s
+    return v, s
+
+
+def lif_serial(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
+               lam: float = LAM_DEFAULT, reset: str = "hard") -> torch.Tensor:
+    """Serial tick-batching LIF. ``drive``: (T, ...). Returns spikes (T, ...)."""
+    v = torch.zeros_like(drive[0])
+    spikes = []
+    for i_t in drive:
+        v, s = _step(v, i_t, theta=theta, lam=lam, reset=reset)
+        spikes.append(s)
+    return torch.stack(spikes)
+
+
+def lif_parallel(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
+                 lam: float = LAM_DEFAULT, reset: str = "hard",
+                 chain_len: int | None = None,
+                 iand_skip: torch.Tensor | None = None) -> torch.Tensor:
+    """Fully parallel tick-batching LIF with an unrolled membrane chain.
+
+    ``drive``: (T, ...).  ``chain_len`` (default T) must divide T.
+    ``iand_skip``: optional spikes of the same shape; if given, the IAND
+    residual ``skip * (1 - s)`` is applied as the epilogue.  This is the
+    plain version of the ``lif_parallel`` CUDA kernel.
+    """
+    t_total = drive.shape[0]
+    chain_len = chain_len or t_total
+    if t_total % chain_len:
+        raise ValueError(f"T={t_total} not divisible by chain_len={chain_len}")
+    spikes = []
+    v = torch.zeros_like(drive[0])
+    for t in range(t_total):
+        if t % chain_len == 0:   # mux: chain boundary -> fresh membrane
+            v = torch.zeros_like(v)
+        v, s = _step(v, drive[t], theta=theta, lam=lam, reset=reset)
+        spikes.append(s)
+    out = torch.stack(spikes)
+    if iand_skip is not None:
+        out = iand_skip * (1.0 - out)
+    return out
+
+
+def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
+        lam: float = LAM_DEFAULT, reset: str = "hard",
+        schedule: str = "parallel", chain_len: int | None = None,
+        use_kernel: bool = False, iand_skip=None) -> torch.Tensor:
+    """THE neuron dispatch: every LIF of the model and the deploy engine goes
+    through this entry point.
+
+    ``use_kernel=True`` routes through the ``lif_parallel`` kernel wrapper
+    (the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor);
+    otherwise the plain unrolled chain runs.  ``iand_skip`` fuses the AND-NOT
+    residual ``skip * (1 - s)`` into the neuron's output stage on every route.
+    """
+    if schedule == "serial":
+        out = lif_serial(drive, theta=theta, lam=lam, reset=reset)
+        return out if iand_skip is None else iand_skip * (1.0 - out)
+    if schedule != "parallel":
+        raise ValueError(f"unknown schedule: {schedule}")
+    if use_kernel:
+        from repro_torch.kernels.lif_parallel import ops as lif_ops
+
+        if iand_skip is not None:
+            return lif_ops.lif_iand_op(drive, iand_skip, theta=theta, lam=lam,
+                                       reset=reset, chain_len=chain_len)
+        return lif_ops.lif_parallel_op(drive, theta=theta, lam=lam, reset=reset,
+                                       chain_len=chain_len)
+    return lif_parallel(drive, theta=theta, lam=lam, reset=reset,
+                        chain_len=chain_len, iand_skip=iand_skip)

@@ -1,0 +1,112 @@
+"""Minimal NN primitives for the spiking models (plain PyTorch functions).
+
+Convention, as in the JAX package: every layer is a pair of functions
+    ``*_init(generator, ...) -> params``     (and optionally a state dict)
+    ``*_apply(params, x, ...) -> y``
+Parameters are plain dicts of tensors; BatchNorm carries running statistics in
+a separate ``state`` dict (the ASIC folds ConvBN at deploy time --
+``fold_conv_bn`` reproduces that deploy-time view).
+
+Layouts follow the JAX package at every public function: NHWC images, HWIO
+conv weights, (d_in, d_out) linear weights.  Layers operate on tick-batched
+tensors: the leading time axis T is folded into the batch before any
+conv/linear (one weight read serves all T time steps).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _uniform(generator, shape, scale, device):
+    return torch.empty(shape).uniform_(-scale, scale, generator=generator).to(device)
+
+
+# -- Linear -----------------------------------------------------------------
+
+def linear_init(generator, d_in: int, d_out: int, *, device=None):
+    return {"w": _uniform(generator, (d_in, d_out), 1.0 / math.sqrt(d_in), device),
+            "b": torch.zeros((d_out,), device=device)}
+
+
+def linear_apply(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+# -- Conv2d (NHWC) ------------------------------------------------------------
+
+def conv_init(generator, c_in: int, c_out: int, ksize: int, *, device=None):
+    scale = 1.0 / math.sqrt(c_in * ksize * ksize)
+    return {"w": _uniform(generator, (ksize, ksize, c_in, c_out), scale, device)}
+
+
+def conv_apply(p, x):
+    """x: (N, H, W, C), HWIO kernel, stride 1, SAME padding.  Permuted around
+    ``F.conv2d``; cuDNN's TF32 is switched off for the call, so the conv runs
+    in full f32 as the reference's does."""
+    w = p["w"].permute(3, 2, 0, 1)                       # HWIO -> OIHW
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, padding="same")
+    y = y.permute(0, 2, 3, 1)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def maxpool(x):
+    """2x2 max pool on NHWC, stride 2, VALID padding."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), 2)
+    return y.permute(0, 2, 3, 1)
+
+
+# -- BatchNorm ----------------------------------------------------------------
+
+def bn_init(c: int, device=None):
+    params = {"scale": torch.ones((c,), device=device),
+              "bias": torch.zeros((c,), device=device)}
+    state = {"mean": torch.zeros((c,), device=device),
+             "var": torch.ones((c,), device=device)}
+    return params, state
+
+
+def bn_apply(p, state, x, *, eps: float = 1e-5):
+    """Eval-mode BatchNorm over all leading axes (time folded into batch, the
+    paper's shared BN across time steps).  Returns (y, state)."""
+    y = (x - state["mean"]) * torch.rsqrt(state["var"] + eps) * p["scale"] + p["bias"]
+    return y, state
+
+
+def _fold_bn(w, b, bn_p, bn_state, eps):
+    g = bn_p["scale"] * torch.rsqrt(bn_state["var"] + eps)
+    folded_b = bn_p["bias"] - bn_state["mean"] * g
+    if b is not None:
+        folded_b = folded_b + b * g
+    return {"w": w * g, "b": folded_b}   # g broadcasts over the output (last) axis
+
+
+def fold_conv_bn(conv_p, bn_p, bn_state, eps: float = 1e-5):
+    """Deploy-time ConvBN folding (the accelerator's view of the weights)."""
+    return _fold_bn(conv_p["w"], conv_p.get("b"), bn_p, bn_state, eps)
+
+
+def fold_linear_bn(lin_p, bn_p, bn_state, eps: float = 1e-5):
+    """Deploy-time Linear+BN folding: one (w, b) pair, BN disappears."""
+    return _fold_bn(lin_p["w"], lin_p.get("b"), bn_p, bn_state, eps)
+
+
+# -- tick-batch reshaping helpers ---------------------------------------------
+
+def fold_time(x):
+    """(T, B, ...) -> (T*B, ...): the parallel tick-batching fold."""
+    return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def unfold_time(x, t: int):
+    """(T*B, ...) -> (T, B, ...)."""
+    return x.reshape((t, x.shape[0] // t) + tuple(x.shape[1:]))

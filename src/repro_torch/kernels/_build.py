@@ -1,0 +1,134 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each kernel source ``kernels/<pkg>/csrc/<name>.cu`` exposes a plain C
+interface and is compiled by ``nvcc`` into its own shared library under
+``build/repro_torch/`` at the repository root, then loaded with ``ctypes``.
+A library's file name carries a hash of its source and of the compiler flags,
+so an edited source is rebuilt at its next use and a stale library is never
+loaded.  :func:`build` compiles every stale library in parallel (one ``nvcc``
+per source, all started together); a kernel wrapper's first launch builds
+its own library if nothing has yet.
+
+Launch convention (every ``.cu`` file): the C function takes device pointers
+and the CUDA stream as ``void*`` and ints as ``int``, enqueues on that stream
+without synchronising, and returns ``cudaGetLastError()``; the wrapper raises
+on any nonzero code (:func:`check`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
+
+SOURCES = {
+    "lif_parallel": _KERNELS / "lif_parallel" / "csrc" / "lif_parallel.cu",
+    "spike_matmul": _KERNELS / "spike_matmul" / "csrc" / "spike_matmul.cu",
+    "ssa": _KERNELS / "spiking_attention" / "csrc" / "ssa.cu",
+}
+
+# No --use_fast_math: the LIF kernel is bit-exact against its plain version
+# only without flush-to-zero and approximate division.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(put the CUDA toolkit's bin/ on PATH or set CUDA_HOME)")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile every library in ``names`` (default: all) whose current build
+    is missing, all ``nvcc`` processes at once.  Returns the compiler output
+    (``-Xptxas -v``: registers, shared memory, spills) of each library built;
+    raises with that output if any compile fails."""
+    todo = [n for n in (names or SOURCES) if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, tmp, out, proc))
+    logs, failed = {}, []
+    for name, tmp, out, proc in jobs:
+        logs[name], _ = proc.communicate()
+        if proc.returncode:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)     # atomic: a concurrent process never sees half a file
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def kernel(lib: str, fn: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C function ``fn`` of library ``lib``, built and loaded on first
+    use, with its ``argtypes`` and ``restype`` (a launcher's cudaError_t by
+    default) declared."""
+    key = (lib, fn)
+    if key not in _fns:
+        if lib not in _libs:
+            build([lib])
+            _libs[lib] = ctypes.CDLL(str(library_path(lib)))
+        f = getattr(_libs[lib], fn)
+        f.argtypes = list(argtypes)
+        f.restype = restype
+        _fns[key] = f
+    return _fns[key]
+
+
+def check(err: int, lib: str, what: str) -> None:
+    """Raise if a launcher returned a nonzero cudaError_t."""
+    if err:
+        describe = kernel(lib, "repro_cuda_error_string", (ctypes.c_int,),
+                          restype=ctypes.c_char_p)
+        raise RuntimeError(f"{what}: CUDA error {err} ({describe(err).decode()})")
+
+
+def check_operands(what: str, *tensors: torch.Tensor) -> None:
+    """The kernels take contiguous float32 tensors on one CUDA device."""
+    dev = tensors[0].device
+    for x in tensors:
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{what}: operands must share one CUDA device, "
+                             f"got {[str(t.device) for t in tensors]}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{what}: the kernel takes float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+
+
+def stream(device: torch.device) -> int:
+    """Raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

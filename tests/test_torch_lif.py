@@ -1,0 +1,138 @@
+"""The port's LIF (plain versions and the lif_parallel kernel wrapper) held
+bit-exact against the JAX package: its Pallas kernel in interpret mode and
+its jnp oracle.  Tests marked ``cuda`` hold the CUDA kernel against its plain
+version on the card and skip without one."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import lif as tlif
+from repro_torch.kernels.lif_parallel import ops as tops
+
+torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
+
+T, N = 4, 300   # N ragged: not a multiple of the TPU kernel's 128 lanes
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX reference (absent where only the card's tests run)."""
+    pytest.importorskip("jax")
+    from repro.core.lif import lif, lif_parallel, lif_serial
+    from repro.kernels.lif_parallel import ops as jops
+
+    jlif = SimpleNamespace(lif=lif, lif_parallel=lif_parallel, lif_serial=lif_serial)
+    return SimpleNamespace(lif=jlif, ops=jops)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _drive(seed, shape=(T, N)):
+    """Normal drive with a third of the entries on a 1/8 grid, so membranes
+    land exactly on theta (the >= boundary) as well as near it."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(0.0, 0.6, shape).astype(np.float32)
+    grid = rng.random(shape) < 1 / 3
+    d[grid] = np.round(d[grid] * 8) / 8
+    return d
+
+
+def _skip(seed, shape=(T, N)):
+    return (np.random.default_rng(seed).random(shape) > 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("iand", [False, True])
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+@pytest.mark.parametrize("chain_len", [1, 2, 4])
+def test_lif_wrapper_bit_exact_vs_pallas_kernel(ref, chain_len, reset, iand):
+    drive, skip = _drive(chain_len), _skip(10 + chain_len)
+    kw = dict(chain_len=chain_len, reset=reset)
+    if iand:
+        want = ref.ops.lif_iand_op(drive, skip, interpret=True, **kw)
+        got = tops.lif_iand_op(torch.from_numpy(drive), torch.from_numpy(skip), **kw)
+    else:
+        want = ref.ops.lif_parallel_op(drive, interpret=True, **kw)
+        got = tops.lif_parallel_op(torch.from_numpy(drive), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert set(np.unique(got.numpy())) <= {0.0, 1.0}
+
+
+@pytest.mark.parametrize("iand", [False, True])
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+@pytest.mark.parametrize("chain_len", [1, 2, 4])
+def test_lif_parallel_bit_exact_vs_jax_oracle(ref, chain_len, reset, iand):
+    drive = _drive(20 + chain_len, (T, 3, 100))
+    skip = _skip(30 + chain_len, (T, 3, 100)) if iand else None
+    want = ref.lif.lif_parallel(drive, chain_len=chain_len, reset=reset,
+                                iand_skip=skip)
+    got = tlif.lif_parallel(torch.from_numpy(drive), chain_len=chain_len, reset=reset,
+                            iand_skip=None if skip is None else torch.from_numpy(skip))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+def test_lif_serial_bit_exact_vs_jax_and_parallel(ref, reset):
+    drive = _drive(40)
+    want = ref.lif.lif_serial(drive, reset=reset)
+    got = tlif.lif_serial(torch.from_numpy(drive), reset=reset)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), tlif.lif_parallel(torch.from_numpy(drive), reset=reset).numpy())
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("schedule", ["parallel", "serial"])
+def test_lif_dispatch_bit_exact_vs_jax(ref, schedule, use_kernel):
+    drive, skip = _drive(50), _skip(51)
+    want = ref.lif.lif(drive, schedule=schedule, use_kernel=use_kernel,
+                       iand_skip=skip, interpret=True)
+    got = tlif.lif(torch.from_numpy(drive), schedule=schedule, use_kernel=use_kernel,
+                   iand_skip=torch.from_numpy(skip))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cpu_wrapper_counts_no_launch():
+    before = tops.lif_parallel_fwd.launches
+    tops.lif_parallel_op(torch.from_numpy(_drive(60)))
+    assert tops.lif_parallel_fwd.launches == before
+
+
+def test_non_cpu_tensor_never_takes_plain_version():
+    """Only a CPU tensor may take the plain version; any other device goes
+    to the kernel path, which refuses what it cannot launch."""
+    drive = torch.empty((T, N), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tops.lif_parallel_op(drive)
+
+
+def test_wrapper_rejects_bad_chain_len():
+    with pytest.raises(ValueError, match="chain_len"):
+        tops.lif_parallel_op(torch.zeros((4, 8)), chain_len=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iand", [False, True])
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+@pytest.mark.parametrize("chain_len", [1, 2, 4])
+def test_lif_kernel_bit_exact_vs_plain_on_card(card, chain_len, reset, iand):
+    drive = torch.from_numpy(_drive(70 + chain_len, (T, 2, 517))).to(card)
+    skip = torch.from_numpy(_skip(80, (T, 2, 517))).to(card) if iand else None
+    kw = dict(chain_len=chain_len, reset=reset)
+    before = tops.lif_parallel_fwd.launches
+    if iand:
+        got = tops.lif_iand_op(drive, skip, **kw)
+        want = tlif.lif_parallel(drive, iand_skip=skip, **kw)
+    else:
+        got = tops.lif_parallel_op(drive, **kw)
+        want = tlif.lif_parallel(drive, **kw)
+    torch.cuda.synchronize()
+    assert tops.lif_parallel_fwd.launches == before + 1
+    assert torch.equal(got, want)

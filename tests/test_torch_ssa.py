@@ -1,0 +1,97 @@
+"""The port's spiking self-attention held bit-exact against the JAX package's
+Pallas kernel (interpret mode) and its einsum oracle: binary q, k, v make
+every contraction exact integer arithmetic in f32.  Tests marked ``cuda``
+hold the CUDA kernel against its plain version on the card."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import spiking_attention as tsa
+from repro_torch.kernels.spiking_attention import ops as tops
+
+torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
+
+SHAPE = (2, 2, 3, 49, 16)   # (T, B, H, N, Dh): N ragged
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX reference (absent where only the card's tests run)."""
+    pytest.importorskip("jax")
+    from repro.core.spiking_attention import merge_heads, split_heads, ssa
+    from repro.kernels.spiking_attention.ops import ssa_op
+
+    return SimpleNamespace(ssa=ssa, ssa_op=ssa_op, split_heads=split_heads,
+                           merge_heads=merge_heads)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _qkv(seed, shape=SHAPE):
+    rng = np.random.default_rng(seed)
+    return [(rng.random(shape) > 0.5).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ssa_op_bit_exact_vs_pallas_kernel(ref, causal):
+    q, k, v = _qkv(0)
+    want = ref.ssa_op(q, k, v, interpret=True, causal=causal)
+    got = tops.ssa_op(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("ordering", ["quadratic", "linear"])
+def test_ssa_bit_exact_vs_jax(ref, ordering):
+    q, k, v = _qkv(1)
+    want = ref.ssa(q, k, v, ordering=ordering)
+    got = tsa.ssa(*map(torch.from_numpy, (q, k, v)), ordering=ordering)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), tops.ssa_op(*map(torch.from_numpy, (q, k, v))).numpy())
+
+
+def test_split_merge_heads_vs_jax(ref):
+    x = np.random.default_rng(2).random((2, 3, 49, 48)).astype(np.float32)
+    split = tsa.split_heads(torch.from_numpy(x), 4)
+    np.testing.assert_array_equal(split.numpy(), np.asarray(ref.split_heads(x, 4)))
+    np.testing.assert_array_equal(tsa.merge_heads(split).numpy(),
+                                  np.asarray(ref.merge_heads(ref.split_heads(x, 4))))
+
+
+def test_ssa_op_takes_head_split_views():
+    """split_heads returns a transposed view; the wrapper makes it dense."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, (2, 2, 49, 48)))
+    views = [tsa.split_heads(a, 3) for a in (q, k, v)]
+    assert not views[0].is_contiguous()
+    want = tsa.ssa(*[a.contiguous() for a in views])
+    assert torch.equal(tops.ssa_op(*views), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [
+    (SHAPE, False), (SHAPE, True), ((4, 2, 12, 196, 32), False),
+    ((4, 2, 12, 196, 32), True), ((2, 1, 3, 33, 8), False), ((1, 2, 2, 65, 48), True),
+    ((1, 1, 2, 70, 128), False),   # Dh=128: the shared-memory opt-in above 48 KB
+])
+def test_ssa_kernel_bit_exact_vs_plain_on_card(card, shape, causal):
+    q, k, v = (torch.from_numpy(a).to(card) for a in _qkv(4, shape))
+    before = tops.ssa_fwd.launches
+    got = tops.ssa_op(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tops.ssa_fwd.launches == before + 1
+    assert torch.equal(got, tsa.ssa(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+def test_ssa_kernel_takes_head_split_views_on_card(card):
+    q, k, v = (torch.from_numpy(a).to(card) for a in _qkv(5, (2, 2, 49, 48)))
+    views = [tsa.split_heads(a, 3) for a in (q, k, v)]
+    assert torch.equal(tops.ssa_op(*views), tsa.ssa(*views))
