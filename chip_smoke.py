@@ -6,17 +6,25 @@
 Phases (each failure exits non-zero; nothing falls back to the CPU):
   1. card and build: the card's name and power limit, and the build of every
      CUDA kernel from the sources in this checkout (``nvcc``, sm_90a);
-  2. kernels vs plain: each kernel at the shapes the main path gives it
-     (spike-iand-former-8-384, slot batch 8), held against its plain PyTorch
-     version on the same inputs, and timed beside it, beside one library call
-     computing the same function, and beside its bound;
-  3. model: the main path -- ``serve_vision`` of spike-iand-former-8-384 on
-     backend="cuda", 3 slot batches of 8 images -- with every launch counter
-     set to 0 just before and read just after; its logits held against the
-     backend="torch" plan on the card, spike mismatches counted layer by layer;
-  4. the other vision configs once each at full size through both plans.
+  2. kernels vs plain: each kernel (K1-K3 of the dense path, K4-K6 of the
+     packed path) at the shapes its path gives it (spike-iand-former-8-384,
+     slot batch 8), held against its plain PyTorch version on the same inputs,
+     and timed beside it, beside one library call computing the same function
+     (where there is one), and beside its bound;
+  3. model: the two main paths -- ``serve_vision`` of spike-iand-former-8-384,
+     3 slot batches of 8 images, on backend="cuda" (dense spikes, K1-K3) and on
+     backend="cuda+packed" (spikes bit-packed along time, K4-K6) -- each with
+     every launch counter set to 0 just before and read just after; the dense
+     logits held against the backend="torch" plan, the packed logits against
+     the backend="torch+packed" plan and beside the dense CUDA plan's, spike
+     and word mismatches counted layer by layer;
+  4. the other vision configs once each at full size through the dense plans,
+     and the IAND ones through the packed plans too.
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
-line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
+line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.  In the
+JSON line ``launches`` is the count over the whole main-path run of the
+kernel's path (warm-up forward included) and ``launches_per_forward`` that
+count over the forwards.
 """
 
 from __future__ import annotations
@@ -72,7 +80,8 @@ class KernelReport:
 
     def __init__(self, name, source, replaces):
         self.entry = {"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": None, "max_abs_err": 0.0,
+                      "replaces": replaces, "launches": None,
+                      "launches_per_forward": None, "max_abs_err": 0.0,
                       "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
                       "library_ms": None}
         self._bound = {"bytes": 0.0, "operations": 0.0}
@@ -201,54 +210,189 @@ def phase_kernels(dev, gen):
     rep.add(f"G={g} N={ntok} Dh={dh}", 8, 0.0, time_ms(run), time_ms(plain),
             4 * 4 * g * ntok * dh, 4 * g * ntok * ntok * dh, library_ms=time_ms(library))
     reports["K3"] = rep
+    reports.update(_packed_kernels(dev, gen))
+    return reports
+
+
+def _packed_kernels(dev, gen):
+    """K4-K6 at the packed path's shapes (8-384, slot batch 8, T=4: one word
+    per neuron)."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.lif_parallel import ops as lif_ops
+    from repro_torch.kernels.lif_parallel.ref import lif_pack_ref
+    from repro_torch.kernels.spike_matmul import ops as mm_ops
+    from repro_torch.kernels.spike_matmul.ref import packed_spike_matmul_ref
+    from repro_torch.kernels.spiking_attention import ops as ssa_ops
+    from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref
+
+    t, b, ntok, d, hid, heads = 4, SLOTS, 196, 384, 1536, 12
+    words = lambda shape: packing.pack(
+        (torch.rand((t,) + shape, generator=gen) > 0.5).float()).words.to(dev)
+    unpack = lambda w: packing.unpack(packing.PackedSpikes(w, t))
+    reports = {}
+
+    # -- K4: LIF with the pack epilogue (+IAND) ----------------------------
+    rep = KernelReport("lif_pack", "src/repro_torch/kernels/lif_parallel/csrc/lif_parallel.cu",
+                       "src/repro/kernels/lif_parallel/kernel.py:174")
+    big = b * 112 * 112 * 48
+    drive = torch.randn((t, big), generator=gen).to(dev)
+    drive[:, ::3] = torch.round(drive[:, ::3] * 8) / 8      # membranes exactly on theta too
+    skip = words((big,))
+    for iand in (False, True):
+        for reset in ("hard", "soft"):
+            for chain in (1, 2, 4):
+                sk = skip if iand else None
+                got = lif_ops.lif_parallel_pack_fwd(drive, chain_len=chain, lam=0.25,
+                                                    theta=0.5, reset=reset, skip_words=sk)
+                want = lif_pack_ref(drive, chain_len=chain, reset=reset, skip_words=sk)
+                if not torch.equal(got, want):
+                    fail(f"lif_pack iand={iand} reset={reset} chain_len={chain}: "
+                         f"{(got != want).sum().item()} word mismatches")
+    log(f"K4 lif_pack: torch.equal at N={big} for iand x reset x chain_len 1/2/4")
+    cases = [(b * 112 * 112 * 48, False, 1), (b * 56 * 56 * 96, False, 1 + 8),
+             (b * 28 * 28 * 192, False, 1), (b * ntok * d, False, 1 + 4 * 8),
+             (b * ntok * d, True, 2 * 8)]
+    for n, iand, count in cases:
+        x, sk = drive[:, :n].contiguous(), (skip[:, :n].contiguous() if iand else None)
+        run = lambda: lif_ops.lif_parallel_pack_fwd(x, chain_len=t, lam=0.25, theta=0.5,
+                                                    reset="hard", skip_words=sk)
+        plain = lambda: lif_pack_ref(x, chain_len=t, skip_words=sk)
+        if not torch.equal(run(), plain()):
+            fail(f"lif_pack N={n} iand={iand}: not equal to the plain version")
+        nbytes = 4 * t * n + 4 * n * (2 if iand else 1)
+        rep.add(f"N={n} iand={iand}", count, 0.0, time_ms(run), time_ms(plain), nbytes,
+                5 * t * n)
+    reports["K4"] = rep
+    del drive, skip
+
+    # -- K5: packed spike GEMM --------------------------------------------
+    rep = KernelReport("packed_spike_matmul",
+                       "src/repro_torch/kernels/spike_matmul/csrc/spike_matmul.cu",
+                       "src/repro/kernels/spike_matmul/kernel.py:136")
+    m_blk = b * ntok
+    cases = [(b * 112 * 112, 9 * 48, 96, 1), (b * 56 * 56, 9 * 96, 192, 1),
+             (b * 28 * 28, 9 * 192, 384, 1), (m_blk, d, d, 4 * 8),
+             (m_blk, d, hid, 8), (m_blk, hid, d, 8)]
+    for m, k, c, count in cases:
+        xw = words((m, k))[0]
+        w = ((torch.rand((k, c), generator=gen) * 2 - 1) / k ** 0.5).to(dev)
+        run = lambda: mm_ops.packed_spike_matmul_fwd(xw, w, t=t)
+        plain = lambda: packed_spike_matmul_ref(xw, w, t=t)
+        got, want = run(), plain()
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, **GEMM_TOL):
+            fail(f"packed_spike_matmul {m}x{k}x{c}: max abs err {err:.3g} outside {GEMM_TOL}")
+        dense = unpack(xw[None]).reshape(t * m, k)
+        same_as_k2 = torch.equal(got.reshape(t * m, c), mm_ops.spike_matmul_fwd(dense, w))
+        log(f"  packed_spike_matmul {m}x{k}x{c} T={t}: max abs err {err:.3g} "
+            f"(tolerance {GEMM_TOL}); equal to K2 on the unpacked operand: {same_as_k2}")
+        if not same_as_k2:
+            fail(f"packed_spike_matmul {m}x{k}x{c}: differs from K2 on the unpacked operand")
+        rep.add(f"{m}x{k}x{c}", count, err, time_ms(run), time_ms(plain),
+                4 * (m * k + k * c + t * m * c), 2 * t * m * k * c,
+                library_ms=time_ms(lambda: torch.matmul(dense, w)))
+        del xw, w, got, want, dense
+    log("  K5 library_ms is torch.matmul on the unpacked (T*M, K) f32 operand")
+    reports["K5"] = rep
+
+    # -- K6: packed SSA ----------------------------------------------------
+    rep = KernelReport("packed_ssa", "src/repro_torch/kernels/spiking_attention/csrc/ssa.cu",
+                       "src/repro/kernels/spiking_attention/kernel.py:164")
+    g, dh = b * heads, d // heads
+    qw, kw, vw = (words((g, ntok, dh)) for _ in range(3))
+    for causal in (False, True):
+        got = ssa_ops.packed_ssa_fwd(qw, kw, vw, t=t, scale=0.125, causal=causal)
+        if not torch.equal(got, packed_ssa_ref(qw, kw, vw, t=t, scale=0.125, causal=causal)):
+            fail(f"packed_ssa causal={causal}: not equal to the plain version")
+    log(f"K6 packed_ssa: torch.equal at G={g}, N={ntok}, Dh={dh}, T={t}, causal and not")
+    run = lambda: ssa_ops.packed_ssa_fwd(qw, kw, vw, t=t, scale=0.125)
+    plain = lambda: packed_ssa_ref(qw, kw, vw, t=t, scale=0.125)
+    q, k, v = (unpack(x).reshape(t * g, ntok, dh) for x in (qw, kw, vw))
+    library = lambda: torch.bmm(torch.bmm(q, k.transpose(1, 2)), v) * 0.125
+    rep.add(f"G={g} N={ntok} Dh={dh} T={t}", 8, 0.0, time_ms(run), time_ms(plain),
+            4 * 3 * g * ntok * dh + 4 * t * g * ntok * dh, 4 * t * g * ntok * ntok * dh,
+            library_ms=time_ms(library))
+    log("  K6 library_ms is two torch.bmm on the unpacked f32 operands")
+    reports["K6"] = rep
     return reports
 
 
 def _counters():
-    from repro_torch.kernels.lif_parallel.ops import lif_parallel_fwd
-    from repro_torch.kernels.spike_matmul.ops import spike_matmul_fwd
-    from repro_torch.kernels.spiking_attention.ops import ssa_fwd
+    from repro_torch.kernels.lif_parallel.ops import lif_parallel_fwd, lif_parallel_pack_fwd
+    from repro_torch.kernels.spike_matmul.ops import packed_spike_matmul_fwd, spike_matmul_fwd
+    from repro_torch.kernels.spiking_attention.ops import packed_ssa_fwd, ssa_fwd
 
-    return {"K1": lif_parallel_fwd, "K2": spike_matmul_fwd, "K3": ssa_fwd}
-
-
-def _per_forward(num_layers):
-    return {"K1": 4 + 7 * num_layers, "K2": 3 + 6 * num_layers, "K3": num_layers}
+    return {"K1": lif_parallel_fwd, "K2": spike_matmul_fwd, "K3": ssa_fwd,
+            "K4": lif_parallel_pack_fwd, "K5": packed_spike_matmul_fwd, "K6": packed_ssa_fwd}
 
 
-def phase_model(dev, smi):
-    from repro_torch import engine
-    from repro_torch.engine import execute
-    from repro_torch.launch.serve import seeded_model, serve_vision
+def _per_forward(num_layers, packed=False):
+    """Launches per forward of each kernel on the dense or the packed path:
+    a LIF per tokenizer stage and 7 per block, a GEMM per spike conv stage and
+    6 per block, an SSA per block; the other path's kernels never launch."""
+    counts = (4 + 7 * num_layers, 3 + 6 * num_layers, num_layers)
+    path, other = (("K4", "K5", "K6"), ("K1", "K2", "K3")) if packed else \
+        (("K1", "K2", "K3"), ("K4", "K5", "K6"))
+    return {**dict(zip(path, counts)), **dict.fromkeys(other, 0)}
+
+
+def _serve_counted(backend, dev, want_per_forward):
+    """serve_vision of the main path on ``backend`` with every launch counter
+    set to 0 just before and read just after; fails unless each kernel of the
+    path launched exactly its count per forward and no other kernel did."""
+    from repro_torch.launch.serve import serve_vision
 
     counters = _counters()
     for f in counters.values():
         f.launches = 0
-    served = serve_vision(ARCH, num_requests=REQUESTS, slots=SLOTS, backend="cuda",
+    served = serve_vision(ARCH, num_requests=REQUESTS, slots=SLOTS, backend=backend,
                           device=dev)
     launches = {k: f.launches for k, f in counters.items()}
+    for key, n in launches.items():
+        want = served["forwards"] * want_per_forward[key]
+        if n != want or (want_per_forward[key] and n == 0):
+            fail(f"{backend}: {key} launched {n} times in {served['forwards']} forwards, "
+                 f"expected {want_per_forward[key]} per forward")
+    log(f"main path on backend={backend}: {served['forwards']} forwards (warm-up "
+        f"included), launches {launches} = {want_per_forward} per forward")
+    return served, launches
+
+
+def _check_logits(label, got, want, atol=LOGITS_ATOL):
+    if not all(torch.isfinite(x).all() for x in (got, want)):
+        fail(f"{label}: non-finite logits")
+    diff = (got - want).abs().max().item()
+    agree = sum(int(a == b) for a, b in zip(got.argmax(-1), want.argmax(-1)))
+    log(f"logits {label}: max abs diff {diff:.3g} (atol {atol}), argmax agrees on "
+        f"{agree}/{got.shape[0]}")
+    if diff > atol:
+        fail(f"{label}: logits differ by {diff:.3g} > {atol}")
+    return diff
+
+
+def _serve_line(label, r, cfg, smi):
+    log(f"serve {ARCH} backend={label}: {r['img_per_s']:.2f} img/s, "
+        f"{1e3 * r['seconds'] * SLOTS / REQUESTS:.3f} ms per slot batch of {SLOTS} "
+        f"({REQUESTS} images, {cfg.img_size}x{cfg.img_size}) on {smi}")
+
+
+def phase_model(dev, smi):
+    """The dense main path (K1-K3), then the packed one (K4-K6)."""
+    from repro_torch import engine
+    from repro_torch.engine import execute
+    from repro_torch.launch.serve import seeded_model, serve_vision
+
     plan, images = seeded_model(ARCH, num_requests=REQUESTS, backend="cuda", device=dev)
     cfg = plan.cfg
     want = _per_forward(cfg.num_layers)
     if engine.plan_stats(plan)["lif_dispatches"] != want["K1"]:
         fail("plan_stats lif_dispatches disagrees with the launch accounting")
-    for key, n in launches.items():
-        if n != served["forwards"] * want[key] or n == 0:
-            fail(f"{key}: {n} launches in {served['forwards']} forwards, expected "
-                 f"{want[key]} per forward")
-    log(f"main path: {served['forwards']} forwards (warm-up included), launches "
-        f"{launches} = {want} per forward")
-
+    served, launches = _serve_counted("cuda", dev, want)
     plain = serve_vision(ARCH, num_requests=REQUESTS, slots=SLOTS, backend="torch",
                          device=dev, verbose=False)
-    diff = (served["logits"] - plain["logits"]).abs().max().item()
-    agree = sum(a == b for a, b in zip(served["classes"], plain["classes"]))
-    log(f"logits vs backend=torch plan on the card: max abs diff {diff:.3g} "
-        f"(atol {LOGITS_ATOL}), argmax agrees on {agree}/{REQUESTS}")
-    if not all(torch.isfinite(x).all() for x in (served["logits"], plain["logits"])):
-        fail("non-finite logits")
     if served["logits"].shape != (REQUESTS, cfg.num_classes):
         fail(f"logits shape {tuple(served['logits'].shape)}")
+    _check_logits("cuda vs backend=torch plan on the card", served["logits"], plain["logits"])
 
     # layer by layer on the first slot batch: every cuda layer gets the plain
     # plan's input spikes
@@ -264,14 +408,44 @@ def phase_model(dev, smi):
             rows.append((f"block{i}", (x != y).sum().item(), x.numel()))
     for name, bad, total in rows:
         log(f"  spike mismatches {name}: {bad} of {total}")
-    if diff > LOGITS_ATOL:
-        fail(f"logits differ by {diff:.3g} > {LOGITS_ATOL}")
 
-    for label, r in (("cuda", served), ("torch", plain)):
-        log(f"serve {ARCH} backend={label}: {r['img_per_s']:.2f} img/s, "
-            f"{1e3 * r['seconds'] * SLOTS / REQUESTS:.3f} ms per slot batch of {SLOTS} "
-            f"({REQUESTS} images, {cfg.img_size}x{cfg.img_size}) on {smi}")
-    return launches
+    # -- the packed main path ----------------------------------------------
+    pplan, _ = seeded_model(ARCH, num_requests=1, backend="cuda+packed", device=dev)
+    if engine.plan_stats(pplan)["bits_per_spike"] != 32 / cfg.t:
+        fail("plan_stats bits_per_spike of the packed plan")
+    want_packed = _per_forward(cfg.num_layers, packed=True)
+    packed, packed_launches = _serve_counted("cuda+packed", dev, want_packed)
+    packed_plain = serve_vision(ARCH, num_requests=REQUESTS, slots=SLOTS,
+                                backend="torch+packed", device=dev, verbose=False)
+    _check_logits("cuda+packed vs backend=torch+packed plan on the card",
+                  packed["logits"], packed_plain["logits"])
+    vs_dense = (packed["logits"] - served["logits"]).abs().max().item()
+    log(f"logits cuda+packed vs the dense cuda plan: max abs diff {vs_dense:.3g} "
+        f"(equal: {torch.equal(packed['logits'], served['logits'])})")
+
+    # word by word on the first slot batch: every cuda+packed layer gets the
+    # torch+packed plan's input words
+    ref_pplan, _ = seeded_model(ARCH, num_requests=1, backend="torch+packed", device=dev)
+    with torch.inference_mode():
+        x = execute._tokenizer_exec_packed(ref_pplan.meta, ref_pplan.params["tokenizer"],
+                                           batch)
+        y = execute._tokenizer_exec_packed(pplan.meta, pplan.params["tokenizer"], batch)
+        rows = [("tokenizer", (x.words != y.words).sum().item(), x.words.numel())]
+        for i, (rb, cb) in enumerate(zip(ref_pplan.params["blocks"], pplan.params["blocks"])):
+            y = execute._block_exec_packed(pplan.meta, cb, x)
+            x = execute._block_exec_packed(ref_pplan.meta, rb, x)
+            rows.append((f"block{i}", (x.words != y.words).sum().item(), x.words.numel()))
+    for name, bad, total in rows:
+        log(f"  word mismatches {name}: {bad} of {total}")
+
+    for label, r in (("cuda", served), ("torch", plain), ("cuda+packed", packed),
+                     ("torch+packed", packed_plain)):
+        _serve_line(label, r, cfg, smi)
+    forwards = {**dict.fromkeys(("K1", "K2", "K3"), served["forwards"]),
+                **dict.fromkeys(("K4", "K5", "K6"), packed["forwards"])}
+    totals = {k: launches[k] for k in ("K1", "K2", "K3")}
+    totals.update({k: packed_launches[k] for k in ("K4", "K5", "K6")})
+    return totals, forwards
 
 
 def phase_other_configs(dev):
@@ -283,22 +457,31 @@ def phase_other_configs(dev):
     for arch in list_vision_configs():
         if arch == ARCH:
             continue
+        cfg = get_vision_config(arch)
+        backends = ["torch", "cuda"]
+        if cfg.residual == "iand":
+            backends += ["torch+packed", "cuda+packed"]
+        else:
+            log(f"{arch}: residual={cfg.residual!r}, so no packed plan (the ADD "
+                "residual sums spike trains into non-binary tensors)")
         logits = {}
-        for backend in ("torch", "cuda"):
+        for backend in backends:
             plan, images = seeded_model(arch, num_requests=2, backend=backend, seed=1,
                                         device=dev)
             before = {k: f.launches for k, f in counters.items()}
             logits[backend] = engine.apply(plan, images)
             torch.cuda.synchronize(dev)
             grown = {k: f.launches - before[k] for k, f in counters.items()}
-        want = _per_forward(get_vision_config(arch).num_layers)
-        diff = (logits["cuda"] - logits["torch"]).abs().max().item()
-        log(f"{arch}: logits {tuple(logits['cuda'].shape)}, max abs diff vs plain "
-            f"{diff:.3g}, launches {grown}")
-        if grown != want:
-            fail(f"{arch}: launches {grown}, expected {want}")
-        if not torch.isfinite(logits["cuda"]).all() or diff > LOGITS_ATOL:
-            fail(f"{arch}: logits differ by {diff:.3g} > {LOGITS_ATOL} or are not finite")
+            want = _per_forward(cfg.num_layers, packed="packed" in backend)
+            if backend.startswith("cuda") and grown != want:
+                fail(f"{arch} {backend}: launches {grown}, expected {want}")
+        for kernels, plain in (("cuda", "torch"), ("cuda+packed", "torch+packed")):
+            if kernels in logits:
+                _check_logits(f"{arch} {kernels} vs {plain} {tuple(logits[kernels].shape)}",
+                              logits[kernels], logits[plain])
+        if "cuda+packed" in logits:
+            diff = (logits["cuda+packed"] - logits["cuda"]).abs().max().item()
+            log(f"{arch}: cuda+packed vs cuda max abs diff {diff:.3g}")
 
 
 def main() -> int:
@@ -320,15 +503,16 @@ def main() -> int:
     smi = phase_card_and_build()
     log("phase 2: kernels vs plain at the spike-iand-former-8-384 main path's shapes")
     reports = phase_kernels(dev, torch.Generator().manual_seed(0))
-    log(f"phase 3: serve {ARCH} on backend=cuda, {REQUESTS // SLOTS} slot batches "
-        f"of {SLOTS}")
-    launches = phase_model(dev, smi)
+    log(f"phase 3: serve {ARCH} on backend=cuda and on backend=cuda+packed, "
+        f"{REQUESTS // SLOTS} slot batches of {SLOTS} each")
+    launches, forwards = phase_model(dev, smi)
     log("phase 4: the other vision configs at full size, 2 images each")
     phase_other_configs(dev)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     for key, rep in reports.items():
         rep.entry["launches"] = launches[key]
+        rep.entry["launches_per_forward"] = launches[key] / forwards[key]
     print(smi)
     print(json.dumps({"kernels": [r.entry for r in reports.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

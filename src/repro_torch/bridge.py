@@ -5,6 +5,11 @@ arrays; after ``jax.tree_util.tree_map(np.asarray, tree)`` they are numpy
 arrays, which :func:`to_torch` turns into the port's tensors on a device.
 :func:`to_numpy` goes back.  The tree structure and key names are the same
 in both packages, so no renaming happens here.
+
+Packed spike words cross as bit patterns: the JAX package keeps them as
+``uint32``, the port as ``int32`` (PyTorch on the CPU has no shifts or NOT
+for ``uint32``).  :func:`words_to_numpy` and :func:`words_to_torch` convert
+between the two with a numpy ``.view``, never a value cast.
 """
 
 from __future__ import annotations
@@ -33,3 +38,19 @@ def to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
+
+
+def words_to_numpy(words: torch.Tensor) -> np.ndarray:
+    """Port words (int32 tensor) -> the JAX package's uint32 words, same bits."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"packed words must be int32, got {words.dtype}")
+    return words.detach().cpu().numpy().view(np.uint32)
+
+
+def words_to_torch(words, device=None) -> torch.Tensor:
+    """uint32 words (numpy or a JAX array) -> the port's int32 words on
+    ``device``, same bits; the array is copied."""
+    a = np.array(words, copy=True)
+    if a.dtype != np.uint32:
+        raise TypeError(f"packed words must be uint32, got {a.dtype}")
+    return torch.from_numpy(a.view(np.int32)).to(device)

@@ -1,2 +1,3 @@
 """Core spiking-transformer library (PyTorch): LIF neurons, IAND residual,
-spiking self-attention, the spiking tokenizer and the Spikformer model."""
+spiking self-attention, bit-packed spike trains, the spiking tokenizer and
+the Spikformer model."""

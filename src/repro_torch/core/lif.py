@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import packing
+
 THETA_DEFAULT = 0.5
 LAM_DEFAULT = 0.25
 
@@ -71,27 +73,56 @@ def lif_parallel(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
 def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
         lam: float = LAM_DEFAULT, reset: str = "hard",
         schedule: str = "parallel", chain_len: int | None = None,
-        use_kernel: bool = False, iand_skip=None) -> torch.Tensor:
+        use_kernel: bool = False, iand_skip=None, pack_output: bool = False):
     """THE neuron dispatch: every LIF of the model and the deploy engine goes
     through this entry point.
 
-    ``use_kernel=True`` routes through the ``lif_parallel`` kernel wrapper
+    ``use_kernel=True`` routes through the ``lif_parallel`` kernel wrappers
     (the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor);
     otherwise the plain unrolled chain runs.  ``iand_skip`` fuses the AND-NOT
     residual ``skip * (1 - s)`` into the neuron's output stage on every route.
+
+    ``pack_output=True`` returns the spike train bit-packed along time as a
+    :class:`repro_torch.core.packing.PackedSpikes` instead of a dense (T, ...)
+    tensor; the kernel route packs inside the kernel's epilogue, so dense
+    spikes never reach device memory.  With ``pack_output``, ``iand_skip``
+    must itself be a ``PackedSpikes`` -- the residual becomes the bitwise
+    ``skip & ~spikes`` on words -- and a ``PackedSpikes`` skip without
+    ``pack_output`` is a TypeError.
     """
+    if pack_output and iand_skip is not None:
+        if not isinstance(iand_skip, packing.PackedSpikes):
+            raise TypeError("pack_output=True requires a PackedSpikes iand_skip")
+        if iand_skip.t != drive.shape[0]:
+            raise ValueError(f"time-step mismatch: drive T={drive.shape[0]}, "
+                             f"iand_skip t={iand_skip.t}")
+    if not pack_output and isinstance(iand_skip, packing.PackedSpikes):
+        raise TypeError("PackedSpikes iand_skip requires pack_output=True")
+
+    def _pack(out):
+        packed = packing.pack(out)
+        return packing.iand(iand_skip, packed) if iand_skip is not None else packed
+
     if schedule == "serial":
         out = lif_serial(drive, theta=theta, lam=lam, reset=reset)
+        if pack_output:
+            return _pack(out)
         return out if iand_skip is None else iand_skip * (1.0 - out)
     if schedule != "parallel":
         raise ValueError(f"unknown schedule: {schedule}")
     if use_kernel:
         from repro_torch.kernels.lif_parallel import ops as lif_ops
 
+        kw = dict(theta=theta, lam=lam, reset=reset, chain_len=chain_len)
+        if pack_output:
+            words = (lif_ops.lif_pack_op(drive, **kw) if iand_skip is None
+                     else lif_ops.lif_iand_pack_op(drive, iand_skip.words, **kw))
+            return packing.PackedSpikes(words=words, t=drive.shape[0])
         if iand_skip is not None:
-            return lif_ops.lif_iand_op(drive, iand_skip, theta=theta, lam=lam,
-                                       reset=reset, chain_len=chain_len)
-        return lif_ops.lif_parallel_op(drive, theta=theta, lam=lam, reset=reset,
-                                       chain_len=chain_len)
+            return lif_ops.lif_iand_op(drive, iand_skip, **kw)
+        return lif_ops.lif_parallel_op(drive, **kw)
+    if pack_output:
+        return _pack(lif_parallel(drive, theta=theta, lam=lam, reset=reset,
+                                  chain_len=chain_len))
     return lif_parallel(drive, theta=theta, lam=lam, reset=reset,
                         chain_len=chain_len, iand_skip=iand_skip)

@@ -10,6 +10,11 @@ accelerator's deploy view:
 * all Conv/Linear compute is tick-batched (T folded into the batch: one
   weight read serves all time steps).
 
+On a ``packed`` backend the spikes between layers are bit-packed along time
+(``repro_torch.core.packing``): every LIF epilogue emits words, the residual
+is the bitwise AND-NOT on words, and the head rate-decodes by popcount, so
+the packed executor never unpacks a train itself.
+
 All compute -- linears, convs and attention -- goes through
 ``repro_torch.engine.backend``; the executor never calls a kernel or a plain
 version directly, so the plan's backend decides the compute route.
@@ -22,17 +27,18 @@ import functools
 import torch
 
 from repro_torch.core import nn as cnn
+from repro_torch.core import packing
 from repro_torch.core.iand import connective
-from repro_torch.core.spiking_attention import merge_heads, split_heads
+from repro_torch.core.spiking_attention import merge_heads, split_heads, split_heads_packed
 from repro_torch.engine import backend as B
 from repro_torch.engine.plan import DeployPlan, PlanMeta
 
 
-def _lif(meta: PlanMeta, drive, iand_skip=None):
+def _lif(meta: PlanMeta, drive, iand_skip=None, pack_output: bool = False):
     cfg = meta.cfg
     return B.lif_apply(meta.backend, drive, theta=cfg.theta, lam=cfg.lam,
                        schedule=cfg.lif_schedule, chain_len=cfg.chain_len,
-                       iand_skip=iand_skip)
+                       iand_skip=iand_skip, pack_output=pack_output)
 
 
 def _tokenizer_exec(meta: PlanMeta, tok_params, image):
@@ -93,12 +99,89 @@ def _block_exec(meta: PlanMeta, bparams, x):
     return x
 
 
+# -- packed datapath ---------------------------------------------------------
+
+def _tokenizer_exec_packed(meta: PlanMeta, tok_params, image) -> packing.PackedSpikes:
+    """image: (B, H, W, C) analog -> packed spikes, words (W, B, N, D)."""
+    cfg = meta.cfg
+    xp = None
+    for stage, p in zip(meta.tok_stages, tok_params):
+        if stage.encode:
+            # analog encoding conv: same as the dense path (input not binary)
+            y = cnn.conv_apply(p, image)
+            if stage.pool:
+                y = cnn.maxpool(y)
+            drive = y[None].expand((cfg.t,) + tuple(y.shape))
+        else:
+            drive = B.conv3x3_apply_packed(meta.backend, p, xp)   # (T, B, H, W, C)
+            if stage.pool:
+                drive = cnn.unfold_time(cnn.maxpool(cnn.fold_time(drive)), cfg.t)
+        xp = _lif(meta, drive, pack_output=True)
+    _, b, h, wd, d = xp.words.shape
+    return xp.reshape_elems(b, h * wd, d)
+
+
+def _unit_linear_packed(meta: PlanMeta, p, xp: packing.PackedSpikes):
+    """Packed-operand folded linear: words (W, B, N, Din) -> drive (T, B, N, Dout)."""
+    return B.linear_apply_packed(meta.backend, p, xp)
+
+
+def _block_exec_packed(meta: PlanMeta, bparams, xp: packing.PackedSpikes):
+    """One block on packed activations.  Only reached for residual='iand'
+    (compile_plan rejects packed ADD plans), so every residual join is the
+    bitwise AND-NOT in a LIF epilogue."""
+    cfg = meta.cfg
+    acts: dict = {}
+    h = None
+    for u in meta.block_units:
+        if u.role == "qkv":
+            acts[u.name] = _lif(meta, _unit_linear_packed(meta, bparams[u.name], xp),
+                                pack_output=True)
+            continue
+        if u.role == "attn_out":
+            # q/k/v stay packed through the head split; the backend feeds the
+            # words to the packed SSA kernel (or unpacks at its own op boundary)
+            attn = B.ssa_apply_packed(
+                meta.backend, *(split_heads_packed(acts[n], cfg.num_heads) for n in "qkv"),
+                scale=cfg.attn_scale, ordering=cfg.attn_ordering)
+            attn_sp = _lif(meta, merge_heads(attn), pack_output=True)
+            drive = _unit_linear_packed(meta, bparams[u.name], attn_sp)
+        elif u.role == "mlp_hidden":
+            h = _lif(meta, _unit_linear_packed(meta, bparams[u.name], xp),
+                     pack_output=True)
+            continue
+        elif u.role == "mlp_out":
+            drive = _unit_linear_packed(meta, bparams[u.name], h)
+        else:
+            raise ValueError(f"unknown unit role: {u.role}")
+        xp = _lif(meta, drive, iand_skip=xp, pack_output=True)
+    return xp
+
+
+def _rate_head(head_params, counts: torch.Tensor, steps: int):
+    """Rate decoding: spike counts summed over (T, tokens) -> mean rate ->
+    logits.  ``counts``: (B, N, D) per-token counts over T (exact integers),
+    ``steps`` = T * N.  The dense and packed heads share this one division,
+    so they agree bit for bit."""
+    return cnn.linear_apply(head_params, counts.sum(dim=1).float() / steps)
+
+
+def _head_packed(meta: PlanMeta, head_params, xp: packing.PackedSpikes):
+    """Rate decoding by popcount: mean over (T, tokens) without unpacking."""
+    return _rate_head(head_params, packing.spike_counts(xp), xp.t * xp.elem_shape[1])
+
+
 def _execute(meta: PlanMeta, params, batch):
+    if meta.backend.packed:
+        xp = _tokenizer_exec_packed(meta, params["tokenizer"], batch)
+        for bparams in params["blocks"]:
+            xp = _block_exec_packed(meta, bparams, xp)
+        return _head_packed(meta, params["head"], xp)
     x = _tokenizer_exec(meta, params["tokenizer"], batch)
     for bparams in params["blocks"]:
         x = _block_exec(meta, bparams, x)
-    feats = x.mean(dim=(0, 2))              # rate decoding over (T, tokens)
-    return cnn.linear_apply(params["head"], feats)
+    t, _, n, _ = x.shape                     # rate decoding over (T, tokens)
+    return _rate_head(params["head"], x.sum(dim=0), t * n)
 
 
 def make_apply_fn(plan: DeployPlan):

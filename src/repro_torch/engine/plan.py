@@ -67,13 +67,17 @@ def compile_plan(params, state, cfg, *, backend="cuda", device=None) -> DeployPl
 
     ``params``/``state``: nested dicts of tensors or numpy arrays with the
     JAX package's structure (see :mod:`repro_torch.bridge`).
-    ``backend``: Backend | "torch" | "cuda".
+    ``backend``: Backend | "torch" | "cuda" | "torch+packed" | "cuda+packed".
     """
     if not hasattr(cfg, "tokenizer_config"):
         raise NotImplementedError(
             "spiking-LM deploy plans are ported in a later slice (ROADMAP "
             "queue 1, item 6); this slice covers the vision configs")
     be = resolve(backend)
+    if be.packed and cfg.residual != "iand":
+        raise ValueError(
+            "packed backends require residual='iand': the ADD residual sums "
+            "spike trains into non-binary tensors, which cannot be bit-packed")
     dev = resolve_device(device)
     params = bridge.to_torch(params, dev)
     state = bridge.to_torch(state, dev)
@@ -125,6 +129,11 @@ def plan_stats(plan: DeployPlan) -> dict:
         # tick-batched: each folded weight is read once per image batch for all T
         "weight_reads": n_tok + n_units * meta.num_layers + 1,
         "backend": meta.backend.kind,
-        "bits_per_spike": 32,         # dense f32 spikes between layers
+        "packed": meta.backend.packed,
+        "sparse": False,              # the sparse datapath is not ported yet
+        # bits per spike moved between layers: 32 (f32) dense, or the packed
+        # word amortised over the T steps it carries
+        "bits_per_spike": (32 * -(-meta.cfg.t // 32) / meta.cfg.t
+                           if meta.backend.packed else 32),
         "param_count": _numel(plan.params),
     }

@@ -116,15 +116,18 @@ def check(err: int, lib: str, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({describe(err).decode()})")
 
 
-def check_operands(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous float32 tensors on one CUDA device."""
-    dev = tensors[0].device
-    for x in tensors:
+def check_operands(what: str, *operands: tuple[torch.Tensor, torch.dtype]) -> None:
+    """The kernels take contiguous tensors on one CUDA device, each of the
+    dtype paired with it: ``check_operands(what, (x, torch.int32), (w,
+    torch.float32))``.  Packed spike words are int32 (the uint32 bit
+    pattern); everything else is float32."""
+    dev = operands[0][0].device
+    for x, dtype in operands:
         if x.device != dev or x.device.type != "cuda":
             raise ValueError(f"{what}: operands must share one CUDA device, "
-                             f"got {[str(t.device) for t in tensors]}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{what}: the kernel takes float32, got {x.dtype}")
+                             f"got {[str(t.device) for t, _ in operands]}")
+        if x.dtype != dtype:
+            raise TypeError(f"{what}: the kernel takes {dtype} here, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
 

@@ -1,25 +1,34 @@
-// Unrolled multi-time-step LIF with the optional fused IAND epilogue.
+// Unrolled multi-time-step LIF with the optional fused IAND epilogue, in two
+// output forms: dense f32 spikes, and spikes bit-packed along time.
 //
 // Replaces: src/repro/kernels/lif_parallel/kernel.py::lif_parallel_fwd
-//           (bodies lif_fwd_kernel and lif_iand_fwd_kernel).
+//           (bodies lif_fwd_kernel and lif_iand_fwd_kernel), and
+//           src/repro/kernels/lif_parallel/kernel.py::lif_parallel_pack_fwd
+//           (bodies lif_pack_fwd_kernel, lif_iand_pack_fwd_kernel, _pack_rows).
 //
 // Computes, for a (T, N) f32 drive and every neuron column n:
 //     u_t = lam * v_{t-1} + I_t,  s_t = (u_t >= theta),
 //     v_t = u_t * (1 - s_t)  (hard reset)  or  u_t - theta * s_t  (soft),
 // with the membrane restarting from zero every chain_len steps (the paper's
-// reconfigurable 111/101/000 mux), and writes s_t, or skip_t * (1 - s_t) when
-// the IAND residual is fused in.
+// reconfigurable 111/101/000 mux).  lif_parallel_fwd writes s_t, or
+// skip_t * (1 - s_t) when the IAND residual is fused in.  lif_parallel_pack_fwd
+// ORs s_t into bit t % 32 of word t / 32 and writes ceil(T/32) 32-bit words
+// per neuron, or skip_word & ~word when the IAND residual is fused in; only
+// bits < T are ever set, so the ragged tail of the last word stays zero.
 //
 // Bound on this card: bytes.  The work is a handful of flops per element
-// against a 4-byte read of the drive (and the skip) and a 4-byte write, far
-// below the H100's flop-per-byte balance.  The least traffic is: read the
-// drive once, read the skip once, write the output once.
+// against a 4-byte read of the drive and a 4-byte write (dense) or a 4-byte
+// word per 32 steps (packed), far below the H100's flop-per-byte balance.
+// The least traffic is: read the drive once, read the skip once, write the
+// output once; the packed form cuts the write (and the skip read) by T/ceil(T/32).
 //
 // Design: one thread per neuron column; the T-step chain runs in a register,
 // so the membrane never reaches device memory (the analogue of the paper
-// eliminating the membrane SRAM).  At step t, adjacent threads touch adjacent
-// n, so every load and store of a warp is one coalesced 128-byte line.  The
-// ragged tail is masked, not padded.
+// eliminating the membrane SRAM), and in the packed form the word is built in
+// a register too.  At step t, adjacent threads touch adjacent n, so every load
+// and store of a warp is one coalesced 128-byte line.  The ragged tail is
+// masked, not padded.  Both forms run the one chain step lif_step, so their
+// spikes are the same bit for bit.
 //
 // Bit-exactness with the plain PyTorch version: built without
 // --use_fast_math (no flush-to-zero), the spike compares u >= theta (under
@@ -28,10 +37,21 @@
 // rounds differently from the two separate eager operations.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// One step of the chain: advances the membrane v and returns the spike s_t.
+template <bool kSoft>
+__device__ __forceinline__ bool lif_step(float& v, float drive, float lam, float theta) {
+  const float u = __fadd_rn(__fmul_rn(lam, v), drive);
+  const bool s = u >= theta;
+  const float sf = s ? 1.0f : 0.0f;
+  v = kSoft ? __fsub_rn(u, __fmul_rn(theta, sf)) : __fmul_rn(u, __fsub_rn(1.0f, sf));
+  return s;
+}
 
 template <bool kIand, bool kSoft>
 __global__ void __launch_bounds__(kThreads)
@@ -44,23 +64,56 @@ lif_parallel_kernel(const float* __restrict__ drive, const float* __restrict__ s
   for (int t = 0; t < t_total; ++t) {
     if (t % chain_len == 0) v = 0.0f;  // mux: chain boundary -> fresh membrane
     const long long idx = static_cast<long long>(t) * n + i;
-    const float u = __fadd_rn(__fmul_rn(lam, v), drive[idx]);
-    const float s = (u >= theta) ? 1.0f : 0.0f;
-    v = kSoft ? __fsub_rn(u, __fmul_rn(theta, s)) : __fmul_rn(u, __fsub_rn(1.0f, s));
+    const float s = lif_step<kSoft>(v, drive[idx], lam, theta) ? 1.0f : 0.0f;
     out[idx] = kIand ? __fmul_rn(skip[idx], __fsub_rn(1.0f, s)) : s;
   }
 }
 
+template <bool kIand, bool kSoft>
+__global__ void __launch_bounds__(kThreads)
+lif_pack_kernel(const float* __restrict__ drive, const uint32_t* __restrict__ skip_words,
+                uint32_t* __restrict__ out_words, int t_total, int n, int chain_len,
+                float lam, float theta) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float v = 0.0f;
+  uint32_t word = 0u;
+  for (int t = 0; t < t_total; ++t) {
+    if (t % chain_len == 0) v = 0.0f;  // mux: chain boundary -> fresh membrane
+    const bool s = lif_step<kSoft>(v, drive[static_cast<long long>(t) * n + i], lam, theta);
+    word |= static_cast<uint32_t>(s) << (t & 31);
+    if ((t & 31) == 31 || t == t_total - 1) {  // word full, or the train ends
+      const long long w = static_cast<long long>(t >> 5) * n + i;
+      out_words[w] = kIand ? (skip_words[w] & ~word) : word;
+      word = 0u;
+    }
+  }
+}
+
+unsigned grid_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
+
 template <bool kIand>
-void launch(const float* drive, const float* skip, float* out, int t_total, int n,
-            int chain_len, float lam, float theta, int soft, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+void launch_dense(const float* drive, const float* skip, float* out, int t_total, int n,
+                  int chain_len, float lam, float theta, int soft, cudaStream_t stream) {
   if (soft) {
-    lif_parallel_kernel<kIand, true><<<blocks, kThreads, 0, stream>>>(
+    lif_parallel_kernel<kIand, true><<<grid_for(n), kThreads, 0, stream>>>(
         drive, skip, out, t_total, n, chain_len, lam, theta);
   } else {
-    lif_parallel_kernel<kIand, false><<<blocks, kThreads, 0, stream>>>(
+    lif_parallel_kernel<kIand, false><<<grid_for(n), kThreads, 0, stream>>>(
         drive, skip, out, t_total, n, chain_len, lam, theta);
+  }
+}
+
+template <bool kIand>
+void launch_pack(const float* drive, const uint32_t* skip_words, uint32_t* out_words,
+                 int t_total, int n, int chain_len, float lam, float theta, int soft,
+                 cudaStream_t stream) {
+  if (soft) {
+    lif_pack_kernel<kIand, true><<<grid_for(n), kThreads, 0, stream>>>(
+        drive, skip_words, out_words, t_total, n, chain_len, lam, theta);
+  } else {
+    lif_pack_kernel<kIand, false><<<grid_for(n), kThreads, 0, stream>>>(
+        drive, skip_words, out_words, t_total, n, chain_len, lam, theta);
   }
 }
 
@@ -74,9 +127,24 @@ extern "C" int lif_parallel_fwd(const void* drive, const void* skip, void* out,
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (k != nullptr) {
-    launch<true>(d, k, o, t_total, n, chain_len, lam, theta, soft, s);
+    launch_dense<true>(d, k, o, t_total, n, chain_len, lam, theta, soft, s);
   } else {
-    launch<false>(d, k, o, t_total, n, chain_len, lam, theta, soft, s);
+    launch_dense<false>(d, k, o, t_total, n, chain_len, lam, theta, soft, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lif_parallel_pack_fwd(const void* drive, const void* skip_words,
+                                     void* out_words, int t_total, int n, int chain_len,
+                                     float lam, float theta, int soft, void* stream) {
+  const auto* d = static_cast<const float*>(drive);
+  const auto* k = static_cast<const uint32_t*>(skip_words);
+  auto* o = static_cast<uint32_t*>(out_words);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (k != nullptr) {
+    launch_pack<true>(d, k, o, t_total, n, chain_len, lam, theta, soft, s);
+  } else {
+    launch_pack<false>(d, k, o, t_total, n, chain_len, lam, theta, soft, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,13 @@
-"""Wrappers of the lif_parallel CUDA kernel (``csrc/lif_parallel.cu``).
+"""Wrappers of the lif_parallel CUDA kernels (``csrc/lif_parallel.cu``).
 
-:func:`lif_parallel_fwd` is the one launch site: a CUDA tensor goes to the
-kernel (or the call raises), a CPU tensor to the plain version
-(:func:`repro_torch.kernels.lif_parallel.ref.lif_parallel_ref`).  Its
-``launches`` attribute counts kernel launches.  :func:`lif_parallel_op` and
-:func:`lif_iand_op` accept any (T, ...) shape and flatten it to (T, N); the
-kernel masks the ragged tail itself, so nothing is padded.
+:func:`lif_parallel_fwd` (dense spikes) and :func:`lif_parallel_pack_fwd`
+(spikes bit-packed along time into int32 words) are the launch sites: a CUDA
+tensor goes to the kernel (or the call raises), a CPU tensor to the plain
+version (:mod:`repro_torch.kernels.lif_parallel.ref`).  Each has a
+``launches`` attribute counting kernel launches.  :func:`lif_parallel_op`,
+:func:`lif_iand_op`, :func:`lif_pack_op` and :func:`lif_iand_pack_op` accept
+any (T, ...) shape and flatten it to (T, N); the kernels mask the ragged
+tail themselves, so nothing is padded.
 """
 
 from __future__ import annotations
@@ -14,45 +16,81 @@ import ctypes
 
 import torch
 
+from repro_torch.core.packing import num_words
 from repro_torch.kernels import _build
-from repro_torch.kernels.lif_parallel.ref import lif_parallel_ref
+from repro_torch.kernels.lif_parallel.ref import lif_pack_ref, lif_parallel_ref
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
              ctypes.c_int, ctypes.c_void_p)
 
 
-def lif_parallel_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
-                     theta: float, reset: str,
-                     skip: torch.Tensor | None = None) -> torch.Tensor:
-    """drive: (T, N) -> spikes (T, N), or IAND(skip, spikes) if skip is given."""
+def _check_args(what, drive, skip, skip_rows, chain_len, reset):
     t_total, n = drive.shape
     if reset not in ("hard", "soft"):
         raise ValueError(f"unknown reset mode: {reset}")
     if chain_len < 1 or t_total % chain_len:
         raise ValueError(f"T={t_total} not divisible by chain_len={chain_len}")
-    if skip is not None and skip.shape != drive.shape:
-        raise ValueError(f"skip shape {tuple(skip.shape)} != drive shape "
-                         f"{tuple(drive.shape)}")
-    if drive.device.type == "cpu":
-        return lif_parallel_ref(drive, chain_len=chain_len, lam=lam, theta=theta,
-                                reset=reset, skip=skip)
-    operands = (drive,) if skip is None else (drive, skip)
-    _build.check_operands("lif_parallel_fwd", *operands)
-    out = torch.empty_like(drive)
+    if skip is not None and tuple(skip.shape) != (skip_rows, n):
+        raise ValueError(f"{what}: skip shape {tuple(skip.shape)} != "
+                         f"{(skip_rows, n)} for drive {tuple(drive.shape)}")
+
+
+def _launch(name, drive, skip, skip_dtype, out, chain_len, lam, theta, reset):
+    """Launch the C entry point ``name`` of lif_parallel.cu into ``out``."""
+    operands = [(drive, torch.float32)] + ([] if skip is None else [(skip, skip_dtype)])
+    _build.check_operands(name, *operands)
     if out.numel() == 0:
-        return out
-    fn = _build.kernel("lif_parallel", "lif_parallel_fwd", _ARGTYPES)
+        return
+    fn = _build.kernel("lif_parallel", name, _ARGTYPES)
+    t_total, n = drive.shape
     with torch.cuda.device(drive.device):
         err = fn(drive.data_ptr(), None if skip is None else skip.data_ptr(),
                  out.data_ptr(), t_total, n, chain_len, lam, theta,
                  int(reset == "soft"), _build.stream(drive.device))
-    _build.check(err, "lif_parallel", "lif_parallel_fwd")
-    lif_parallel_fwd.launches += 1
+    _build.check(err, "lif_parallel", name)
+
+
+def lif_parallel_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
+                     theta: float, reset: str,
+                     skip: torch.Tensor | None = None) -> torch.Tensor:
+    """drive: (T, N) -> spikes (T, N), or IAND(skip, spikes) if skip is given."""
+    _check_args("lif_parallel_fwd", drive, skip, drive.shape[0], chain_len, reset)
+    if drive.device.type == "cpu":
+        return lif_parallel_ref(drive, chain_len=chain_len, lam=lam, theta=theta,
+                                reset=reset, skip=skip)
+    out = torch.empty_like(drive)
+    _launch("lif_parallel_fwd", drive, skip, torch.float32, out, chain_len, lam,
+            theta, reset)
+    if out.numel():
+        lif_parallel_fwd.launches += 1
     return out
 
 
 lif_parallel_fwd.launches = 0
+
+
+def lif_parallel_pack_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
+                          theta: float, reset: str,
+                          skip_words: torch.Tensor | None = None) -> torch.Tensor:
+    """drive: (T, N) f32 -> spike words (ceil(T/32), N) int32, bit t % 32 of
+    word t // 32; with ``skip_words`` (same shape as the result) the bitwise
+    IAND ``skip_words & ~words``."""
+    t_total, n = drive.shape
+    w_total = num_words(t_total)
+    _check_args("lif_parallel_pack_fwd", drive, skip_words, w_total, chain_len, reset)
+    if drive.device.type == "cpu":
+        return lif_pack_ref(drive, chain_len=chain_len, lam=lam, theta=theta,
+                            reset=reset, skip_words=skip_words)
+    out = torch.empty((w_total, n), dtype=torch.int32, device=drive.device)
+    _launch("lif_parallel_pack_fwd", drive, skip_words, torch.int32, out,
+            chain_len, lam, theta, reset)
+    if out.numel():
+        lif_parallel_pack_fwd.launches += 1
+    return out
+
+
+lif_parallel_pack_fwd.launches = 0
 
 
 def lif_parallel_op(drive: torch.Tensor, *, chain_len: int | None = None,
@@ -76,3 +114,30 @@ def lif_iand_op(drive: torch.Tensor, skip: torch.Tensor, *,
                            theta=float(theta), reset=reset,
                            skip=skip.reshape(t, -1).contiguous())
     return out.reshape(drive.shape)
+
+
+def lif_pack_op(drive: torch.Tensor, *, chain_len: int | None = None,
+                lam: float = 0.25, theta: float = 0.5,
+                reset: str = "hard") -> torch.Tensor:
+    """LIF whose kernel epilogue packs the T-step train into words.
+    drive: (T, ...) f32 -> words (ceil(T/32), ...) int32
+    (``repro_torch.core.packing`` layout)."""
+    t = drive.shape[0]
+    words = lif_parallel_pack_fwd(drive.reshape(t, -1).contiguous(),
+                                  chain_len=chain_len or t, lam=float(lam),
+                                  theta=float(theta), reset=reset)
+    return words.reshape((words.shape[0],) + tuple(drive.shape[1:]))
+
+
+def lif_iand_pack_op(drive: torch.Tensor, skip_words: torch.Tensor, *,
+                     chain_len: int | None = None, lam: float = 0.25,
+                     theta: float = 0.5, reset: str = "hard") -> torch.Tensor:
+    """Fused LIF+IAND, packed in and packed out: the residual is the bitwise
+    ``skip_words & ~words`` inside the kernel epilogue.  drive: (T, ...) f32,
+    skip_words: (ceil(T/32), ...) int32 -> words of the same shape."""
+    t = drive.shape[0]
+    words = lif_parallel_pack_fwd(
+        drive.reshape(t, -1).contiguous(), chain_len=chain_len or t, lam=float(lam),
+        theta=float(theta), reset=reset,
+        skip_words=skip_words.reshape(skip_words.shape[0], -1).contiguous())
+    return words.reshape((words.shape[0],) + tuple(drive.shape[1:]))

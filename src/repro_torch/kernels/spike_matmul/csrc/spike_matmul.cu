@@ -22,8 +22,32 @@
 // outside the operands read zero, stores outside the output are skipped.
 // Each output is one f32 sum over k in increasing order; the order differs
 // from a library GEMM's, so results agree to f32 reassociation only.
+//
+// Packed variant, packed_spike_matmul_fwd: (M, K) 32-bit spike words x (K, C)
+// f32 -> (T, M, C) f32, T <= 32, bit t of word x[m, k] the spike of (m, k) at
+// time step t.
+//
+// Replaces: src/repro/kernels/spike_matmul/kernel.py::packed_spike_matmul_fwd
+//           (body packed_matmul_kernel).
+//
+// Bound on this card: operations, as the dense GEMM (2*T*M*K*C flops); the
+// activation read is 1/T of the dense kernel's, because one word carries all
+// T time steps.
+//
+// Design: the dense kernel's SIMT tiling with a bitplane axis.  A 256-thread
+// block owns a 64 x 64 output tile for P consecutive time steps (P = 1, 2 or
+// 4; blockIdx.z walks the groups of P planes, so T > 4 re-reads the words
+// once per group).  It stages an (8 x 64) slab of words, unpacks each word
+// once into P f32 bitplanes in shared memory (shift and mask), stages the
+// (8 x 64) weight slab, and each thread accumulates a 4 x 4 micro-tile for
+// each of its P planes (P*16 f32 accumulators; the dense kernel's 8 x 8 tile
+// already took 127 registers, so the micro-tile shrinks by the plane count).
+// Each output is one f32 sum over k in increasing order with the same
+// fmaf(spike, w, acc) as the dense kernel, so it equals the dense kernel's
+// output on the unpacked operand bit for bit.  Ragged M, K and C are masked.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -99,7 +123,113 @@ spike_matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+constexpr int kPBM = 64, kPBN = 64, kPBK = 8, kPTM = 4, kPTN = 4;
+constexpr int kPThreads = (kPBM / kPTM) * (kPBN / kPTN);  // 256
+
+template <int P>
+__global__ void __launch_bounds__(kPThreads)
+packed_spike_matmul_kernel(const uint32_t* __restrict__ xw, const float* __restrict__ w,
+                           float* __restrict__ out, int m, int k, int c, int t_total) {
+  __shared__ __align__(16) float xs[P][kPBK][kPBM];  // bitplanes of the word slab, transposed
+  __shared__ __align__(16) float ws[kPBK][kPBN];
+
+  const int tid = threadIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kPBM;
+  const int col0 = blockIdx.y * kPBN;
+  const int p0 = blockIdx.z * P;  // first time step of this block; p0 + P <= 32
+  const int tr = tid / (kPBN / kPTN);
+  const int tc = tid % (kPBN / kPTN);
+
+  float acc[P][kPTM][kPTN];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < kPTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kPTN; ++j) acc[p][i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < k; k0 += kPBK) {
+#pragma unroll
+    for (int l = 0; l < kPBM * kPBK / kPThreads; ++l) {
+      const int e = tid + l * kPThreads;
+      const int r = e / kPBK, kk = e % kPBK;
+      const long long gr = row0 + r;
+      const int gk = k0 + kk;
+      const uint32_t word = (gr < m && gk < k) ? (xw[gr * k + gk] >> p0) : 0u;
+#pragma unroll
+      for (int p = 0; p < P; ++p) xs[p][kk][r] = static_cast<float>((word >> p) & 1u);
+    }
+#pragma unroll
+    for (int l = 0; l < kPBK * kPBN / kPThreads; ++l) {
+      const int e = tid + l * kPThreads;
+      const int kk = e / kPBN, cc = e % kPBN;
+      const int gk = k0 + kk, gc = col0 + cc;
+      ws[kk][cc] = (gk < k && gc < c) ? w[static_cast<long long>(gk) * c + gc] : 0.0f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < kPBK; ++kk) {
+      const float4 bv = *reinterpret_cast<const float4*>(&ws[kk][tc * kPTN]);
+      const float b[kPTN] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float4 av = *reinterpret_cast<const float4*>(&xs[p][kk][tr * kPTM]);
+        const float a[kPTM] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int i = 0; i < kPTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kPTN; ++j) acc[p][i][j] = fmaf(a[i], b[j], acc[p][i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int t = p0 + p;
+    if (t >= t_total) break;
+#pragma unroll
+    for (int i = 0; i < kPTM; ++i) {
+      const long long gr = row0 + tr * kPTM + i;
+      if (gr >= m) break;
+      float* orow = out + (static_cast<long long>(t) * m + gr) * c;
+#pragma unroll
+      for (int j = 0; j < kPTN; ++j) {
+        const int gc = col0 + tc * kPTN + j;
+        if (gc < c) orow[gc] = acc[p][i][j];
+      }
+    }
+  }
+}
+
+template <int P>
+void launch_packed(const uint32_t* xw, const float* w, float* out, int m, int k, int c,
+                   int t_total, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((m + kPBM - 1) / kPBM),
+                  static_cast<unsigned>((c + kPBN - 1) / kPBN),
+                  static_cast<unsigned>((t_total + P - 1) / P));
+  packed_spike_matmul_kernel<P><<<grid, kPThreads, 0, stream>>>(xw, w, out, m, k, c, t_total);
+}
+
 }  // namespace
+
+extern "C" int packed_spike_matmul_fwd(const void* xw, const void* w, void* out, int m,
+                                       int k, int c, int t_total, void* stream) {
+  if (t_total < 1 || t_total > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* x = static_cast<const uint32_t*>(xw);
+  const auto* wt = static_cast<const float*>(w);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (t_total == 1) {
+    launch_packed<1>(x, wt, o, m, k, c, t_total, s);
+  } else if (t_total == 2) {
+    launch_packed<2>(x, wt, o, m, k, c, t_total, s);
+  } else {
+    launch_packed<4>(x, wt, o, m, k, c, t_total, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int spike_matmul_fwd(const void* x, const void* w, void* out, int m, int k,
                                 int c, void* stream) {

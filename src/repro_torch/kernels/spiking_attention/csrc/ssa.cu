@@ -25,8 +25,32 @@
 // For binary q, k, v the scores are integers <= D and the sums integers
 // <= M*D, exact in f32, so the result is bit-exact whatever the summation
 // order.
+//
+// Packed variant, packed_ssa_fwd: q words (W, G, N, D), k and v words
+// (W, G, M, D), G = B*H, bit t % 32 of word t / 32 the spike at time step t
+// -> (T, G, N, D) f32.
+//
+// Replaces: src/repro/kernels/spiking_attention/kernel.py::packed_ssa_fwd
+//           (body packed_ssa_kernel).
+//
+// Bound on this card: operations, as the dense kernel (4*T*N*M*D); the
+// operands are read at 1/T of the dense kernel's bytes (T <= 32).
+//
+// Design: the dense kernel's structure with a bitplane axis.  One block per
+// (fold g, tile of 32 queries, group of P consecutive time steps; P = 1, 2 or
+// 4 divides 32, so a group never straddles two words).  The q word tile is
+// staged once; the keys are walked in tiles of 32, each k and v word tile
+// staged in shared memory once and serving all P planes of the group.  A
+// score is a count: one AND of the q and k words per feature serves every
+// plane, and plane p adds bit p of it, so the P score tiles (integers <= D)
+// are exact.  Each thread adds its share of score @ v for all P planes into
+// P*16 f32 registers, with the v bit shifted out of the staged word.  The
+// causal mask is col <= row over global rows, as in the dense kernel.  T > 4
+// re-reads the word tiles once per group of P planes.  All sums are integers
+// below 2^24, so the result is bit-exact whatever the order.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -107,7 +131,141 @@ ssa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+constexpr int kPBQ = 32, kPBKV = 32;
+
+template <int P>
+__host__ __device__ inline int packed_smem_bytes(int d) {
+  return 4 * (kPBQ * d + kPBKV * (d + 1) + kPBKV * d + P * kPBQ * kPBKV);
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ kw,
+                  const uint32_t* __restrict__ vw, float* __restrict__ out, int g_total,
+                  int n, int m, int d, int t_total, float scale, int causal) {
+  extern __shared__ uint32_t psmem[];
+  const int ldk = d + 1;
+  uint32_t* qs = psmem;             // [kPBQ][d] words
+  uint32_t* ks = qs + kPBQ * d;     // [kPBKV][d + 1] words
+  uint32_t* vs = ks + kPBKV * ldk;  // [kPBKV][d] words
+  float* ss = reinterpret_cast<float*>(vs + kPBKV * d);  // [P][kPBQ][kPBKV] scores
+
+  const int tid = threadIdx.x;
+  const long long g = blockIdx.x;
+  const int q0 = blockIdx.y * kPBQ;
+  const int p0 = blockIdx.z * P;
+  const int bit0 = p0 & 31;
+  const long long plane = static_cast<long long>(p0 >> 5) * g_total + g;  // (word, fold)
+  const uint32_t* qg = qw + plane * n * d;
+  const uint32_t* kg = kw + plane * m * d;
+  const uint32_t* vg = vw + plane * m * d;
+
+  for (int e = tid; e < kPBQ * d; e += kThreads) {
+    const int r = e / d;
+    qs[e] = (q0 + r < n) ? qg[static_cast<long long>(q0 + r) * d + e % d] : 0u;
+  }
+
+  float acc[P][kOutPerThread];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int l = 0; l < kOutPerThread; ++l) acc[p][l] = 0.0f;
+
+  const int kv_end = causal ? min(m, q0 + kPBQ) : m;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kPBKV) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int e = tid; e < kPBKV * d; e += kThreads) {
+      const int r = e / d, f = e % d;
+      const bool in = kv0 + r < m;
+      const long long src = static_cast<long long>(kv0 + r) * d + f;
+      ks[r * ldk + f] = in ? kg[src] : 0u;
+      vs[e] = in ? vg[src] : 0u;
+    }
+    __syncthreads();
+
+    for (int e = tid; e < kPBQ * kPBKV; e += kThreads) {
+      const int i = e / kPBKV, j = e % kPBKV;
+      int cnt[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) cnt[p] = 0;
+      for (int f = 0; f < d; ++f) {
+        const uint32_t both = (qs[i * d + f] & ks[j * ldk + f]) >> bit0;
+#pragma unroll
+        for (int p = 0; p < P; ++p) cnt[p] += static_cast<int>((both >> p) & 1u);
+      }
+      const bool masked = causal && kv0 + j > q0 + i;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        ss[(p * kPBQ + i) * kPBKV + j] = masked ? 0.0f : static_cast<float>(cnt[p]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int l = 0; l < kOutPerThread; ++l) {
+      const int e = tid + l * kThreads;
+      if (e < kPBQ * d) {
+        const int i = e / d, f = e % d;
+        for (int j = 0; j < kPBKV; ++j) {
+          const uint32_t vbits = vs[j * d + f] >> bit0;
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            acc[p][l] = fmaf(ss[(p * kPBQ + i) * kPBKV + j],
+                             static_cast<float>((vbits >> p) & 1u), acc[p][l]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int t = p0 + p;
+    if (t >= t_total) break;
+    float* og = out + (static_cast<long long>(t) * g_total + g) * n * d;
+#pragma unroll
+    for (int l = 0; l < kOutPerThread; ++l) {
+      const int e = tid + l * kThreads;
+      if (e < kPBQ * d && q0 + e / d < n) {
+        og[static_cast<long long>(q0 + e / d) * d + e % d] = acc[p][l] * scale;
+      }
+    }
+  }
+}
+
+template <int P>
+int launch_packed(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw, float* out,
+                  int g, int n, int m, int d, int t_total, float scale, int causal,
+                  cudaStream_t stream) {
+  const size_t smem = packed_smem_bytes<P>(d);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        packed_ssa_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(g), static_cast<unsigned>((n + kPBQ - 1) / kPBQ),
+                  static_cast<unsigned>((t_total + P - 1) / P));
+  packed_ssa_kernel<P><<<grid, kThreads, smem, stream>>>(qw, kw, vw, out, g, n, m, d,
+                                                         t_total, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int packed_ssa_fwd(const void* qw, const void* kw, const void* vw, void* out,
+                              int g, int n, int m, int d, int t_total, float scale,
+                              int causal, void* stream) {
+  if (d > kMaxD || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* q = static_cast<const uint32_t*>(qw);
+  const auto* k = static_cast<const uint32_t*>(kw);
+  const auto* v = static_cast<const uint32_t*>(vw);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (t_total == 1) return launch_packed<1>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
+  if (t_total == 2) return launch_packed<2>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
+  return launch_packed<4>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
+}
 
 extern "C" int ssa_fwd(const void* q, const void* k, const void* v, void* out, int g,
                        int n, int m, int d, float scale, int causal, void* stream) {

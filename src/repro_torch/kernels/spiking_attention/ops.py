@@ -1,11 +1,14 @@
 """Wrapper of the spiking_attention CUDA kernel (``csrc/ssa.cu``).
 
-:func:`ssa_fwd` is the one launch site: a CUDA tensor goes to the kernel (or
-the call raises), a CPU tensor to the plain version.  Its ``launches``
-attribute counts kernel launches.  :func:`ssa_op` folds (T, B, H, N, Dh) into
-(G, N, Dh) and makes the operands contiguous: the head split hands over a
-transposed view, and the kernel assumes a dense layout.  Ragged token counts
-are masked in the kernel, so nothing is padded.
+:func:`ssa_fwd` (dense spikes) and :func:`packed_ssa_fwd` (spikes bit-packed
+along time into int32 words, ``repro_torch.core.packing`` layout) are the
+launch sites: a CUDA tensor goes to the kernel (or the call raises), a CPU
+tensor to the plain version.  Each has a ``launches`` attribute counting
+kernel launches.  :func:`ssa_op` folds (T, B, H, N, Dh) into (G, N, Dh), and
+:func:`packed_ssa_op` words (W, B, H, N, Dh) into (W, G, N, Dh); both make
+the operands contiguous: the head split hands over a transposed view, and
+the kernels assume a dense layout.  Ragged token counts are masked in the
+kernels, so nothing is padded.
 """
 
 from __future__ import annotations
@@ -15,13 +18,17 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.spiking_attention.ref import ssa_ref
+from repro_torch.core.packing import num_words
+from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref, ssa_ref
 
 MAX_HEAD_DIM = 128   # the kernel's register tile (kMaxD in ssa.cu)
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_PACKED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 
 
 def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
@@ -34,7 +41,7 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.device.type == "cpu":
         return ssa_ref(q, k, v, scale=scale, causal=causal)
-    _build.check_operands("ssa_fwd", q, k, v)
+    _build.check_operands("ssa_fwd", *((x, torch.float32) for x in (q, k, v)))
     if d > MAX_HEAD_DIM:
         raise ValueError(f"ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
     out = torch.empty_like(q)
@@ -50,6 +57,35 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
 ssa_fwd.launches = 0
 
 
+def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: int,
+                   scale: float, causal: bool = False) -> torch.Tensor:
+    """q words (W, G, N, D), k/v words (W, G, M, D), int32 with W = ceil(t/32)
+    -> (T, G, N, D) f32; no zero-sized dims."""
+    w, g, n, d = qw.shape
+    m = kw.shape[2]
+    if kw.shape != (w, g, m, d) or vw.shape != (w, g, m, d):
+        raise ValueError(f"packed ssa operand shapes differ: q {tuple(qw.shape)}, "
+                         f"k {tuple(kw.shape)}, v {tuple(vw.shape)}")
+    if w != num_words(t):
+        raise ValueError(f"{w} word planes cannot carry t={t} time steps")
+    if qw.device.type == "cpu":
+        return packed_ssa_ref(qw, kw, vw, t=t, scale=scale, causal=causal)
+    _build.check_operands("packed_ssa_fwd", *((x, torch.int32) for x in (qw, kw, vw)))
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"packed_ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
+    out = torch.empty((t, g, n, d), dtype=torch.float32, device=qw.device)
+    fn = _build.kernel("ssa", "packed_ssa_fwd", _PACKED_ARGTYPES)
+    with torch.cuda.device(qw.device):
+        err = fn(qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), out.data_ptr(), g, n, m,
+                 d, t, scale, int(causal), _build.stream(qw.device))
+    _build.check(err, "ssa", "packed_ssa_fwd")
+    packed_ssa_fwd.launches += 1
+    return out
+
+
+packed_ssa_fwd.launches = 0
+
+
 def ssa_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            scale: float = 0.125, causal: bool = False) -> torch.Tensor:
     """Tick-batched spiking attention. q,k,v: (T, B, H, N, Dh) -> same shape.
@@ -59,4 +95,19 @@ def ssa_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     fold = lambda x: x.reshape(t * b * h, x.shape[3], dh).contiguous()
     out = ssa_fwd(fold(q), fold(k), fold(v), scale=float(scale), causal=causal)
+    return out.reshape(t, b, h, n, dh)
+
+
+def packed_ssa_op(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: int,
+                  scale: float = 0.125, causal: bool = False) -> torch.Tensor:
+    """Packed-operand tick-batched spiking attention.  qw/kw/vw: (W, B, H, N,
+    Dh) int32 words carrying all ``t`` time steps (W = ceil(t/32)) -> dense
+    drive (T, B, H, N, Dh) f32.  The operand read is 1/min(t, 32) of the
+    dense kernel's."""
+    w, b, h, n, dh = qw.shape
+    if 0 in (qw.numel(), kw.numel()):
+        return torch.zeros((t, b, h, n, dh), dtype=torch.float32, device=qw.device)
+    fold = lambda x: x.reshape(w, b * h, x.shape[3], dh).contiguous()
+    out = packed_ssa_fwd(fold(qw), fold(kw), fold(vw), t=t, scale=float(scale),
+                         causal=causal)
     return out.reshape(t, b, h, n, dh)

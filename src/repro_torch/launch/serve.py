@@ -13,6 +13,11 @@ Usage:
         --arch spike-iand-former-8-384 --requests 24 --slots 8 --backend cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --vision \
         --arch spike-iand-former_smoke --backend torch --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --vision \
+        --arch spike-iand-former_smoke --backend cuda+packed --device cpu
+
+``--backend`` ``torch+packed`` / ``cuda+packed`` carry the spikes between
+layers bit-packed along time (``repro_torch.core.packing``).
 """
 
 from __future__ import annotations
@@ -89,7 +94,8 @@ def serve_vision(arch: str, *, num_requests: int, slots: int = 4,
               f"ms per slot batch of {slots} on {where}; deploy plan: "
               f"{ps['folded_conv_bn'] + ps['folded_linear_bn']} folded BN pairs, "
               f"{ps['fused_lif_iand_dispatches']} fused LIF+IAND dispatches, "
-              f"backend={ps['backend']})")
+              f"backend={ps['backend']}"
+              f"{', packed spikes' if ps['packed'] else ''})")
     return stats
 
 
@@ -100,7 +106,7 @@ def main():
     ap.add_argument("--arch", default="spike-iand-former-8-384")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--slots", type=int, default=8)
-    ap.add_argument("--backend", default="cuda", choices=["torch", "cuda"])
+    ap.add_argument("--backend", default="cuda", choices=["torch", "cuda", "torch+packed", "cuda+packed"])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain versions on the host)")
