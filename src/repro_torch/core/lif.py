@@ -73,7 +73,8 @@ def lif_parallel(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
 def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
         lam: float = LAM_DEFAULT, reset: str = "hard",
         schedule: str = "parallel", chain_len: int | None = None,
-        use_kernel: bool = False, iand_skip=None, pack_output: bool = False):
+        use_kernel: bool = False, iand_skip=None, pack_output: bool = False,
+        pack_occupancy: bool = False):
     """THE neuron dispatch: every LIF of the model and the deploy engine goes
     through this entry point.
 
@@ -89,7 +90,14 @@ def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
     must itself be a ``PackedSpikes`` -- the residual becomes the bitwise
     ``skip & ~spikes`` on words -- and a ``PackedSpikes`` skip without
     ``pack_output`` is a TypeError.
+
+    ``pack_occupancy=True`` (requires ``pack_output``) attaches the per-tile
+    popcount occupancy map (``packing.occupancy_map``) of the FINAL words,
+    IAND applied, to the returned train -- the sparse datapath's skip index.
+    The kernel route counts it in the pack kernel's epilogue.
     """
+    if pack_occupancy and not pack_output:
+        raise ValueError("pack_occupancy=True requires pack_output=True")
     if pack_output and iand_skip is not None:
         if not isinstance(iand_skip, packing.PackedSpikes):
             raise TypeError("pack_output=True requires a PackedSpikes iand_skip")
@@ -101,7 +109,9 @@ def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
 
     def _pack(out):
         packed = packing.pack(out)
-        return packing.iand(iand_skip, packed) if iand_skip is not None else packed
+        if iand_skip is not None:
+            packed = packing.iand(iand_skip, packed)
+        return packed.with_occupancy() if pack_occupancy else packed
 
     if schedule == "serial":
         out = lif_serial(drive, theta=theta, lam=lam, reset=reset)
@@ -115,9 +125,11 @@ def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
 
         kw = dict(theta=theta, lam=lam, reset=reset, chain_len=chain_len)
         if pack_output:
-            words = (lif_ops.lif_pack_op(drive, **kw) if iand_skip is None
-                     else lif_ops.lif_iand_pack_op(drive, iand_skip.words, **kw))
-            return packing.PackedSpikes(words=words, t=drive.shape[0])
+            kw["occupancy"] = pack_occupancy
+            res = (lif_ops.lif_pack_op(drive, **kw) if iand_skip is None
+                   else lif_ops.lif_iand_pack_op(drive, iand_skip.words, **kw))
+            words, occ = res if pack_occupancy else (res, None)
+            return packing.PackedSpikes(words=words, t=drive.shape[0], occ=occ)
         if iand_skip is not None:
             return lif_ops.lif_iand_op(drive, iand_skip, **kw)
         return lif_ops.lif_parallel_op(drive, **kw)

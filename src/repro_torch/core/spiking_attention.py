@@ -10,8 +10,9 @@ the ASIC dataflow; ``linear`` Q (K^T V), O(N d^2), legal only because there
 is no softmax.  All T time steps are tick-batched into the contraction batch.
 This module covers the vision model's non-causal attention (plus the causal
 mask of the quadratic ordering), and its packed-operand forms on bit-packed
-q/k/v words (``repro_torch.core.packing`` layout); the causal linear ordering
-and the decode states of the spiking LM belong to its later slice.
+q/k/v words (``repro_torch.core.packing`` layout) and its plane-gated sparse
+form (:func:`ssa_packed_sparse`); the causal linear ordering and the decode
+states of the spiking LM belong to its later slice.
 """
 
 from __future__ import annotations
@@ -62,7 +63,8 @@ def split_heads_packed(xp: packing.PackedSpikes, h: int) -> packing.PackedSpikes
     """Head split on a bit-packed spike train: words (W, B, N, D) ->
     (W, B, H, N, D/H).  Packing is elementwise over (B, N, D), so the split
     commutes with it and the word axis rides along.  The words are a
-    transposed VIEW, as in :func:`split_heads`."""
+    transposed VIEW, as in :func:`split_heads`; the occupancy map, tiled over
+    D, is dropped (the attention consumers take their own liveness)."""
     w, b, n, d = xp.words.shape
     words = xp.words.reshape(w, b, n, h, d // h).permute(0, 1, 3, 2, 4)
     return packing.PackedSpikes(words=words, t=xp.t)
@@ -103,3 +105,39 @@ def ssa_linear_packed(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t
             "not ported yet; it comes with the spiking-LM slice")
     kv = ssa_kv_state_packed(kw, vw, t=t)
     return torch.einsum("tbhnd,tbhde->tbhne", _bitplanes(qw, t), kv) * scale
+
+
+# -- sparsity-aware variant ----------------------------------------------------
+#
+# A bitplane of the SSA output is zero whenever its q, k or v plane carries
+# no spike, and planes are computed independently, so skipping a dead plane
+# is exact and re-associates nothing.
+
+
+def plane_occupancy(words: torch.Tensor, *, t: int) -> torch.Tensor:
+    """(W, *S) words -> (T,) int32 spike counts per bitplane (time step)."""
+    planes = []
+    for ti in range(t):
+        wi, bit = divmod(ti, packing.WORD_BITS)
+        planes.append(((words[wi] >> bit) & 1).sum(dtype=torch.int32))
+    return torch.stack(planes)
+
+
+def ssa_packed_sparse(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: int,
+                      scale: float = 0.125, causal: bool = False) -> torch.Tensor:
+    """Quadratic-ordering SSA on packed words (W, B, H, N, Dh) with a
+    per-bitplane early-out: plane t of the drive (T, B, H, N, Dh) is computed
+    only when q, k and v all spike at time step t somewhere in the batch;
+    dead planes are exact zeros.  (The liveness is per whole batch here; the
+    kernel route's is per (b, h) fold.  Both are exact.)"""
+    _, b, h, n, dh = qw.shape
+    alive = ((plane_occupancy(qw, t=t) > 0) & (plane_occupancy(kw, t=t) > 0)
+             & (plane_occupancy(vw, t=t) > 0)).tolist()
+    out = torch.zeros((t, b, h, n, dh), dtype=torch.float32, device=qw.device)
+    for ti in range(t):
+        if alive[ti]:
+            wi, bit = divmod(ti, packing.WORD_BITS)
+            plane = lambda w: ((w[wi] >> bit) & 1).float()[None]
+            out[ti] = ssa(plane(qw), plane(kw), plane(vw), scale=scale,
+                          causal=causal)[0]
+    return out

@@ -14,15 +14,24 @@ of the packed GEMM and packed SSA kernels (:attr:`Backend.closes_ssa_boundary`);
 on ``"torch+packed"`` they are unpacked at each op boundary and the plain
 dense ops run -- the JAX package's ``"jnp+packed"`` route.
 
+``sparse`` (requires ``packed``) skips work that provably contributes
+nothing: every LIF pack epilogue attaches the occupancy map of its words,
+and on ``"cuda+packed+sparse"`` the occupancy-gated packed GEMM skips
+all-zero (64-row, 128-feature) word tiles and the plane-gated packed SSA
+skips dead bitplanes; on ``"torch+packed+sparse"`` the plain route skips
+8-token granules and dead planes.  Every skip is exact.
+
 Every compute op of the deploy plan goes through this module, so a plan's
 kernel route is a property of its Backend, with no exemptions at call sites.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import nn as cnn
 from repro_torch.core import packing
@@ -33,10 +42,15 @@ from repro_torch.core.lif import lif as _lif_dispatch
 class Backend:
     kind: str = "cuda"                 # "torch" | "cuda"
     packed: bool = False               # bit-packed inter-layer spikes
+    sparse: bool = False               # occupancy-gated zero-word skipping
 
     def __post_init__(self):
         if self.kind not in ("torch", "cuda"):
             raise ValueError(f"unknown backend kind: {self.kind}")
+        if self.sparse and not self.packed:
+            raise ValueError(
+                "Backend.sparse requires packed=True: occupancy maps are "
+                "pack-time metadata of the bit-packed datapath")
 
     @property
     def use_kernels(self) -> bool:
@@ -51,7 +65,9 @@ class Backend:
 
 def resolve(spec) -> Backend:
     """Coerce a user-facing spec into a Backend: Backend | "torch" | "cuda" |
-    "torch+packed" | "cuda+packed"."""
+    "torch+packed" | "cuda+packed" | "torch+packed+sparse" |
+    "cuda+packed+sparse" (or the shorthand "cuda+sparse", which implies
+    packed)."""
     if isinstance(spec, Backend):
         return spec
     if isinstance(spec, str):
@@ -59,26 +75,29 @@ def resolve(spec) -> Backend:
         flags = rest.split("+") if sep else []
         if sep and (not kind or "" in flags):
             raise ValueError(f"malformed backend spec: {spec!r}")
-        if "sparse" in flags:
-            raise NotImplementedError(
-                f"the sparse datapath ({spec!r}) is not ported yet (ROADMAP "
-                "queue item 9)")
-        bad = sorted(set(flags) - {"packed"})
+        bad = sorted(set(flags) - {"packed", "sparse"})
         if bad:
             raise ValueError(f"unknown backend flag(s): {bad} in {spec!r}")
-        return Backend(kind, packed=bool(flags))
+        return Backend(kind, packed=bool(flags), sparse="sparse" in flags)
     raise TypeError(f"cannot resolve backend from {spec!r}")
 
 
 def lif_apply(backend: Backend, drive: torch.Tensor, *, theta, lam, schedule,
-              chain_len, iand_skip=None, reset: str = "hard", pack_output: bool = False):
+              chain_len, iand_skip=None, reset: str = "hard", pack_output: bool = False,
+              occupancy: bool | None = None):
     """Route a LIF (optionally with the fused IAND epilogue) through the
     unified neuron dispatch on this backend.  With ``pack_output`` the spike
-    train returns bit-packed (and ``iand_skip`` must be packed)."""
+    train returns bit-packed (and ``iand_skip`` must be packed); under
+    ``Backend.sparse`` the pack epilogue also attaches the occupancy map, so
+    every packed train the executor produces carries its skip index
+    (``occupancy`` overrides that default)."""
+    if occupancy is None:
+        occupancy = pack_output and backend.sparse
     return _lif_dispatch(drive, theta=theta, lam=lam, reset=reset,
                          schedule=schedule, chain_len=chain_len,
                          use_kernel=backend.use_kernels, iand_skip=iand_skip,
-                         pack_output=pack_output)
+                         pack_output=pack_output,
+                         pack_occupancy=pack_output and occupancy)
 
 
 def linear_apply(backend: Backend, p, x2d: torch.Tensor) -> torch.Tensor:
@@ -129,19 +148,26 @@ def ssa_apply_packed(backend: Backend, qp: packing.PackedSpikes,
     -> dense drive (T, B, H, N, Dh).
 
     Under :attr:`Backend.closes_ssa_boundary` the words are the attention
-    operands: the quadratic ordering through the packed SSA kernel, the
-    linear ordering through the shift-and-mask ``ssa_linear_packed``.
-    Otherwise the trains are unpacked at the op boundary and the dense route
-    runs."""
+    operands: the quadratic ordering through the packed SSA kernel (the
+    plane-gated one under ``Backend.sparse``), the linear ordering through
+    the shift-and-mask ``ssa_linear_packed``.  Otherwise the quadratic
+    ordering under ``Backend.sparse`` takes the plane-gated plain
+    ``ssa_packed_sparse``, and everything else unpacks the trains at the op
+    boundary and runs the dense route."""
     if ordering == "quadratic" and backend.closes_ssa_boundary:
-        from repro_torch.kernels.spiking_attention.ops import packed_ssa_op
+        from repro_torch.kernels.spiking_attention import ops
 
-        return packed_ssa_op(qp.words, kp.words, vp.words, t=qp.t, scale=scale,
-                             causal=causal)
+        op = ops.sparse_packed_ssa_op if backend.sparse else ops.packed_ssa_op
+        return op(qp.words, kp.words, vp.words, t=qp.t, scale=scale, causal=causal)
     if ordering == "linear" and backend.closes_ssa_boundary:
         from repro_torch.core.spiking_attention import ssa_linear_packed
 
         return ssa_linear_packed(qp.words, kp.words, vp.words, t=qp.t, scale=scale,
+                                 causal=causal)
+    if ordering == "quadratic" and backend.sparse:
+        from repro_torch.core.spiking_attention import ssa_packed_sparse
+
+        return ssa_packed_sparse(qp.words, kp.words, vp.words, t=qp.t, scale=scale,
                                  causal=causal)
     q, k, v = (packing.unpack(p) for p in (qp, kp, vp))
     return ssa_apply(backend, q, k, v, scale=scale, ordering=ordering, causal=causal)
@@ -154,36 +180,89 @@ def _kernel_takes_packed(backend: Backend, xp: packing.PackedSpikes) -> bool:
     return backend.use_kernels and xp.words.shape[0] == 1
 
 
+_SPARSE_TOKEN_TILE = 8   # token rows per skip granule of the plain sparse route
+
+
+def _sparse_linear_packed_torch(xp: packing.PackedSpikes, w: torch.Tensor) -> torch.Tensor:
+    """Occupancy-gated packed x weight GEMM of the plain route: (W, M, K)
+    words -> (T, M, C).
+
+    The token axis is cut into :data:`_SPARSE_TOKEN_TILE`-row granules; a
+    granule with no spike at any feature and time step is written as exact
+    zeros and never unpacked, and the live granules are unpacked and
+    contracted over the full K together, as the dense route contracts all
+    rows.  The granule liveness comes from the pack-time occupancy map when
+    the train carries one, else from one popcount pass over the words."""
+    words, t = xp.words, xp.t
+    _, m, kdim = words.shape
+    tile = _SPARSE_TOKEN_TILE
+    counts = xp.occ if xp.occ is not None else packing.popcount(words)
+    row_occ = counts.sum(dim=(0, 2))                             # (M,)
+    granule_occ = F.pad(row_occ, (0, (-m) % tile)).reshape(-1, tile).sum(dim=1)
+    rows = (granule_occ > 0).repeat_interleave(tile)[:m].nonzero()[:, 0]
+    y = torch.zeros((t, m, w.shape[1]), dtype=torch.float32, device=words.device)
+    if rows.numel():
+        live = packing.unpack(packing.PackedSpikes(words[:, rows], t))  # (T, R, K)
+        y[:, rows] = (live.reshape(-1, kdim) @ w).reshape(t, rows.numel(), -1)
+    return y
+
+
 def linear_apply_packed(backend: Backend, p, xp: packing.PackedSpikes) -> torch.Tensor:
     """Folded linear on a packed spike train (W, ..., Din) -> dense drive
     (T, ..., Dout): the words are the GEMM operand on the kernel route,
-    otherwise the train is unpacked at the op boundary."""
+    otherwise the train is unpacked at the op boundary.  Under
+    ``Backend.sparse`` both routes consult the occupancy map and skip
+    all-zero word tiles (kernel) or token granules (plain), exactly."""
     lead = xp.elem_shape[:-1]
     d_in = xp.elem_shape[-1]
     if _kernel_takes_packed(backend, xp):
-        from repro_torch.kernels.spike_matmul.ops import packed_spike_matmul_op
+        from repro_torch.kernels.spike_matmul import ops
 
-        y = packed_spike_matmul_op(xp.words[0].reshape(-1, d_in), p["w"], t=xp.t)
+        words = xp.words[0].reshape(-1, d_in)
+        if backend.sparse:
+            occ = None if xp.occ is None else xp.occ[0].reshape(-1, xp.occ.shape[-1])
+            y = ops.sparse_packed_spike_matmul_op(words, p["w"], t=xp.t, occ=occ)
+        else:
+            y = ops.packed_spike_matmul_op(words, p["w"], t=xp.t)
         y = y.reshape((xp.t,) + lead + (p["w"].shape[1],))
-        if "b" in p:
-            y = y + p["b"]
-        return y
-    x = packing.unpack(xp)                           # (T, ..., Din)
-    y2d = linear_apply(backend, p, x.reshape(-1, d_in))
-    return y2d.reshape((xp.t,) + lead + (-1,))
+    elif backend.sparse and not backend.use_kernels and math.prod(lead) >= _SPARSE_TOKEN_TILE:
+        y = _sparse_linear_packed_torch(xp.reshape_elems(-1, d_in), p["w"])
+        y = y.reshape((xp.t,) + lead + (p["w"].shape[1],))
+    else:
+        # the kernel route with multi-word trains unpacks and takes the dense
+        # GEMM kernel, as on "cuda+packed"; the plain route with fewer token
+        # rows than one skip granule has nothing to skip (exact either way)
+        x = packing.unpack(xp)                           # (T, ..., Din)
+        return linear_apply(backend, p, x.reshape(-1, d_in)).reshape((xp.t,) + lead + (-1,))
+    if "b" in p:
+        y = y + p["b"]
+    return y
 
 
 def conv3x3_apply_packed(backend: Backend, p, xp: packing.PackedSpikes) -> torch.Tensor:
     """Folded 3x3 SAME conv on packed spikes (W, N, H, Wd, C) -> dense drive
-    (T, N, H, Wd, Cout)."""
+    (T, N, H, Wd, Cout).  Under ``Backend.sparse`` the patch GEMM skips
+    all-zero word tiles (kernel) or patch-row granules (plain), exactly."""
     if _kernel_takes_packed(backend, xp):
-        from repro_torch.kernels.spike_matmul.ops import packed_conv3x3_op
+        from repro_torch.kernels.spike_matmul import ops
 
-        y = packed_conv3x3_op(xp.words[0], p["w"], t=xp.t)
-        if "b" in p:
-            y = y + p["b"]
-        return y
-    x = packing.unpack(xp)                           # (T, N, H, Wd, C)
-    t, n = x.shape[0], x.shape[1]
-    y = conv3x3_apply(backend, p, x.reshape((t * n,) + tuple(x.shape[2:])))
-    return y.reshape((t, n) + tuple(y.shape[1:]))
+        op = ops.sparse_packed_conv3x3_op if backend.sparse else ops.packed_conv3x3_op
+        y = op(xp.words[0], p["w"], t=xp.t)
+    elif backend.sparse and not backend.use_kernels and xp.words.shape[0] == 1:
+        # im2col on the words; the gather scrambles the feature axis, so the
+        # granule liveness is recomputed on the gathered words
+        from repro_torch.kernels.spike_matmul.ops import _im2col
+
+        n, h, wd, c = xp.words.shape[1:]
+        cout = p["w"].shape[-1]
+        cols = packing.PackedSpikes(_im2col(xp.words[0], 3)[None], xp.t)
+        y = _sparse_linear_packed_torch(cols, p["w"].reshape(9 * c, cout))
+        y = y.reshape(xp.t, n, h, wd, cout)
+    else:
+        x = packing.unpack(xp)                           # (T, N, H, Wd, C)
+        t, n = x.shape[0], x.shape[1]
+        y = conv3x3_apply(backend, p, x.reshape((t * n,) + tuple(x.shape[2:])))
+        return y.reshape((t, n) + tuple(y.shape[1:]))
+    if "b" in p:
+        y = y + p["b"]
+    return y

@@ -13,7 +13,10 @@ accelerator's deploy view:
 On a ``packed`` backend the spikes between layers are bit-packed along time
 (``repro_torch.core.packing``): every LIF epilogue emits words, the residual
 is the bitwise AND-NOT on words, and the head rate-decodes by popcount, so
-the packed executor never unpacks a train itself.
+the packed executor never unpacks a train itself.  Under ``Backend.sparse``
+every LIF pack epilogue also attaches the occupancy map of its words, which
+rides along with the train (``reshape_elems`` keeps it, the head split drops
+it) to the sparse consumers.
 
 All compute -- linears, convs and attention -- goes through
 ``repro_torch.engine.backend``; the executor never calls a kernel or a plain
@@ -22,6 +25,7 @@ version directly, so the plan's backend decides the compute route.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -34,11 +38,35 @@ from repro_torch.engine import backend as B
 from repro_torch.engine.plan import DeployPlan, PlanMeta
 
 
-def _lif(meta: PlanMeta, drive, iand_skip=None, pack_output: bool = False):
+# active spike tap (``capture_spikes``): every packed train a LIF epilogue
+# emits is appended here -- None when no capture is active
+_spike_tap: list | None = None
+
+
+@contextlib.contextmanager
+def capture_spikes():
+    """Capture every packed spike train the executor's LIF epilogues emit.
+
+    ``with capture_spikes() as taps: engine.apply(plan, batch)`` leaves
+    ``taps`` holding one ``PackedSpikes`` per LIF dispatch, in execution
+    order -- the input of ``engine.analysis.sparsity_report``."""
+    global _spike_tap
+    prev, _spike_tap = _spike_tap, []
+    try:
+        yield _spike_tap
+    finally:
+        _spike_tap = prev
+
+
+def _lif(meta: PlanMeta, drive, iand_skip=None, pack_output: bool = False,
+         occupancy: bool | None = None):
     cfg = meta.cfg
-    return B.lif_apply(meta.backend, drive, theta=cfg.theta, lam=cfg.lam,
-                       schedule=cfg.lif_schedule, chain_len=cfg.chain_len,
-                       iand_skip=iand_skip, pack_output=pack_output)
+    out = B.lif_apply(meta.backend, drive, theta=cfg.theta, lam=cfg.lam,
+                      schedule=cfg.lif_schedule, chain_len=cfg.chain_len,
+                      iand_skip=iand_skip, pack_output=pack_output, occupancy=occupancy)
+    if _spike_tap is not None and isinstance(out, packing.PackedSpikes):
+        _spike_tap.append(out)
+    return out
 
 
 def _tokenizer_exec(meta: PlanMeta, tok_params, image):

@@ -67,7 +67,8 @@ def compile_plan(params, state, cfg, *, backend="cuda", device=None) -> DeployPl
 
     ``params``/``state``: nested dicts of tensors or numpy arrays with the
     JAX package's structure (see :mod:`repro_torch.bridge`).
-    ``backend``: Backend | "torch" | "cuda" | "torch+packed" | "cuda+packed".
+    ``backend``: Backend | "torch" | "cuda" | "torch+packed" | "cuda+packed" |
+    "torch+packed+sparse" | "cuda+packed+sparse" (see ``engine.backend.resolve``).
     """
     if not hasattr(cfg, "tokenizer_config"):
         raise NotImplementedError(
@@ -130,7 +131,7 @@ def plan_stats(plan: DeployPlan) -> dict:
         "weight_reads": n_tok + n_units * meta.num_layers + 1,
         "backend": meta.backend.kind,
         "packed": meta.backend.packed,
-        "sparse": False,              # the sparse datapath is not ported yet
+        "sparse": meta.backend.sparse,
         # bits per spike moved between layers: 32 (f32) dense, or the packed
         # word amortised over the T steps it carries
         "bits_per_spike": (32 * -(-meta.cfg.t // 32) / meta.cfg.t

@@ -7,7 +7,9 @@ version (:mod:`repro_torch.kernels.lif_parallel.ref`).  Each has a
 ``launches`` attribute counting kernel launches.  :func:`lif_parallel_op`,
 :func:`lif_iand_op`, :func:`lif_pack_op` and :func:`lif_iand_pack_op` accept
 any (T, ...) shape and flatten it to (T, N); the kernels mask the ragged
-tail themselves, so nothing is padded.
+tail themselves, so nothing is padded.  The packed forms can also return the
+occupancy map of their words (``occupancy=True``), counted in the pack
+kernel's epilogue.
 """
 
 from __future__ import annotations
@@ -16,13 +18,16 @@ import ctypes
 
 import torch
 
-from repro_torch.core.packing import num_words
+from repro_torch.core.packing import OCC_TILE, num_words, occupancy_map
 from repro_torch.kernels import _build
 from repro_torch.kernels.lif_parallel.ref import lif_pack_ref, lif_parallel_ref
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
              ctypes.c_int, ctypes.c_void_p)
+_PACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def _check_args(what, drive, skip, skip_rows, chain_len, reset):
@@ -36,18 +41,24 @@ def _check_args(what, drive, skip, skip_rows, chain_len, reset):
                          f"{(skip_rows, n)} for drive {tuple(drive.shape)}")
 
 
-def _launch(name, drive, skip, skip_dtype, out, chain_len, lam, theta, reset):
-    """Launch the C entry point ``name`` of lif_parallel.cu into ``out``."""
+def _launch(name, argtypes, drive, skip, skip_dtype, out, chain_len, lam, theta, reset,
+            occ=None):
+    """Launch the C entry point ``name`` of lif_parallel.cu into ``out``.
+    ``occ`` is the packed form's (map, row width) pair (map None: no map)."""
     operands = [(drive, torch.float32)] + ([] if skip is None else [(skip, skip_dtype)])
     _build.check_operands(name, *operands)
     if out.numel() == 0:
         return
-    fn = _build.kernel("lif_parallel", name, _ARGTYPES)
+    fn = _build.kernel("lif_parallel", name, argtypes)
     t_total, n = drive.shape
+    ptr = lambda x: None if x is None else x.data_ptr()
+    pointers = [ptr(drive), ptr(skip), out.data_ptr()]
+    sizes = [t_total, n, chain_len, lam, theta, int(reset == "soft")]
+    if occ is not None:
+        pointers.append(ptr(occ[0]))
+        sizes.append(occ[1])
     with torch.cuda.device(drive.device):
-        err = fn(drive.data_ptr(), None if skip is None else skip.data_ptr(),
-                 out.data_ptr(), t_total, n, chain_len, lam, theta,
-                 int(reset == "soft"), _build.stream(drive.device))
+        err = fn(*pointers, *sizes, _build.stream(drive.device))
     _build.check(err, "lif_parallel", name)
 
 
@@ -60,8 +71,8 @@ def lif_parallel_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
         return lif_parallel_ref(drive, chain_len=chain_len, lam=lam, theta=theta,
                                 reset=reset, skip=skip)
     out = torch.empty_like(drive)
-    _launch("lif_parallel_fwd", drive, skip, torch.float32, out, chain_len, lam,
-            theta, reset)
+    _launch("lif_parallel_fwd", _ARGTYPES, drive, skip, torch.float32, out, chain_len,
+            lam, theta, reset)
     if out.numel():
         lif_parallel_fwd.launches += 1
     return out
@@ -72,22 +83,34 @@ lif_parallel_fwd.launches = 0
 
 def lif_parallel_pack_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
                           theta: float, reset: str,
-                          skip_words: torch.Tensor | None = None) -> torch.Tensor:
+                          skip_words: torch.Tensor | None = None,
+                          occ_cols: int = 0):
     """drive: (T, N) f32 -> spike words (ceil(T/32), N) int32, bit t % 32 of
     word t // 32; with ``skip_words`` (same shape as the result) the bitwise
-    IAND ``skip_words & ~words``."""
+    IAND ``skip_words & ~words``.  With ``occ_cols`` = D > 0 (N a multiple of
+    D) it returns ``(words, occ)``: the occupancy map of the final words read
+    as N / D rows of D features, (ceil(T/32), N // D, ceil(D / 128)) int32."""
     t_total, n = drive.shape
     w_total = num_words(t_total)
     _check_args("lif_parallel_pack_fwd", drive, skip_words, w_total, chain_len, reset)
+    if occ_cols and (occ_cols < 0 or n % occ_cols):
+        raise ValueError(f"occupancy rows of {occ_cols} features do not tile N={n}")
     if drive.device.type == "cpu":
-        return lif_pack_ref(drive, chain_len=chain_len, lam=lam, theta=theta,
-                            reset=reset, skip_words=skip_words)
+        words = lif_pack_ref(drive, chain_len=chain_len, lam=lam, theta=theta,
+                             reset=reset, skip_words=skip_words)
+        if not occ_cols:
+            return words
+        return words, occupancy_map(words.reshape(w_total, -1, occ_cols))
     out = torch.empty((w_total, n), dtype=torch.int32, device=drive.device)
-    _launch("lif_parallel_pack_fwd", drive, skip_words, torch.int32, out,
-            chain_len, lam, theta, reset)
+    occ = None
+    if occ_cols:
+        occ = torch.empty((w_total, n // occ_cols, -(-occ_cols // OCC_TILE)),
+                          dtype=torch.int32, device=drive.device)
+    _launch("lif_parallel_pack_fwd", _PACK_ARGTYPES, drive, skip_words, torch.int32,
+            out, chain_len, lam, theta, reset, occ=(occ, occ_cols))
     if out.numel():
         lif_parallel_pack_fwd.launches += 1
-    return out
+    return out if occ is None else (out, occ)
 
 
 lif_parallel_pack_fwd.launches = 0
@@ -116,28 +139,46 @@ def lif_iand_op(drive: torch.Tensor, skip: torch.Tensor, *,
     return out.reshape(drive.shape)
 
 
+def _pack_result(res, drive: torch.Tensor, occupancy: bool):
+    """Words (W, N) -> (W, *S), and the map (W, N // D, nt) -> (W, *S[:-1], nt)."""
+    elems = tuple(drive.shape[1:])
+    if not occupancy:
+        return res.reshape((res.shape[0],) + elems)
+    words, occ = res
+    return (words.reshape((words.shape[0],) + elems),
+            occ.reshape((occ.shape[0],) + elems[:-1] + (occ.shape[-1],)))
+
+
+def _occ_cols(drive: torch.Tensor, occupancy: bool) -> int:
+    return (drive.shape[-1] if drive.ndim > 1 else 1) if occupancy else 0
+
+
 def lif_pack_op(drive: torch.Tensor, *, chain_len: int | None = None,
-                lam: float = 0.25, theta: float = 0.5,
-                reset: str = "hard") -> torch.Tensor:
+                lam: float = 0.25, theta: float = 0.5, reset: str = "hard",
+                occupancy: bool = False):
     """LIF whose kernel epilogue packs the T-step train into words.
     drive: (T, ...) f32 -> words (ceil(T/32), ...) int32
-    (``repro_torch.core.packing`` layout)."""
+    (``repro_torch.core.packing`` layout).  ``occupancy=True`` also returns
+    the occupancy map of the words (``(words, occ)``)."""
     t = drive.shape[0]
-    words = lif_parallel_pack_fwd(drive.reshape(t, -1).contiguous(),
-                                  chain_len=chain_len or t, lam=float(lam),
-                                  theta=float(theta), reset=reset)
-    return words.reshape((words.shape[0],) + tuple(drive.shape[1:]))
+    res = lif_parallel_pack_fwd(drive.reshape(t, -1).contiguous(),
+                                chain_len=chain_len or t, lam=float(lam),
+                                theta=float(theta), reset=reset,
+                                occ_cols=_occ_cols(drive, occupancy))
+    return _pack_result(res, drive, occupancy)
 
 
 def lif_iand_pack_op(drive: torch.Tensor, skip_words: torch.Tensor, *,
                      chain_len: int | None = None, lam: float = 0.25,
-                     theta: float = 0.5, reset: str = "hard") -> torch.Tensor:
+                     theta: float = 0.5, reset: str = "hard", occupancy: bool = False):
     """Fused LIF+IAND, packed in and packed out: the residual is the bitwise
     ``skip_words & ~words`` inside the kernel epilogue.  drive: (T, ...) f32,
-    skip_words: (ceil(T/32), ...) int32 -> words of the same shape."""
+    skip_words: (ceil(T/32), ...) int32 -> words of the same shape.
+    ``occupancy=True`` also returns the map of the post-IAND words."""
     t = drive.shape[0]
-    words = lif_parallel_pack_fwd(
+    res = lif_parallel_pack_fwd(
         drive.reshape(t, -1).contiguous(), chain_len=chain_len or t, lam=float(lam),
         theta=float(theta), reset=reset,
-        skip_words=skip_words.reshape(skip_words.shape[0], -1).contiguous())
-    return words.reshape((words.shape[0],) + tuple(drive.shape[1:]))
+        skip_words=skip_words.reshape(skip_words.shape[0], -1).contiguous(),
+        occ_cols=_occ_cols(drive, occupancy))
+    return _pack_result(res, drive, occupancy)

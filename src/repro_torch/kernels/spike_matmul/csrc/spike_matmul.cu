@@ -45,6 +45,26 @@
 // Each output is one f32 sum over k in increasing order with the same
 // fmaf(spike, w, acc) as the dense kernel, so it equals the dense kernel's
 // output on the unpacked operand bit for bit.  Ragged M, K and C are masked.
+//
+// Occupancy-gated variant, sparse_packed_spike_matmul_fwd: the packed GEMM
+// with, beside the words, an int32 array of spike counts per (64-row M tile,
+// 128-feature K tile) of the word operand, (ceil(M/64), ceil(K/128)).
+//
+// Replaces: src/repro/kernels/spike_matmul/kernel.py::
+//           sparse_packed_spike_matmul_fwd (body sparse_packed_matmul_kernel).
+//
+// Bound on this card: operations, 2*T*K'*M*C flops where K' counts only the
+// live (M, K) tiles; the word and weight reads of a dead tile are skipped too.
+//
+// Design: the packed kernel with its K loop cut into 128-feature tiles.  At
+// each tile boundary every thread of the block reads the same count, so the
+// branch is uniform: a dead tile (count 0) skips its 16 K-steps whole --
+// no word or weight load, no unpack, no FMA.  A dead tile's contribution is
+// fmaf(0, w, acc) == acc for finite w, and the surviving K-steps run in the
+// packed kernel's order, so the result equals the packed kernel's bit for bit
+// (and through it the dense kernel's on the unpacked operand).  The last K
+// tile may be short: its K-steps stop at K, and its count covers only the
+// columns that exist.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,11 +145,15 @@ spike_matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 constexpr int kPBM = 64, kPBN = 64, kPBK = 8, kPTM = 4, kPTN = 4;
 constexpr int kPThreads = (kPBM / kPTM) * (kPBN / kPTN);  // 256
+constexpr int kOccTile = 128;  // K features per occupancy tile, a multiple of kPBK
 
-template <int P>
+// kGated: tiles holds the (ceil(M/64), ceil(K/128)) spike counts, and a K tile
+// whose count is 0 is skipped; otherwise tiles is unused.
+template <int P, bool kGated>
 __global__ void __launch_bounds__(kPThreads)
 packed_spike_matmul_kernel(const uint32_t* __restrict__ xw, const float* __restrict__ w,
-                           float* __restrict__ out, int m, int k, int c, int t_total) {
+                           const int* __restrict__ tiles, float* __restrict__ out, int m,
+                           int k, int c, int t_total) {
   __shared__ __align__(16) float xs[P][kPBK][kPBM];  // bitplanes of the word slab, transposed
   __shared__ __align__(16) float ws[kPBK][kPBN];
 
@@ -148,41 +172,46 @@ packed_spike_matmul_kernel(const uint32_t* __restrict__ xw, const float* __restr
 #pragma unroll
       for (int j = 0; j < kPTN; ++j) acc[p][i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < k; k0 += kPBK) {
+  const int k_tiles = (k + kOccTile - 1) / kOccTile;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    if (kGated && tiles[static_cast<long long>(blockIdx.x) * k_tiles + kt] == 0) continue;
+    const int k_stop = min(k, (kt + 1) * kOccTile);
+    for (int k0 = kt * kOccTile; k0 < k_stop; k0 += kPBK) {
 #pragma unroll
-    for (int l = 0; l < kPBM * kPBK / kPThreads; ++l) {
-      const int e = tid + l * kPThreads;
-      const int r = e / kPBK, kk = e % kPBK;
-      const long long gr = row0 + r;
-      const int gk = k0 + kk;
-      const uint32_t word = (gr < m && gk < k) ? (xw[gr * k + gk] >> p0) : 0u;
+      for (int l = 0; l < kPBM * kPBK / kPThreads; ++l) {
+        const int e = tid + l * kPThreads;
+        const int r = e / kPBK, kk = e % kPBK;
+        const long long gr = row0 + r;
+        const int gk = k0 + kk;
+        const uint32_t word = (gr < m && gk < k) ? (xw[gr * k + gk] >> p0) : 0u;
 #pragma unroll
-      for (int p = 0; p < P; ++p) xs[p][kk][r] = static_cast<float>((word >> p) & 1u);
-    }
+        for (int p = 0; p < P; ++p) xs[p][kk][r] = static_cast<float>((word >> p) & 1u);
+      }
 #pragma unroll
-    for (int l = 0; l < kPBK * kPBN / kPThreads; ++l) {
-      const int e = tid + l * kPThreads;
-      const int kk = e / kPBN, cc = e % kPBN;
-      const int gk = k0 + kk, gc = col0 + cc;
-      ws[kk][cc] = (gk < k && gc < c) ? w[static_cast<long long>(gk) * c + gc] : 0.0f;
-    }
-    __syncthreads();
+      for (int l = 0; l < kPBK * kPBN / kPThreads; ++l) {
+        const int e = tid + l * kPThreads;
+        const int kk = e / kPBN, cc = e % kPBN;
+        const int gk = k0 + kk, gc = col0 + cc;
+        ws[kk][cc] = (gk < k && gc < c) ? w[static_cast<long long>(gk) * c + gc] : 0.0f;
+      }
+      __syncthreads();
 
 #pragma unroll
-    for (int kk = 0; kk < kPBK; ++kk) {
-      const float4 bv = *reinterpret_cast<const float4*>(&ws[kk][tc * kPTN]);
-      const float b[kPTN] = {bv.x, bv.y, bv.z, bv.w};
+      for (int kk = 0; kk < kPBK; ++kk) {
+        const float4 bv = *reinterpret_cast<const float4*>(&ws[kk][tc * kPTN]);
+        const float b[kPTN] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float4 av = *reinterpret_cast<const float4*>(&xs[p][kk][tr * kPTM]);
-        const float a[kPTM] = {av.x, av.y, av.z, av.w};
+        for (int p = 0; p < P; ++p) {
+          const float4 av = *reinterpret_cast<const float4*>(&xs[p][kk][tr * kPTM]);
+          const float a[kPTM] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-        for (int i = 0; i < kPTM; ++i)
+          for (int i = 0; i < kPTM; ++i)
 #pragma unroll
-          for (int j = 0; j < kPTN; ++j) acc[p][i][j] = fmaf(a[i], b[j], acc[p][i][j]);
+            for (int j = 0; j < kPTN; ++j) acc[p][i][j] = fmaf(a[i], b[j], acc[p][i][j]);
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
 #pragma unroll
@@ -203,32 +232,47 @@ packed_spike_matmul_kernel(const uint32_t* __restrict__ xw, const float* __restr
   }
 }
 
-template <int P>
-void launch_packed(const uint32_t* xw, const float* w, float* out, int m, int k, int c,
-                   int t_total, cudaStream_t stream) {
+template <int P, bool kGated>
+void launch_packed(const uint32_t* xw, const float* w, const int* tiles, float* out, int m,
+                   int k, int c, int t_total, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((m + kPBM - 1) / kPBM),
                   static_cast<unsigned>((c + kPBN - 1) / kPBN),
                   static_cast<unsigned>((t_total + P - 1) / P));
-  packed_spike_matmul_kernel<P><<<grid, kPThreads, 0, stream>>>(xw, w, out, m, k, c, t_total);
+  packed_spike_matmul_kernel<P, kGated><<<grid, kPThreads, 0, stream>>>(
+      xw, w, tiles, out, m, k, c, t_total);
+}
+
+template <bool kGated>
+int launch_packed_steps(const void* xw, const void* w, const void* tiles, void* out, int m,
+                        int k, int c, int t_total, void* stream) {
+  if (t_total < 1 || t_total > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* x = static_cast<const uint32_t*>(xw);
+  const auto* wt = static_cast<const float*>(w);
+  const auto* tl = static_cast<const int*>(tiles);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (t_total == 1) {
+    launch_packed<1, kGated>(x, wt, tl, o, m, k, c, t_total, s);
+  } else if (t_total == 2) {
+    launch_packed<2, kGated>(x, wt, tl, o, m, k, c, t_total, s);
+  } else {
+    launch_packed<4, kGated>(x, wt, tl, o, m, k, c, t_total, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int packed_spike_matmul_fwd(const void* xw, const void* w, void* out, int m,
                                        int k, int c, int t_total, void* stream) {
-  if (t_total < 1 || t_total > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* x = static_cast<const uint32_t*>(xw);
-  const auto* wt = static_cast<const float*>(w);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (t_total == 1) {
-    launch_packed<1>(x, wt, o, m, k, c, t_total, s);
-  } else if (t_total == 2) {
-    launch_packed<2>(x, wt, o, m, k, c, t_total, s);
-  } else {
-    launch_packed<4>(x, wt, o, m, k, c, t_total, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_packed_steps<false>(xw, w, nullptr, out, m, k, c, t_total, stream);
+}
+
+// tiles: (ceil(m/64), ceil(k/128)) int32 spike counts of the word operand.
+extern "C" int sparse_packed_spike_matmul_fwd(const void* xw, const void* w,
+                                              const void* tiles, void* out, int m, int k,
+                                              int c, int t_total, void* stream) {
+  return launch_packed_steps<true>(xw, w, tiles, out, m, k, c, t_total, stream);
 }
 
 extern "C" int spike_matmul_fwd(const void* x, const void* w, void* out, int m, int k,

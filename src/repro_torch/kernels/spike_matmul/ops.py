@@ -6,12 +6,13 @@ serves 3x3 conv (im2col -> GEMM), 1x1 conv and matmul.  Inputs are spike
 tensors with T already folded into the leading dim, so each weight tile is
 fetched once for all time steps.
 
-:func:`spike_matmul_fwd` (dense spikes) and :func:`packed_spike_matmul_fwd`
+:func:`spike_matmul_fwd` (dense spikes), :func:`packed_spike_matmul_fwd`
 (spikes bit-packed along time into int32 words, ``repro_torch.core.packing``
-layout) are the launch sites: a CUDA tensor goes to the kernel (or the call
-raises), a CPU tensor to the plain version.  Each has a ``launches``
-attribute counting kernel launches.  The kernels mask ragged M, K and C, so
-nothing is padded.
+layout) and :func:`sparse_packed_spike_matmul_fwd` (packed, with all-zero
+word tiles skipped by their occupancy counts) are the launch sites: a CUDA
+tensor goes to the kernel (or the call raises), a CPU tensor to the plain
+version.  Each has a ``launches`` attribute counting kernel launches.  The
+kernels mask ragged M, K and C, so nothing is padded.
 """
 
 from __future__ import annotations
@@ -21,13 +22,17 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import packing
 from repro_torch.kernels import _build
-from repro_torch.kernels.spike_matmul.ref import packed_spike_matmul_ref, spike_matmul_ref
+from repro_torch.kernels.spike_matmul.ref import (
+    OCC_ROWS, packed_spike_matmul_ref, sparse_packed_spike_matmul_ref, spike_matmul_ref)
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _PACKED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_SPARSE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 MAX_PACKED_T = 32    # time steps one word carries
 
 
@@ -76,6 +81,43 @@ def packed_spike_matmul_fwd(xw: torch.Tensor, w: torch.Tensor, *, t: int) -> tor
 packed_spike_matmul_fwd.launches = 0
 
 
+def grid_tiles_shape(m: int, k: int) -> tuple[int, int]:
+    """Shape of the occupancy-gated GEMM's tile counts for (M, K) words:
+    one count per (64-row, 128-feature) tile."""
+    return -(-m // OCC_ROWS), -(-k // packing.OCC_TILE)
+
+
+def sparse_packed_spike_matmul_fwd(xw: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor,
+                                   *, t: int) -> torch.Tensor:
+    """xw: (M, K) int32 spike words carrying ``t`` <= 32 time steps, w: (K, C)
+    weights, tiles: (ceil(M/64), ceil(K/128)) int32 spike counts of ``xw``
+    -> (T, M, C) f32, with every (64, 128) word tile whose count is 0
+    skipped; no zero-sized dims."""
+    (m, k), (k2, c) = xw.shape, w.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch: xw {tuple(xw.shape)}, w {tuple(w.shape)}")
+    if not 1 <= t <= MAX_PACKED_T:
+        raise ValueError(f"packed GEMM holds T<=32 steps per word, got {t}")
+    if tuple(tiles.shape) != grid_tiles_shape(m, k):
+        raise ValueError(f"tile counts {tuple(tiles.shape)} do not match the "
+                         f"{grid_tiles_shape(m, k)} tiling of {m}x{k} words")
+    if xw.device.type == "cpu":
+        return sparse_packed_spike_matmul_ref(xw, w, tiles, t=t)
+    _build.check_operands("sparse_packed_spike_matmul_fwd", (xw, torch.int32),
+                          (w, torch.float32), (tiles, torch.int32))
+    out = torch.empty((t, m, c), dtype=torch.float32, device=xw.device)
+    fn = _build.kernel("spike_matmul", "sparse_packed_spike_matmul_fwd", _SPARSE_ARGTYPES)
+    with torch.cuda.device(xw.device):
+        err = fn(xw.data_ptr(), w.data_ptr(), tiles.data_ptr(), out.data_ptr(), m, k, c,
+                 t, _build.stream(xw.device))
+    _build.check(err, "spike_matmul", "sparse_packed_spike_matmul_fwd")
+    sparse_packed_spike_matmul_fwd.launches += 1
+    return out
+
+
+sparse_packed_spike_matmul_fwd.launches = 0
+
+
 def spike_matmul_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) spikes x (K, C) -> (M, C) f32.
 
@@ -99,6 +141,47 @@ def packed_spike_matmul_op(xw: torch.Tensor, w: torch.Tensor, *, t: int) -> torc
     if 0 in (m, k, c):
         return torch.zeros((t, m, c), dtype=torch.float32, device=xw.device)
     return packed_spike_matmul_fwd(xw.contiguous(), w.contiguous(), t=t)
+
+
+def _count_tiles(counts: torch.Tensor) -> torch.Tensor:
+    """(M, K) per-word spike counts -> the (ceil(M/64), ceil(K/128)) tile sums;
+    the padding counts 0."""
+    m, k = counts.shape
+    counts = F.pad(counts, (0, (-k) % packing.OCC_TILE, 0, (-m) % OCC_ROWS))
+    mt, kt = grid_tiles_shape(m, k)
+    return counts.reshape(mt, OCC_ROWS, kt, packing.OCC_TILE).sum(dim=(1, 3),
+                                                                   dtype=torch.int32)
+
+
+def _occ_to_grid_tiles(occ: torch.Tensor | None, xw: torch.Tensor) -> torch.Tensor:
+    """Reduce the occupancy of the (M, K) words ``xw`` to the gated GEMM's
+    (64-row, 128-feature) tiling: (ceil(M/64), ceil(K/128)) int32.
+
+    ``occ`` is the pack-time map of ``xw`` with the word axis dropped,
+    (M, ceil(K/128)): its rows are summed in groups of 64 (the ragged last
+    group is padded with zero rows).  Without a carried map the counts come
+    from one popcount pass over the words."""
+    if occ is None:
+        return _count_tiles(packing.popcount(xw))
+    m = occ.shape[0]
+    padded = F.pad(occ, (0, 0, 0, (-m) % OCC_ROWS))
+    return padded.reshape(-1, OCC_ROWS, occ.shape[1]).sum(dim=1, dtype=torch.int32)
+
+
+def sparse_packed_spike_matmul_op(xw: torch.Tensor, w: torch.Tensor, *, t: int,
+                                  occ: torch.Tensor | None = None) -> torch.Tensor:
+    """Occupancy-gated packed GEMM: (M, K) int32 spike words x (K, C) ->
+    (T, M, C) f32, equal to :func:`packed_spike_matmul_op` bit for bit, with
+    every all-zero (64-row, 128-feature) word tile skipped.
+
+    ``occ``: the pack-time occupancy map of ``xw`` with the word axis
+    dropped, (M, ceil(K/128)) int32; without it the tile counts come from
+    one popcount pass over the words."""
+    (m, k), (_, c) = xw.shape, w.shape
+    if 0 in (m, k, c):
+        return torch.zeros((t, m, c), dtype=torch.float32, device=xw.device)
+    tiles = _occ_to_grid_tiles(occ, xw)
+    return sparse_packed_spike_matmul_fwd(xw.contiguous(), w.contiguous(), tiles, t=t)
 
 
 def conv1x1_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -141,4 +224,25 @@ def packed_conv3x3_op(xw: torch.Tensor, w: torch.Tensor, *, t: int) -> torch.Ten
     n, h, wd, c = xw.shape
     cout = w.shape[-1]
     out = packed_spike_matmul_op(_im2col(xw, 3), w.reshape(9 * c, cout), t=t)
+    return out.reshape(t, n, h, wd, cout)
+
+
+def sparse_packed_conv3x3_op(xw: torch.Tensor, w: torch.Tensor, *, t: int) -> torch.Tensor:
+    """Occupancy-gated 3x3 conv on packed words: im2col, then the gated
+    packed GEMM; equal to :func:`packed_conv3x3_op` bit for bit.
+
+    The patch gather scrambles the feature axis, so the tile counts are
+    recomputed for the gathered words.  Popcount is elementwise and the
+    gather only copies (its SAME padding is the zero word, count 0), so the
+    popcounts are taken once on the (N, H, W, Cin) words and gathered beside
+    them: the counts of the gathered words, from a pass over a ninth of them.
+    """
+    n, h, wd, c = xw.shape
+    cout = w.shape[-1]
+    cols = _im2col(xw, 3)
+    if 0 in (*cols.shape, cout):
+        return torch.zeros((t, n, h, wd, cout), dtype=torch.float32, device=xw.device)
+    tiles = _count_tiles(_im2col(packing.popcount(xw), 3))
+    out = sparse_packed_spike_matmul_fwd(cols, w.reshape(9 * c, cout).contiguous(), tiles,
+                                         t=t)
     return out.reshape(t, n, h, wd, cout)

@@ -48,6 +48,25 @@
 // causal mask is col <= row over global rows, as in the dense kernel.  T > 4
 // re-reads the word tiles once per group of P planes.  All sums are integers
 // below 2^24, so the result is bit-exact whatever the order.
+//
+// Plane-gated variant, sparse_packed_ssa_fwd: the packed kernel with a
+// (G, T) int32 liveness map beside the words, live[g][t] != 0 iff the q, k
+// and v planes t of fold g each carry a spike.
+//
+// Replaces: src/repro/kernels/spiking_attention/kernel.py::sparse_packed_ssa_fwd
+//           (body sparse_packed_ssa_kernel).
+//
+// Bound on this card: operations, 4*T'*N*M*D with T' the live (fold, plane)
+// pairs.
+//
+// Design: a block reads the liveness of its P planes first (the same values
+// in every thread, so every branch below is uniform).  When all P are dead it
+// writes its zero output tiles and returns before it stages any word tile.
+// In a live group a dead plane skips its score counts and its score @ v
+// FMAs and is written as zero.  A dead plane's output is exactly zero in the
+// packed kernel too (one of its two products has an all-zero operand), and
+// live planes run the packed kernel's integer arithmetic, so the result
+// equals the packed kernel's bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,11 +157,14 @@ __host__ __device__ inline int packed_smem_bytes(int d) {
   return 4 * (kPBQ * d + kPBKV * (d + 1) + kPBKV * d + P * kPBQ * kPBKV);
 }
 
-template <int P>
+// kGated: live holds the (G, T) plane liveness, and dead planes are skipped;
+// otherwise live is unused.
+template <int P, bool kGated>
 __global__ void __launch_bounds__(kThreads)
 packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ kw,
-                  const uint32_t* __restrict__ vw, float* __restrict__ out, int g_total,
-                  int n, int m, int d, int t_total, float scale, int causal) {
+                  const uint32_t* __restrict__ vw, const int* __restrict__ live,
+                  float* __restrict__ out, int g_total, int n, int m, int d, int t_total,
+                  float scale, int causal) {
   extern __shared__ uint32_t psmem[];
   const int ldk = d + 1;
   uint32_t* qs = psmem;             // [kPBQ][d] words
@@ -159,6 +181,26 @@ packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ 
   const uint32_t* qg = qw + plane * n * d;
   const uint32_t* kg = kw + plane * m * d;
   const uint32_t* vg = vw + plane * m * d;
+
+  unsigned live_mask = (1u << P) - 1u;  // bit p: plane p0 + p is computed
+  if (kGated) {
+    live_mask = 0u;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (p0 + p < t_total && live[g * t_total + p0 + p] != 0) live_mask |= 1u << p;
+    }
+    if (live_mask == 0u) {  // every plane of the group is dead: zeros, no staging
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (p0 + p >= t_total) break;
+        float* og = out + (static_cast<long long>(p0 + p) * g_total + g) * n * d;
+        for (int e = tid; e < kPBQ * d; e += kThreads) {
+          if (q0 + e / d < n) og[static_cast<long long>(q0 + e / d) * d + e % d] = 0.0f;
+        }
+      }
+      return;
+    }
+  }
 
   for (int e = tid; e < kPBQ * d; e += kThreads) {
     const int r = e / d;
@@ -191,7 +233,9 @@ packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ 
       for (int f = 0; f < d; ++f) {
         const uint32_t both = (qs[i * d + f] & ks[j * ldk + f]) >> bit0;
 #pragma unroll
-        for (int p = 0; p < P; ++p) cnt[p] += static_cast<int>((both >> p) & 1u);
+        for (int p = 0; p < P; ++p) {
+          if ((live_mask >> p) & 1u) cnt[p] += static_cast<int>((both >> p) & 1u);
+        }
       }
       const bool masked = causal && kv0 + j > q0 + i;
 #pragma unroll
@@ -210,8 +254,10 @@ packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ 
           const uint32_t vbits = vs[j * d + f] >> bit0;
 #pragma unroll
           for (int p = 0; p < P; ++p) {
-            acc[p][l] = fmaf(ss[(p * kPBQ + i) * kPBKV + j],
-                             static_cast<float>((vbits >> p) & 1u), acc[p][l]);
+            if ((live_mask >> p) & 1u) {
+              acc[p][l] = fmaf(ss[(p * kPBQ + i) * kPBKV + j],
+                               static_cast<float>((vbits >> p) & 1u), acc[p][l]);
+            }
           }
         }
       }
@@ -233,22 +279,42 @@ packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ 
   }
 }
 
-template <int P>
-int launch_packed(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw, float* out,
-                  int g, int n, int m, int d, int t_total, float scale, int causal,
-                  cudaStream_t stream) {
+template <int P, bool kGated>
+int launch_packed(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
+                  const int* live, float* out, int g, int n, int m, int d, int t_total,
+                  float scale, int causal, cudaStream_t stream) {
   const size_t smem = packed_smem_bytes<P>(d);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        packed_ssa_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        packed_ssa_kernel<P, kGated>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(static_cast<unsigned>(g), static_cast<unsigned>((n + kPBQ - 1) / kPBQ),
                   static_cast<unsigned>((t_total + P - 1) / P));
-  packed_ssa_kernel<P><<<grid, kThreads, smem, stream>>>(qw, kw, vw, out, g, n, m, d,
-                                                         t_total, scale, causal);
+  packed_ssa_kernel<P, kGated><<<grid, kThreads, smem, stream>>>(
+      qw, kw, vw, live, out, g, n, m, d, t_total, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kGated>
+int launch_packed_steps(const void* qw, const void* kw, const void* vw, const void* live,
+                        void* out, int g, int n, int m, int d, int t_total, float scale,
+                        int causal, void* stream) {
+  if (d > kMaxD || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* q = static_cast<const uint32_t*>(qw);
+  const auto* k = static_cast<const uint32_t*>(kw);
+  const auto* v = static_cast<const uint32_t*>(vw);
+  const auto* lv = static_cast<const int*>(live);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (t_total == 1) {
+    return launch_packed<1, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  }
+  if (t_total == 2) {
+    return launch_packed<2, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  }
+  return launch_packed<4, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
 }
 
 }  // namespace
@@ -256,15 +322,17 @@ int launch_packed(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw, fl
 extern "C" int packed_ssa_fwd(const void* qw, const void* kw, const void* vw, void* out,
                               int g, int n, int m, int d, int t_total, float scale,
                               int causal, void* stream) {
-  if (d > kMaxD || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* q = static_cast<const uint32_t*>(qw);
-  const auto* k = static_cast<const uint32_t*>(kw);
-  const auto* v = static_cast<const uint32_t*>(vw);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (t_total == 1) return launch_packed<1>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
-  if (t_total == 2) return launch_packed<2>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
-  return launch_packed<4>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
+  return launch_packed_steps<false>(qw, kw, vw, nullptr, out, g, n, m, d, t_total, scale,
+                                    causal, stream);
+}
+
+// live: (g, t_total) int32, nonzero where plane t of fold g is live.
+extern "C" int sparse_packed_ssa_fwd(const void* qw, const void* kw, const void* vw,
+                                     const void* live, void* out, int g, int n, int m,
+                                     int d, int t_total, float scale, int causal,
+                                     void* stream) {
+  return launch_packed_steps<true>(qw, kw, vw, live, out, g, n, m, d, t_total, scale,
+                                   causal, stream);
 }
 
 extern "C" int ssa_fwd(const void* q, const void* k, const void* v, void* out, int g,

@@ -1,14 +1,15 @@
 """Wrapper of the spiking_attention CUDA kernel (``csrc/ssa.cu``).
 
-:func:`ssa_fwd` (dense spikes) and :func:`packed_ssa_fwd` (spikes bit-packed
-along time into int32 words, ``repro_torch.core.packing`` layout) are the
+:func:`ssa_fwd` (dense spikes), :func:`packed_ssa_fwd` (spikes bit-packed
+along time into int32 words, ``repro_torch.core.packing`` layout) and
+:func:`sparse_packed_ssa_fwd` (packed, with dead bitplanes skipped) are the
 launch sites: a CUDA tensor goes to the kernel (or the call raises), a CPU
 tensor to the plain version.  Each has a ``launches`` attribute counting
 kernel launches.  :func:`ssa_op` folds (T, B, H, N, Dh) into (G, N, Dh), and
-:func:`packed_ssa_op` words (W, B, H, N, Dh) into (W, G, N, Dh); both make
-the operands contiguous: the head split hands over a transposed view, and
-the kernels assume a dense layout.  Ragged token counts are masked in the
-kernels, so nothing is padded.
+:func:`packed_ssa_op` and :func:`sparse_packed_ssa_op` words (W, B, H, N, Dh)
+into (W, G, N, Dh); all make the operands contiguous: the head split hands
+over a transposed view, and the kernels assume a dense layout.  Ragged token
+counts are masked in the kernels, so nothing is padded.
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import ctypes
 
 import torch
 
+from repro_torch.core.packing import WORD_BITS, num_words
 from repro_torch.kernels import _build
-from repro_torch.core.packing import num_words
-from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref, ssa_ref
+from repro_torch.kernels.spiking_attention.ref import (
+    packed_ssa_ref, sparse_packed_ssa_ref, ssa_ref)
 
 MAX_HEAD_DIM = 128   # the kernel's register tile (kMaxD in ssa.cu)
 
@@ -29,6 +31,8 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 _PACKED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_SPARSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 
 
 def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
@@ -61,13 +65,9 @@ def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: i
                    scale: float, causal: bool = False) -> torch.Tensor:
     """q words (W, G, N, D), k/v words (W, G, M, D), int32 with W = ceil(t/32)
     -> (T, G, N, D) f32; no zero-sized dims."""
+    _check_packed("packed ssa", qw, kw, vw, t)
     w, g, n, d = qw.shape
     m = kw.shape[2]
-    if kw.shape != (w, g, m, d) or vw.shape != (w, g, m, d):
-        raise ValueError(f"packed ssa operand shapes differ: q {tuple(qw.shape)}, "
-                         f"k {tuple(kw.shape)}, v {tuple(vw.shape)}")
-    if w != num_words(t):
-        raise ValueError(f"{w} word planes cannot carry t={t} time steps")
     if qw.device.type == "cpu":
         return packed_ssa_ref(qw, kw, vw, t=t, scale=scale, causal=causal)
     _build.check_operands("packed_ssa_fwd", *((x, torch.int32) for x in (qw, kw, vw)))
@@ -84,6 +84,47 @@ def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: i
 
 
 packed_ssa_fwd.launches = 0
+
+
+def _check_packed(what, qw, kw, vw, t):
+    w, g, n, d = qw.shape
+    m = kw.shape[2]
+    if kw.shape != (w, g, m, d) or vw.shape != (w, g, m, d):
+        raise ValueError(f"{what} operand shapes differ: q {tuple(qw.shape)}, "
+                         f"k {tuple(kw.shape)}, v {tuple(vw.shape)}")
+    if w != num_words(t):
+        raise ValueError(f"{w} word planes cannot carry t={t} time steps")
+
+
+def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
+                          live: torch.Tensor, *, t: int, scale: float,
+                          causal: bool = False) -> torch.Tensor:
+    """:func:`packed_ssa_fwd` with a (G, T) int32 plane liveness ``live``:
+    output plane t of fold g is computed only where ``live[g, t]`` is
+    nonzero and is zero elsewhere; no zero-sized dims."""
+    _check_packed("sparse packed ssa", qw, kw, vw, t)
+    w, g, n, d = qw.shape
+    m = kw.shape[2]
+    if tuple(live.shape) != (g, t):
+        raise ValueError(f"plane liveness {tuple(live.shape)} != {(g, t)}")
+    if qw.device.type == "cpu":
+        return sparse_packed_ssa_ref(qw, kw, vw, live, t=t, scale=scale, causal=causal)
+    _build.check_operands("sparse_packed_ssa_fwd", *((x, torch.int32)
+                                                      for x in (qw, kw, vw, live)))
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"sparse_packed_ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
+    out = torch.empty((t, g, n, d), dtype=torch.float32, device=qw.device)
+    fn = _build.kernel("ssa", "sparse_packed_ssa_fwd", _SPARSE_ARGTYPES)
+    with torch.cuda.device(qw.device):
+        err = fn(qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), live.data_ptr(),
+                 out.data_ptr(), g, n, m, d, t, scale, int(causal),
+                 _build.stream(qw.device))
+    _build.check(err, "ssa", "sparse_packed_ssa_fwd")
+    sparse_packed_ssa_fwd.launches += 1
+    return out
+
+
+sparse_packed_ssa_fwd.launches = 0
 
 
 def ssa_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -110,4 +151,39 @@ def packed_ssa_op(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: in
     fold = lambda x: x.reshape(w, b * h, x.shape[3], dh).contiguous()
     out = packed_ssa_fwd(fold(qw), fold(kw), fold(vw), t=t, scale=float(scale),
                          causal=causal)
+    return out.reshape(t, b, h, n, dh)
+
+
+def _plane_liveness(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
+                    t: int) -> torch.Tensor:
+    """Per-(fold, bitplane) liveness of three packed operands, q words
+    (W, G, N, D) and k/v words (W, G, M, D): (G, T) int32, 1 iff q, k and v
+    each have a spike at time step t somewhere in fold g.
+
+    A bitwise-OR reduce of each operand over its tokens and features, taken
+    bit by bit (PyTorch has no OR reduction): the maximum of bit b over the
+    fold says whether plane 32*w + b has a spike."""
+    live = None
+    for x in (qw, kw, vw):
+        w, g = x.shape[:2]
+        bits = torch.arange(min(t, WORD_BITS), dtype=torch.int32, device=x.device)
+        planes = ((x.reshape(w, g, -1, 1) >> bits) & 1).amax(dim=2)   # (W, G, bits)
+        planes = planes.permute(1, 0, 2).reshape(g, -1)[:, :t]
+        live = planes if live is None else live & planes
+    return live.contiguous()
+
+
+def sparse_packed_ssa_op(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: int,
+                         scale: float = 0.125, causal: bool = False) -> torch.Tensor:
+    """Plane-gated packed spiking attention: equal to :func:`packed_ssa_op`
+    bit for bit, but a time step at which q, k or v of a (b, h) fold is
+    silent is never unpacked or multiplied; its output plane is zero.
+    qw/kw/vw: (W, B, H, N, Dh) int32 words -> (T, B, H, N, Dh) f32."""
+    w, b, h, n, dh = qw.shape
+    if 0 in (qw.numel(), kw.numel()):
+        return torch.zeros((t, b, h, n, dh), dtype=torch.float32, device=qw.device)
+    fold = lambda x: x.reshape(w, b * h, x.shape[3], dh).contiguous()
+    qf, kf, vf = fold(qw), fold(kw), fold(vw)
+    out = sparse_packed_ssa_fwd(qf, kf, vf, _plane_liveness(qf, kf, vf, t), t=t,
+                                scale=float(scale), causal=causal)
     return out.reshape(t, b, h, n, dh)

@@ -27,3 +27,12 @@ def packed_ssa_ref(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: i
     fold = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
     out = ssa_ref(fold(q), fold(k), fold(v), scale=scale, causal=causal)
     return out.reshape(q.shape)
+
+
+def sparse_packed_ssa_ref(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
+                          live: torch.Tensor, *, t: int, scale: float = 0.125,
+                          causal: bool = False) -> torch.Tensor:
+    """The plane-gated packed SSA: output plane t of fold g is
+    :func:`packed_ssa_ref`'s where ``live[g, t]`` is nonzero, else zero."""
+    out = packed_ssa_ref(qw, kw, vw, t=t, scale=scale, causal=causal)
+    return torch.where((live != 0).T[:, :, None, None], out, 0.0)

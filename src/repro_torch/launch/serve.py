@@ -16,8 +16,14 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --vision \
         --arch spike-iand-former_smoke --backend cuda+packed --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --vision \
+        --arch spike-iand-former_smoke --backend cuda+packed+sparse --device cpu
+
 ``--backend`` ``torch+packed`` / ``cuda+packed`` carry the spikes between
-layers bit-packed along time (``repro_torch.core.packing``).
+layers bit-packed along time (``repro_torch.core.packing``);
+``torch+packed+sparse`` / ``cuda+packed+sparse`` also skip all-zero word
+tiles and dead bitplanes, located by the occupancy maps the LIF pack
+epilogues attach (the logits are those of the packed plan).
 """
 
 from __future__ import annotations
@@ -54,21 +60,19 @@ def seeded_model(arch: str, *, num_requests: int, backend: str = "cuda",
     return plan, images.to(dev)
 
 
-def serve_vision(arch: str, *, num_requests: int, slots: int = 4,
-                 backend: str = "cuda", device=None, seed: int = 0,
-                 verbose: bool = True) -> dict:
-    """Serve ``num_requests`` random images of a vision config in slot
-    batches of ``slots`` through the plan of :func:`seeded_model`.
+def serve_plan(plan, images: torch.Tensor, *, slots: int = 4, verbose: bool = True) -> dict:
+    """Classify ``images`` (on the plan's device) in slot batches of
+    ``slots`` through ``plan``: one warm-up forward at the slot-batch shape
+    (it also builds the kernels), then the timed loop.
 
     Returns a dict with ``classes`` (per-request argmax), ``logits`` (on the
     host), ``forwards`` (forward passes run, warm-up included), ``seconds``
-    (served loop, host clock, each batch ending in a device sync) and
+    (served loop, host clock, each batch ending in its host copy) and
     ``img_per_s``.
     """
-    plan, images = seeded_model(arch, num_requests=num_requests, backend=backend,
-                                device=device, seed=seed)
     dev = plan.meta.device
     step = engine.make_apply_fn(plan)
+    num_requests = images.shape[0]
 
     with torch.inference_mode():
         step(plan.params, images[:slots])          # warm-up: builds the kernels
@@ -89,14 +93,26 @@ def serve_vision(arch: str, *, num_requests: int, slots: int = 4,
     if verbose:
         ps = engine.plan_stats(plan)
         where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        spikes = ", packed spikes" if ps["packed"] else ""
+        spikes += ", sparse skipping" if ps["sparse"] else ""
         print(f"[serve] {num_requests} images in {dt:.4f}s "
               f"({stats['img_per_s']:.1f} img/s, {1e3 * dt * slots / num_requests:.2f} "
               f"ms per slot batch of {slots} on {where}; deploy plan: "
               f"{ps['folded_conv_bn'] + ps['folded_linear_bn']} folded BN pairs, "
               f"{ps['fused_lif_iand_dispatches']} fused LIF+IAND dispatches, "
-              f"backend={ps['backend']}"
-              f"{', packed spikes' if ps['packed'] else ''})")
+              f"backend={ps['backend']}{spikes})")
     return stats
+
+
+def serve_vision(arch: str, *, num_requests: int, slots: int = 4,
+                 backend: str = "cuda", device=None, seed: int = 0,
+                 verbose: bool = True) -> dict:
+    """Serve ``num_requests`` random images of a vision config in slot
+    batches of ``slots`` through the plan of :func:`seeded_model`
+    (:func:`serve_plan` says what the result holds)."""
+    plan, images = seeded_model(arch, num_requests=num_requests, backend=backend,
+                                device=device, seed=seed)
+    return serve_plan(plan, images, slots=slots, verbose=verbose)
 
 
 def main():
@@ -106,7 +122,9 @@ def main():
     ap.add_argument("--arch", default="spike-iand-former-8-384")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--slots", type=int, default=8)
-    ap.add_argument("--backend", default="cuda", choices=["torch", "cuda", "torch+packed", "cuda+packed"])
+    ap.add_argument("--backend", default="cuda",
+                    choices=["torch", "cuda", "torch+packed", "cuda+packed",
+                             "torch+packed+sparse", "cuda+packed+sparse"])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain versions on the host)")

@@ -169,8 +169,11 @@ def test_resolve_specs():
     assert tbackend.resolve("torch+packed").closes_ssa_boundary is False
     assert tbackend.resolve("cuda+packed").closes_ssa_boundary is True
     assert tbackend.resolve("cuda").closes_ssa_boundary is False
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tbackend.resolve("cuda+packed+sparse")
+    assert tbackend.resolve("cuda+packed+sparse") == engine.Backend("cuda", packed=True,
+                                                                    sparse=True)
+    assert tbackend.resolve("cuda+sparse") == engine.Backend("cuda", packed=True, sparse=True)
+    with pytest.raises(ValueError, match="requires packed"):
+        engine.Backend("cuda", sparse=True)
     for bad in ("cuda+pakced", "cuda+", "+packed", "cuda++packed"):
         with pytest.raises(ValueError):
             tbackend.resolve(bad)
