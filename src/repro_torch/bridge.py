@@ -4,7 +4,9 @@ The JAX package keeps ``params``/``state`` as nested dicts (and tuples) of
 arrays; after ``jax.tree_util.tree_map(np.asarray, tree)`` they are numpy
 arrays, which :func:`to_torch` turns into the port's tensors on a device.
 :func:`to_numpy` goes back.  The tree structure and key names are the same
-in both packages, so no renaming happens here.
+in both packages, so no renaming happens here.  Training needs nothing more:
+parameter, gradient and BatchNorm-state trees are such trees, and cross in
+both directions through :func:`to_torch` and :func:`to_numpy`.
 
 Packed spike words cross as bit patterns: the JAX package keeps them as
 ``uint32``, the port as ``int32`` (PyTorch on the CPU has no shifts or NOT

@@ -30,3 +30,8 @@ def connective(kind: str):
     if kind == "add":
         return residual_add
     raise ValueError(f"unknown residual connective: {kind}")
+
+
+def is_binary(x: torch.Tensor, atol: float = 0.0) -> bool:
+    """Every element of ``x`` is 0 or 1 (the spike invariant)."""
+    return bool(((x.abs() <= atol) | ((x - 1.0).abs() <= atol)).all())

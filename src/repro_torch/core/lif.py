@@ -1,20 +1,26 @@
-"""Leaky integrate-and-fire neurons with parallel tick-batching (forward).
+"""Leaky integrate-and-fire neurons with parallel tick-batching.
 
 Paper semantics (Sec. II): threshold theta = 0.5, leak lambda = 0.25 (a power
 of two -> a shift in the ASIC), hard reset to zero on fire:
 
     u_t = lam * v_{t-1} + I_t
-    s_t = (u_t >= theta)
+    s_t = H(u_t - theta)
     v_t = u_t * (1 - s_t)          (hard reset; soft reset: v_t = u_t - theta*s_t)
 
 ``lif_serial`` steps the membrane through a loop over T (the serial
 tick-batching baseline); ``lif_parallel`` is the paper's unrolled chain with
 the reconfigurable ``chain_len`` mux (T slots form ``T // chain_len``
 independent chains whose membranes restart from zero).  Both are bit-equal.
-This module is the deploy (inference) view: no surrogate gradients.
+
+Training differentiates through the Heaviside with a surrogate gradient
+(:class:`SurrogateSpike`: boxcar by default, or the ATan derivative), so both
+plain versions are differentiable by autograd; the ``use_kernel`` route
+differentiates through the LIF backward kernel (boxcar, width 1).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,34 +30,67 @@ THETA_DEFAULT = 0.5
 LAM_DEFAULT = 0.25
 
 
-def _step(v, i_t, *, theta, lam, reset):
+class SurrogateSpike(torch.autograd.Function):
+    """Heaviside step with a surrogate derivative.
+
+    Forward: ``(x >= 0)`` in ``x.dtype``.  Backward: boxcar
+    ``[|x| < width/2] / width`` or the ATan derivative ``1 / (1 + (pi*x)^2)``,
+    times the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, width, kind):
+        if kind not in ("boxcar", "atan"):
+            raise ValueError(f"unknown surrogate kind: {kind}")
+        ctx.save_for_backward(x)
+        ctx.width, ctx.kind = width, kind
+        return (x >= 0.0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        if ctx.kind == "boxcar":
+            surr = (x.abs() < (ctx.width / 2.0)).to(x.dtype) / ctx.width
+        else:
+            surr = 1.0 / (1.0 + (math.pi * x) ** 2)
+        return surr * grad, None, None
+
+
+def surrogate_spike(x: torch.Tensor, width: float = 1.0,
+                    kind: str = "boxcar") -> torch.Tensor:
+    """``(x >= 0)`` with the surrogate derivative of :class:`SurrogateSpike`."""
+    return SurrogateSpike.apply(x, width, kind)
+
+
+def _step(v, i_t, *, theta, lam, reset, surrogate):
     u = lam * v + i_t
-    s = (u >= theta).to(i_t.dtype)
+    s = surrogate_spike(u - theta, kind=surrogate)
     v = u * (1.0 - s) if reset == "hard" else u - theta * s
     return v, s
 
 
 def lif_serial(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
-               lam: float = LAM_DEFAULT, reset: str = "hard") -> torch.Tensor:
+               lam: float = LAM_DEFAULT, reset: str = "hard",
+               surrogate: str = "boxcar") -> torch.Tensor:
     """Serial tick-batching LIF. ``drive``: (T, ...). Returns spikes (T, ...)."""
     v = torch.zeros_like(drive[0])
     spikes = []
     for i_t in drive:
-        v, s = _step(v, i_t, theta=theta, lam=lam, reset=reset)
+        v, s = _step(v, i_t, theta=theta, lam=lam, reset=reset, surrogate=surrogate)
         spikes.append(s)
     return torch.stack(spikes)
 
 
 def lif_parallel(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
                  lam: float = LAM_DEFAULT, reset: str = "hard",
-                 chain_len: int | None = None,
+                 chain_len: int | None = None, surrogate: str = "boxcar",
                  iand_skip: torch.Tensor | None = None) -> torch.Tensor:
     """Fully parallel tick-batching LIF with an unrolled membrane chain.
 
     ``drive``: (T, ...).  ``chain_len`` (default T) must divide T.
     ``iand_skip``: optional spikes of the same shape; if given, the IAND
     residual ``skip * (1 - s)`` is applied as the epilogue.  This is the
-    plain version of the ``lif_parallel`` CUDA kernel.
+    plain version of the ``lif_parallel`` CUDA kernels: its forward of K1,
+    and its autograd VJP (``surrogate="boxcar"``) of the backward kernel.
     """
     t_total = drive.shape[0]
     chain_len = chain_len or t_total
@@ -62,7 +101,8 @@ def lif_parallel(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
     for t in range(t_total):
         if t % chain_len == 0:   # mux: chain boundary -> fresh membrane
             v = torch.zeros_like(v)
-        v, s = _step(v, drive[t], theta=theta, lam=lam, reset=reset)
+        v, s = _step(v, drive[t], theta=theta, lam=lam, reset=reset,
+                     surrogate=surrogate)
         spikes.append(s)
     out = torch.stack(spikes)
     if iand_skip is not None:
@@ -73,15 +113,20 @@ def lif_parallel(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
 def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
         lam: float = LAM_DEFAULT, reset: str = "hard",
         schedule: str = "parallel", chain_len: int | None = None,
-        use_kernel: bool = False, iand_skip=None, pack_output: bool = False,
-        pack_occupancy: bool = False):
+        surrogate: str = "boxcar", use_kernel: bool = False, iand_skip=None,
+        pack_output: bool = False, pack_occupancy: bool = False):
     """THE neuron dispatch: every LIF of the model and the deploy engine goes
     through this entry point.
 
     ``use_kernel=True`` routes through the ``lif_parallel`` kernel wrappers
     (the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor);
-    otherwise the plain unrolled chain runs.  ``iand_skip`` fuses the AND-NOT
-    residual ``skip * (1 - s)`` into the neuron's output stage on every route.
+    otherwise the plain unrolled chain runs.  Both are differentiable: the
+    plain chain by autograd with the ``surrogate`` derivative, the kernel
+    route through the LIF backward kernel, whose surrogate is the boxcar of
+    width 1 (another ``surrogate`` there is a ValueError).  ``iand_skip``
+    fuses the AND-NOT residual ``skip * (1 - s)`` into the neuron's output
+    stage on every route; the kernel route's fused epilogue, like its packed
+    forms, is forward-only and raises where a gradient is asked of it.
 
     ``pack_output=True`` returns the spike train bit-packed along time as a
     :class:`repro_torch.core.packing.PackedSpikes` instead of a dense (T, ...)
@@ -114,7 +159,7 @@ def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
         return packed.with_occupancy() if pack_occupancy else packed
 
     if schedule == "serial":
-        out = lif_serial(drive, theta=theta, lam=lam, reset=reset)
+        out = lif_serial(drive, theta=theta, lam=lam, reset=reset, surrogate=surrogate)
         if pack_output:
             return _pack(out)
         return out if iand_skip is None else iand_skip * (1.0 - out)
@@ -123,6 +168,9 @@ def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
     if use_kernel:
         from repro_torch.kernels.lif_parallel import ops as lif_ops
 
+        if surrogate != "boxcar":
+            raise ValueError(f"the LIF kernel route's surrogate is the boxcar, "
+                             f"not {surrogate!r}")
         kw = dict(theta=theta, lam=lam, reset=reset, chain_len=chain_len)
         if pack_output:
             kw["occupancy"] = pack_occupancy
@@ -135,6 +183,6 @@ def lif(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
         return lif_ops.lif_parallel_op(drive, **kw)
     if pack_output:
         return _pack(lif_parallel(drive, theta=theta, lam=lam, reset=reset,
-                                  chain_len=chain_len))
+                                  chain_len=chain_len, surrogate=surrogate))
     return lif_parallel(drive, theta=theta, lam=lam, reset=reset,
-                        chain_len=chain_len, iand_skip=iand_skip)
+                        chain_len=chain_len, surrogate=surrogate, iand_skip=iand_skip)

@@ -46,21 +46,53 @@ def conv_init(generator, c_in: int, c_out: int, ksize: int, *, device=None):
     return {"w": _uniform(generator, (ksize, ksize, c_in, c_out), scale, device)}
 
 
+def _full_f32():
+    """cuDNN with TF32 off: the convolutions run in full f32, as the
+    reference's do."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d`` (NCHW, OIHW, stride 1, SAME padding) in full f32, forward
+    and backward.  Autograd would run the backward's two convolutions later,
+    outside any flag set around the forward, under the global
+    ``torch.backends.cudnn.allow_tf32`` (True by default); here both run
+    under the same flags as the forward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _full_f32():
+            return F.conv2d(x, w, padding="same")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        pad = [(k - 1) // 2 for k in w.shape[2:]]      # SAME, odd kernels
+        with _full_f32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], pad, [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw
+
+
 def conv_apply(p, x):
-    """x: (N, H, W, C), HWIO kernel, stride 1, SAME padding.  Permuted around
-    ``F.conv2d``; cuDNN's TF32 is switched off for the call, so the conv runs
-    in full f32 as the reference's does."""
+    """x: (N, H, W, C), HWIO kernel (odd size), stride 1, SAME padding.
+    Permuted around ``F.conv2d``, with cuDNN's TF32 off in the forward and in
+    the backward (:class:`_Conv2d`)."""
+    if any(k % 2 == 0 for k in p["w"].shape[:2]):
+        raise ValueError(f"conv_apply takes odd kernel sizes, got {tuple(p['w'].shape)}")
     w = p["w"].permute(3, 2, 0, 1)                       # HWIO -> OIHW
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, padding="same")
-    y = y.permute(0, 2, 3, 1)
+    y = _Conv2d.apply(x.permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
     if "b" in p:
         y = y + p["b"]
     return y
 
 
 def maxpool(x):
-    """2x2 max pool on NHWC, stride 2, VALID padding."""
+    """2x2 max pool on NHWC, stride 2, VALID padding.  Its gradient goes to
+    the first maximum of a tied window (row-major), as the reference's
+    ``reduce_window`` max VJP sends it."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), 2)
     return y.permute(0, 2, 3, 1)
 
@@ -75,11 +107,25 @@ def bn_init(c: int, device=None):
     return params, state
 
 
-def bn_apply(p, state, x, *, eps: float = 1e-5):
-    """Eval-mode BatchNorm over all leading axes (time folded into batch, the
-    paper's shared BN across time steps).  Returns (y, state)."""
-    y = (x - state["mean"]) * torch.rsqrt(state["var"] + eps) * p["scale"] + p["bias"]
-    return y, state
+def bn_apply(p, state, x, *, train: bool = False, momentum: float = 0.9,
+             eps: float = 1e-5):
+    """BatchNorm over all leading axes (time folded into batch, the paper's
+    shared BN across time steps).  Returns (y, new_state).
+
+    ``train=False`` normalises with the running statistics and returns
+    ``state`` itself.  ``train=True`` normalises with the batch mean and the
+    batch (population, ``correction=0``) variance, which autograd
+    differentiates, and returns running statistics moved towards them,
+    ``momentum * old + (1 - momentum) * batch``, with no gradient."""
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        mean, var = x.mean(dim=axes), x.var(dim=axes, correction=0)
+        new_state = {"mean": momentum * state["mean"] + (1 - momentum) * mean.detach(),
+                     "var": momentum * state["var"] + (1 - momentum) * var.detach()}
+    else:
+        mean, var, new_state = state["mean"], state["var"], state
+    y = (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y, new_state
 
 
 def _fold_bn(w, b, bn_p, bn_state, eps):

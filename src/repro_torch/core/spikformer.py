@@ -1,12 +1,15 @@
-"""Spikformer and Spike-IAND-Former (the paper's model, Fig. 2), eval view.
+"""Spikformer and Spike-IAND-Former (the paper's model, Fig. 2).
 
 Spiking Tokenizer -> L x {SSA block, MLP block} -> classification head.  The
 paper's variant replaces both residual additions per block with element-wise
 IAND, so every inter-layer tensor is binary.  Both ``init`` and
 ``block_apply`` iterate :func:`repro_torch.engine.layout.block_layout`, the
-layer list the deploy engine folds and fuses; this module keeps live
-(running-statistics) BatchNorm and is the oracle the engine is held against.
-Linear+BN compute is tick-batched: T folds into the batch.
+layer list the deploy engine folds and fuses.  This module is the
+training/eval view: live BatchNorm (batch statistics under ``train=True``,
+running statistics otherwise) and surrogate gradients, differentiable by
+autograd on both the plain and the kernel route; it is also the oracle the
+deploy engine is held against.  Linear+BN compute is tick-batched: T folds
+into the batch.
 """
 
 from __future__ import annotations
@@ -101,63 +104,86 @@ def _ssa(cfg, q, k, v):
     return ssa(q, k, v, scale=cfg.attn_scale, ordering=cfg.attn_ordering)
 
 
-def _linear_bn_lif(cfg, p, s, x, *, iand_skip=None):
+def _linear_bn_lif(cfg, p, s, x, *, train, iand_skip=None):
     """Tick-batched Linear -> BN -> (unfolded) LIF. x: (T, B, N, Din) spikes.
-    With ``tick_fold=False`` the linear runs once per time step."""
+    With ``tick_fold=False`` the linear runs once per time step.  Returns
+    (spikes, new BN state)."""
     t = x.shape[0]
     if cfg.tick_fold:
         y = cnn.unfold_time(cnn.linear_apply(p["lin"], cnn.fold_time(x)), t)
     else:
         y = torch.stack([cnn.linear_apply(p["lin"], x[i]) for i in range(t)])
-    drive, _ = cnn.bn_apply(p["bn"], s["bn"], y)
-    return _lif(cfg, drive, iand_skip=iand_skip)
+    drive, s_new = cnn.bn_apply(p["bn"], s["bn"], y, train=train)
+    return _lif(cfg, drive, iand_skip=iand_skip), {"bn": s_new}
 
 
-def block_apply(bp, bs, x, cfg: SpikformerConfig):
+def block_apply(bp, bs, x, cfg: SpikformerConfig, *, train: bool = False):
     """One Spike-(IAND-)Former block walking the shared layer layout.
-    x: (T, B, N, D) spikes.  Residual joins of units marked
-    ``fuse_residual`` go through the LIF dispatch's ``iand_skip`` epilogue
-    on the plain route; the kernel route keeps the standalone connective, as
-    the reference's training graph does."""
+    x: (T, B, N, D) spikes.  Returns (x, new block state).  Residual joins of
+    units marked ``fuse_residual`` go through the LIF dispatch's
+    ``iand_skip`` epilogue on the plain route; the kernel route keeps the
+    standalone connective, as the reference's does (the fused kernel
+    epilogue is forward-only)."""
     res = connective(cfg.residual)
     fuse_in_dispatch = not cfg.use_kernel
+    ns: dict = {}
     acts: dict = {}
     h = None
     for u in block_layout(cfg):
         if u.role == "qkv":
-            acts[u.name] = _linear_bn_lif(cfg, bp[u.name], bs[u.name], x)
+            acts[u.name], ns[u.name] = _linear_bn_lif(cfg, bp[u.name], bs[u.name], x,
+                                                      train=train)
             continue
         if u.role == "attn_out":
             attn = _ssa(cfg, *(split_heads(acts[n], cfg.num_heads) for n in "qkv"))
             inp = _lif(cfg, merge_heads(attn))   # attn spikes
         elif u.role == "mlp_hidden":
-            h = _linear_bn_lif(cfg, bp[u.name], bs[u.name], x)
+            h, ns[u.name] = _linear_bn_lif(cfg, bp[u.name], bs[u.name], x, train=train)
             continue
         elif u.role == "mlp_out":
             inp = h
         else:
             raise ValueError(f"unknown unit role: {u.role}")
         if u.fuse_residual and fuse_in_dispatch:
-            x = _linear_bn_lif(cfg, bp[u.name], bs[u.name], inp, iand_skip=x)
+            x, ns[u.name] = _linear_bn_lif(cfg, bp[u.name], bs[u.name], inp, train=train,
+                                           iand_skip=x)
         else:
-            x = res(x, _linear_bn_lif(cfg, bp[u.name], bs[u.name], inp))
-    return x
+            branch, ns[u.name] = _linear_bn_lif(cfg, bp[u.name], bs[u.name], inp,
+                                                train=train)
+            x = res(x, branch)
+    return x, ns
 
 
 def apply(params, state, image, cfg: SpikformerConfig, *, train: bool = False,
           return_spikes: bool = False):
-    """image: (B, H, W, C) in [0,1]. Returns (logits (B, classes), state
-    [, spikes per block])."""
-    if train:
-        raise NotImplementedError("training mode is not ported yet")
-    x, _ = tok.apply(params["tokenizer"], state["tokenizer"], image,
-                     cfg.tokenizer_config())
+    """image: (B, H, W, C) in [0,1]. Returns (logits (B, classes), new_state
+    [, spikes per block]).  ``train=True``: BatchNorm on batch statistics,
+    and ``new_state`` holds the moved running statistics."""
+    new_state = {}
+    x, new_state["tokenizer"] = tok.apply(params["tokenizer"], state["tokenizer"], image,
+                                          cfg.tokenizer_config(), train=train)
     spikes_per_block = [x]
     for i in range(cfg.num_layers):
-        x = block_apply(params[f"block{i}"], state[f"block{i}"], x, cfg)
+        x, new_state[f"block{i}"] = block_apply(params[f"block{i}"], state[f"block{i}"], x,
+                                                cfg, train=train)
         spikes_per_block.append(x)
     # classification head (full precision, as in the paper): rate decoding
     logits = cnn.linear_apply(params["head"], x.mean(dim=(0, 2)))
     if return_spikes:
-        return logits, state, spikes_per_block
-    return logits, state
+        return logits, new_state, spikes_per_block
+    return logits, new_state
+
+
+def spike_sparsity(spikes_per_block) -> float:
+    """Fraction of zeros across all spike maps."""
+    total = sum(s.numel() for s in spikes_per_block)
+    zeros = sum(int((s == 0).sum()) for s in spikes_per_block)
+    return zeros / total
+
+
+def num_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(num_params(v) for v in params.values())
+    if isinstance(params, (tuple, list)):
+        return sum(num_params(v) for v in params)
+    return params.numel()

@@ -4,8 +4,9 @@ The first convolution is the *encoding layer*: the analog frame is convolved
 once and drives the first LIF at every tick (direct encoding).  Later stages
 are ConvBN + LIF (+ MaxPool) on spikes, tick-batched.  The stage list is
 shared with the deploy engine through
-:func:`repro_torch.engine.layout.tokenizer_layout`.  This is the eval view
-(``train=False``, running BN statistics).
+:func:`repro_torch.engine.layout.tokenizer_layout`.  ``train=True`` runs
+BatchNorm on batch statistics and returns the moved running statistics;
+``train=False`` is the eval view (running statistics).
 """
 
 from __future__ import annotations
@@ -51,16 +52,16 @@ def _lif(cfg: TokenizerConfig, drive):
 
 
 def apply(params, state, image, cfg: TokenizerConfig, *, train: bool = False):
-    """image: (B, H, W, C) in [0, 1]. Returns (spikes (T, B, N, D), state)."""
-    if train:
-        raise NotImplementedError("training mode is not ported yet")
+    """image: (B, H, W, C) in [0, 1]. Returns (spikes (T, B, N, D), new_state)."""
+    new_state = {}
     x = None
     for stage in tokenizer_layout(cfg):
         conv, bn, bn_state = params[stage.conv], params[stage.bn], state[stage.bn]
         if stage.encode:
             # encoding layer: conv once (drive identical across ticks), then
             # broadcast over T and let the LIF dynamics make the spike train
-            y, _ = cnn.bn_apply(bn, bn_state, cnn.conv_apply(conv, image))
+            y, new_state[stage.bn] = cnn.bn_apply(bn, bn_state, cnn.conv_apply(conv, image),
+                                                  train=train)
             if stage.pool:
                 y = cnn.maxpool(y)
             drive = y[None].expand((cfg.t,) + tuple(y.shape))
@@ -70,10 +71,10 @@ def apply(params, state, image, cfg: TokenizerConfig, *, train: bool = False):
             else:               # serial dataflow baseline: T weight reads
                 y = cnn.fold_time(torch.stack(
                     [cnn.conv_apply(conv, x[j]) for j in range(cfg.t)]))
-            y, _ = cnn.bn_apply(bn, bn_state, y)
+            y, new_state[stage.bn] = cnn.bn_apply(bn, bn_state, y, train=train)
             if stage.pool:
                 y = cnn.maxpool(y)
             drive = cnn.unfold_time(y, cfg.t)
         x = _lif(cfg, drive)
     t, b, h, w, d = x.shape
-    return x.reshape(t, b, h * w, d), state
+    return x.reshape(t, b, h * w, d), new_state

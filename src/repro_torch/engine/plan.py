@@ -62,13 +62,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def compile_plan(params, state, cfg, *, backend="cuda", device=None) -> DeployPlan:
+def compile_plan(params, state, cfg, *, backend="cuda", device=None,
+                 checkpoint=None) -> DeployPlan:
     """Fold a trained (params, state, cfg) into a deploy plan on ``device``.
 
     ``params``/``state``: nested dicts of tensors or numpy arrays with the
     JAX package's structure (see :mod:`repro_torch.bridge`).
     ``backend``: Backend | "torch" | "cuda" | "torch+packed" | "cuda+packed" |
     "torch+packed+sparse" | "cuda+packed+sparse" (see ``engine.backend.resolve``).
+    ``checkpoint``: optional checkpoint directory (either package's layout,
+    :mod:`repro_torch.checkpoint.checkpoint`) holding ``{"params", "state"}``;
+    its arrays are restored into the ``params``/``state`` skeleton before
+    folding, as the JAX package's ``compile_plan(checkpoint=)`` does.
     """
     if not hasattr(cfg, "tokenizer_config"):
         raise NotImplementedError(
@@ -82,6 +87,11 @@ def compile_plan(params, state, cfg, *, backend="cuda", device=None) -> DeployPl
     dev = resolve_device(device)
     params = bridge.to_torch(params, dev)
     state = bridge.to_torch(state, dev)
+    if checkpoint is not None:
+        from repro_torch.checkpoint import checkpoint as ckpt
+
+        restored, _ = ckpt.restore(checkpoint, {"params": params, "state": state})
+        params, state = restored["params"], restored["state"]
     tok_stages = tokenizer_layout(cfg.tokenizer_config())
     units = block_layout(cfg)
 

@@ -1,10 +1,13 @@
 // Unrolled multi-time-step LIF with the optional fused IAND epilogue, in two
-// output forms: dense f32 spikes, and spikes bit-packed along time.
+// output forms: dense f32 spikes, and spikes bit-packed along time; and its
+// backward pass (the drive cotangent under the boxcar surrogate).
 //
 // Replaces: src/repro/kernels/lif_parallel/kernel.py::lif_parallel_fwd
-//           (bodies lif_fwd_kernel and lif_iand_fwd_kernel), and
+//           (bodies lif_fwd_kernel and lif_iand_fwd_kernel),
 //           src/repro/kernels/lif_parallel/kernel.py::lif_parallel_pack_fwd
-//           (bodies lif_pack_fwd_kernel, lif_iand_pack_fwd_kernel, _pack_rows).
+//           (bodies lif_pack_fwd_kernel, lif_iand_pack_fwd_kernel, _pack_rows),
+//           and src/repro/kernels/lif_parallel/kernel.py::lif_parallel_bwd
+//           (body lif_bwd_kernel).
 //
 // Computes, for a (T, N) f32 drive and every neuron column n:
 //     u_t = lam * v_{t-1} + I_t,  s_t = (u_t >= theta),
@@ -43,6 +46,27 @@
 // first).  Integer sums, so the order of the atomics does not matter.  The
 // scan needs every lane of the warp, so lanes past N stay alive and count 0.
 //
+// Backward (lif_parallel_bwd): given the drive and the spike cotangent g,
+// both (T, N) f32, it writes dx = d(spikes)/d(drive)^T g, the surrogate of
+// H(u - theta) being the boxcar [|u - theta| < width/2] / width.  Chains are
+// independent (the mux cuts the membrane, and with it dv, at every chain
+// boundary), so each thread takes its column's chains one at a time: it
+// recomputes u_t of the chain forward with the forward kernels' own step,
+// keeps them in registers (chain_len 1, 2, 4 or 8; a longer chain parks u_t
+// in the thread's own dx column between the two walks), then walks the
+// chain in reverse with dv, the cotangent of the membrane v_t:
+//     hard reset:  ds = g - dv*u,       du = ds*surr + dv*(1 - s)
+//     soft reset:  ds = g - theta*dv,   du = ds*surr + dv
+//     dx_t = du,   dv = lam*du,   and dv = 0 entering a chain's last step.
+// The spike cotangent is summed BEFORE the surrogate multiplies it, which is
+// the grouping autograd gives the plain chain; every product and sum is
+// rounded on its own (__fmul_rn/__fadd_rn/__fsub_rn), as eager PyTorch
+// rounds them, so nvcc contracts none of them into an FMA and the result
+// equals the plain version's autograd bit for bit.  Bound on this card:
+// bytes -- read the drive and g once, write dx once, 12*T bytes per neuron
+// against ~10 flops per step; every access of a warp is one coalesced
+// 128-byte line, as in the forward kernels.
+//
 // Bit-exactness with the plain PyTorch version: built without
 // --use_fast_math (no flush-to-zero), the spike compares u >= theta (under
 // FTZ, u - theta >= 0 would read a negative denormal difference as -0), and
@@ -58,14 +82,43 @@ constexpr int kThreads = 256;
 constexpr int kOccTile = 128;           // features per occupancy tile
 constexpr unsigned kFullWarp = 0xffffffffu;
 
+// One step of the chain: returns the membrane u_t = lam * v + drive and
+// advances v to v_t, reset by the spike s_t = (u_t >= theta).
+template <bool kSoft>
+__device__ __forceinline__ float lif_membrane(float& v, float drive, float lam, float theta) {
+  const float u = __fadd_rn(__fmul_rn(lam, v), drive);
+  const float sf = u >= theta ? 1.0f : 0.0f;
+  v = kSoft ? __fsub_rn(u, __fmul_rn(theta, sf)) : __fmul_rn(u, __fsub_rn(1.0f, sf));
+  return u;
+}
+
 // One step of the chain: advances the membrane v and returns the spike s_t.
 template <bool kSoft>
 __device__ __forceinline__ bool lif_step(float& v, float drive, float lam, float theta) {
-  const float u = __fadd_rn(__fmul_rn(lam, v), drive);
-  const bool s = u >= theta;
-  const float sf = s ? 1.0f : 0.0f;
-  v = kSoft ? __fsub_rn(u, __fmul_rn(theta, sf)) : __fmul_rn(u, __fsub_rn(1.0f, sf));
-  return s;
+  return lif_membrane<kSoft>(v, drive, lam, theta) >= theta;
+}
+
+// One reverse step of the chain: returns the drive cotangent du_t from the
+// membrane u_t and the spike cotangent g_t; dv enters as the cotangent of v_t
+// and leaves as that of v_{t-1}.  The spike is H(u - theta), as in the plain
+// version (the same as u >= theta without flush-to-zero).
+template <bool kSoft>
+__device__ __forceinline__ float lif_bwd_step(float& dv, float u, float g, float lam,
+                                              float theta, float half_width,
+                                              float inv_width) {
+  const float x = __fsub_rn(u, theta);
+  const float surr = fabsf(x) < half_width ? inv_width : 0.0f;
+  float du;
+  if (kSoft) {
+    const float ds = __fsub_rn(g, __fmul_rn(theta, dv));
+    du = __fadd_rn(__fmul_rn(ds, surr), dv);
+  } else {
+    const float sf = x >= 0.0f ? 1.0f : 0.0f;
+    const float ds = __fsub_rn(g, __fmul_rn(dv, u));
+    du = __fadd_rn(__fmul_rn(ds, surr), __fmul_rn(dv, __fsub_rn(1.0f, sf)));
+  }
+  dv = __fmul_rn(lam, du);
+  return du;
 }
 
 template <bool kIand, bool kSoft>
@@ -132,6 +185,45 @@ lif_pack_kernel(const float* __restrict__ drive, const uint32_t* __restrict__ sk
   }
 }
 
+// kChain > 0: every chain has kChain steps, and u_t stays in registers;
+// kChain == 0: chain_len steps, u_t parked in dx between the two walks.
+template <int kChain, bool kSoft>
+__global__ void __launch_bounds__(kThreads)
+lif_bwd_kernel(const float* __restrict__ drive, const float* __restrict__ g,
+               float* __restrict__ dx, int t_total, int n, int chain_len, float lam,
+               float theta, float width) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const float half_width = __fmul_rn(0.5f, width), inv_width = __fdiv_rn(1.0f, width);
+  const int len = kChain > 0 ? kChain : chain_len;
+  for (int t0 = 0; t0 < t_total; t0 += len) {
+    const long long base = static_cast<long long>(t0) * n + i;
+    float v = 0.0f, dv = 0.0f;   // a chain starts from a zero membrane, and no
+                                 // cotangent flows past its last step
+    if constexpr (kChain > 0) {
+      float u[kChain];
+#pragma unroll
+      for (int c = 0; c < kChain; ++c) {
+        u[c] = lif_membrane<kSoft>(v, drive[base + static_cast<long long>(c) * n], lam, theta);
+      }
+#pragma unroll
+      for (int c = kChain - 1; c >= 0; --c) {
+        const long long idx = base + static_cast<long long>(c) * n;
+        dx[idx] = lif_bwd_step<kSoft>(dv, u[c], g[idx], lam, theta, half_width, inv_width);
+      }
+    } else {
+      for (int c = 0; c < len; ++c) {
+        const long long idx = base + static_cast<long long>(c) * n;
+        dx[idx] = lif_membrane<kSoft>(v, drive[idx], lam, theta);
+      }
+      for (int c = len - 1; c >= 0; --c) {
+        const long long idx = base + static_cast<long long>(c) * n;
+        dx[idx] = lif_bwd_step<kSoft>(dv, dx[idx], g[idx], lam, theta, half_width, inv_width);
+      }
+    }
+  }
+}
+
 unsigned grid_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
 template <bool kIand>
@@ -178,6 +270,19 @@ int launch_pack_occ(const float* drive, const uint32_t* skip_words, uint32_t* ou
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kChain>
+void launch_bwd(const float* drive, const float* g, float* dx, int t_total, int n,
+                int chain_len, float lam, float theta, int soft, float width,
+                cudaStream_t stream) {
+  if (soft) {
+    lif_bwd_kernel<kChain, true><<<grid_for(n), kThreads, 0, stream>>>(
+        drive, g, dx, t_total, n, chain_len, lam, theta, width);
+  } else {
+    lif_bwd_kernel<kChain, false><<<grid_for(n), kThreads, 0, stream>>>(
+        drive, g, dx, t_total, n, chain_len, lam, theta, width);
+  }
+}
+
 }  // namespace
 
 extern "C" int lif_parallel_fwd(const void* drive, const void* skip, void* out,
@@ -212,6 +317,25 @@ extern "C" int lif_parallel_pack_fwd(const void* drive, const void* skip_words,
   }
   return launch_pack_occ<false>(d, k, o, m, t_total, n, chain_len, lam, theta, soft,
                                 occ_cols, s);
+}
+
+// dx: (t_total, n) f32, the drive cotangent; chain_len must divide t_total.
+extern "C" int lif_parallel_bwd(const void* drive, const void* g, void* dx, int t_total,
+                                int n, int chain_len, float lam, float theta, int soft,
+                                float width, void* stream) {
+  if (chain_len < 1 || t_total % chain_len) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* d = static_cast<const float*>(drive);
+  const auto* gg = static_cast<const float*>(g);
+  auto* o = static_cast<float*>(dx);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (chain_len) {
+    case 1: launch_bwd<1>(d, gg, o, t_total, n, chain_len, lam, theta, soft, width, s); break;
+    case 2: launch_bwd<2>(d, gg, o, t_total, n, chain_len, lam, theta, soft, width, s); break;
+    case 4: launch_bwd<4>(d, gg, o, t_total, n, chain_len, lam, theta, soft, width, s); break;
+    case 8: launch_bwd<8>(d, gg, o, t_total, n, chain_len, lam, theta, soft, width, s); break;
+    default: launch_bwd<0>(d, gg, o, t_total, n, chain_len, lam, theta, soft, width, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -1,15 +1,22 @@
 """Wrappers of the lif_parallel CUDA kernels (``csrc/lif_parallel.cu``).
 
-:func:`lif_parallel_fwd` (dense spikes) and :func:`lif_parallel_pack_fwd`
-(spikes bit-packed along time into int32 words) are the launch sites: a CUDA
-tensor goes to the kernel (or the call raises), a CPU tensor to the plain
-version (:mod:`repro_torch.kernels.lif_parallel.ref`).  Each has a
+:func:`lif_parallel_fwd` (dense spikes), :func:`lif_parallel_pack_fwd`
+(spikes bit-packed along time into int32 words) and :func:`lif_parallel_bwd`
+(the drive cotangent under the boxcar surrogate) are the launch sites: a
+CUDA tensor goes to the kernel (or the call raises), a CPU tensor to the
+plain version (:mod:`repro_torch.kernels.lif_parallel.ref`).  Each has a
 ``launches`` attribute counting kernel launches.  :func:`lif_parallel_op`,
 :func:`lif_iand_op`, :func:`lif_pack_op` and :func:`lif_iand_pack_op` accept
 any (T, ...) shape and flatten it to (T, N); the kernels mask the ragged
 tail themselves, so nothing is padded.  The packed forms can also return the
 occupancy map of their words (``occupancy=True``), counted in the pack
 kernel's epilogue.
+
+:func:`lif_parallel_op` is differentiable on both devices: :class:`_LifOp`
+runs :func:`lif_parallel_fwd` forward and :func:`lif_parallel_bwd` backward
+(the JAX package's ``_lif_op`` custom VJP).  The fused-IAND and packed forms
+are forward-only, as in the JAX package, and raise where autograd would
+need their gradient.
 """
 
 from __future__ import annotations
@@ -20,7 +27,10 @@ import torch
 
 from repro_torch.core.packing import OCC_TILE, num_words, occupancy_map
 from repro_torch.kernels import _build
-from repro_torch.kernels.lif_parallel.ref import lif_pack_ref, lif_parallel_ref
+from repro_torch.kernels.lif_parallel.ref import (
+    lif_pack_ref, lif_parallel_ref, lif_parallel_ref_grad)
+
+SURROGATE_WIDTH = 1.0   # the backward kernel's boxcar, as the JAX package's _SURR_WIDTH
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
@@ -28,6 +38,9 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 _PACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 
 
 def _check_args(what, drive, skip, skip_rows, chain_len, reset):
@@ -116,21 +129,82 @@ def lif_parallel_pack_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
 lif_parallel_pack_fwd.launches = 0
 
 
+def lif_parallel_bwd(drive: torch.Tensor, g: torch.Tensor, *, chain_len: int,
+                     lam: float, theta: float, reset: str,
+                     width: float = SURROGATE_WIDTH) -> torch.Tensor:
+    """drive, g: (T, N) -> dx (T, N), the VJP of :func:`lif_parallel_fwd`
+    with respect to the drive under the boxcar surrogate of ``width``."""
+    _check_args("lif_parallel_bwd", drive, None, 0, chain_len, reset)
+    if g.shape != drive.shape:
+        raise ValueError(f"lif_parallel_bwd: cotangent shape {tuple(g.shape)} != "
+                         f"drive shape {tuple(drive.shape)}")
+    if drive.device.type == "cpu":
+        if width != SURROGATE_WIDTH:
+            raise ValueError(f"the plain LIF backward has width {SURROGATE_WIDTH}, "
+                             f"not {width}")
+        return lif_parallel_ref_grad(drive, g, chain_len=chain_len, lam=lam,
+                                     theta=theta, reset=reset)
+    _build.check_operands("lif_parallel_bwd", (drive, torch.float32), (g, torch.float32))
+    dx = torch.empty_like(drive)
+    if dx.numel() == 0:
+        return dx
+    fn = _build.kernel("lif_parallel", "lif_parallel_bwd", _BWD_ARGTYPES)
+    t_total, n = drive.shape
+    with torch.cuda.device(drive.device):
+        err = fn(drive.data_ptr(), g.data_ptr(), dx.data_ptr(), t_total, n, chain_len,
+                 lam, theta, int(reset == "soft"), width, _build.stream(drive.device))
+    _build.check(err, "lif_parallel", "lif_parallel_bwd")
+    lif_parallel_bwd.launches += 1
+    return dx
+
+
+lif_parallel_bwd.launches = 0
+
+
+class _LifOp(torch.autograd.Function):
+    """(T, N) drive -> spikes by :func:`lif_parallel_fwd`; the backward is
+    :func:`lif_parallel_bwd`, which recomputes the membranes from the saved
+    drive (nothing else is kept for it)."""
+
+    @staticmethod
+    def forward(ctx, drive2d, chain_len, lam, theta, reset):
+        ctx.save_for_backward(drive2d)
+        ctx.kw = dict(chain_len=chain_len, lam=lam, theta=theta, reset=reset)
+        return lif_parallel_fwd(drive2d, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        (drive2d,) = ctx.saved_tensors
+        return lif_parallel_bwd(drive2d, g.contiguous(), **ctx.kw), None, None, None, None
+
+
+def _forward_only(what: str, *tensors) -> None:
+    """Raise if autograd would need the gradient of a forward-only op: the op
+    returns a tensor with no ``grad_fn``, which would cut the graph."""
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                       for x in tensors):
+        raise RuntimeError(f"{what} is forward-only (inference); its inputs require "
+                           "grad. Train through lif_parallel_op and the standalone "
+                           "residual connective")
+
+
 def lif_parallel_op(drive: torch.Tensor, *, chain_len: int | None = None,
                     lam: float = 0.25, theta: float = 0.5,
                     reset: str = "hard") -> torch.Tensor:
-    """Unrolled parallel tick-batching LIF. drive: (T, ...) -> spikes (T, ...)."""
+    """Unrolled parallel tick-batching LIF. drive: (T, ...) -> spikes (T, ...),
+    differentiable (:class:`_LifOp`)."""
     t = drive.shape[0]
-    out = lif_parallel_fwd(drive.reshape(t, -1).contiguous(),
-                           chain_len=chain_len or t, lam=float(lam),
-                           theta=float(theta), reset=reset)
+    out = _LifOp.apply(drive.reshape(t, -1).contiguous(), chain_len or t, float(lam),
+                       float(theta), reset)
     return out.reshape(drive.shape)
 
 
 def lif_iand_op(drive: torch.Tensor, skip: torch.Tensor, *,
                 chain_len: int | None = None, lam: float = 0.25,
                 theta: float = 0.5, reset: str = "hard") -> torch.Tensor:
-    """LIF with the fused IAND epilogue: ``skip * (1 - LIF(drive))``."""
+    """LIF with the fused IAND epilogue: ``skip * (1 - LIF(drive))``
+    (forward-only)."""
+    _forward_only("lif_iand_op", drive, skip)
     t = drive.shape[0]
     out = lif_parallel_fwd(drive.reshape(t, -1).contiguous(),
                            chain_len=chain_len or t, lam=float(lam),
@@ -159,7 +233,8 @@ def lif_pack_op(drive: torch.Tensor, *, chain_len: int | None = None,
     """LIF whose kernel epilogue packs the T-step train into words.
     drive: (T, ...) f32 -> words (ceil(T/32), ...) int32
     (``repro_torch.core.packing`` layout).  ``occupancy=True`` also returns
-    the occupancy map of the words (``(words, occ)``)."""
+    the occupancy map of the words (``(words, occ)``).  Forward-only."""
+    _forward_only("lif_pack_op", drive)
     t = drive.shape[0]
     res = lif_parallel_pack_fwd(drive.reshape(t, -1).contiguous(),
                                 chain_len=chain_len or t, lam=float(lam),
@@ -174,7 +249,9 @@ def lif_iand_pack_op(drive: torch.Tensor, skip_words: torch.Tensor, *,
     """Fused LIF+IAND, packed in and packed out: the residual is the bitwise
     ``skip_words & ~words`` inside the kernel epilogue.  drive: (T, ...) f32,
     skip_words: (ceil(T/32), ...) int32 -> words of the same shape.
-    ``occupancy=True`` also returns the map of the post-IAND words."""
+    ``occupancy=True`` also returns the map of the post-IAND words.
+    Forward-only."""
+    _forward_only("lif_iand_pack_op", drive)
     t = drive.shape[0]
     res = lif_parallel_pack_fwd(
         drive.reshape(t, -1).contiguous(), chain_len=chain_len or t, lam=float(lam),

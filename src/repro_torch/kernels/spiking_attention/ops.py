@@ -10,6 +10,12 @@ kernel launches.  :func:`ssa_op` folds (T, B, H, N, Dh) into (G, N, Dh), and
 into (W, G, N, Dh); all make the operands contiguous: the head split hands
 over a transposed view, and the kernels assume a dense layout.  Ragged token
 counts are masked in the kernels, so nothing is padded.
+
+:func:`ssa_op` is differentiable on both devices (:class:`_SsaOp`): the
+forward is :func:`ssa_fwd`, the backward the three bilinear contractions of
+:func:`ssa_ref`'s VJP on ``torch.bmm`` -- the JAX package, too, runs that
+backward outside any kernel, by differentiating its oracle.  The packed
+forms take integer words, which carry no gradient.
 """
 
 from __future__ import annotations
@@ -127,15 +133,48 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
 sparse_packed_ssa_fwd.launches = 0
 
 
+def _causal_mask(scores: torch.Tensor) -> torch.Tensor:
+    n, m = scores.shape[-2:]
+    keep = (torch.arange(m, device=scores.device)[None, :]
+            <= torch.arange(n, device=scores.device)[:, None])
+    return torch.where(keep, scores, 0.0)
+
+
+class _SsaOp(torch.autograd.Function):
+    """Folded q (G, N, D), k/v (G, M, D) -> :func:`ssa_fwd`; backward, with
+    P = (q k^T) and dP = (g v^T) * scale, both masked where ``causal``:
+    dq = dP k, dk = dP^T q, dv = P^T g * scale."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.causal = scale, causal
+        return ssa_fwd(q, k, v, scale=scale, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        mask = _causal_mask if ctx.causal else (lambda x: x)
+        gs = g * ctx.scale
+        d_scores = mask(torch.bmm(gs, v.transpose(1, 2)))
+        dq = torch.bmm(d_scores, k) if ctx.needs_input_grad[0] else None
+        dk = torch.bmm(d_scores.transpose(1, 2), q) if ctx.needs_input_grad[1] else None
+        dv = None
+        if ctx.needs_input_grad[2]:
+            dv = torch.bmm(mask(torch.bmm(q, k.transpose(1, 2))).transpose(1, 2), gs)
+        return dq, dk, dv, None, None
+
+
 def ssa_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            scale: float = 0.125, causal: bool = False) -> torch.Tensor:
-    """Tick-batched spiking attention. q,k,v: (T, B, H, N, Dh) -> same shape.
-    ``causal`` masks the spike score matrix to the lower triangle in-kernel."""
+    """Tick-batched spiking attention. q,k,v: (T, B, H, N, Dh) -> same shape,
+    differentiable (:class:`_SsaOp`).  ``causal`` masks the spike score
+    matrix to the lower triangle in-kernel."""
     t, b, h, n, dh = q.shape
     if 0 in (q.numel(), k.numel()):
         return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     fold = lambda x: x.reshape(t * b * h, x.shape[3], dh).contiguous()
-    out = ssa_fwd(fold(q), fold(k), fold(v), scale=float(scale), causal=causal)
+    out = _SsaOp.apply(fold(q), fold(k), fold(v), float(scale), causal)
     return out.reshape(t, b, h, n, dh)
 
 
