@@ -11,9 +11,14 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      the shapes its path gives it (spike-iand-former-8-384, slot batch 8),
      held against its plain PyTorch version on the same inputs, and timed
      beside it, beside one library call computing the same function (where
-     there is one), and beside its bound; K8 and K9 on three operand sets
-     (50%-random words, half the tiles or some planes dead, all zero), held
-     equal to K5 and K6;
+     there is one; for K3, K6 and K9 also the two products as f16 ``torch.bmm``
+     with f32 output, ``library_tc_ms``), and beside its bound (bytes over
+     the memory rate, or operations over the peak of the unit the work can
+     run on: the f16 tensor cores for K3, K6 and K9, exact on binary
+     operands; float32 for the GEMMs); K3 and K9 also on worst-case operand
+     sets (all ones at Dh=128, ragged Dh=20 with N != M), causal and not; K8
+     and K9 on three operand sets (50%-random words, half the tiles or some
+     planes dead, all zero), held equal to K5 and K6;
   3. model: the main paths on a LIVE spike-iand-former-8-384 (``live_model``:
      seeded weights with BatchNorm perturbed as the reference's engine tests
      perturb it, so every block fires) on all six backends -- ``cuda``,
@@ -72,6 +77,7 @@ ARCH = "spike-iand-former-8-384"
 SLOTS, REQUESTS = 8, 24
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at 700 W
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores, same source
+F16_TC_FLOP_PER_S = 989e12     # f16/bf16 tensor cores, dense, f32 accumulation, same source
 GEMM_TOL = dict(rtol=1e-5, atol=1e-4)   # f32 sums of up to 1728 terms, reordered
 LOGITS_ATOL = 1e-3
 # Share of a layer's spikes (neuron-steps, dense or packed) that may differ
@@ -129,8 +135,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time of the work: its bytes over the memory rate or its
+    operations over ``peak``, the rate of the unit the work can run on (the
+    f16 tensor cores for the SSA kernels, exact on binary operands; float32
+    for the GEMMs, whose weights are f32)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -143,11 +153,12 @@ class KernelReport:
                       "replaces": replaces, "launches": None,
                       "launches_per_forward": None, "max_abs_err": 0.0,
                       "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
-                      "library_ms": None}
+                      "library_ms": None, "library_tc_ms": None}
         self._bound = {"bytes": 0.0, "operations": 0.0}
 
-    def add(self, label, count, err, ms, plain_ms, nbytes, flops, library_ms=None):
-        b, by = bound_ms(nbytes, flops)
+    def add(self, label, count, err, ms, plain_ms, nbytes, flops, library_ms=None,
+            peak=F32_FLOP_PER_S, library_tc_ms=None):
+        b, by = bound_ms(nbytes, flops, peak)
         e = self.entry
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["ms"] += count * ms
@@ -156,11 +167,50 @@ class KernelReport:
         self._bound[by] += count * b
         if library_ms is not None:
             e["library_ms"] = (e["library_ms"] or 0.0) + count * library_ms
+        if library_tc_ms is not None:
+            e["library_tc_ms"] = (e["library_tc_ms"] or 0.0) + count * library_tc_ms
         e["bound_by"] = max(self._bound, key=self._bound.get)
         lib = f" library {library_ms:.4f} ms" if library_ms is not None else ""
+        if library_tc_ms is not None:
+            lib += f" (tensor cores {library_tc_ms:.4f} ms)"
         log(f"  {self.entry['name']} {label} x{count}/forward: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms,{lib} bound {b:.4f} ms ({by}), "
             f"max_abs_err {err:.3g}")
+
+
+def library_tc_ms(q, k, v, scale, want, label):
+    """Device time of the two SSA products on the tensor cores through one
+    PyTorch call each: f16 operands, f32 accumulation and output
+    (``torch.bmm(..., out_dtype=torch.float32)``), the scores cast to f16
+    between them (exact: integers <= 128).  Held ``torch.equal`` to
+    ``want``.  None, logged, where this PyTorch lacks that ``out_dtype``."""
+    q16, k16, v16 = q.half(), k.half(), v.half()
+    run = lambda: torch.bmm(torch.bmm(q16, k16.transpose(1, 2), out_dtype=torch.float32)
+                            .half(), v16, out_dtype=torch.float32) * scale
+    try:
+        got = run()
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        log(f"  {label}: torch.bmm(..., out_dtype=torch.float32) is missing in torch "
+            f"{torch.__version__} ({type(e).__name__}: {str(e).splitlines()[0][:120]}); "
+            "library_tc_ms null")
+        return None
+    same = torch.equal(got, want)
+    check(same, f"{label}: the tensor-core library pair differs from the plain version")
+    log(f"  {label}: tensor-core library pair (f16 bmm, f32 out) torch.equal the plain "
+        f"version: {same}")
+    return time_ms(run)
+
+
+def _ssa_operand_sets(gen, g, ntok, binary):
+    """(label, q, k, v) of the worst-case SSA operand sets beside the main
+    path's random one: all ones at Dh=128 and N = M = ntok (the largest
+    scores, 128, and sums, 128 * ntok, the path can give), and ragged Dh=20
+    with N != M both ways.  ``binary(shape)`` draws a random operand."""
+    ones = torch.ones((g, ntok, 128))
+    yield "all-ones Dh=128", ones, ones, ones
+    for n, m in ((ntok, 131), (131, ntok)):
+        yield (f"ragged Dh=20 N={n} M={m}", binary((g, n, 20)), binary((g, m, 20)),
+               binary((g, m, 20)))
 
 
 def phase_card_and_build():
@@ -178,9 +228,35 @@ def phase_card_and_build():
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, text in logs.items():
         for line in text.splitlines():
+            if "Compiling entry" in line:
+                log(f"  ptxas {name}: {line.split(chr(39))[1] if chr(39) in line else line}")
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {name}: {line.strip()}")
+    _tensor_core_sass(_build)
     return smi
+
+
+def _tensor_core_sass(_build):
+    """HMMA instructions per kernel of the SSA library (``cuobjdump -sass``):
+    fails if a tensor-core kernel (``*_tc_kernel``) holds none."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        cuobjdump = shutil.which("cuobjdump")
+    if not cuobjdump:
+        fail("cuobjdump is neither beside nvcc nor on PATH: the SASS cannot be checked")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("ssa"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    log("  SASS HMMA per ssa kernel: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    missing = [k for k, v in counts.items() if "_tc_kernel" in k and v == 0]
+    if missing or not any("_tc_kernel" in k for k in counts):
+        fail(f"tensor-core kernels without HMMA in their SASS: {missing or 'none found'}")
 
 
 def phase_kernels(dev, gen):
@@ -259,16 +335,26 @@ def phase_kernels(dev, gen):
     rep = KernelReport("ssa", "src/repro_torch/kernels/spiking_attention/csrc/ssa.cu",
                        "src/repro/kernels/spiking_attention/kernel.py:62")
     g, dh = t * b * heads, d // heads
-    q, k, v = ((torch.rand((g, ntok, dh), generator=gen) > 0.5).float().to(dev)
-               for _ in range(3))
+    binary = lambda shape: (torch.rand(shape, generator=gen) > 0.5).float().to(dev)
+    q, k, v = (binary((g, ntok, dh)) for _ in range(3))
+    sets = [("random", q, k, v)] + [(label, *(x.to(dev) for x in xs)) for label, *xs in
+                                    _ssa_operand_sets(gen, g, ntok, binary)]
+    for label, qs, ks, vs in sets:
+        for causal in (False, True):
+            if not torch.equal(ssa_ops.ssa_fwd(qs, ks, vs, scale=0.125, causal=causal),
+                               ssa_ref(qs, ks, vs, scale=0.125, causal=causal)):
+                fail(f"ssa {label} {tuple(qs.shape)} causal={causal}: not equal to the "
+                     "plain version")
+    log(f"K3 ssa: torch.equal at G={g} on {', '.join(x[0] for x in sets)} (N={ntok}, "
+        f"Dh={dh} unless named), causal and not")
+    del sets
     run = lambda: ssa_ops.ssa_fwd(q, k, v, scale=0.125)
     plain = lambda: ssa_ref(q, k, v, scale=0.125)
-    if not torch.equal(run(), plain()):
-        fail("ssa: not equal to the plain version")
-    log(f"K3 ssa: torch.equal at G={g}, N={ntok}, Dh={dh}")
     library = lambda: torch.bmm(torch.bmm(q, k.transpose(1, 2)), v) * 0.125
     rep.add(f"G={g} N={ntok} Dh={dh}", 8, 0.0, time_ms(run), time_ms(plain),
-            4 * 4 * g * ntok * dh, 4 * g * ntok * ntok * dh, library_ms=time_ms(library))
+            4 * 4 * g * ntok * dh, 4 * g * ntok * ntok * dh, library_ms=time_ms(library),
+            peak=F16_TC_FLOP_PER_S,
+            library_tc_ms=library_tc_ms(q, k, v, 0.125, plain(), "K3"))
     reports["K3"] = rep
     reports.update(_packed_kernels(dev, gen))
     reports["K7"] = _lif_backward(dev, gen)
@@ -421,8 +507,11 @@ def _packed_kernels(dev, gen):
     library = lambda: torch.bmm(torch.bmm(q, k.transpose(1, 2)), v) * 0.125
     rep.add(f"G={g} N={ntok} Dh={dh} T={t}", 8, 0.0, time_ms(run), time_ms(plain),
             4 * 3 * g * ntok * dh + 4 * t * g * ntok * dh, 4 * t * g * ntok * ntok * dh,
-            library_ms=time_ms(library))
-    log("  K6 library_ms is two torch.bmm on the unpacked f32 operands")
+            library_ms=time_ms(library), peak=F16_TC_FLOP_PER_S,
+            library_tc_ms=library_tc_ms(q, k, v, 0.125, plain().reshape(t * g, ntok, dh),
+                                        "K6"))
+    log("  K6 library_ms is two torch.bmm on the unpacked f32 operands, library_tc_ms "
+        "two f16 torch.bmm with f32 output on them")
     reports["K6"] = rep
     reports.update(_sparse_kernels(dev, gen))
     return reports
@@ -541,6 +630,24 @@ def _sparse_kernels(dev, gen):
                     f"{ms:.4f} ms, plain {plain_ms:.4f}")
     log(f"  K9 G={g} N={ntok} Dh={dh} T={t} x8/forward, torch.equal K6 and the plain "
         f"version on every set, causal and not; K6 {packed_ms:.4f} ms; " + "; ".join(line))
+    ones = packing.pack(torch.ones((t, g, ntok, 128))).words.to(dev)
+    worst = [("all-ones Dh=128", ones, ones, ones)]
+    for n, m in ((ntok, 131), (131, ntok)):
+        worst.append((f"ragged Dh=20 N={n} M={m}", words((g, n, 20)), words((g, m, 20)),
+                      words((g, m, 20))))
+    for label, q, k, v in worst:
+        live = ssa_ops._plane_liveness(q, k, v, t)
+        for causal in (False, True):
+            got = ssa_ops.sparse_packed_ssa_fwd(q, k, v, live, t=t, scale=0.125, causal=causal)
+            if not torch.equal(got, ssa_ops.packed_ssa_fwd(q, k, v, t=t, scale=0.125,
+                                                           causal=causal)):
+                fail(f"K9 {label} causal={causal}: not equal to K6")
+            if not torch.equal(got, sparse_packed_ssa_ref(q, k, v, live, t=t, scale=0.125,
+                                                          causal=causal)):
+                fail(f"K9 {label} causal={causal}: not equal to the plain version")
+    log(f"  K9 torch.equal K6 and the plain version on {', '.join(x[0] for x in worst)}, "
+        "causal and not")
+    del worst, ones
     reports["K9"] = rep
     return reports
 
@@ -845,16 +952,20 @@ def _gated_at_live_data(plan, batch, reports):
                 4 * (g * n * dh + 2 * g * m * dh) + 4 * t * g * n * dh,
                 4 * n_live * n * m * dh,
                 library_ms=time_ms(lambda: torch.bmm(torch.bmm(q, k.transpose(1, 2)), v)
-                                   * scale))
+                                   * scale),
+                peak=F16_TC_FLOP_PER_S,
+                library_tc_ms=None if causal else library_tc_ms(
+                    q, k, v, scale, got.reshape(t * g, n, dh), "K9 at the live data"))
         k6_ms += time_ms(lambda: ssa_ops.packed_ssa_fwd(qw, kw, vw, t=t, scale=scale,
                                                         causal=causal))
         full_bound += bound_ms(4 * (g * n * dh + 2 * g * m * dh) + 4 * t * g * n * dh,
-                               4 * t * g * n * m * dh)[0]
+                               4 * t * g * n * m * dh, F16_TC_FLOP_PER_S)[0]
     log(f"K9 per forward at the live data: {rep.entry['ms']:.3f} ms ({len(calls['K9'])} "
         f"launches) vs K6 {k6_ms:.3f} ms on the same operands; {live_planes}/{all_planes} "
         f"(fold, plane) pairs live; bound {rep.entry['bound_ms']:.3f} ms for the live planes, "
         f"{full_bound:.3f} ms with nothing skipped")
-    log("  K8 library_ms is torch.matmul on the unpacked operand, K9's two torch.bmm")
+    log("  K8 library_ms is torch.matmul on the unpacked operand, K9's two torch.bmm "
+        "(library_tc_ms: two f16 torch.bmm with f32 output)")
 
 
 def _profile_forward(label, plan, batch):
@@ -885,6 +996,13 @@ def _profile_forward(label, plan, batch):
         f"{busy:.3f} ms of a {wall:.3f} ms profiled forward ({1 - busy / wall:.1%} idle); "
         "top: " + ", ".join(f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                             for e in top))
+    # the hand kernels' own device time, free of the launch gaps that
+    # back-to-back event timing of a short kernel includes
+    ns = "(anonymous namespace)::"
+    mine = [e for e in kernels if ns in e.key and e.key.split(ns)[0] in ("", "void ")]
+    log(f"  profile {label}, hand kernels' device time per forward: " + ", ".join(
+        f"{e.key.split(ns)[1].split('(')[0]} x{e.count} "
+        f"{e.self_device_time_total / 1e3:.3f} ms" for e in mine))
 
 
 def phase_model(dev, smi, reports):
@@ -1121,7 +1239,8 @@ def _profile_step(cfg, params, state, image, label):
         log("  profile train step: the profiler saw no device time")
         return
     categories = (("K1 lif_parallel_kernel", ("lif_parallel_kernel",)),
-                  ("K7 lif_bwd_kernel", ("lif_bwd_kernel",)), ("K3 ssa_kernel", ("ssa_kernel",)),
+                  ("K7 lif_bwd_kernel", ("lif_bwd_kernel",)),
+                  ("K3 ssa_tc_kernel", ("ssa_tc_kernel",)),
                   ("cuBLAS GEMM", ("gemm", "Gemm")),
                   ("cuDNN conv", ("cudnn", "conv", "dgrad", "wgrad", "implicit")),
                   ("max pool", ("max_pool", "MaxPool")), ("reductions", ("reduce_kernel",)),
@@ -1297,6 +1416,7 @@ def main() -> int:
     smi = phase_card_and_build()
     log("phase 2: kernels vs plain at the spike-iand-former-8-384 main path's shapes")
     reports = phase_kernels(dev, torch.Generator().manual_seed(0))
+    fail_if_any("phase 2")
     log(f"phase 3: serve the live {ARCH} on {', '.join(BACKENDS)}, "
         f"{REQUESTS // SLOTS} slot batches of {SLOTS} each")
     launches, forwards = phase_model(dev, smi, reports)

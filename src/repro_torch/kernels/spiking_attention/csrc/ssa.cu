@@ -1,155 +1,551 @@
 // Tick-batched softmax-free spiking self-attention: out = (q k^T) v * scale.
 //
-// Replaces: src/repro/kernels/spiking_attention/kernel.py::ssa_fwd
-//           (body ssa_kernel).
+// Three kernels, one per entry point:
 //
-// q: (G, N, D), k and v: (G, M, D), out: (G, N, D), G = T*B*H folds time,
-// batch and heads, so all T time steps ride one launch.  There is no softmax
-// (binary q, k, v give a non-negative score matrix); with causal != 0 the
-// scores of keys after the query are zeroed.
+//   ssa_fwd               dense f32 spikes        tensor cores (ssa_tc_kernel)
+//     Replaces: src/repro/kernels/spiking_attention/kernel.py::ssa_fwd
+//               (body ssa_kernel).
+//   sparse_packed_ssa_fwd packed words, gated     tensor cores (packed_ssa_tc_kernel)
+//     Replaces: src/repro/kernels/spiking_attention/kernel.py::sparse_packed_ssa_fwd
+//               (body sparse_packed_ssa_kernel).
+//   packed_ssa_fwd        packed words            SIMT f32 (packed_ssa_kernel)
+//     Replaces: src/repro/kernels/spiking_attention/kernel.py::packed_ssa_fwd
+//               (body packed_ssa_kernel).
 //
-// Bound on this card: operations.  At the main path's shape (G = 384,
-// N = M = 196, D = 32) the two products do 4*N*M*D flops per fold against
-// 16*N*D bytes moved, about 49 flops per byte, above the float32 balance.
+// Layouts.  Dense: q (G, N, D), k and v (G, M, D), out (G, N, D), G = T*B*H
+// folds time, batch and heads, so all T time steps ride one launch.  Packed:
+// q words (W, G, N, D), k and v words (W, G, M, D), G = B*H, bit t % 32 of
+// word t / 32 the spike at time step t -> out (T, G, N, D) f32.  There is no
+// softmax; with causal != 0 the scores of keys after the query (global
+// indices, key > query) are zeroed.  The gated kernel also takes a (G, T)
+// int32 liveness map, live[g][t] != 0 iff the q, k and v planes t of fold g
+// each carry a spike; a dead plane's output is zero.
 //
-// Design: one block per (fold g, tile of 32 queries).  The block stages its
-// query tile in shared memory once, then walks the keys in tiles of 64:
-// each tile of k and v is staged in shared memory, the 32 x 64 score tile is
-// computed into shared memory, and each thread adds its share of
-// score @ v_tile into f32 registers, written once at the end.  Tiling the
-// keys (instead of holding K and V of the fold whole, as the TPU kernel holds
-// them in VMEM) keeps shared memory fixed in N.  The k tile's rows are padded
-// by one float so the score loop, whose threads walk different keys at the
-// same feature, reads distinct banks.  Ragged N and M are masked: rows past
-// the operands load as zero (adding exactly 0) and are never stored.
-// For binary q, k, v the scores are integers <= D and the sums integers
-// <= M*D, exact in f32, so the result is bit-exact whatever the summation
-// order.
+// Operand contract and exactness.  q, k and v are spikes in {0, 1} (every
+// caller passes LIF outputs), D <= 128 and M*D < 2^24.  Then {0, 1} is exact
+// in f16; a score q.k is an integer <= D <= 128, exact in f16 (integers up to
+// 2048 are); every partial sum of S v is an integer <= M*D, exact in an f32
+// accumulator whatever the order of the tensor cores' additions; and the
+// final multiply by scale rounds once, as the plain version's does.  So the
+// f16 products with f32 accumulation below equal the plain f32 version bit for
+// bit.  Outside that contract (non-binary operands) the f16 rounding of the
+// operands and scores shows, and the result is not the plain version's.
 //
-// Packed variant, packed_ssa_fwd: q words (W, G, N, D), k and v words
-// (W, G, M, D), G = B*H, bit t % 32 of word t / 32 the spike at time step t
-// -> (T, G, N, D) f32.
+// Bound on this card: device bytes.  With binary operands the two products
+// run on the f16 tensor cores (989 TFLOP/s dense); at the main path's shape
+// (G = 384, N = M = 196, D = 32) a dense launch does 1.9 GFLOP (0.002 ms)
+// against 38.5 MB of f32 q, k, v and out (0.011 ms at 3.35 TB/s); a packed
+// launch moves 7.2 MB of words and 9.6 MB of f32 output (0.005 ms).
 //
-// Replaces: src/repro/kernels/spiking_attention/kernel.py::packed_ssa_fwd
-//           (body packed_ssa_kernel).
+// Tensor-core design (ssa_tc_kernel, packed_ssa_tc_kernel).  One block of W
+// warps per (fold g, tile of 16W query rows[, group of P planes]); warp w owns
+// query rows 16w..16w+15 of the tile and holds their A fragments in registers
+// for the whole key loop, loaded once straight from device memory (8-byte
+// pairs).  The block walks the keys in tiles of 64, staged in shared memory
+// by all its threads, and each warp walks a tile in chunks of 16 keys:
+//   S (16 x 16)  = Q (16 x Dp) K_chunk^T     mma.m16n8k16, Dp/16 k-steps x 2 n8 tiles
+//   O (16 x Dp) += S (16 x 16) V_chunk       mma.m16n8k16, Dp/8 n8 tiles
+// with Dp = D rounded up to 16, 32, 64 or 128 (features past D load as 0).
+// The m16n8k16 fragments (groupID g = lane / 4, t4 = lane % 4): A holds rows
+// g and g + 8 at columns 2*t4, 2*t4 + 1 (a0, a1) and those + 8 (a2, a3); B
+// holds column (n) g at rows (k) 2*t4, 2*t4 + 1 (b0) and those + 8 (b1); C
+// holds rows g (c0, c1) and g + 8 (c2, c3) at columns 2*t4, 2*t4 + 1.  So the
+// C fragments of S's two n8 tiles are, converted to f16 in registers, the A
+// fragment of the k16 step of S V (the FlashAttention-2 layout trick): S
+// never touches shared memory, and with no softmax nothing is rescaled.  The
+// causal mask zeroes S entries before that conversion; a warp stops at the
+// first chunk past its last query row, and the key loop ends at the tile's
+// last row.  Rows and features past the operands load as zeros (they add
+// exactly 0) and the stores are masked; the epilogue multiplies by scale and
+// stores float2 pairs where D is even.
 //
-// Bound on this card: operations, as the dense kernel (4*T*N*M*D); the
-// operands are read at 1/T of the dense kernel's bytes (T <= 32).
+// Dense (ssa_tc_kernel<Dp, W>): W = 16 warps past 64 tokens, so that a block
+// stages each key tile once for all of a fold's query rows (N = 196: one block
+// per fold, a quarter of the key and value reads of 64-row blocks), else W = 4.
+// k and v are read as f32 (float4 loads where D % 4 == 0 and the pointers are
+// 16-byte aligned), converted to f16 in registers (cp.async cannot convert) and
+// stored in shared memory rows padded by 8 halfs, so the 8 rows of an ldmatrix
+// phase land on distinct banks; K fragments come from ldmatrix, V's from
+// ldmatrix.trans.
 //
-// Design: the dense kernel's structure with a bitplane axis.  One block per
-// (fold g, tile of 32 queries, group of P consecutive time steps; P = 1, 2 or
-// 4 divides 32, so a group never straddles two words).  The q word tile is
-// staged once; the keys are walked in tiles of 32, each k and v word tile
-// staged in shared memory once and serving all P planes of the group.  A
-// score is a count: one AND of the q and k words per feature serves every
-// plane, and plane p adds bit p of it, so the P score tiles (integers <= D)
-// are exact.  Each thread adds its share of score @ v for all P planes into
-// P*16 f32 registers, with the v bit shifted out of the staged word.  The
-// causal mask is col <= row over global rows, as in the dense kernel.  T > 4
-// re-reads the word tiles once per group of P planes.  All sums are integers
-// below 2^24, so the result is bit-exact whatever the order.
+// Packed, gated (packed_ssa_tc_kernel<Dp, P, kGated>, W = 4 warps): the q words
+// and the k and v word tiles are read once per block and serve all P planes of
+// the group (P = 4, 4, 2, 1 for Dp = 16, 32, 64, 128, so that P q-fragment sets
+// and P output tiles fit in registers; P divides 32, so a group never straddles
+// two words).  Fragments are built straight from the bits: an f16 1.0 is
+// 0x3C00, so with the words of the two f16 lanes of a register merged as (w0 >>
+// bit0) & 0xFFFF | (w1 >> bit0) << 16, plane p's register is ((merged >> p) &
+// 0x00010001) * 0x3C00.  B of S (k, keys) reads a register's two words as one
+// 64-bit load from rows padded to Dp + 8 words; B of S V (v, two key rows per
+// register) reads two 32-bit words from rows padded to Dp + 4 words; both
+// paddings keep a warp's reads on distinct banks.  W = 4: at P = 4 a thread
+// holds ~160 registers, so that 4 warps a block keep three blocks resident on
+// an SM.  With kGated a block first reads its P liveness flags (the same in
+// every thread, so every branch on them is uniform): when all are dead it
+// writes its zero tiles and returns before it reads any word; in a live group a
+// dead plane's MMAs are skipped and it is written as zero.  A dead plane's
+// output is exactly zero in the ungated computation too (one of its two
+// products has an all-zero operand), so the result equals the packed kernel's
+// bit for bit.  kGated = false (every plane live) is not yet instantiated:
+// packed_ssa_fwd still runs the SIMT kernel below.
 //
-// Plane-gated variant, sparse_packed_ssa_fwd: the packed kernel with a
-// (G, T) int32 liveness map beside the words, live[g][t] != 0 iff the q, k
-// and v planes t of fold g each carry a spike.
-//
-// Replaces: src/repro/kernels/spiking_attention/kernel.py::sparse_packed_ssa_fwd
-//           (body sparse_packed_ssa_kernel).
-//
-// Bound on this card: operations, 4*T'*N*M*D with T' the live (fold, plane)
-// pairs.
-//
-// Design: a block reads the liveness of its P planes first (the same values
-// in every thread, so every branch below is uniform).  When all P are dead it
-// writes its zero output tiles and returns before it stages any word tile.
-// In a live group a dead plane skips its score counts and its score @ v
-// FMAs and is written as zero.  A dead plane's output is exactly zero in the
-// packed kernel too (one of its two products has an all-zero operand), and
-// live planes run the packed kernel's integer arithmetic, so the result
-// equals the packed kernel's bit for bit.
+// SIMT packed design (packed_ssa_kernel, bound there by shared-memory
+// traffic, not by the card): one block of 256 threads per (fold g, tile of 32
+// queries, group of P consecutive time steps; P = 1, 2 or 4 divides 32).  The
+// q word tile is staged once; the keys are walked in tiles of 32, each k and v
+// word tile staged in shared memory once and serving all P planes of the
+// group.  A score is a count: one AND of the q and k words per feature serves
+// every plane, and plane p adds bit p of it, so the P score tiles (integers
+// <= D) are exact.  Each thread adds its share of score @ v for all P planes
+// into P*16 f32 registers, with the v bit shifted out of the staged word.  The
+// causal mask is col <= row over global rows.  T > 4 re-reads the word tiles
+// once per group of P planes.  All sums are integers below 2^24, so the
+// result is bit-exact whatever the order.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 32, kBKV = 64, kThreads = 256, kMaxD = 128;
-constexpr int kOutPerThread = kBQ * kMaxD / kThreads;  // 16
+constexpr int kMaxD = 128;
 
-__host__ __device__ inline int smem_floats(int d) {
-  return kBQ * d + kBKV * (d + 1) + kBKV * d + kBQ * kBKV;
+// ---- tensor-core kernels ----------------------------------------------------
+
+constexpr int kPackedWarps = 4;  // warps of 16 query rows per block of the packed kernel
+constexpr int kKeys = 64;  // keys per staged tile
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kThreads)
-ssa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ out, int n, int m, int d,
-           float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ldk = d + 1;
-  float* qs = smem;               // [kBQ][d]
-  float* ks = qs + kBQ * d;       // [kBKV][d + 1]
-  float* vs = ks + kBKV * ldk;    // [kBKV][d]
-  float* ss = vs + kBKV * d;      // [kBQ][kBKV]
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const auto s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
 
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const auto s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t pack_half2(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The two f16 lanes' words of a register, shifted to the group's first bit:
+// plane p sits at bits p and 16 + p.
+__device__ __forceinline__ uint32_t merge_words(uint32_t w0, uint32_t w1, int bit0) {
+  return ((w0 >> bit0) & 0xFFFFu) | ((w1 >> bit0) << 16);
+}
+
+// Plane p of a merged register as f16 lanes: 1.0 (0x3C00) where the bit is set.
+__device__ __forceinline__ uint32_t plane_half2(uint32_t merged, int p) {
+  return ((merged >> p) & 0x00010001u) * 0x3C00u;
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ uint2 load2(const uint32_t* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+// Elements (row, f) and (row, f + 1) of a (rows, d) matrix, zero past it;
+// pair: one 8-byte load (d even, src 8-byte aligned).
+template <typename T>
+__device__ __forceinline__ void load_pair(T& x0, T& x1, const T* src, int row, int rows,
+                                          int f, int d, bool pair) {
+  x0 = x1 = T(0);
+  if (row >= rows || f >= d) return;
+  const T* p = src + static_cast<long long>(row) * d + f;
+  if (pair) {
+    const auto both = load2(p);
+    x0 = both.x;
+    x1 = both.y;
+  } else {
+    x0 = p[0];
+    if (f + 1 < d) x1 = p[1];
+  }
+}
+
+// S (two n8 tiles of one 16-key chunk) with the causal mask applied, as the
+// A fragment of the k16 step of S V.  Row of c0/c1: row0 + g, of c2/c3: + 8;
+// column of c0 in tile j: key0 + 8j + 2*t4.
+__device__ __forceinline__ void scores_to_a(uint32_t (&a)[4], float (&s)[2][4], bool causal,
+                                            int row0, int key0, int lane) {
+  if (causal) {
+    const int r = row0 + (lane >> 2), c = key0 + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (c + 8 * j + (e & 1) > r + 8 * (e >> 1)) s[j][e] = 0.0f;
+      }
+    }
+  }
+  a[0] = pack_half2(s[0][0], s[0][1]);
+  a[1] = pack_half2(s[0][2], s[0][3]);
+  a[2] = pack_half2(s[1][0], s[1][1]);
+  a[3] = pack_half2(s[1][2], s[1][3]);
+}
+
+// Rows row0 .. row0 + kKeys - 1 of a (rows_total, d) f32 matrix as f16 into
+// dst[kKeys][LD], zero past the matrix, by THREADS threads; vec: d % 4 == 0
+// and src 16-byte aligned.
+template <int DP, int LD, int THREADS>
+__device__ __forceinline__ void stage_f16(__half* dst, const float* src, int row0,
+                                          int rows_total, int d, bool vec) {
+  constexpr int kChunks = DP / 4;
+  for (int c = threadIdx.x; c < kKeys * kChunks; c += THREADS) {
+    const int r = c / kChunks, f = (c % kChunks) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row0 + r < rows_total && f < d) {
+      const float* p = src + static_cast<long long>(row0 + r) * d + f;
+      if (vec) {
+        x = *reinterpret_cast<const float4*>(p);
+      } else {
+        x.x = p[0];
+        if (f + 1 < d) x.y = p[1];
+        if (f + 2 < d) x.z = p[2];
+        if (f + 3 < d) x.w = p[3];
+      }
+    }
+    auto* o = reinterpret_cast<__half2*>(dst + r * LD + f);
+    o[0] = __floats2half2_rn(x.x, x.y);
+    o[1] = __floats2half2_rn(x.z, x.w);
+  }
+}
+
+// The same for (rows_total, d) words into dst[kKeys][LD] words.
+template <int DP, int LD, int THREADS>
+__device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, int row0,
+                                            int rows_total, int d, bool vec) {
+  constexpr int kChunks = DP / 4;
+  for (int c = threadIdx.x; c < kKeys * kChunks; c += THREADS) {
+    const int r = c / kChunks, f = (c % kChunks) * 4;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows_total && f < d) {
+      const uint32_t* p = src + static_cast<long long>(row0 + r) * d + f;
+      if (vec) {
+        x = *reinterpret_cast<const uint4*>(p);
+      } else {
+        x.x = p[0];
+        if (f + 1 < d) x.y = p[1];
+        if (f + 2 < d) x.z = p[2];
+        if (f + 3 < d) x.w = p[3];
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * LD + f) = x;
+  }
+}
+
+// One warp's 16 x Dp output tile, times scale, into og (n, d); pair: float2
+// stores (d even, og 8-byte aligned).
+template <int NT>
+__device__ __forceinline__ void store_tile(float* og, const float (&o)[NT][4], int row0, int n,
+                                           int d, float scale, bool pair, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int f = 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + (lane >> 2) + 8 * h;
+      if (row >= n || f >= d) continue;
+      float* p = og + static_cast<long long>(row) * d + f;
+      const float x0 = o[j][2 * h] * scale, x1 = o[j][2 * h + 1] * scale;
+      if (pair) {
+        *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+      } else {
+        p[0] = x0;
+        if (f + 1 < d) p[1] = x1;
+      }
+    }
+  }
+}
+
+// WARPS warps of 16 query rows each per block.
+template <int DP, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+ssa_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, int n, int m, int d,
+              float scale, int causal, int vec, int pair) {
+  constexpr int LD = DP + 8;   // halfs: 16-byte row pad, conflict-free ldmatrix
+  constexpr int KS = DP / 16;  // k16 steps of Q K^T
+  constexpr int NT = DP / 8;   // n8 tiles of O
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __half* ks = reinterpret_cast<__half*>(tc_smem);  // [kKeys][LD]
+  __half* vs = ks + kKeys * LD;                      // [kKeys][LD]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t4 = lane & 3;
   const long long g = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * 16 * WARPS;
+  const int row0 = q0 + 16 * warp;
   const float* qg = q + g * n * d;
   const float* kg = k + g * m * d;
   const float* vg = v + g * m * d;
 
-  for (int e = tid; e < kBQ * d; e += kThreads) {
-    const int r = e / d;
-    qs[e] = (q0 + r < n) ? qg[static_cast<long long>(q0 + r) * d + e % d] : 0.0f;
+  // A fragments of the warp's 16 query rows, straight from device memory:
+  // a_i holds row g (+8 for odd i) at features 16st + 2*t4 (+8 for i >= 2)
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int st = 0; st < KS; ++st) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x0, x1;
+      load_pair(x0, x1, qg, row0 + gid + 8 * (i & 1), n, 16 * st + 8 * (i >> 1) + 2 * t4, d,
+                vec);
+      qf[st][i] = pack_half2(x0, x1);
+    }
   }
 
-  float acc[kOutPerThread];
+  float o[NT][4];
 #pragma unroll
-  for (int l = 0; l < kOutPerThread; ++l) acc[l] = 0.0f;
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
 
-  const int kv_end = causal ? min(m, q0 + kBQ) : m;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBKV) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBKV * d; e += kThreads) {
-      const int r = e / d, f = e % d;
-      const bool in = kv0 + r < m;
-      const long long src = static_cast<long long>(kv0 + r) * d + f;
-      ks[r * ldk + f] = in ? kg[src] : 0.0f;
-      vs[e] = in ? vg[src] : 0.0f;
-    }
+  const int kv_end = causal ? min(m, q0 + 16 * WARPS) : m;
+  const int warp_end = row0 >= n ? 0 : causal ? min(kv_end, row0 + 16) : kv_end;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kKeys) {
+    __syncthreads();  // every warp is done with the previous tile
+    stage_f16<DP, LD, 32 * WARPS>(ks, kg, kv0, m, d, vec);
+    stage_f16<DP, LD, 32 * WARPS>(vs, vg, kv0, m, d, vec);
     __syncthreads();
-
-    for (int e = tid; e < kBQ * kBKV; e += kThreads) {
-      const int i = e / kBKV, j = e % kBKV;
-      float s = 0.0f;
-      for (int f = 0; f < d; ++f) s = fmaf(qs[i * d + f], ks[j * ldk + f], s);
-      if (causal && kv0 + j > q0 + i) s = 0.0f;
-      ss[e] = s;
-    }
-    __syncthreads();
-
 #pragma unroll
-    for (int l = 0; l < kOutPerThread; ++l) {
-      const int e = tid + l * kThreads;
-      if (e < kBQ * d) {
-        const int i = e / d, f = e % d;
-        float a = acc[l];
-        for (int j = 0; j < kBKV; ++j) a = fmaf(ss[i * kBKV + j], vs[j * d + f], a);
-        acc[l] = a;
+    for (int c = 0; c < kKeys / 16; ++c) {
+      const int key0 = kv0 + 16 * c;
+      if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
+      float s[2][4] = {};
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        uint32_t b[4];  // keys 16c + (0..7 | 8..15) x features 16st + (0..7 | 8..15)
+        ldsm_x4(b, ks + (16 * c + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * st +
+                       8 * ((lane >> 3) & 1));
+        mma_16816(s[0], qf[st], b[0], b[1]);
+        mma_16816(s[1], qf[st], b[2], b[3]);
+      }
+      uint32_t a[4];
+      scores_to_a(a, s, causal, row0, key0, lane);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t b[4];  // V rows 16c + (0..7 | 8..15), features 16j + (0..7 | 8..15)
+        ldsm_x4_trans(b, vs + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 16 * j +
+                             8 * (lane >> 4));
+        mma_16816(o[2 * j], a, b[0], b[1]);
+        mma_16816(o[2 * j + 1], a, b[2], b[3]);
       }
     }
   }
+  store_tile<NT>(out + g * n * d, o, row0, n, d, scale, pair, lane);
+}
 
-  float* og = out + g * n * d;
+template <int DP>
+__host__ __device__ constexpr int planes_per_block() {
+  return DP <= 32 ? 4 : DP == 64 ? 2 : 1;
+}
+
+template <int DP>
+__host__ __device__ constexpr int packed_tc_smem_bytes() {
+  return 4 * kKeys * ((DP + 8) + (DP + 4));
+}
+
+// kPackedWarps warps of 16 query rows each and P planes (P divides 32) per
+// block.  kGated: live holds the (G, T) plane liveness, and dead planes are
+// skipped; otherwise live is unused and every plane is computed.
+template <int DP, int P, bool kGated>
+__global__ void __launch_bounds__(32 * kPackedWarps)
+packed_ssa_tc_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ kw,
+                     const uint32_t* __restrict__ vw, const int* __restrict__ live,
+                     float* __restrict__ out, int g_total, int n, int m, int d, int t_total,
+                     float scale, int causal, int vec, int pair) {
+  constexpr int LDK = DP + 8;  // words: 64-bit reads of rows g at 8-bank steps
+  constexpr int LDV = DP + 4;  // words: 32-bit reads of rows 2*t4 (+1) at 8-bank steps
+  constexpr int KS = DP / 16;
+  constexpr int NT = DP / 8;
+  constexpr int WARPS = kPackedWarps;
+  extern __shared__ __align__(16) uint32_t tc_words[];
+  uint32_t* ks = tc_words;          // [kKeys][LDK]
+  uint32_t* vs = ks + kKeys * LDK;  // [kKeys][LDV]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const long long g = blockIdx.x;
+  const int q0 = blockIdx.y * 16 * WARPS;
+  const int row0 = q0 + 16 * warp;
+  const int p0 = blockIdx.z * P, bit0 = p0 & 31;
+  const long long plane = static_cast<long long>(p0 >> 5) * g_total + g;  // (word, fold)
+  const uint32_t* qg = qw + plane * n * d;
+  const uint32_t* kg = kw + plane * m * d;
+  const uint32_t* vg = vw + plane * m * d;
+
+  unsigned live_mask = 0u;  // bit p: plane p0 + p is computed
 #pragma unroll
-  for (int l = 0; l < kOutPerThread; ++l) {
-    const int e = tid + l * kThreads;
-    if (e < kBQ * d && q0 + e / d < n) {
-      og[static_cast<long long>(q0 + e / d) * d + e % d] = acc[l] * scale;
+  for (int p = 0; p < P; ++p) {
+    if (p0 + p < t_total && (!kGated || live[g * t_total + p0 + p] != 0)) live_mask |= 1u << p;
+  }
+  if (live_mask == 0u) {  // every plane of the group is dead: zeros, no staging
+    const int count = min(16 * WARPS, n - q0) * d;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (p0 + p >= t_total) break;
+      float* og = out + ((static_cast<long long>(p0 + p) * g_total + g) * n + q0) * d;
+      for (int e = threadIdx.x; e < count; e += 32 * WARPS) og[e] = 0.0f;
     }
+    return;
+  }
+
+  // A fragments of every plane, straight from the warp's q words
+  uint32_t qf[P][KS][4];
+#pragma unroll
+  for (int st = 0; st < KS; ++st) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a_i: row g (+8 for odd i), features +8 for i >= 2
+      uint32_t w0, w1;
+      load_pair(w0, w1, qg, row0 + gid + 8 * (i & 1), n, 16 * st + 8 * (i >> 1) + 2 * t4, d,
+                vec);
+      const uint32_t merged = merge_words(w0, w1, bit0);
+#pragma unroll
+      for (int p = 0; p < P; ++p) qf[p][st][i] = plane_half2(merged, p);
+    }
+  }
+
+  float o[P][NT][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) o[p][j][0] = o[p][j][1] = o[p][j][2] = o[p][j][3] = 0.0f;
+
+  const int kv_end = causal ? min(m, q0 + 16 * WARPS) : m;
+  const int warp_end = row0 >= n ? 0 : causal ? min(kv_end, row0 + 16) : kv_end;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kKeys) {
+    __syncthreads();  // every warp is done with the previous tile
+    stage_words<DP, LDK, 32 * WARPS>(ks, kg, kv0, m, d, vec);
+    stage_words<DP, LDV, 32 * WARPS>(vs, vg, kv0, m, d, vec);
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kKeys / 16; ++c) {
+      const int key0 = kv0 + 16 * c;
+      if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
+      float s[P][2][4] = {};
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        uint32_t kb[2][2];  // n8 tile j (keys 16c + 8j + g), b0/b1 (features +0 / +8)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint2 w = *reinterpret_cast<const uint2*>(
+                ks + (16 * c + 8 * j + gid) * LDK + 16 * st + 8 * h + 2 * t4);
+            kb[j][h] = merge_words(w.x, w.y, bit0);
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (!((live_mask >> p) & 1u)) continue;
+          mma_16816(s[p][0], qf[p][st], plane_half2(kb[0][0], p), plane_half2(kb[0][1], p));
+          mma_16816(s[p][1], qf[p][st], plane_half2(kb[1][0], p), plane_half2(kb[1][1], p));
+        }
+      }
+      uint32_t a[P][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p) scores_to_a(a[p], s[p], causal, row0, key0, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t vb[2];  // b0/b1: keys 16c + 2*t4 (+1), and + 8; feature 8j + g
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t* r = vs + (16 * c + 8 * h + 2 * t4) * LDV + 8 * j + gid;
+          vb[h] = merge_words(r[0], r[LDV], bit0);
+        }
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (!((live_mask >> p) & 1u)) continue;
+          mma_16816(o[p][j], a[p], plane_half2(vb[0], p), plane_half2(vb[1], p));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (p0 + p >= t_total) break;
+    store_tile<NT>(out + (static_cast<long long>(p0 + p) * g_total + g) * n * d, o[p], row0, n,
+                   d, scale, pair, lane);
   }
 }
 
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// Dynamic shared memory above 48 KB needs the kernel's opt-in first.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int DP, int WARPS>
+int launch_dense(const float* q, const float* k, const float* v, float* out, int g, int n,
+                 int m, int d, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = 2 * kKeys * (DP + 8) * sizeof(__half);
+  const cudaError_t err = allow_smem(ssa_tc_kernel<DP, WARPS>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = d % 4 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16);
+  const int pair = d % 2 == 0 && aligned(out, 8);
+  const dim3 grid(static_cast<unsigned>(g),
+                  static_cast<unsigned>((n + 16 * WARPS - 1) / (16 * WARPS)));
+  ssa_tc_kernel<DP, WARPS><<<grid, 32 * WARPS, smem, stream>>>(q, k, v, out, n, m, d, scale,
+                                                               causal, vec, pair);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Past 64 tokens the dense kernel's block covers 256 query rows (16 warps), so
+// that a block stages a fold's keys once for all its rows (the ImageNet
+// configs' 196 tokens).  Up to 64 tokens (the CIFAR configs) a block of 4
+// warps holds every row and eight such blocks fit an SM against two of 16
+// warps: at G = 384, N = 64, Dh = 32 (slot batch 8) they take 4.7 us of device
+// time against 6.0 us on an H100 (src/repro_torch/launch/timing.py).
+template <int DP>
+int launch_dense_rows(const float* q, const float* k, const float* v, float* out, int g, int n,
+                      int m, int d, float scale, int causal, cudaStream_t stream) {
+  if (n <= 64) return launch_dense<DP, 4>(q, k, v, out, g, n, m, d, scale, causal, stream);
+  return launch_dense<DP, 16>(q, k, v, out, g, n, m, d, scale, causal, stream);
+}
+
+template <int DP, bool kGated>
+int launch_packed_tc(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
+                     const int* live, float* out, int g, int n, int m, int d, int t_total,
+                     float scale, int causal, cudaStream_t stream) {
+  constexpr int P = planes_per_block<DP>();
+  const size_t smem = packed_tc_smem_bytes<DP>();
+  const cudaError_t err = allow_smem(packed_ssa_tc_kernel<DP, P, kGated>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = d % 4 == 0 && aligned(qw, 16) && aligned(kw, 16) && aligned(vw, 16);
+  const int pair = d % 2 == 0 && aligned(out, 8);
+  const dim3 grid(static_cast<unsigned>(g),
+                  static_cast<unsigned>((n + 16 * kPackedWarps - 1) / (16 * kPackedWarps)),
+                  static_cast<unsigned>((t_total + P - 1) / P));
+  packed_ssa_tc_kernel<DP, P, kGated><<<grid, 32 * kPackedWarps, smem, stream>>>(
+      qw, kw, vw, live, out, g, n, m, d, t_total, scale, causal, vec, pair);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- SIMT packed kernel (packed_ssa_fwd) --------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kOutPerThread = 32 * kMaxD / kThreads;  // 16
 constexpr int kPBQ = 32, kPBKV = 32;
 
 template <int P>
@@ -157,14 +553,11 @@ __host__ __device__ inline int packed_smem_bytes(int d) {
   return 4 * (kPBQ * d + kPBKV * (d + 1) + kPBKV * d + P * kPBQ * kPBKV);
 }
 
-// kGated: live holds the (G, T) plane liveness, and dead planes are skipped;
-// otherwise live is unused.
-template <int P, bool kGated>
+template <int P>
 __global__ void __launch_bounds__(kThreads)
 packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ kw,
-                  const uint32_t* __restrict__ vw, const int* __restrict__ live,
-                  float* __restrict__ out, int g_total, int n, int m, int d, int t_total,
-                  float scale, int causal) {
+                  const uint32_t* __restrict__ vw, float* __restrict__ out, int g_total, int n,
+                  int m, int d, int t_total, float scale, int causal) {
   extern __shared__ uint32_t psmem[];
   const int ldk = d + 1;
   uint32_t* qs = psmem;             // [kPBQ][d] words
@@ -181,26 +574,6 @@ packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ 
   const uint32_t* qg = qw + plane * n * d;
   const uint32_t* kg = kw + plane * m * d;
   const uint32_t* vg = vw + plane * m * d;
-
-  unsigned live_mask = (1u << P) - 1u;  // bit p: plane p0 + p is computed
-  if (kGated) {
-    live_mask = 0u;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if (p0 + p < t_total && live[g * t_total + p0 + p] != 0) live_mask |= 1u << p;
-    }
-    if (live_mask == 0u) {  // every plane of the group is dead: zeros, no staging
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (p0 + p >= t_total) break;
-        float* og = out + (static_cast<long long>(p0 + p) * g_total + g) * n * d;
-        for (int e = tid; e < kPBQ * d; e += kThreads) {
-          if (q0 + e / d < n) og[static_cast<long long>(q0 + e / d) * d + e % d] = 0.0f;
-        }
-      }
-      return;
-    }
-  }
 
   for (int e = tid; e < kPBQ * d; e += kThreads) {
     const int r = e / d;
@@ -233,9 +606,7 @@ packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ 
       for (int f = 0; f < d; ++f) {
         const uint32_t both = (qs[i * d + f] & ks[j * ldk + f]) >> bit0;
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          if ((live_mask >> p) & 1u) cnt[p] += static_cast<int>((both >> p) & 1u);
-        }
+        for (int p = 0; p < P; ++p) cnt[p] += static_cast<int>((both >> p) & 1u);
       }
       const bool masked = causal && kv0 + j > q0 + i;
 #pragma unroll
@@ -254,10 +625,8 @@ packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ 
           const uint32_t vbits = vs[j * d + f] >> bit0;
 #pragma unroll
           for (int p = 0; p < P; ++p) {
-            if ((live_mask >> p) & 1u) {
-              acc[p][l] = fmaf(ss[(p * kPBQ + i) * kPBKV + j],
-                               static_cast<float>((vbits >> p) & 1u), acc[p][l]);
-            }
+            acc[p][l] = fmaf(ss[(p * kPBQ + i) * kPBKV + j],
+                             static_cast<float>((vbits >> p) & 1u), acc[p][l]);
           }
         }
       }
@@ -279,42 +648,18 @@ packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ 
   }
 }
 
-template <int P, bool kGated>
-int launch_packed(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
-                  const int* live, float* out, int g, int n, int m, int d, int t_total,
-                  float scale, int causal, cudaStream_t stream) {
+template <int P>
+int launch_packed(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw, float* out,
+                  int g, int n, int m, int d, int t_total, float scale, int causal,
+                  cudaStream_t stream) {
   const size_t smem = packed_smem_bytes<P>(d);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        packed_ssa_kernel<P, kGated>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem(packed_ssa_kernel<P>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(g), static_cast<unsigned>((n + kPBQ - 1) / kPBQ),
                   static_cast<unsigned>((t_total + P - 1) / P));
-  packed_ssa_kernel<P, kGated><<<grid, kThreads, smem, stream>>>(
-      qw, kw, vw, live, out, g, n, m, d, t_total, scale, causal);
+  packed_ssa_kernel<P><<<grid, kThreads, smem, stream>>>(qw, kw, vw, out, g, n, m, d, t_total,
+                                                         scale, causal);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kGated>
-int launch_packed_steps(const void* qw, const void* kw, const void* vw, const void* live,
-                        void* out, int g, int n, int m, int d, int t_total, float scale,
-                        int causal, void* stream) {
-  if (d > kMaxD || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* q = static_cast<const uint32_t*>(qw);
-  const auto* k = static_cast<const uint32_t*>(kw);
-  const auto* v = static_cast<const uint32_t*>(vw);
-  const auto* lv = static_cast<const int*>(live);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (t_total == 1) {
-    return launch_packed<1, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  }
-  if (t_total == 2) {
-    return launch_packed<2, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  }
-  return launch_packed<4, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
 }
 
 }  // namespace
@@ -322,8 +667,15 @@ int launch_packed_steps(const void* qw, const void* kw, const void* vw, const vo
 extern "C" int packed_ssa_fwd(const void* qw, const void* kw, const void* vw, void* out,
                               int g, int n, int m, int d, int t_total, float scale,
                               int causal, void* stream) {
-  return launch_packed_steps<false>(qw, kw, vw, nullptr, out, g, n, m, d, t_total, scale,
-                                    causal, stream);
+  if (d > kMaxD || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* q = static_cast<const uint32_t*>(qw);
+  const auto* k = static_cast<const uint32_t*>(kw);
+  const auto* v = static_cast<const uint32_t*>(vw);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (t_total == 1) return launch_packed<1>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
+  if (t_total == 2) return launch_packed<2>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
+  return launch_packed<4>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
 }
 
 // live: (g, t_total) int32, nonzero where plane t of fold g is live.
@@ -331,24 +683,31 @@ extern "C" int sparse_packed_ssa_fwd(const void* qw, const void* kw, const void*
                                      const void* live, void* out, int g, int n, int m,
                                      int d, int t_total, float scale, int causal,
                                      void* stream) {
-  return launch_packed_steps<true>(qw, kw, vw, live, out, g, n, m, d, t_total, scale,
-                                   causal, stream);
+  if (d > kMaxD || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* q = static_cast<const uint32_t*>(qw);
+  const auto* k = static_cast<const uint32_t*>(kw);
+  const auto* v = static_cast<const uint32_t*>(vw);
+  const auto* lv = static_cast<const int*>(live);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (d <= 16) return launch_packed_tc<16, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 32) return launch_packed_tc<32, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 64) return launch_packed_tc<64, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  return launch_packed_tc<128, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
 }
 
 extern "C" int ssa_fwd(const void* q, const void* k, const void* v, void* out, int g,
                        int n, int m, int d, float scale, int causal, void* stream) {
   if (d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * smem_floats(d);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(static_cast<unsigned>(g), static_cast<unsigned>((n + kBQ - 1) / kBQ));
-  ssa_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), n, m, d, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (d <= 16) return launch_dense_rows<16>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  if (d <= 32) return launch_dense_rows<32>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  if (d <= 64) return launch_dense_rows<64>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  return launch_dense_rows<128>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

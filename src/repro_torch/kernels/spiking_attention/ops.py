@@ -11,6 +11,12 @@ into (W, G, N, Dh); all make the operands contiguous: the head split hands
 over a transposed view, and the kernels assume a dense layout.  Ragged token
 counts are masked in the kernels, so nothing is padded.
 
+Operand contract of the kernels: q, k and v are spikes in {0, 1} (every
+caller passes LIF outputs), Dh <= 128 and M * Dh < 2^24.  :func:`ssa_fwd`
+and :func:`sparse_packed_ssa_fwd` run both products on the f16 tensor cores
+with f32 accumulation, which is exact there (scores are integers <= 128,
+sums integers < 2^24), so they equal the plain f32 versions bit for bit.
+
 :func:`ssa_op` is differentiable on both devices (:class:`_SsaOp`): the
 forward is :func:`ssa_fwd`, the backward the three bilinear contractions of
 :func:`ssa_ref`'s VJP on ``torch.bmm`` -- the JAX package, too, runs that
@@ -29,7 +35,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.spiking_attention.ref import (
     packed_ssa_ref, sparse_packed_ssa_ref, ssa_ref)
 
-MAX_HEAD_DIM = 128   # the kernel's register tile (kMaxD in ssa.cu)
+MAX_HEAD_DIM = 128   # the kernels' widest register tile (kMaxD in ssa.cu)
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -43,7 +49,19 @@ _SPARSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
 
 def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
             causal: bool = False) -> torch.Tensor:
-    """q (G, N, D), k/v (G, M, D) -> (G, N, D); no zero-sized dims."""
+    """q (G, N, D), k/v (G, M, D) f32 spikes in {0, 1} -> (G, N, D); no
+    zero-sized dims, D <= 128.
+
+    Replaces the TPU kernel ``repro.kernels.spiking_attention.kernel.ssa_fwd``.
+    On the card: ``ssa_tc_kernel``, one block of 16 warps (16 query rows
+    each; 4 warps up to 64 tokens) per fold and query tile, so that a
+    196-token fold is one block; q, k, v read as f32 and converted to f16
+    (k and v through shared memory), both products on
+    ``mma.sync.m16n8k16`` with f32 accumulators, S handed from the C to the
+    A fragment in registers.  Bound by device bytes (q, k, v read and out
+    written once).  Exact while the operands are binary and M * D < 2^24:
+    f16 holds 0/1 and every score (<= 128), f32 every partial sum, so the
+    result equals :func:`ssa_ref` bit for bit."""
     g, n, d = q.shape
     m = k.shape[1]
     if k.shape != (g, m, d) or v.shape != (g, m, d):
@@ -51,9 +69,9 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.device.type == "cpu":
         return ssa_ref(q, k, v, scale=scale, causal=causal)
-    _build.check_operands("ssa_fwd", *((x, torch.float32) for x in (q, k, v)))
     if d > MAX_HEAD_DIM:
         raise ValueError(f"ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
+    _build.check_operands("ssa_fwd", *((x, torch.float32) for x in (q, k, v)))
     out = torch.empty_like(q)
     fn = _build.kernel("ssa", "ssa_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
@@ -76,9 +94,9 @@ def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: i
     m = kw.shape[2]
     if qw.device.type == "cpu":
         return packed_ssa_ref(qw, kw, vw, t=t, scale=scale, causal=causal)
-    _build.check_operands("packed_ssa_fwd", *((x, torch.int32) for x in (qw, kw, vw)))
     if d > MAX_HEAD_DIM:
         raise ValueError(f"packed_ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
+    _build.check_operands("packed_ssa_fwd", *((x, torch.int32) for x in (qw, kw, vw)))
     out = torch.empty((t, g, n, d), dtype=torch.float32, device=qw.device)
     fn = _build.kernel("ssa", "packed_ssa_fwd", _PACKED_ARGTYPES)
     with torch.cuda.device(qw.device):
@@ -107,7 +125,19 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
                           causal: bool = False) -> torch.Tensor:
     """:func:`packed_ssa_fwd` with a (G, T) int32 plane liveness ``live``:
     output plane t of fold g is computed only where ``live[g, t]`` is
-    nonzero and is zero elsewhere; no zero-sized dims."""
+    nonzero and is zero elsewhere; no zero-sized dims, D <= 128.
+
+    Replaces the TPU kernel
+    ``repro.kernels.spiking_attention.kernel.sparse_packed_ssa_fwd``.  On the
+    card: ``packed_ssa_tc_kernel<Dp, P, kGated=true>``, one block of four
+    warps per (fold, 64 query rows, P planes of one word); the words are
+    read once for all P planes, each plane's f16 fragments are built
+    straight from the bits (1.0 is 0x3C00), and both products run on
+    ``mma.sync.m16n8k16`` with f32 accumulators.  A block whose P planes are
+    all dead writes zeros without staging.  Bound by device bytes (the words
+    read and the f32 output written once).  Exact for any words with
+    M * D < 2^24 (bits are 0/1, scores <= 128), so the result equals
+    :func:`packed_ssa_fwd` and :func:`sparse_packed_ssa_ref` bit for bit."""
     _check_packed("sparse packed ssa", qw, kw, vw, t)
     w, g, n, d = qw.shape
     m = kw.shape[2]
@@ -115,10 +145,10 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         raise ValueError(f"plane liveness {tuple(live.shape)} != {(g, t)}")
     if qw.device.type == "cpu":
         return sparse_packed_ssa_ref(qw, kw, vw, live, t=t, scale=scale, causal=causal)
-    _build.check_operands("sparse_packed_ssa_fwd", *((x, torch.int32)
-                                                      for x in (qw, kw, vw, live)))
     if d > MAX_HEAD_DIM:
         raise ValueError(f"sparse_packed_ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
+    _build.check_operands("sparse_packed_ssa_fwd", *((x, torch.int32)
+                                                      for x in (qw, kw, vw, live)))
     out = torch.empty((t, g, n, d), dtype=torch.float32, device=qw.device)
     fn = _build.kernel("ssa", "sparse_packed_ssa_fwd", _SPARSE_ARGTYPES)
     with torch.cuda.device(qw.device):

@@ -1,0 +1,136 @@
+"""Time one checkout of the port, so that two checkouts can be compared in
+turns within one run on the card.
+
+Two measurements:
+
+``train``  SGD steps of ``train_spikformer`` (the kernel route) after
+           ``--warmup`` steps: each step on the host clock, ending in a
+           device sync; prints the median, the quartiles, the mean and the
+           extremes.
+``ssa``    the dense SSA entry point ``ssa_fwd`` on random binary operands
+           of shape (G, N, Dh): held ``torch.equal`` to its plain version,
+           then CUDA events over back-to-back calls (as ``chip_smoke.py``
+           times a kernel) and the device time per launch of the kernels
+           the call runs under ``torch.profiler``.
+
+Run it as a file, so that ``--src`` decides which checkout's
+``repro_torch`` is imported (another checkout's ``src`` directory, or by
+default the one holding this file)::
+
+    python src/repro_torch/launch/timing.py train --steps 20
+    python src/repro_torch/launch/timing.py --src ../other/src ssa --g 384 --n 64 --dh 32
+
+Every line printed starts with ``[timing]`` and names the ``repro_torch``
+it ran.  It runs on the card unless ``--device cpu`` asks for the host.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+
+def spread(xs: list[float]) -> dict[str, float]:
+    """Median, quartiles (``statistics.quantiles``, exclusive method),
+    mean and extremes of ``xs``."""
+    q1, med, q3 = statistics.quantiles(xs, n=4) if len(xs) > 1 else (xs[0],) * 3
+    return {"median": med, "q1": q1, "q3": q3, "mean": statistics.fmean(xs),
+            "min": min(xs), "max": max(xs)}
+
+
+def time_train(arch: str, steps: int, warmup: int, batch: int, device) -> dict[str, float]:
+    """ms per SGD step of ``train_spikformer`` on ``arch``, over the
+    ``steps`` after the first ``warmup``."""
+    from repro_torch.launch.train import train_spikformer
+
+    out = train_spikformer(arch, steps=warmup + steps, batch=batch, device=device,
+                           eval_batches=0, verbose=False)
+    return spread(out["step_ms"][warmup:])
+
+
+def time_ssa(g: int, n: int, dh: int, reps: int, device) -> dict[str, float | None]:
+    """``ssa_fwd`` on binary (g, n, dh) operands: ``events_ms`` (CUDA events
+    over ``reps`` back-to-back calls after 3 warm-ups; host clock on the
+    CPU) and ``device_ms`` (device time per call under ``torch.profiler``,
+    None on the CPU)."""
+    from repro_torch.kernels.spiking_attention import ops
+    from repro_torch.kernels.spiking_attention.ref import ssa_ref
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = ((torch.rand((g, n, dh), generator=gen) > 0.5).float().to(device)
+               for _ in range(3))
+    run = lambda: ops.ssa_fwd(q, k, v, scale=0.125)
+    if not torch.equal(run(), ssa_ref(q, k, v, scale=0.125)):
+        raise AssertionError("ssa_fwd differs from its plain version")
+    for _ in range(3):
+        run()
+    if q.device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        return {"events_ms": 1e3 * (time.perf_counter() - t0) / reps, "device_ms": None}
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    events_ms = start.elapsed_time(end) / reps
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and "ssa" in e.key)
+    return {"events_ms": events_ms, "device_ms": device_us / 1e3 / reps or None}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
+                    help="the src directory whose repro_torch is timed")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' times the plain versions)")
+    sub = ap.add_subparsers(dest="what", required=True)
+    tr = sub.add_parser("train", help="ms per SGD step")
+    tr.add_argument("--arch", default="spike-iand-former-8-384")
+    tr.add_argument("--steps", type=int, default=20)
+    tr.add_argument("--warmup", type=int, default=2)
+    tr.add_argument("--batch", type=int, default=16)
+    ss = sub.add_parser("ssa", help="ms per ssa_fwd call")
+    ss.add_argument("--g", type=int, default=384)
+    ss.add_argument("--n", type=int, default=196)
+    ss.add_argument("--dh", type=int, default=32)
+    ss.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+
+    sys.path.insert(0, args.src)
+    import repro_torch
+    from repro_torch.engine.plan import resolve_device
+
+    dev = resolve_device(args.device)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    head = f"[timing] {Path(repro_torch.__file__).parent} on {where}:"
+    if args.what == "train":
+        s = time_train(args.arch, args.steps, args.warmup, args.batch, dev)
+        print(f"{head} train {args.arch} batch {args.batch}, {args.steps} steps after "
+              f"{args.warmup} warm-up: ms per step " + ", ".join(f"{k} {v:.3f}"
+                                                                 for k, v in s.items()))
+    else:
+        s = time_ssa(args.g, args.n, args.dh, args.reps, dev)
+        dev_ms = "not measured" if s["device_ms"] is None else f"{s['device_ms']:.5f}"
+        print(f"{head} ssa_fwd G={args.g} N={args.n} Dh={args.dh}: torch.equal the plain "
+              f"version; ms per call: events {s['events_ms']:.5f}, device {dev_ms}")
+
+
+if __name__ == "__main__":
+    main()

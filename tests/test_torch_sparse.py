@@ -22,6 +22,7 @@ from repro_torch.core import spiking_attention as tsa
 from repro_torch.kernels.lif_parallel import ops as tlops
 from repro_torch.kernels.spike_matmul import ops as tmops
 from repro_torch.kernels.spiking_attention import ops as tsops
+from repro_torch.kernels.spiking_attention.ref import sparse_packed_ssa_ref
 
 torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
 
@@ -398,17 +399,41 @@ def test_sparse_packed_matmul_kernel_vs_packed_kernel_on_card(card, m, k, c, t, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("share", DEAD)
-@pytest.mark.parametrize("shape,t,causal", [
-    ((1, 2, 13, 16), 4, False), ((2, 12, 196, 32), 4, True), ((1, 3, 33, 8), 1, False),
-    ((1, 2, 70, 128), 4, False), ((1, 1, 40, 64), 33, True), ((2, 2, 65, 48), 2, False),
+@pytest.mark.parametrize("shape,t,causal,m,ones", [
+    ((1, 2, 13, 16), 4, False, None, False), ((2, 12, 196, 32), 4, True, None, False),
+    ((1, 3, 33, 8), 1, False, None, False), ((1, 2, 70, 128), 4, False, None, False),
+    ((1, 1, 40, 64), 33, True, None, False), ((2, 2, 65, 48), 2, False, None, False),
+    ((1, 3, 33, 13), 4, False, None, False), ((1, 3, 33, 13), 4, True, None, False),
+    ((1, 2, 49, 20), 4, True, None, False), ((1, 2, 1, 20), 4, False, None, False),  # N = M = 1
+    ((1, 2, 1, 20), 2, True, None, False),
+    ((1, 2, 57, 20), 4, False, 40, False), ((1, 2, 57, 20), 4, True, 40, False),     # N != M
+    ((1, 2, 40, 20), 4, True, 57, False),
+    ((1, 2, 40, 32), 33, True, None, False), ((1, 2, 40, 32), 40, True, None, False),
+    ((1, 2, 40, 32), 40, False, None, False),
+    ((1, 4, 196, 128), 4, False, None, True), ((1, 4, 196, 128), 4, True, None, True),
 ])
-def test_sparse_packed_ssa_kernel_vs_packed_kernel_on_card(card, shape, t, causal, share):
-    qw = _dead_planes(_words(1, t, shape), t, share, 2).to(card)
-    kw, vw = (_words(s, t, shape).to(card) for s in (3, 4))
+def test_sparse_packed_ssa_kernel_vs_packed_kernel_on_card(card, shape, t, causal, m, ones,
+                                                          share):
+    """The tensor-core gated kernel equals the SIMT packed kernel and the
+    plain version bit for bit; all ones at Dh=128 give the largest scores
+    and sums."""
+    kv_shape = shape[:2] + (m or shape[2], shape[3])
+    qw = _words(1, t, shape)
+    kw, vw = _words(3, t, kv_shape), _words(4, t, kv_shape)
+    if ones:
+        qw, kw, vw = (tpk.pack(torch.ones((t,) + x.shape[1:])).words for x in (qw, kw, vw))
+    qw = _dead_planes(qw, t, share, 2).to(card)
+    kw, vw = kw.to(card), vw.to(card)
     before = tsops.sparse_packed_ssa_fwd.launches
     got = tsops.sparse_packed_ssa_op(qw, kw, vw, t=t, causal=causal)
     torch.cuda.synchronize()
     assert tsops.sparse_packed_ssa_fwd.launches == before + 1
     assert torch.equal(got, tsops.packed_ssa_op(qw, kw, vw, t=t, causal=causal))
-    dense = [tpk.unpack(tpk.PackedSpikes(x, t)) for x in (qw, kw, vw)]
-    assert torch.equal(got, tsa.ssa(*dense, causal=causal))
+    fold = lambda x: x.reshape((x.shape[0], -1) + tuple(x.shape[3:]))
+    qf, kf, vf = fold(qw), fold(kw), fold(vw)
+    want = sparse_packed_ssa_ref(qf, kf, vf, tsops._plane_liveness(qf, kf, vf, t), t=t,
+                                 scale=0.125, causal=causal)
+    assert torch.equal(got, want.reshape(got.shape))
+    if m is None:
+        dense = [tpk.unpack(tpk.PackedSpikes(x, t)) for x in (qw, kw, vw)]
+        assert torch.equal(got, tsa.ssa(*dense, causal=causal))

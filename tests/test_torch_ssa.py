@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core import spiking_attention as tsa
 from repro_torch.kernels.spiking_attention import ops as tops
+from repro_torch.kernels.spiking_attention.ref import ssa_ref
 
 torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
 
@@ -76,18 +77,36 @@ def test_ssa_op_takes_head_split_views():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,causal", [
-    (SHAPE, False), (SHAPE, True), ((4, 2, 12, 196, 32), False),
-    ((4, 2, 12, 196, 32), True), ((2, 1, 3, 33, 8), False), ((1, 2, 2, 65, 48), True),
-    ((1, 1, 2, 70, 128), False),   # Dh=128: the shared-memory opt-in above 48 KB
+@pytest.mark.parametrize("shape,m,causal,ones", [
+    (SHAPE, None, False, False), (SHAPE, None, True, False),
+    ((4, 2, 12, 196, 32), None, False, False), ((4, 2, 12, 196, 32), None, True, False),
+    ((2, 1, 3, 33, 8), None, False, False), ((1, 2, 2, 65, 48), None, True, False),
+    ((1, 1, 2, 70, 128), None, False, False),   # Dh=128: the widest register tile
+    ((2, 1, 3, 33, 13), None, False, False), ((2, 1, 3, 33, 13), None, True, False),
+    ((2, 2, 3, 49, 20), None, False, False), ((2, 2, 3, 49, 20), None, True, False),
+    ((1, 2, 2, 1, 20), None, False, False), ((1, 2, 2, 1, 20), None, True, False),  # N = M = 1
+    ((1, 2, 3, 57, 20), 40, False, False), ((1, 2, 3, 57, 20), 40, True, False),   # N != M
+    ((1, 2, 3, 40, 20), 57, False, False), ((1, 2, 3, 40, 20), 57, True, False),
+    ((1, 1, 4, 196, 128), None, False, True), ((1, 1, 4, 196, 128), None, True, True),
 ])
-def test_ssa_kernel_bit_exact_vs_plain_on_card(card, shape, causal):
-    q, k, v = (torch.from_numpy(a).to(card) for a in _qkv(4, shape))
+def test_ssa_kernel_bit_exact_vs_plain_on_card(card, shape, m, causal, ones):
+    """The tensor-core kernel equals the plain f32 version bit for bit; all
+    ones at Dh=128 give the largest scores (128) and sums (128 * 196)."""
+    kv_shape = shape[:3] + (m or shape[3], shape[4])
+    q = torch.from_numpy(_qkv(4, shape)[0])
+    k, v = (torch.from_numpy(a) for a in _qkv(5, kv_shape)[:2])
+    if ones:
+        q, k, v = torch.ones_like(q), torch.ones_like(k), torch.ones_like(v)
+    q, k, v = q.to(card), k.to(card), v.to(card)
     before = tops.ssa_fwd.launches
     got = tops.ssa_op(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert tops.ssa_fwd.launches == before + 1
-    assert torch.equal(got, tsa.ssa(q, k, v, causal=causal))
+    fold = lambda x: x.reshape((-1,) + tuple(x.shape[3:]))
+    want = ssa_ref(fold(q), fold(k), fold(v), causal=causal).reshape(shape)
+    assert torch.equal(got, want)
+    if m is None:
+        assert torch.equal(got, tsa.ssa(q, k, v, causal=causal))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,177 @@
+"""The exactness argument the SSA tensor-core kernels rest on, checked on the
+CPU at the shapes the card tests use.
+
+``ssa_fwd`` and ``sparse_packed_ssa_fwd`` run both products on the f16
+tensor cores (``mma.m16n8k16``) with f32 accumulators.  For spikes in {0, 1},
+Dh <= 128 and M * Dh < 2^24 that is exact: 0 and 1 are exact in f16, a score
+is an integer <= Dh <= 128 (f16 holds integers up to 2048), and every partial
+sum of S v is an integer below 2^24, exact in f32 whatever the order.  These
+tests round the operands and scores to f16 as the kernels do, accumulate in
+f32 in the kernels' order (16 features, then 16 keys, per step), and hold
+the result ``torch.equal`` to the port's plain versions and to the JAX
+package's oracle and Pallas kernel (interpret mode); the packed case builds
+its f16 operands from the word bits as the kernel does (1.0 is 0x3C00).
+Tolerance: none, bit for bit."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import bridge
+from repro_torch.core import packing as tpk
+from repro_torch.kernels.spiking_attention import ops as tops
+from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref, ssa_ref
+
+torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
+
+K16 = 16                    # the depth of one mma.m16n8k16 step
+PLANES = 4                  # planes per block of the gated kernel at Dh <= 32
+
+# (G, N, M, Dh, all ones): the card tests' shapes -- ragged Dh, N = M = 1,
+# N != M both ways, and the largest scores (128) and sums (128 * 196) of the
+# main path's token count
+SHAPES = [(4, 49, 49, 16, False), (3, 33, 33, 8, False), (3, 33, 33, 13, False),
+          (4, 49, 49, 20, False), (2, 1, 1, 20, False), (3, 57, 40, 20, False),
+          (3, 40, 57, 20, False), (2, 65, 65, 48, False), (2, 70, 70, 128, False),
+          (2, 196, 196, 128, True)]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX reference (absent where only the card's tests run)."""
+    pytest.importorskip("jax")
+    from repro.kernels.spiking_attention import ops as jops
+    from repro.kernels.spiking_attention import ref as jref
+
+    return SimpleNamespace(ssa_ref=jref.ssa_ref, ops=jops)
+
+
+def _operands(seed, g, n, m, d, ones):
+    if ones:
+        return [np.ones((g, r, d), np.float32) for r in (n, m, m)]
+    rng = np.random.default_rng(seed)
+    return [(rng.random((g, r, d)) > 0.5).astype(np.float32) for r in (n, m, m)]
+
+
+def _causal(scores):
+    n, m = scores.shape[-2:]
+    keep = torch.arange(m)[None, :] <= torch.arange(n)[:, None]
+    return torch.where(keep, scores, 0.0)
+
+
+def _tensor_core_order(q16, k16, v16, *, scale=0.125, causal=False):
+    """f16 q, k, v (G, N, Dp), (G, M, Dp) with Dp a multiple of 16 -> the
+    kernels' arithmetic: S accumulated in f32 over 16-feature steps, masked,
+    rounded to f16 (asserted lossless), then O accumulated in f32 over
+    16-key steps, times scale."""
+    g, n, dp = q16.shape
+    m = k16.shape[1]
+    s = torch.zeros((g, n, m), dtype=torch.float32)
+    for f in range(0, dp, K16):
+        s += torch.bmm(q16[..., f:f + K16].float(), k16[..., f:f + K16].float().transpose(1, 2))
+    if causal:
+        s = _causal(s)
+    s16 = s.half()
+    assert torch.equal(s16.float(), s), "a score is not exact in f16"
+    o = torch.zeros((g, n, dp), dtype=torch.float32)
+    for j in range(0, m, K16):
+        o += torch.bmm(s16[..., j:j + K16].float(), v16[:, j:j + K16].float())
+        assert o.abs().max().item() < 2 ** 24
+    return o * scale
+
+
+def _pad16(x):
+    d = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, -d % K16))
+
+
+@pytest.mark.parametrize("g,n,m,d,ones", SHAPES)
+def test_f16_holds_binary_operands_and_scores(g, n, m, d, ones):
+    q, k, v = (torch.from_numpy(a) for a in _operands(d + n, g, n, m, d, ones))
+    for x in (q, k, v):
+        assert torch.equal(x.half().float(), x)
+    scores = torch.einsum("gnd,gmd->gnm", q, k)
+    assert scores.max().item() <= d <= tops.MAX_HEAD_DIM
+    assert torch.equal(scores.half().float(), scores)
+    out = torch.einsum("gnm,gmd->gnd", scores, v)
+    assert out.max().item() <= m * d < 2 ** 24
+    if ones:
+        assert scores.max().item() == d and out.max().item() == m * d
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("g,n,m,d,ones", [SHAPES[i] for i in (2, 5, 6, 8, 9)])
+def test_tensor_core_order_equals_plain_and_jax(ref, g, n, m, d, ones, causal):
+    q, k, v = _operands(2 * d + m, g, n, m, d, ones)
+    got = _tensor_core_order(*(_pad16(torch.from_numpy(x)).half() for x in (q, k, v)),
+                             causal=causal)[..., :d]
+    want = ssa_ref(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.ssa_ref(q, k, v, causal=causal)))
+
+
+def _plane_f16(words, t):
+    """Bit plane t of int32 words (..., Dh), Dh even, as f16 built the way the
+    gated kernel builds a fragment register: the two features of a register
+    merged as (w0 >> bit0) & 0xFFFF | (w1 >> bit0) << 16, bit0 the first plane
+    of the block's group, then ((merged >> p) & 0x00010001) * 0x3C00 read as
+    two f16 lanes (low lane the even feature)."""
+    w = words[t // 32].to(torch.int64) & 0xFFFFFFFF
+    bit0, p = (t % 32) // PLANES * PLANES, t % PLANES
+    merged = ((w[..., 0::2] >> bit0) & 0xFFFF) | (((w[..., 1::2] >> bit0) << 16) & 0xFFFF0000)
+    reg = ((merged >> p) & 0x00010001) * 0x3C00
+    lanes = torch.stack([reg & 0xFFFF, reg >> 16], dim=-1).reshape(words.shape[1:])
+    return lanes.to(torch.int16).view(torch.float16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,shape", [(1, (1, 3, 33, 8)), (4, (2, 2, 13, 16)),
+                                     (4, (2, 12, 196, 32)), (33, (1, 1, 40, 64)),
+                                     (40, (1, 2, 20, 20)), (2, (1, 2, 65, 48))])
+def test_packed_tensor_core_order_equals_plain_and_jax(ref, t, shape, causal):
+    """Words (W, B, H, N, Dh) from random trains; every plane's f16 operands
+    built from the bits, the kernels' arithmetic, against ``packed_ssa_ref``
+    and the JAX package's packed Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(t)
+    qw, kw, vw = (tpk.pack(torch.from_numpy((rng.random((t,) + shape) > 0.5)
+                                            .astype(np.float32))).words for _ in range(3))
+    w, b, h, n, d = qw.shape
+    fold = lambda x: x.reshape(w, b * h, n, d)
+    planes = []
+    for ti in range(t):
+        q16, k16, v16 = (_pad16(_plane_f16(fold(x), ti)) for x in (qw, kw, vw))
+        planes.append(_tensor_core_order(q16, k16, v16, causal=causal)[..., :d])
+    got = torch.stack(planes).reshape((t,) + shape)
+    want = packed_ssa_ref(*map(fold, (qw, kw, vw)), t=t, scale=0.125, causal=causal)
+    assert torch.equal(got, want.reshape(got.shape))
+    jax_out = ref.ops.packed_ssa_op(*map(bridge.words_to_numpy, (qw, kw, vw)), t=t,
+                                    interpret=True, causal=causal)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_out))
+
+
+def test_plane_f16_is_the_unpacked_plane():
+    words = tpk.pack(torch.from_numpy((np.random.default_rng(0).random((40, 3, 6)) > 0.5)
+                                      .astype(np.float32))).words
+    dense = tpk.unpack(tpk.PackedSpikes(words, 40))
+    for ti in range(40):
+        assert torch.equal(_plane_f16(words, ti).float(), dense[ti])
+
+
+@pytest.mark.parametrize("fn", ["ssa_fwd", "packed_ssa_fwd", "sparse_packed_ssa_fwd"])
+def test_kernel_wrappers_raise_above_max_head_dim(fn):
+    """Dh = 129 exceeds the kernels' widest register tile: the wrapper
+    refuses it for any tensor off the CPU, before the kernel is looked up."""
+    d = tops.MAX_HEAD_DIM + 1
+    if fn == "ssa_fwd":
+        x = torch.empty((2, 5, d), device="meta")
+        call = lambda: tops.ssa_fwd(x, x, x, scale=0.125)
+    else:
+        x = torch.empty((1, 2, 5, d), dtype=torch.int32, device="meta")
+        live = torch.empty((2, 4), dtype=torch.int32, device="meta")
+        call = ((lambda: tops.packed_ssa_fwd(x, x, x, t=4, scale=0.125))
+                if fn == "packed_ssa_fwd"
+                else (lambda: tops.sparse_packed_ssa_fwd(x, x, x, live, t=4, scale=0.125)))
+    with pytest.raises(ValueError, match="head dim"):
+        call()

@@ -1,0 +1,42 @@
+"""The timing script of the port (``repro_torch/launch/timing.py``) on the
+CPU: its statistics, and both measurements at a tiny size."""
+
+import statistics
+
+import pytest
+import torch
+
+from repro_torch.launch import timing
+
+torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
+
+
+@pytest.mark.parametrize("xs", [[3.0], [4.0, 1.0], [5.0, 1.0, 2.0, 9.0, 7.0, 3.0]])
+def test_spread(xs):
+    s = timing.spread(xs)
+    assert s["median"] == statistics.median(xs)
+    assert s["q1"] <= s["median"] <= s["q3"]
+    assert (s["min"], s["max"], s["mean"]) == (min(xs), max(xs), statistics.fmean(xs))
+
+
+def test_ssa_on_the_cpu(capsys):
+    timing.main(["--device", "cpu", "ssa", "--g", "3", "--n", "5", "--dh", "13",
+                 "--reps", "2"])
+    line = capsys.readouterr().out.strip()
+    assert line.startswith("[timing] ") and "repro_torch on cpu:" in line
+    assert "ssa_fwd G=3 N=5 Dh=13: torch.equal the plain version" in line
+    assert line.endswith("device not measured")
+
+
+def test_train_on_the_cpu(capsys):
+    timing.main(["--device", "cpu", "train", "--arch", "spike-iand-former_smoke",
+                 "--steps", "2", "--warmup", "1", "--batch", "2"])
+    line = capsys.readouterr().out.strip()
+    assert "train spike-iand-former_smoke batch 2, 2 steps after 1 warm-up" in line
+    assert all(f"{k} " in line for k in ("median", "q1", "q3", "mean", "min", "max"))
+
+
+def test_no_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        timing.main(["ssa", "--g", "1", "--n", "2", "--dh", "4"])
