@@ -17,6 +17,7 @@ on any nonzero code (:func:`check`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,6 +34,14 @@ SOURCES = {
     "lif_parallel": _KERNELS / "lif_parallel" / "csrc" / "lif_parallel.cu",
     "spike_matmul": _KERNELS / "spike_matmul" / "csrc" / "spike_matmul.cu",
     "ssa": _KERNELS / "spiking_attention" / "csrc" / "ssa.cu",
+}
+
+# Control builds: a library's source compiled with extra preprocessor
+# definitions, built only on request.  chip_smoke.py runs a wrapper on one
+# (:func:`substitute`) to show that a check would catch a weaker kernel.
+CONTROLS = {
+    "spike_matmul_hi": ("spike_matmul", ("SPIKE_MATMUL_PIECES=1",)),
+    "spike_matmul_hi_mid": ("spike_matmul", ("SPIKE_MATMUL_PIECES=2",)),
 }
 
 # No --use_fast_math: the LIF kernel is bit-exact against its plain version
@@ -55,17 +64,25 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _recipe(name: str) -> tuple[Path, tuple[str, ...]]:
+    """(source, nvcc flags) of a library or of a control build."""
+    if name in CONTROLS:
+        lib, defines = CONTROLS[name]
+        return SOURCES[lib], NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    return SOURCES[name], NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, flags = _recipe(name)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(names=None) -> dict[str, str]:
-    """Compile every library in ``names`` (default: all) whose current build
-    is missing, all ``nvcc`` processes at once.  Returns the compiler output
-    (``-Xptxas -v``: registers, shared memory, spills) of each library built;
-    raises with that output if any compile fails."""
+    """Compile every library in ``names`` (default: all, no control build)
+    whose current build is missing, all ``nvcc`` processes at once.  Returns
+    the compiler output (``-Xptxas -v``: registers, shared memory, spills) of
+    each library built; raises with that output if any compile fails."""
     todo = [n for n in (names or SOURCES) if not library_path(n).exists()]
     if not todo:
         return {}
@@ -75,8 +92,9 @@ def build(names=None) -> dict[str, str]:
     for name in todo:
         out = library_path(name)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        source, flags = _recipe(name)
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            [nvcc, *flags, "-o", str(tmp), str(source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, tmp, out, proc))
     logs, failed = {}, []
@@ -106,6 +124,29 @@ def kernel(lib: str, fn: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPt
         f.restype = restype
         _fns[key] = f
     return _fns[key]
+
+
+@contextlib.contextmanager
+def substitute(lib: str, control: str):
+    """Within the block, the wrappers of library ``lib`` launch the kernels of
+    the control build ``control`` of its source (and count their launches as
+    ever); the library's own build is back afterwards."""
+    if CONTROLS[control][0] != lib:
+        raise ValueError(f"{control} is a control build of {CONTROLS[control][0]}, not {lib}")
+    build([control])
+    saved_lib = _libs.get(lib)
+    saved_fns = {key: _fns.pop(key) for key in [key for key in _fns if key[0] == lib]}
+    _libs[lib] = ctypes.CDLL(str(library_path(control)))
+    try:
+        yield
+    finally:
+        for key in [key for key in _fns if key[0] == lib]:
+            del _fns[key]
+        _fns.update(saved_fns)
+        if saved_lib is None:
+            del _libs[lib]
+        else:
+            _libs[lib] = saved_lib
 
 
 def check(err: int, lib: str, what: str) -> None:

@@ -13,6 +13,22 @@ word tiles skipped by their occupancy counts) are the launch sites: a CUDA
 tensor goes to the kernel (or the call raises), a CPU tensor to the plain
 version.  Each has a ``launches`` attribute counting kernel launches.  The
 kernels mask ragged M, K and C, so nothing is padded.
+
+Operand contract of the kernels: the activations are integers of magnitude
+at most 256, which bf16 holds exactly.  Packed words are bits.  The dense
+GEMM gets LIF outputs in {0, 1} (``engine/backend.py`` ``linear_apply``, and
+``conv3x3_apply`` through :func:`_im2col`, whose zero padding is 0; the rate
+head never reaches it), and in the residual='add' configs also the residual
+stream, a sum of at most 2L + 1 spike trains.  On the card all three run one
+tensor-core tile body (``spike_matmul.cu``): the f32 weights split into three
+bf16 pieces (hi + mid + lo == w exactly), the activations exact in bf16,
+``mma.sync.m16n8k16`` bf16 x bf16 -> f32 for each piece, and a fresh partial
+sum per 32 features added to an f32 accumulator.  They agree with the plain
+f32 versions within f32 reassociation (rtol 1e-5, atol 1e-4 at the main
+path's K <= 1728) and with each other bit for bit: the packed GEMM equals the
+dense one on the unpacked operand, the gated one the packed one.  An
+activation outside the contract would be rounded to bf16 first: no caller
+may pass one.
 """
 
 from __future__ import annotations
@@ -37,7 +53,16 @@ MAX_PACKED_T = 32    # time steps one word carries
 
 
 def spike_matmul_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (M, K) spikes, w: (K, C) weights -> (M, C) f32; no zero-sized dims."""
+    """x: (M, K) f32 spikes, or spike counts of at most 256 (the operand
+    contract above), w: (K, C) weights -> (M, C) f32; no zero-sized dims.
+
+    Replaces the TPU kernel ``repro.kernels.spike_matmul.kernel.spike_matmul_fwd``.
+    On the card: ``spike_matmul_tc_kernel``, warp-specialized: per 128 x 96
+    output tile two producer warpgroups load each 32-feature stage, convert x
+    to bf16 (exact on the contract's integers) and split each weight into
+    three bf16 pieces once per block into one of two shared buffers, and
+    eight consumer warps read their fragments with ``ldmatrix`` and issue
+    three ``mma.sync.m16n8k16`` per k16 step."""
     (m, k), (k2, c) = x.shape, w.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}")
@@ -59,7 +84,15 @@ spike_matmul_fwd.launches = 0
 
 def packed_spike_matmul_fwd(xw: torch.Tensor, w: torch.Tensor, *, t: int) -> torch.Tensor:
     """xw: (M, K) int32 spike words carrying ``t`` <= 32 time steps, w: (K, C)
-    weights -> (T, M, C) f32; no zero-sized dims."""
+    weights -> (T, M, C) f32; no zero-sized dims.
+
+    Replaces the TPU kernel
+    ``repro.kernels.spike_matmul.kernel.packed_spike_matmul_fwd``.  On the
+    card: ``packed_spike_matmul_tc_kernel<P>``, the tile body of
+    :func:`spike_matmul_fwd` with its A rows the P planes (1, 2 or 4) of
+    each word row: one word read serves P planes, each plane's bf16
+    fragment built from the bits (1.0 is 0x3F80).  Equal bit for bit to
+    :func:`spike_matmul_fwd` on the unpacked (T*M, K) operand."""
     (m, k), (k2, c) = xw.shape, w.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: xw {tuple(xw.shape)}, w {tuple(w.shape)}")
@@ -92,7 +125,15 @@ def sparse_packed_spike_matmul_fwd(xw: torch.Tensor, w: torch.Tensor, tiles: tor
     """xw: (M, K) int32 spike words carrying ``t`` <= 32 time steps, w: (K, C)
     weights, tiles: (ceil(M/64), ceil(K/128)) int32 spike counts of ``xw``
     -> (T, M, C) f32, with every (64, 128) word tile whose count is 0
-    skipped; no zero-sized dims."""
+    skipped; no zero-sized dims.
+
+    Replaces the TPU kernel
+    ``repro.kernels.spike_matmul.kernel.sparse_packed_spike_matmul_fwd``.  On
+    the card: ``sparse_packed_spike_matmul_tc_kernel<P>``, the packed tile
+    body that skips a 32-feature stage dead in all of a block's tiles (no
+    load, no MMA) and a warp's MMAs where its own tile is dead.  Where the
+    counts are those of ``xw``, a skipped tile adds exactly 0, so the result
+    equals :func:`packed_spike_matmul_fwd` bit for bit."""
     (m, k), (k2, c) = xw.shape, w.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: xw {tuple(xw.shape)}, w {tuple(w.shape)}")

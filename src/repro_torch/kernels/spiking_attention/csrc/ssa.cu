@@ -1,16 +1,17 @@
 // Tick-batched softmax-free spiking self-attention: out = (q k^T) v * scale.
 //
-// Three kernels, one per entry point:
+// Three entry points on two tensor-core kernels:
 //
-//   ssa_fwd               dense f32 spikes        tensor cores (ssa_tc_kernel)
+//   ssa_fwd               dense f32 spikes   ssa_tc_kernel<Dp, W>
 //     Replaces: src/repro/kernels/spiking_attention/kernel.py::ssa_fwd
 //               (body ssa_kernel).
-//   sparse_packed_ssa_fwd packed words, gated     tensor cores (packed_ssa_tc_kernel)
-//     Replaces: src/repro/kernels/spiking_attention/kernel.py::sparse_packed_ssa_fwd
-//               (body sparse_packed_ssa_kernel).
-//   packed_ssa_fwd        packed words            SIMT f32 (packed_ssa_kernel)
+//   packed_ssa_fwd        packed words       packed_ssa_tc_kernel<Dp, P, false>
 //     Replaces: src/repro/kernels/spiking_attention/kernel.py::packed_ssa_fwd
 //               (body packed_ssa_kernel).
+//   sparse_packed_ssa_fwd packed words,      packed_ssa_tc_kernel<Dp, P, true>
+//                         plane-gated
+//     Replaces: src/repro/kernels/spiking_attention/kernel.py::sparse_packed_ssa_fwd
+//               (body sparse_packed_ssa_kernel).
 //
 // Layouts.  Dense: q (G, N, D), k and v (G, M, D), out (G, N, D), G = T*B*H
 // folds time, batch and heads, so all T time steps ride one launch.  Packed:
@@ -29,7 +30,10 @@
 // final multiply by scale rounds once, as the plain version's does.  So the
 // f16 products with f32 accumulation below equal the plain f32 version bit for
 // bit.  Outside that contract (non-binary operands) the f16 rounding of the
-// operands and scores shows, and the result is not the plain version's.
+// operands and scores shows, and the result is not the plain version's.  The
+// shape half of the contract is checked: the entry points return
+// cudaErrorInvalidValue for D > 128 or M*D >= 2^24 (the Python wrappers raise
+// ValueError first).
 //
 // Bound on this card: device bytes.  With binary operands the two products
 // run on the f16 tensor cores (989 TFLOP/s dense); at the main path's shape
@@ -68,11 +72,13 @@
 // phase land on distinct banks; K fragments come from ldmatrix, V's from
 // ldmatrix.trans.
 //
-// Packed, gated (packed_ssa_tc_kernel<Dp, P, kGated>, W = 4 warps): the q words
-// and the k and v word tiles are read once per block and serve all P planes of
-// the group (P = 4, 4, 2, 1 for Dp = 16, 32, 64, 128, so that P q-fragment sets
-// and P output tiles fit in registers; P divides 32, so a group never straddles
-// two words).  Fragments are built straight from the bits: an f16 1.0 is
+// Packed (packed_ssa_tc_kernel<Dp, P, kGated>, W = 4 warps): one kernel for both
+// packed entry points; kGated = false is packed_ssa_fwd (every plane computed),
+// kGated = true sparse_packed_ssa_fwd.  The q words and the k and v word tiles are
+// read once per block and serve all P planes of the group (P = 4, 4, 2, 1 for Dp =
+// 16, 32, 64, 128, so that P q-fragment sets and P output tiles fit in registers;
+// P divides 32, so a group never straddles two words, and T > 32 walks the words
+// by blockIdx.z).  Fragments are built straight from the bits: an f16 1.0 is
 // 0x3C00, so with the words of the two f16 lanes of a register merged as (w0 >>
 // bit0) & 0xFFFF | (w1 >> bit0) << 16, plane p's register is ((merged >> p) &
 // 0x00010001) * 0x3C00.  B of S (k, keys) reads a register's two words as one
@@ -80,27 +86,16 @@
 // register) reads two 32-bit words from rows padded to Dp + 4 words; both
 // paddings keep a warp's reads on distinct banks.  W = 4: at P = 4 a thread
 // holds ~160 registers, so that 4 warps a block keep three blocks resident on
-// an SM.  With kGated a block first reads its P liveness flags (the same in
-// every thread, so every branch on them is uniform): when all are dead it
-// writes its zero tiles and returns before it reads any word; in a live group a
-// dead plane's MMAs are skipped and it is written as zero.  A dead plane's
-// output is exactly zero in the ungated computation too (one of its two
-// products has an all-zero operand), so the result equals the packed kernel's
-// bit for bit.  kGated = false (every plane live) is not yet instantiated:
-// packed_ssa_fwd still runs the SIMT kernel below.
-//
-// SIMT packed design (packed_ssa_kernel, bound there by shared-memory
-// traffic, not by the card): one block of 256 threads per (fold g, tile of 32
-// queries, group of P consecutive time steps; P = 1, 2 or 4 divides 32).  The
-// q word tile is staged once; the keys are walked in tiles of 32, each k and v
-// word tile staged in shared memory once and serving all P planes of the
-// group.  A score is a count: one AND of the q and k words per feature serves
-// every plane, and plane p adds bit p of it, so the P score tiles (integers
-// <= D) are exact.  Each thread adds its share of score @ v for all P planes
-// into P*16 f32 registers, with the v bit shifted out of the staged word.  The
-// causal mask is col <= row over global rows.  T > 4 re-reads the word tiles
-// once per group of P planes.  All sums are integers below 2^24, so the
-// result is bit-exact whatever the order.
+// an SM.  Planes at or past T (the last group of a T that P does not divide)
+// are neither computed nor stored.  With kGated a block first reads its P
+// liveness flags (the same in every thread, so every branch on them is
+// uniform): when all are dead it writes its zero tiles and returns before it
+// reads any word; in a live group a dead plane's MMAs are skipped and it is
+// written as zero.  A dead plane's output is exactly zero in the ungated
+// computation too (one of its two products has an all-zero operand), so the
+// gated result equals the ungated one bit for bit.  Without kGated the liveness
+// pointer is never read (packed_ssa_fwd passes none) and the plane mask holds
+// exactly the planes below T.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -109,6 +104,7 @@
 namespace {
 
 constexpr int kMaxD = 128;
+constexpr long long kMaxSum = 1LL << 24;  // M * D stays below: sums of S v exact in f32
 
 // ---- tensor-core kernels ----------------------------------------------------
 
@@ -542,163 +538,51 @@ int launch_packed_tc(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- SIMT packed kernel (packed_ssa_fwd) --------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kOutPerThread = 32 * kMaxD / kThreads;  // 16
-constexpr int kPBQ = 32, kPBKV = 32;
-
-template <int P>
-__host__ __device__ inline int packed_smem_bytes(int d) {
-  return 4 * (kPBQ * d + kPBKV * (d + 1) + kPBKV * d + P * kPBQ * kPBKV);
+// The operand contract's shape half (see the header): D <= 128 and M * D < 2^24,
+// so that every partial sum of S v is exact in f32.  Operands past it are refused.
+bool exact_shape(int m, int d) {
+  return d >= 1 && d <= kMaxD && m >= 1 && static_cast<long long>(m) * d < kMaxSum;
 }
 
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-packed_ssa_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ kw,
-                  const uint32_t* __restrict__ vw, float* __restrict__ out, int g_total, int n,
-                  int m, int d, int t_total, float scale, int causal) {
-  extern __shared__ uint32_t psmem[];
-  const int ldk = d + 1;
-  uint32_t* qs = psmem;             // [kPBQ][d] words
-  uint32_t* ks = qs + kPBQ * d;     // [kPBKV][d + 1] words
-  uint32_t* vs = ks + kPBKV * ldk;  // [kPBKV][d] words
-  float* ss = reinterpret_cast<float*>(vs + kPBKV * d);  // [P][kPBQ][kPBKV] scores
-
-  const int tid = threadIdx.x;
-  const long long g = blockIdx.x;
-  const int q0 = blockIdx.y * kPBQ;
-  const int p0 = blockIdx.z * P;
-  const int bit0 = p0 & 31;
-  const long long plane = static_cast<long long>(p0 >> 5) * g_total + g;  // (word, fold)
-  const uint32_t* qg = qw + plane * n * d;
-  const uint32_t* kg = kw + plane * m * d;
-  const uint32_t* vg = vw + plane * m * d;
-
-  for (int e = tid; e < kPBQ * d; e += kThreads) {
-    const int r = e / d;
-    qs[e] = (q0 + r < n) ? qg[static_cast<long long>(q0 + r) * d + e % d] : 0u;
-  }
-
-  float acc[P][kOutPerThread];
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int l = 0; l < kOutPerThread; ++l) acc[p][l] = 0.0f;
-
-  const int kv_end = causal ? min(m, q0 + kPBQ) : m;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kPBKV) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kPBKV * d; e += kThreads) {
-      const int r = e / d, f = e % d;
-      const bool in = kv0 + r < m;
-      const long long src = static_cast<long long>(kv0 + r) * d + f;
-      ks[r * ldk + f] = in ? kg[src] : 0u;
-      vs[e] = in ? vg[src] : 0u;
-    }
-    __syncthreads();
-
-    for (int e = tid; e < kPBQ * kPBKV; e += kThreads) {
-      const int i = e / kPBKV, j = e % kPBKV;
-      int cnt[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) cnt[p] = 0;
-      for (int f = 0; f < d; ++f) {
-        const uint32_t both = (qs[i * d + f] & ks[j * ldk + f]) >> bit0;
-#pragma unroll
-        for (int p = 0; p < P; ++p) cnt[p] += static_cast<int>((both >> p) & 1u);
-      }
-      const bool masked = causal && kv0 + j > q0 + i;
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        ss[(p * kPBQ + i) * kPBKV + j] = masked ? 0.0f : static_cast<float>(cnt[p]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int l = 0; l < kOutPerThread; ++l) {
-      const int e = tid + l * kThreads;
-      if (e < kPBQ * d) {
-        const int i = e / d, f = e % d;
-        for (int j = 0; j < kPBKV; ++j) {
-          const uint32_t vbits = vs[j * d + f] >> bit0;
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            acc[p][l] = fmaf(ss[(p * kPBQ + i) * kPBKV + j],
-                             static_cast<float>((vbits >> p) & 1u), acc[p][l]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const int t = p0 + p;
-    if (t >= t_total) break;
-    float* og = out + (static_cast<long long>(t) * g_total + g) * n * d;
-#pragma unroll
-    for (int l = 0; l < kOutPerThread; ++l) {
-      const int e = tid + l * kThreads;
-      if (e < kPBQ * d && q0 + e / d < n) {
-        og[static_cast<long long>(q0 + e / d) * d + e % d] = acc[p][l] * scale;
-      }
-    }
-  }
-}
-
-template <int P>
-int launch_packed(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw, float* out,
-                  int g, int n, int m, int d, int t_total, float scale, int causal,
-                  cudaStream_t stream) {
-  const size_t smem = packed_smem_bytes<P>(d);
-  const cudaError_t err = allow_smem(packed_ssa_kernel<P>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(g), static_cast<unsigned>((n + kPBQ - 1) / kPBQ),
-                  static_cast<unsigned>((t_total + P - 1) / P));
-  packed_ssa_kernel<P><<<grid, kThreads, smem, stream>>>(qw, kw, vw, out, g, n, m, d, t_total,
-                                                         scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" int packed_ssa_fwd(const void* qw, const void* kw, const void* vw, void* out,
-                              int g, int n, int m, int d, int t_total, float scale,
-                              int causal, void* stream) {
-  if (d > kMaxD || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* q = static_cast<const uint32_t*>(qw);
-  const auto* k = static_cast<const uint32_t*>(kw);
-  const auto* v = static_cast<const uint32_t*>(vw);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (t_total == 1) return launch_packed<1>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
-  if (t_total == 2) return launch_packed<2>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
-  return launch_packed<4>(q, k, v, o, g, n, m, d, t_total, scale, causal, s);
-}
-
-// live: (g, t_total) int32, nonzero where plane t of fold g is live.
-extern "C" int sparse_packed_ssa_fwd(const void* qw, const void* kw, const void* vw,
-                                     const void* live, void* out, int g, int n, int m,
-                                     int d, int t_total, float scale, int causal,
-                                     void* stream) {
-  if (d > kMaxD || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
+template <bool kGated>
+int launch_packed_d(const void* qw, const void* kw, const void* vw, const void* live, void* out,
+                    int g, int n, int m, int d, int t_total, float scale, int causal,
+                    void* stream) {
+  if (!exact_shape(m, d) || t_total < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto* q = static_cast<const uint32_t*>(qw);
   const auto* k = static_cast<const uint32_t*>(kw);
   const auto* v = static_cast<const uint32_t*>(vw);
   const auto* lv = static_cast<const int*>(live);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (d <= 16) return launch_packed_tc<16, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  if (d <= 32) return launch_packed_tc<32, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  if (d <= 64) return launch_packed_tc<64, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  return launch_packed_tc<128, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 16) return launch_packed_tc<16, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 32) return launch_packed_tc<32, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 64) return launch_packed_tc<64, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  return launch_packed_tc<128, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+}
+
+}  // namespace
+
+// K6: every plane computed; the ungated kernel never reads live, so none is passed.
+extern "C" int packed_ssa_fwd(const void* qw, const void* kw, const void* vw, void* out,
+                              int g, int n, int m, int d, int t_total, float scale,
+                              int causal, void* stream) {
+  return launch_packed_d<false>(qw, kw, vw, nullptr, out, g, n, m, d, t_total, scale, causal,
+                                stream);
+}
+
+// K9.  live: (g, t_total) int32, nonzero where plane t of fold g is live.
+extern "C" int sparse_packed_ssa_fwd(const void* qw, const void* kw, const void* vw,
+                                     const void* live, void* out, int g, int n, int m,
+                                     int d, int t_total, float scale, int causal,
+                                     void* stream) {
+  return launch_packed_d<true>(qw, kw, vw, live, out, g, n, m, d, t_total, scale, causal,
+                               stream);
 }
 
 extern "C" int ssa_fwd(const void* q, const void* k, const void* v, void* out, int g,
                        int n, int m, int d, float scale, int causal, void* stream) {
-  if (d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (!exact_shape(m, d)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);

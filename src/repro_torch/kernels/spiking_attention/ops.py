@@ -12,10 +12,12 @@ over a transposed view, and the kernels assume a dense layout.  Ragged token
 counts are masked in the kernels, so nothing is padded.
 
 Operand contract of the kernels: q, k and v are spikes in {0, 1} (every
-caller passes LIF outputs), Dh <= 128 and M * Dh < 2^24.  :func:`ssa_fwd`
-and :func:`sparse_packed_ssa_fwd` run both products on the f16 tensor cores
-with f32 accumulation, which is exact there (scores are integers <= 128,
-sums integers < 2^24), so they equal the plain f32 versions bit for bit.
+caller passes LIF outputs), Dh <= 128 and M * Dh < 2^24; the shape half is
+checked (:func:`check_exact_shape`) on the card route, the CPU route runs the
+plain f32 version whatever the shape, as the reference does.  All three run
+both products on the f16 tensor cores with f32 accumulation, which is exact
+there (scores are integers <= 128, sums integers < 2^24), so they equal the
+plain f32 versions bit for bit.
 
 :func:`ssa_op` is differentiable on both devices (:class:`_SsaOp`): the
 forward is :func:`ssa_fwd`, the backward the three bilinear contractions of
@@ -36,6 +38,20 @@ from repro_torch.kernels.spiking_attention.ref import (
     packed_ssa_ref, sparse_packed_ssa_ref, ssa_ref)
 
 MAX_HEAD_DIM = 128   # the kernels' widest register tile (kMaxD in ssa.cu)
+MAX_SUM = 2 ** 24    # M * Dh stays below it: every partial sum of S v exact in f32
+
+
+def check_exact_shape(what: str, m: int, d: int) -> None:
+    """The shape half of the kernels' operand contract: Dh <= 128 (the widest
+    register tile) and M * Dh < 2^24 (every partial sum of S v, an integer
+    <= M * Dh, exact in an f32 accumulator whatever the tensor cores' order).
+    Raises ``ValueError`` outside it; ``ssa.cu``'s entry points refuse the
+    same operands."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} > {MAX_HEAD_DIM}")
+    if m * d >= MAX_SUM:
+        raise ValueError(f"{what}: M * Dh = {m} * {d} >= 2^24, past the bound that "
+                         "keeps the tensor cores' f32 sums exact")
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -50,7 +66,7 @@ _SPARSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
 def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
             causal: bool = False) -> torch.Tensor:
     """q (G, N, D), k/v (G, M, D) f32 spikes in {0, 1} -> (G, N, D); no
-    zero-sized dims, D <= 128.
+    zero-sized dims, D <= 128, M * D < 2^24.
 
     Replaces the TPU kernel ``repro.kernels.spiking_attention.kernel.ssa_fwd``.
     On the card: ``ssa_tc_kernel``, one block of 16 warps (16 query rows
@@ -69,8 +85,7 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.device.type == "cpu":
         return ssa_ref(q, k, v, scale=scale, causal=causal)
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
+    check_exact_shape("ssa_fwd", m, d)
     _build.check_operands("ssa_fwd", *((x, torch.float32) for x in (q, k, v)))
     out = torch.empty_like(q)
     fn = _build.kernel("ssa", "ssa_fwd", _ARGTYPES)
@@ -88,14 +103,23 @@ ssa_fwd.launches = 0
 def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: int,
                    scale: float, causal: bool = False) -> torch.Tensor:
     """q words (W, G, N, D), k/v words (W, G, M, D), int32 with W = ceil(t/32)
-    -> (T, G, N, D) f32; no zero-sized dims."""
+    -> (T, G, N, D) f32; no zero-sized dims, D <= 128, M * D < 2^24.
+
+    Replaces the TPU kernel
+    ``repro.kernels.spiking_attention.kernel.packed_ssa_fwd``.  On the card:
+    ``packed_ssa_tc_kernel<Dp, P, kGated=false>``, the kernel of
+    :func:`sparse_packed_ssa_fwd` with every plane computed: one block of
+    four warps per (fold, 64 query rows, P planes of one word), each plane's
+    f16 fragments built straight from the bits, both products on
+    ``mma.sync.m16n8k16`` with f32 accumulators.  Bound by device bytes.
+    Exact for any words with M * D < 2^24, so the result equals
+    :func:`packed_ssa_ref` bit for bit."""
     _check_packed("packed ssa", qw, kw, vw, t)
     w, g, n, d = qw.shape
     m = kw.shape[2]
     if qw.device.type == "cpu":
         return packed_ssa_ref(qw, kw, vw, t=t, scale=scale, causal=causal)
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"packed_ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
+    check_exact_shape("packed_ssa_fwd", m, d)
     _build.check_operands("packed_ssa_fwd", *((x, torch.int32) for x in (qw, kw, vw)))
     out = torch.empty((t, g, n, d), dtype=torch.float32, device=qw.device)
     fn = _build.kernel("ssa", "packed_ssa_fwd", _PACKED_ARGTYPES)
@@ -125,7 +149,7 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
                           causal: bool = False) -> torch.Tensor:
     """:func:`packed_ssa_fwd` with a (G, T) int32 plane liveness ``live``:
     output plane t of fold g is computed only where ``live[g, t]`` is
-    nonzero and is zero elsewhere; no zero-sized dims, D <= 128.
+    nonzero and is zero elsewhere; no zero-sized dims, D <= 128, M * D < 2^24.
 
     Replaces the TPU kernel
     ``repro.kernels.spiking_attention.kernel.sparse_packed_ssa_fwd``.  On the
@@ -145,8 +169,7 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         raise ValueError(f"plane liveness {tuple(live.shape)} != {(g, t)}")
     if qw.device.type == "cpu":
         return sparse_packed_ssa_ref(qw, kw, vw, live, t=t, scale=scale, causal=causal)
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"sparse_packed_ssa_fwd: head dim {d} > {MAX_HEAD_DIM}")
+    check_exact_shape("sparse_packed_ssa_fwd", m, d)
     _build.check_operands("sparse_packed_ssa_fwd", *((x, torch.int32)
                                                       for x in (qw, kw, vw, live)))
     out = torch.empty((t, g, n, d), dtype=torch.float32, device=qw.device)

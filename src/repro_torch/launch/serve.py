@@ -31,6 +31,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import engine
@@ -56,6 +57,47 @@ def seeded_model(arch: str, *, num_requests: int, backend: str = "cuda",
     params, state = sf.init(gen, cfg)
     images = torch.rand((num_requests, cfg.img_size, cfg.img_size, cfg.in_channels),
                         generator=gen)
+    plan = engine.compile_plan(params, state, cfg, backend=backend, device=dev)
+    return plan, images.to(dev)
+
+
+def _perturb_bn(tree, rng):
+    """Every BatchNorm leaf of a (params or state) tree perturbed as the
+    reference's engine tests perturb it (``tests/test_engine.py::_perturb_bn``):
+    mean + N(0, 0.2), var x U(0.5, 1.5), scale x U(0.7, 1.3), bias + N(0, 0.2),
+    drawn from ``rng`` in the tree's insertion order."""
+    if isinstance(tree, dict):
+        return {k: (_perturb_bn(v, rng) if isinstance(v, dict) else _perturb_leaf(k, v, rng))
+                for k, v in tree.items()}
+    return tree
+
+
+def _perturb_leaf(name, leaf, rng):
+    a = leaf.cpu().numpy()
+    noise = {"mean": lambda: a + rng.normal(0, 0.2, a.shape),
+             "var": lambda: a * rng.uniform(0.5, 1.5, a.shape),
+             "scale": lambda: a * rng.uniform(0.7, 1.3, a.shape),
+             "bias": lambda: a + rng.normal(0, 0.2, a.shape)}.get(name)
+    return leaf if noise is None else torch.from_numpy(noise().astype(a.dtype))
+
+
+def live_model(arch: str, num_requests: int, backend: str, device=None, seed: int = 0):
+    """(plan, images) of a model whose blocks fire: the parameters of
+    ``sf.init(torch.Generator().manual_seed(seed), cfg)`` with every BN leaf
+    perturbed (``_perturb_bn``, drawn from ``np.random.default_rng(seed + 1)``,
+    params then state), compiled with ``engine.compile_plan``; the images are
+    drawn next from the same generator, as ``seeded_model`` draws them.  With
+    fresh BN (mean 0, var 1, scale 1, bias 0) the seeded model's block LIFs
+    never fire."""
+    cfg = get_vision_config(arch)
+    gen = torch.Generator().manual_seed(seed)
+    params, state = sf.init(gen, cfg)
+    images = torch.rand((num_requests, cfg.img_size, cfg.img_size, cfg.in_channels),
+                        generator=gen)
+    rng = np.random.default_rng(seed + 1)
+    params = _perturb_bn(params, rng)
+    state = _perturb_bn(state, rng)
+    dev = resolve_device(device)
     plan = engine.compile_plan(params, state, cfg, backend=backend, device=dev)
     return plan, images.to(dev)
 

@@ -1,12 +1,18 @@
 """Time one checkout of the port, so that two checkouts can be compared in
 turns within one run on the card.
 
-Two measurements:
+Three measurements:
 
+``serve``  slot batches of a live model (``launch/serve.py::live_model``:
+           seeded weights with every BatchNorm leaf perturbed, so that every
+           block fires)
+           through each kernel route's compiled plan, after ``--warmup``
+           batches: each batch on the host clock from its call to its host
+           copy, as ``serve_plan`` serves it; prints one line per route with
+           the median, the quartiles, the mean and the extremes.
 ``train``  SGD steps of ``train_spikformer`` (the kernel route) after
            ``--warmup`` steps: each step on the host clock, ending in a
-           device sync; prints the median, the quartiles, the mean and the
-           extremes.
+           device sync; the same statistics.
 ``ssa``    the dense SSA entry point ``ssa_fwd`` on random binary operands
            of shape (G, N, Dh): held ``torch.equal`` to its plain version,
            then CUDA events over back-to-back calls (as ``chip_smoke.py``
@@ -17,6 +23,7 @@ Run it as a file, so that ``--src`` decides which checkout's
 ``repro_torch`` is imported (another checkout's ``src`` directory, or by
 default the one holding this file)::
 
+    python src/repro_torch/launch/timing.py serve --batches 20
     python src/repro_torch/launch/timing.py train --steps 20
     python src/repro_torch/launch/timing.py --src ../other/src ssa --g 384 --n 64 --dh 32
 
@@ -34,6 +41,8 @@ from pathlib import Path
 
 import torch
 
+ROUTES = ("cuda", "cuda+packed", "cuda+packed+sparse")   # the kernel routes
+
 
 def spread(xs: list[float]) -> dict[str, float]:
     """Median, quartiles (``statistics.quantiles``, exclusive method),
@@ -41,6 +50,31 @@ def spread(xs: list[float]) -> dict[str, float]:
     q1, med, q3 = statistics.quantiles(xs, n=4) if len(xs) > 1 else (xs[0],) * 3
     return {"median": med, "q1": q1, "q3": q3, "mean": statistics.fmean(xs),
             "min": min(xs), "max": max(xs)}
+
+
+def time_serve(arch: str, batches: int, warmup: int, slots: int, device,
+               routes=ROUTES) -> dict[str, dict[str, float]]:
+    """ms per slot batch of ``slots`` images of the live ``arch`` on each of
+    ``routes``, over ``batches`` batches after ``warmup``: each batch timed
+    from its call to its host copy (which waits for the device), the
+    batches drawn in turn from 4 slot batches of images."""
+    from repro_torch import engine
+    from repro_torch.launch.serve import live_model
+
+    out = {}
+    for backend in routes:
+        plan, images = live_model(arch, 4 * slots, backend, device)
+        step = engine.make_apply_fn(plan)
+        times = []
+        with torch.inference_mode():
+            for i in range(warmup + batches):
+                batch = images[(i % 4) * slots:(i % 4 + 1) * slots]
+                t0 = time.perf_counter()
+                step(plan.params, batch).cpu()
+                times.append(1e3 * (time.perf_counter() - t0))
+        out[backend] = spread(times[warmup:])
+        del plan, images, step
+    return out
 
 
 def time_train(arch: str, steps: int, warmup: int, batch: int, device) -> dict[str, float]:
@@ -101,6 +135,13 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' times the plain versions)")
     sub = ap.add_subparsers(dest="what", required=True)
+    sv = sub.add_parser("serve", help="ms per slot batch on each kernel route")
+    sv.add_argument("--arch", default="spike-iand-former-8-384")
+    sv.add_argument("--batches", type=int, default=20)
+    sv.add_argument("--warmup", type=int, default=2)
+    sv.add_argument("--slots", type=int, default=8)
+    sv.add_argument("--routes", default=",".join(ROUTES),
+                    help="comma-separated backends (default: the three kernel routes)")
     tr = sub.add_parser("train", help="ms per SGD step")
     tr.add_argument("--arch", default="spike-iand-former-8-384")
     tr.add_argument("--steps", type=int, default=20)
@@ -120,7 +161,14 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     head = f"[timing] {Path(repro_torch.__file__).parent} on {where}:"
-    if args.what == "train":
+    if args.what == "serve":
+        routes = tuple(args.routes.split(","))
+        for route, st in time_serve(args.arch, args.batches, args.warmup, args.slots, dev,
+                                    routes).items():
+            print(f"{head} serve {args.arch} backend={route} slot batch {args.slots}, "
+                  f"{args.batches} batches after {args.warmup} warm-up: ms per slot batch "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+    elif args.what == "train":
         s = time_train(args.arch, args.steps, args.warmup, args.batch, dev)
         print(f"{head} train {args.arch} batch {args.batch}, {args.steps} steps after "
               f"{args.warmup} warm-up: ms per step " + ", ".join(f"{k} {v:.3f}"

@@ -218,3 +218,29 @@ def test_cuda_plan_matches_plain_plan_on_card(card):
                                             counts)]
     assert grown == [4 + 7 * 2, 3 + 6 * 2, 2]
     torch.testing.assert_close(got, plain, atol=ATOL, rtol=0)
+
+
+def test_live_model_perturbs_every_bn_leaf():
+    """The live model's BatchNorm differs from the fresh seeded model's in
+    every leaf, and nothing else of the parameters changes."""
+    from repro_torch.configs.spike_iand_former import get_vision_config
+    from repro_torch.launch import serve
+
+    cfg = get_vision_config("spike-iand-former_smoke")
+    params, state = tsf.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    perturbed = serve._perturb_bn(params, rng), serve._perturb_bn(state, rng)
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            yield from (leaves(v, path + (k,)) if isinstance(v, dict) else [(path + (k,), v)])
+
+    changed = 0
+    for before, after in zip((params, state), perturbed):
+        for (path, a), (_, b) in zip(leaves(before), leaves(after)):
+            bn = path[-1] in ("mean", "var", "scale", "bias")
+            assert torch.equal(a, b) != bn, path
+            changed += bn
+    assert changed > 0
+    plan, images = serve.live_model("spike-iand-former_smoke", 2, "torch", torch.device("cpu"))
+    assert images.shape == (2, cfg.img_size, cfg.img_size, cfg.in_channels)

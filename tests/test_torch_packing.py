@@ -337,6 +337,9 @@ def test_packed_matmul_kernel_vs_plain_and_dense_kernel_on_card(card, m, k, c, t
     ((1, 2, 13, 16), 4, False), ((1, 2, 13, 16), 40, True), ((2, 12, 196, 32), 4, False),
     ((2, 12, 196, 32), 4, True), ((1, 3, 33, 8), 1, False), ((2, 2, 65, 48), 2, True),
     ((1, 2, 70, 128), 4, False), ((1, 1, 40, 64), 33, True),
+    ((1, 2, 40, 32), 33, False), ((1, 2, 40, 32), 40, False),      # multi-word T, every plane
+    ((1, 2, 24, 20), 33, True), ((1, 1, 20, 128), 40, True),
+    ((1, 2, 1, 20), 4, False), ((1, 4, 196, 128), 4, True),
 ])
 def test_packed_ssa_kernel_vs_plain_on_card(card, shape, t, causal):
     qw, kw, vw = (_words(s, t, shape).to(card) for s in (1, 2, 3))

@@ -414,9 +414,10 @@ def test_sparse_packed_matmul_kernel_vs_packed_kernel_on_card(card, m, k, c, t, 
 ])
 def test_sparse_packed_ssa_kernel_vs_packed_kernel_on_card(card, shape, t, causal, m, ones,
                                                           share):
-    """The tensor-core gated kernel equals the SIMT packed kernel and the
-    plain version bit for bit; all ones at Dh=128 give the largest scores
-    and sums."""
+    """The gated kernel equals the ungated packed kernel (one tensor-core
+    kernel, ``packed_ssa_tc_kernel``, instantiated with and without the
+    liveness map) and the plain version bit for bit; all ones at Dh=128
+    give the largest scores and sums."""
     kv_shape = shape[:2] + (m or shape[2], shape[3])
     qw = _words(1, t, shape)
     kw, vw = _words(3, t, kv_shape), _words(4, t, kv_shape)

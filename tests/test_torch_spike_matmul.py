@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core import nn as tnn
+from repro_torch.core import packing as tpk
 from repro_torch.kernels.spike_matmul import ops as tops
 
 torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
@@ -134,3 +135,99 @@ def test_conv3x3_kernel_vs_plain_on_card(card):
     w = torch.from_numpy(_weights(10, (3, 3, 5, 6))).to(card)
     torch.testing.assert_close(tops.conv3x3_op(x, w), tnn.conv_apply({"w": w}, x),
                                rtol=1e-5, atol=1e-5)
+
+
+# (rows of the dense operand, K, C) of the six GEMMs of the 8-384 main path at
+# T = 4, slot batch 8: three tokenizer convs (im2col) and the block linears
+MAIN_PATH = [(4 * 8 * 112 * 112, 9 * 48, 96), (4 * 8 * 56 * 56, 9 * 96, 192),
+             (4 * 8 * 28 * 28, 9 * 192, 384), (4 * 8 * 196, 384, 384),
+             (4 * 8 * 196, 384, 1536), (4 * 8 * 196, 1536, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,c", MAIN_PATH)
+def test_gemm_kernels_at_main_path_shapes_on_card(card, m, k, c):
+    """K2 within rtol 1e-5 / atol 1e-4 of the f32 product; K5 on the words
+    of the same spikes equal to K2 bit for bit; K8 equal to K5 with no tile
+    dead and with every second (64, 128) tile dead."""
+    t = 4
+    gen = torch.Generator(card).manual_seed(k + c)
+    planes = (torch.rand((t, m // t, k), generator=gen, device=card) > 0.5).float()
+    w = (torch.rand((k, c), generator=gen, device=card) * 2 - 1) / k ** 0.5
+    x = planes.reshape(m, k)
+    got = tops.spike_matmul_fwd(x, w)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.testing.assert_close(got, x @ w, rtol=1e-5, atol=1e-4)
+    words = tpk.pack(planes).words[0]
+    del planes, x
+    packed = tops.packed_spike_matmul_fwd(words, w, t=t)
+    assert torch.equal(packed.reshape(m, c), got)
+    mt, kt = tops.grid_tiles_shape(m // t, k)
+    checker = (torch.arange(mt, device=card)[:, None] + torch.arange(kt, device=card)) % 2 == 1
+    dead = checker.repeat_interleave(64, 0)[:m // t].repeat_interleave(128, 1)[:, :k]
+    for xw in (words, torch.where(dead, 0, words)):
+        tiles = tops._occ_to_grid_tiles(None, xw)
+        assert torch.equal(tops.sparse_packed_spike_matmul_fwd(xw, w, tiles, t=t),
+                           tops.packed_spike_matmul_fwd(xw, w, t=t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,c", sorted({(k, c) for _, k, c in MAIN_PATH}))
+def test_gemm_kernels_on_one_hot_rows_on_card(card, k, c):
+    """Rows with one spike select a weight, which three bf16 pieces sum to
+    exactly: K2, K5 and K8 give it within one unit in the last place (the
+    tensor cores' truncating add), where a GEMM of two pieces misses by up
+    to ~64 and passes the rtol 1e-5 / atol 1e-4 check all the same."""
+    t = 4
+    gen = torch.Generator(card).manual_seed(k + c)
+    w = (torch.rand((k, c), generator=gen, device=card) * 2 - 1) / k ** 0.5
+    idx = (torch.arange(k, device=card)[None] + 7 * torch.arange(t, device=card)[:, None]) % k
+    planes = torch.nn.functional.one_hot(idx, k).float()
+    want = w[idx]
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"), device=card)) - want.abs()
+    words = tpk.pack(planes).words[0]
+    tiles = tops._occ_to_grid_tiles(None, words)
+    for got in (tops.spike_matmul_fwd(planes.reshape(t * k, k), w).reshape(t, k, c),
+                tops.packed_spike_matmul_fwd(words, w, t=t),
+                tops.sparse_packed_spike_matmul_fwd(words, w, tiles, t=t)):
+        assert ((got - want).abs() / ulp).max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,c", [(4 * 8 * 196, 384, 384), (4 * 8 * 196, 384, 1536),
+                                   (130, 75, 13)])
+@pytest.mark.parametrize("top", [9, 17])
+def test_spike_matmul_on_counts_on_card(card, m, k, c, top):
+    """The residual='add' configs' linears read the residual stream, counts
+    up to 2L + 1 = 17 at L = 8, on the dense GEMM: within rtol 1e-5 / atol
+    1e-4 of the f32 product."""
+    gen = torch.Generator(card).manual_seed(k + c + top)
+    x = torch.randint(0, top + 1, (m, k), generator=gen, device=card).float()
+    w = (torch.rand((k, c), generator=gen, device=card) * 2 - 1) / k ** 0.5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.testing.assert_close(tops.spike_matmul_fwd(x, w), x @ w, rtol=1e-5, atol=1e-4)
+
+
+def test_control_builds_substitute_and_restore(tmp_path, monkeypatch):
+    """A control build has its own library file (its defines are part of the
+    hash); ``substitute`` points the wrappers of its library at it for the
+    block and restores what was loaded before."""
+    import shutil
+
+    import _ctypes
+
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_fns", {("spike_matmul", "f"): "main's f"})
+    paths = {n: _build.library_path(n) for n in ("spike_matmul", *_build.CONTROLS)}
+    assert len(set(paths.values())) == len(paths)
+    shutil.copy(_ctypes.__file__, paths["spike_matmul_hi"])   # any shared object stands in
+    with _build.substitute("spike_matmul", "spike_matmul_hi"):
+        assert _build._libs["spike_matmul"]._name == str(paths["spike_matmul_hi"])
+        assert ("spike_matmul", "f") not in _build._fns
+    assert _build._libs == {} and _build._fns == {("spike_matmul", "f"): "main's f"}
+    with pytest.raises(ValueError, match="control build of spike_matmul"):
+        with _build.substitute("ssa", "spike_matmul_hi"):
+            pass

@@ -114,3 +114,54 @@ def test_ssa_kernel_takes_head_split_views_on_card(card):
     q, k, v = (torch.from_numpy(a).to(card) for a in _qkv(5, (2, 2, 49, 48)))
     views = [tsa.split_heads(a, 3) for a in (q, k, v)]
     assert torch.equal(tops.ssa_op(*views), tsa.ssa(*views))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["ssa_fwd", "packed_ssa_fwd", "sparse_packed_ssa_fwd"])
+def test_ssa_kernels_at_the_exactness_bound_on_card(card, fn):
+    """All ones at Dh=32 with M = 2^19 - 1 keys: every output is M * Dh =
+    2^24 - 32, the largest sum below the bound, and equals the plain
+    version; one key more (M * Dh == 2^24) the wrapper raises ValueError and
+    the C entry point, called directly, refuses the operands."""
+    from repro_torch.core import packing as tpk
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref
+
+    d, t = 32, 4
+    edge = 2 ** 24 // d
+    for m in (edge - 1, edge):
+        if fn == "ssa_fwd":
+            q, kv = torch.ones((1, 3, d), device=card), torch.ones((1, m, d), device=card)
+            call = lambda: tops.ssa_fwd(q, kv, kv, scale=1.0)
+            plain = lambda: ssa_ref(q, kv, kv, scale=1.0)
+        else:
+            q = tpk.pack(torch.ones((t, 1, 1, 3, d), device=card)).words.reshape(1, 1, 3, d)
+            kv = torch.full((1, 1, m, d), 2 ** t - 1, dtype=torch.int32, device=card)
+            live = torch.ones((1, t), dtype=torch.int32, device=card)
+            plain = lambda: packed_ssa_ref(q, kv, kv, t=t, scale=1.0)
+            call = ((lambda: tops.packed_ssa_fwd(q, kv, kv, t=t, scale=1.0))
+                    if fn == "packed_ssa_fwd"
+                    else (lambda: tops.sparse_packed_ssa_fwd(q, kv, kv, live, t=t, scale=1.0)))
+        if m < edge:
+            got = call()
+            torch.cuda.synchronize()
+            assert got.max().item() == m * d
+            assert torch.equal(got, plain())
+            continue
+        with pytest.raises(ValueError, match="2\\^24"):
+            call()
+        out = torch.empty((t, 1, 3, d), device=card)
+        stream = _build.stream(card)
+        if fn == "ssa_fwd":
+            raw = _build.kernel("ssa", fn, tops._ARGTYPES)
+            err = raw(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(), 1, 3, m, d,
+                      1.0, 0, stream)
+        elif fn == "packed_ssa_fwd":
+            raw = _build.kernel("ssa", fn, tops._PACKED_ARGTYPES)
+            err = raw(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(), 1, 3, m, d,
+                      t, 1.0, 0, stream)
+        else:
+            raw = _build.kernel("ssa", fn, tops._SPARSE_ARGTYPES)
+            err = raw(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), live.data_ptr(),
+                      out.data_ptr(), 1, 3, m, d, t, 1.0, 0, stream)
+        assert err == 1     # cudaErrorInvalidValue

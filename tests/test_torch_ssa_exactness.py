@@ -112,14 +112,14 @@ def test_tensor_core_order_equals_plain_and_jax(ref, g, n, m, d, ones, causal):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref.ssa_ref(q, k, v, causal=causal)))
 
 
-def _plane_f16(words, t):
+def _plane_f16(words, t, planes=PLANES):
     """Bit plane t of int32 words (..., Dh), Dh even, as f16 built the way the
-    gated kernel builds a fragment register: the two features of a register
+    packed kernel builds a fragment register: the two features of a register
     merged as (w0 >> bit0) & 0xFFFF | (w1 >> bit0) << 16, bit0 the first plane
-    of the block's group, then ((merged >> p) & 0x00010001) * 0x3C00 read as
-    two f16 lanes (low lane the even feature)."""
+    of the block's group of ``planes``, then ((merged >> p) & 0x00010001) *
+    0x3C00 read as two f16 lanes (low lane the even feature)."""
     w = words[t // 32].to(torch.int64) & 0xFFFFFFFF
-    bit0, p = (t % 32) // PLANES * PLANES, t % PLANES
+    bit0, p = (t % 32) // planes * planes, t % planes
     merged = ((w[..., 0::2] >> bit0) & 0xFFFF) | (((w[..., 1::2] >> bit0) << 16) & 0xFFFF0000)
     reg = ((merged >> p) & 0x00010001) * 0x3C00
     lanes = torch.stack([reg & 0xFFFF, reg >> 16], dim=-1).reshape(words.shape[1:])
@@ -151,6 +151,42 @@ def test_packed_tensor_core_order_equals_plain_and_jax(ref, t, shape, causal):
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax_out))
 
 
+def _planes_per_block(d):
+    """The packed kernel's planes per block (planes_per_block in ssa.cu):
+    4, 4, 2, 1 for Dh rounded up to 16, 32, 64, 128."""
+    return 4 if d <= 32 else 2 if d <= 64 else 1
+
+
+@pytest.mark.parametrize("t,shape,causal", [(33, (1, 2, 20, 20), False),
+                                            (40, (1, 2, 20, 20), True),
+                                            (33, (1, 1, 24, 64), True),
+                                            (40, (1, 1, 9, 128), False)])
+def test_ungated_packed_order_every_plane(ref, t, shape, causal):
+    """The ungated kernel (``packed_ssa_fwd``) computes every plane below T:
+    the blocks' groups of the kernel's P planes walk both words of a 33- or
+    40-step train (P divides 32, so no group straddles two words), each
+    plane built from the bits, against ``packed_ssa_ref`` and the JAX
+    package's oracle on the unpacked trains."""
+    rng = np.random.default_rng(t + shape[-1])
+    trains = [(rng.random((t,) + shape) > 0.5).astype(np.float32) for _ in range(3)]
+    qw, kw, vw = (tpk.pack(torch.from_numpy(a)).words for a in trains)
+    w, b, h, n, d = qw.shape
+    fold = lambda x: x.reshape(w, b * h, n, d)
+    p = _planes_per_block(d)
+    assert 32 % p == 0
+    out = []
+    for p0 in range(0, t, p):                      # blockIdx.z walks the groups
+        for ti in range(p0, min(p0 + p, t)):       # planes at or past T are not computed
+            q16, k16, v16 = (_pad16(_plane_f16(fold(x), ti, p)) for x in (qw, kw, vw))
+            out.append(_tensor_core_order(q16, k16, v16, causal=causal)[..., :d])
+    got = torch.stack(out).reshape((t,) + shape)
+    want = packed_ssa_ref(*map(fold, (qw, kw, vw)), t=t, scale=0.125, causal=causal)
+    assert torch.equal(got, want.reshape(got.shape))
+    fold_t = lambda a: a.reshape(t * b * h, n, d)
+    jax_out = ref.ssa_ref(*map(fold_t, trains), causal=causal)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_out).reshape(got.shape))
+
+
 def test_plane_f16_is_the_unpacked_plane():
     words = tpk.pack(torch.from_numpy((np.random.default_rng(0).random((40, 3, 6)) > 0.5)
                                       .astype(np.float32))).words
@@ -174,4 +210,33 @@ def test_kernel_wrappers_raise_above_max_head_dim(fn):
                 if fn == "packed_ssa_fwd"
                 else (lambda: tops.sparse_packed_ssa_fwd(x, x, x, live, t=4, scale=0.125)))
     with pytest.raises(ValueError, match="head dim"):
+        call()
+
+
+@pytest.mark.parametrize("d", [8, 20, 32, 128])
+def test_exact_shape_bound(d):
+    """M * Dh < 2^24 keeps every partial sum of S v exact in f32: the helper
+    passes the last M below the bound and raises at M * Dh == 2^24."""
+    edge = tops.MAX_SUM // d if tops.MAX_SUM % d == 0 else -(-tops.MAX_SUM // d)
+    tops.check_exact_shape("ssa", edge - 1, d)
+    with pytest.raises(ValueError, match="2\\^24"):
+        tops.check_exact_shape("ssa", edge, d)
+
+
+@pytest.mark.parametrize("fn", ["ssa_fwd", "packed_ssa_fwd", "sparse_packed_ssa_fwd"])
+def test_kernel_wrappers_raise_at_the_exactness_bound(fn):
+    """Dh = 32 with M = 2^19 keys: M * Dh == 2^24, refused off the CPU before
+    the kernel is looked up."""
+    d, m = 32, 2 ** 24 // 32
+    if fn == "ssa_fwd":
+        q, kv = torch.empty((2, 5, d), device="meta"), torch.empty((2, m, d), device="meta")
+        call = lambda: tops.ssa_fwd(q, kv, kv, scale=0.125)
+    else:
+        q = torch.empty((1, 2, 5, d), dtype=torch.int32, device="meta")
+        kv = torch.empty((1, 2, m, d), dtype=torch.int32, device="meta")
+        live = torch.empty((2, 4), dtype=torch.int32, device="meta")
+        call = ((lambda: tops.packed_ssa_fwd(q, kv, kv, t=4, scale=0.125))
+                if fn == "packed_ssa_fwd"
+                else (lambda: tops.sparse_packed_ssa_fwd(q, kv, kv, live, t=4, scale=0.125)))
+    with pytest.raises(ValueError, match="2\\^24"):
         call()

@@ -1,5 +1,5 @@
 """The timing script of the port (``repro_torch/launch/timing.py``) on the
-CPU: its statistics, and both measurements at a tiny size."""
+CPU: its statistics, and every measurement at a tiny size."""
 
 import statistics
 
@@ -40,3 +40,23 @@ def test_no_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         timing.main(["ssa", "--g", "1", "--n", "2", "--dh", "4"])
+
+
+def test_serve_on_the_cpu(capsys):
+    """One line per route: the median, quartiles, mean and extremes of the
+    slot batches after the warm-up, in ms."""
+    routes = ("cuda", "cuda+packed+sparse")
+    timing.main(["--device", "cpu", "serve", "--arch", "spike-iand-former_smoke",
+                 "--batches", "3", "--warmup", "1", "--slots", "2", "--routes",
+                 ",".join(routes)])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(routes)
+    for route, line in zip(routes, lines):
+        assert line.startswith("[timing] ") and "repro_torch on cpu:" in line
+        assert (f"serve spike-iand-former_smoke backend={route} slot batch 2, 3 batches "
+                "after 1 warm-up: ms per slot batch " in line)
+        stats = dict(kv.split() for kv in line.split("ms per slot batch ")[1].split(", "))
+        assert list(stats) == ["median", "q1", "q3", "mean", "min", "max"]
+        s = {k: float(v) for k, v in stats.items()}
+        assert 0 < s["min"] <= s["q1"] <= s["median"] <= s["q3"] <= s["max"]
+
