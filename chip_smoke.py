@@ -60,10 +60,28 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      trees and served by a ``cuda+packed`` plan, held end to end against
      ``torch+packed+sparse`` as in phase 3 (the control must exceed the
      spike limit again) and against ``apply(train=False)``;
-     ms per step and img/s on both routes, and one profiled step.
+     ms per step and img/s on both routes, and one profiled step;
+  6. the spiking LM: ``serve_spiking_lm`` at the full width of
+     ``spiking_lm_config("llama3.2-1b")`` (16 layers, d 2048, 4 heads of
+     Dh 512, d_ff 8192, vocab 128,256, T=4; weights from a seed, made on
+     the card), 8 requests, prompt 32, 16 new tokens, 4 slots, on ``cuda``,
+     ``cuda+packed`` and ``cuda+packed+sparse`` with every launch counted
+     (113 LIF + 96 GEMM + 16 SSA per prefill, 113 + 96 + 0 per decode
+     step), the three routes' streams and logits equal, every LIF firing;
+     then on the live LM (``live_lm_params``: the same weights with the
+     proj and fc2 norm gains at 0.5, so that the AND-NOT residual keeps
+     every block firing) the three routes served again, a linear-ordering
+     prefill, prefill plus 4 steps against the full forward and chunked
+     prefill (spikes and state ``torch.equal``), the kernel route against
+     the plain route (layer by layer; end to end within E2E_SPIKE_SHARE,
+     which the control builds must exceed; the first diverging token), and
+     one profiled prefill and decode step per route.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
-resets.  The last lines are the card's ``nvidia-smi`` name and power limit,
+resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
+(N = M = 32, 512, 2048, all ones, ragged Dh=200 with N != M, M * Dh just
+below 2^24; one key more refused), every kernel timed per prefill, K2 also
+per decode step.  The last lines are the card's ``nvidia-smi`` name and power limit,
 a JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 In the JSON line ``launches`` is the count over the live main-path run of
 the kernel's path (warm-up forward included) and ``launches_per_forward``
@@ -74,7 +92,11 @@ kernel's own device time in one profiled forward of its route on the live
 model; K4's from the packed route) are per forward, K7's per training
 step, as are its ``plain_ms`` and ``bound_ms``.  K8 and K9's ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are per forward at the live
-model's own operands.
+model's own operands.  The entries named ``*@llama3.2-1b`` are the LM
+path's: per prefill forward at its shapes (``... decode``: K2 per decode
+step), ``launches`` over the prefills (the decode steps) of phase 6's
+``serve_spiking_lm`` run on the kernel's route, ``device_ms`` from one
+profiled prefill (step).
 """
 
 from __future__ import annotations
@@ -132,6 +154,18 @@ BACKENDS = ("cuda", "torch", "cuda+packed", "torch+packed", "cuda+packed+sparse"
 PATHS = {"cuda": ("K1", "K2", "K3"), "cuda+packed": ("K4", "K5", "K6"),
          "cuda+packed+sparse": ("K4", "K8", "K9")}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_EVAL = 16, 3, 2
+# The spiking LM of phase 6: spiking_lm_config("llama3.2-1b") at full width
+# (16 layers, d_model 2048, 4 heads of Dh 512, d_ff 8192, vocab 128,256, T = 4),
+# weights from a seeded generator on the card, served as the reference's
+# --spiking-lm defaults serve it.
+LM_ARCH = "llama3.2-1b"
+LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SLOTS, LM_CHUNK = 8, 32, 16, 4, 8
+LM_LAYERS, LM_D, LM_FF, LM_HEADS, LM_DH, LM_VOCAB = 16, 2048, 8192, 4, 512, 128256
+# Decode against the full forward on the card: spikes and state are exact
+# integer arithmetic, but the head is a cuBLAS f32 GEMM whose order may
+# differ between B and B*S rows: logits within LM_LOGITS_ATOL (2048-term f32
+# sums of |terms| < 0.1: reordering moves them by ~1e-5 at most).
+LM_LOGITS_ATOL = 1e-4
 # Per gradient leaf, max |kernel route - plain route| <= GRAD_REL * max |plain
 # route|: the forward is bit-equal on both routes (so is every surrogate
 # mask), and the backward differs only in the SSA's sum order (three
@@ -233,14 +267,16 @@ def matmul_tf32_ms(x, w, reps=20):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def library_tc_ms(q, k, v, scale, want, label):
+def library_tc_ms(q, k, v, scale, want, label, causal=False):
     """Device time of the two SSA products on the tensor cores through one
     PyTorch call each: f16 operands, f32 accumulation and output
     (``torch.bmm(..., out_dtype=torch.float32)``), the scores cast to f16
-    between them (exact: integers <= 128).  Held ``torch.equal`` to
-    ``want``.  None, logged, where this PyTorch lacks that ``out_dtype``."""
+    between them (exact: integers <= 512), masked by ``torch.tril`` where
+    ``causal``.  Held ``torch.equal`` to ``want``.  None, logged, where this
+    PyTorch lacks that ``out_dtype``."""
     q16, k16, v16 = q.half(), k.half(), v.half()
-    run = lambda: torch.bmm(torch.bmm(q16, k16.transpose(1, 2), out_dtype=torch.float32)
+    mask = torch.tril if causal else (lambda x: x)
+    run = lambda: torch.bmm(mask(torch.bmm(q16, k16.transpose(1, 2), out_dtype=torch.float32))
                             .half(), v16, out_dtype=torch.float32) * scale
     try:
         got = run()
@@ -421,6 +457,252 @@ def phase_kernels(dev, gen):
     reports["K3"] = rep
     reports.update(_packed_kernels(dev, gen))
     reports["K7"] = _lif_backward(dev, gen)
+    return reports
+
+
+def _lm_ssa_sets(gen, dev):
+    """(label, q, k, v, causal) of the LM's attention beside the main path's
+    (G = T*B*H = 64, N = M = 32, Dh = 512, causal): longer prompts (512, 2048),
+    all ones at Dh = 512 (the largest scores, 512), ragged Dh = 200 with
+    N != M both ways, and all ones with M * Dh just below 2^24 (one query
+    tile, not causal: every output is the largest exact sum)."""
+    binary = lambda shape: (torch.rand(shape, generator=gen) > 0.5).float().to(dev)
+    g, d = 4 * LM_SLOTS * LM_HEADS, LM_DH
+    for n in (512, 2048):
+        yield f"N=M={n}", binary((g, n, d)), binary((g, n, d)), binary((g, n, d)), True
+    ones = torch.ones((g, 512, d), device=dev)
+    for causal in (False, True):
+        yield "all-ones N=M=512", ones, ones, ones, causal
+    for n, m in ((57, 40), (40, 57)):
+        for causal in (False, True):
+            yield (f"ragged Dh=200 N={n} M={m}", binary((g, n, 200)), binary((g, m, 200)),
+                   binary((g, m, 200)), causal)
+    edge = 2 ** 24 // d - 1
+    yield (f"all-ones M*Dh = 2^24 - {d}", torch.ones((1, 64, d), device=dev),
+           torch.ones((1, edge, d), device=dev), torch.ones((1, edge, d), device=dev), False)
+
+
+def _lm_kernels(dev, gen):
+    """The kernels of the spiking LM's path at its shapes (llama3.2-1b width,
+    slot batch 4, prompt 32, T = 4): K3, K6 and K9 at Dh = 512 on the main
+    path's operands and on the sets of :func:`_lm_ssa_sets`, each
+    ``torch.equal`` its plain version, and one key past M * Dh = 2^24
+    refused; then every kernel timed per prefill forward beside its plain
+    version, its bound and the library calls, and K2 per decode step (16
+    rows).  Returns the reports of the LM entries of the JSON line."""
+    from repro_torch.core import lif as tlif
+    from repro_torch.core import packing
+    from repro_torch.kernels.lif_parallel import ops as lif_ops
+    from repro_torch.kernels.lif_parallel.ref import lif_pack_ref
+    from repro_torch.kernels.spike_matmul import ops as mm_ops
+    from repro_torch.kernels.spike_matmul.ref import (
+        packed_spike_matmul_ref, sparse_packed_spike_matmul_ref)
+    from repro_torch.kernels.spiking_attention import ops as ssa_ops
+    from repro_torch.kernels.spiking_attention.ref import (
+        packed_ssa_ref, sparse_packed_ssa_ref, ssa_ref)
+
+    t, b, s, d, f, layers = 4, LM_SLOTS, LM_PROMPT, LM_D, LM_FF, LM_LAYERS
+    suffix = f"@{LM_ARCH}"
+    src = "src/repro_torch/kernels/{}/csrc/{}.cu"
+    tpu = "src/repro/kernels/{}/kernel.py:{}"
+    reports = {}
+    pack = lambda x: packing.pack(x).words
+    fold_words = lambda x: x.reshape(1, x.shape[0], x.shape[1], x.shape[2])
+
+    # -- K3, K6, K9 at Dh = 512: exactness ----------------------------------------------
+    g, dh = t * b * LM_HEADS, LM_DH
+    binary = lambda shape: (torch.rand(shape, generator=gen) > 0.5).float().to(dev)
+    q, k, v = (binary((g, s, dh)) for _ in range(3))
+    labels = []
+    for label, qs, ks, vs, causal in [("main path N=M=32", q, k, v, True),
+                                      *_lm_ssa_sets(gen, dev)]:
+        want = ssa_ref(qs, ks, vs, scale=0.125, causal=causal)
+        got = ssa_ops.ssa_fwd(qs, ks, vs, scale=0.125, causal=causal)
+        check(torch.equal(got, want), f"K3 {label} causal={causal}: not equal to the plain "
+              "version")
+        # the packed kernels on the same spikes, as T = 4 planes of one word: q/k/v of
+        # G = 4 * B * H folds are the planes of B * H folds
+        gw = qs.shape[0] // t if qs.shape[0] % t == 0 else None
+        if gw is not None:
+            words = [pack(x.reshape(t, gw, x.shape[1], x.shape[2])) for x in (qs, ks, vs)]
+            live = ssa_ops._plane_liveness(*words, t)
+            got6 = ssa_ops.packed_ssa_fwd(*words, t=t, scale=0.125, causal=causal)
+            got9 = ssa_ops.sparse_packed_ssa_fwd(*words, live, t=t, scale=0.125, causal=causal)
+            check(torch.equal(got6.reshape(want.shape), want), f"K6 {label} causal={causal}: "
+                  "not equal to the plain version")
+            check(torch.equal(got9, got6), f"K9 {label} causal={causal}: not equal to K6")
+            check(torch.equal(got9, sparse_packed_ssa_ref(*words, live, t=t, scale=0.125,
+                                                          causal=causal)),
+                  f"K9 {label} causal={causal}: not equal to the plain version")
+        else:     # one fold (the 2^24 edge): the same spikes in every plane
+            words = [pack(x[None].expand((t,) + tuple(x.shape))) for x in (qs, ks, vs)]
+            live = ssa_ops._plane_liveness(*words, t)
+            got6 = ssa_ops.packed_ssa_fwd(*words, t=t, scale=0.125, causal=causal)
+            got9 = ssa_ops.sparse_packed_ssa_fwd(*words, live, t=t, scale=0.125, causal=causal)
+            check(all(torch.equal(got6[i], want) for i in range(t)) and torch.equal(got9, got6),
+                  f"K6/K9 {label}: not equal to the plain version")
+            check(want.max().item() == (2 ** 24 - dh) * 0.125, f"{label}: largest output "
+                  f"{want.max().item()}")
+        labels.append(f"{label}{' causal' if causal else ''}")
+        del want, got, got6, got9, words, live
+    log(f"K3, K6, K9 at Dh={dh}: torch.equal the plain versions (K9 also K6) on "
+        + "; ".join(labels))
+    past = 2 ** 24 // dh
+    kv = torch.ones((1, past, dh), device=dev)
+    refused = []
+    for name, call in (("K3", lambda: ssa_ops.ssa_fwd(kv[:, :3], kv, kv, scale=0.125)),
+                       ("K6", lambda: ssa_ops.packed_ssa_fwd(*(pack(x[None]) for x in
+                                                              (kv[:, :3], kv, kv)),
+                                                            t=1, scale=0.125))):
+        try:
+            call()
+            refused.append(f"{name} accepted")
+        except ValueError as e:
+            refused.append(f"{name} refused ({str(e)[:60]})")
+    check(all("refused" in r for r in refused), f"M * Dh = 2^24 at Dh={dh}: {refused}")
+    log(f"  one key more (M={past}, M*Dh = 2^24): " + ", ".join(refused))
+    del kv
+
+    # -- K3, K6, K9 timed ------------------------------------------------------------------
+    def ssa_case(rep, label, count, qs, ks, vs, causal=True):
+        n, m = qs.shape[1], ks.shape[1]
+        pairs = n * (n + 1) // 2 if causal else n * m
+        mask = torch.tril if causal else (lambda x: x)
+        plain = lambda: ssa_ref(qs, ks, vs, scale=0.125, causal=causal)
+        rep.add(label, count, 0.0, time_ms(lambda: ssa_ops.ssa_fwd(qs, ks, vs, scale=0.125,
+                                                                   causal=causal)),
+                time_ms(plain, reps=5), 4 * 4 * qs.shape[0] * n * dh,
+                4 * qs.shape[0] * pairs * dh,
+                library_ms=time_ms(lambda: torch.bmm(mask(torch.bmm(qs, ks.transpose(1, 2))),
+                                                     vs) * 0.125),
+                library_tc_ms=library_tc_ms(qs, ks, vs, 0.125, plain(), f"K3{suffix} {label}",
+                                            causal=causal))
+
+    rep = KernelReport(f"ssa{suffix}", src.format("spiking_attention", "ssa"),
+                       tpu.format("spiking_attention", 62))
+    ssa_case(rep, f"G={g} N={s} Dh={dh} causal", layers, q, k, v)
+    reports["K3"] = rep
+    longer = KernelReport("ssa longer prompts", rep.entry["source"], rep.entry["replaces"])
+    for n in (512, 2048):
+        ssa_case(longer, f"G={g} N={n} Dh={dh} causal (a {n}-token prompt)", 1,
+                 *(binary((g, n, dh)) for _ in range(3)))
+
+    gw = b * LM_HEADS
+    qw, kw, vw = (pack(x.reshape(t, gw, s, dh)) for x in (q, k, v))
+    dense = lambda w_: packing.unpack(packing.PackedSpikes(w_, t)).reshape(t * gw, -1, dh)
+    pairs = s * (s + 1) // 2
+    for key, name, line, gated in (("K6", "packed_ssa", 164, False),
+                                   ("K9", "sparse_packed_ssa", 139, True)):
+        rep = KernelReport(f"{name}{suffix}", src.format("spiking_attention", "ssa"),
+                           tpu.format("spiking_attention", line))
+        live = ssa_ops._plane_liveness(qw, kw, vw, t)
+        if gated:
+            run = lambda: ssa_ops.sparse_packed_ssa_fwd(qw, kw, vw, live, t=t, scale=0.125,
+                                                        causal=True)
+            plain = lambda: sparse_packed_ssa_ref(qw, kw, vw, live, t=t, scale=0.125,
+                                                  causal=True)
+            n_live = int((live != 0).sum())
+        else:
+            run = lambda: ssa_ops.packed_ssa_fwd(qw, kw, vw, t=t, scale=0.125, causal=True)
+            plain = lambda: packed_ssa_ref(qw, kw, vw, t=t, scale=0.125, causal=True)
+            n_live = gw * t
+        qd, kd, vd = dense(qw), dense(kw), dense(vw)
+        rep.add(f"G={gw} N={s} Dh={dh} T={t} causal", layers, 0.0, time_ms(run),
+                time_ms(plain, reps=5), 4 * 3 * gw * s * dh + 4 * t * gw * s * dh,
+                4 * n_live * pairs * dh,
+                library_ms=time_ms(lambda: torch.bmm(torch.tril(torch.bmm(
+                    qd, kd.transpose(1, 2))), vd) * 0.125),
+                library_tc_ms=library_tc_ms(qd, kd, vd, 0.125, plain().reshape(t * gw, s, dh),
+                                            f"{key}{suffix}", causal=True))
+        reports[key] = rep
+    del q, k, v, qw, kw, vw
+
+    # -- K1 and K4: the LIF and its pack epilogue ------------------------------------------
+    lif_cases = [(b * s * d, False, 1 + 4 * layers), (b * s * d, True, 2 * layers),
+                 (b * s * f, False, layers)]
+    big = b * s * f
+    drive = torch.randn((t, big), generator=gen).to(dev)
+    drive[:, ::3] = torch.round(drive[:, ::3] * 8) / 8      # membranes exactly on theta too
+    skip = (torch.rand((t, big), generator=gen) > 0.5).float().to(dev)
+    skip_words = pack(skip)
+    for key, name, line, packed in (("K1", "lif_parallel", 144, False),
+                                    ("K4", "lif_pack", 174, True)):
+        rep = KernelReport(f"{name}{suffix}", src.format("lif_parallel", "lif_parallel"),
+                           tpu.format("lif_parallel", line))
+        for n, iand, count in lif_cases:
+            x = drive[:, :n].contiguous()
+            if packed:
+                sk = skip_words[:, :n].contiguous() if iand else None
+                run = lambda: lif_ops.lif_parallel_pack_fwd(x, chain_len=t, lam=0.25, theta=0.5,
+                                                            reset="hard", skip_words=sk)
+                plain = lambda: lif_pack_ref(x, chain_len=t, skip_words=sk)
+                nbytes = 4 * t * n + 4 * n * (2 if iand else 1)
+            else:
+                sk = skip[:, :n].contiguous() if iand else None
+                run = lambda: lif_ops.lif_parallel_fwd(x, chain_len=t, lam=0.25, theta=0.5,
+                                                       reset="hard", skip=sk)
+                plain = lambda: tlif.lif_parallel(x, iand_skip=sk)
+                nbytes = 4 * t * n * (3 if iand else 2)
+            check(torch.equal(run(), plain()), f"{name} N={n} iand={iand}: not equal to "
+                  "the plain version")
+            rep.add(f"N={n} iand={iand}", count, 0.0, time_ms(run), time_ms(plain), nbytes,
+                    5 * t * n, peak=F32_FLOP_PER_S)
+        reports[key] = rep
+    del drive, skip, skip_words
+
+    # -- K2, K5, K8: the spike GEMMs ----------------------------------------------------
+    gemm_cases = [(d, d, 4 * layers), (d, f, layers), (f, d, layers)]
+    weights = {(kk, c): (torch.randn((kk, c), generator=gen) * kk ** -0.5).to(dev)
+               for kk, c, _ in gemm_cases}
+
+    def gemm_report(key, name, line, rows, regime):
+        rep = KernelReport(f"{name}{suffix}{regime}", src.format("spike_matmul", "spike_matmul"),
+                           tpu.format("spike_matmul", line))
+        for kk, c, count in gemm_cases:
+            w = weights[(kk, c)]
+            if key == "K2":
+                x = (torch.rand((rows, kk), generator=gen) > 0.5).float().to(dev)
+                run = lambda: mm_ops.spike_matmul_fwd(x, w)
+                plain = lambda: mm_ops.spike_matmul_ref(x, w)
+                unpacked, nbytes = x, 4 * (rows * kk + kk * c + rows * c)
+                flops = GEMM_PIECES * 2 * rows * kk * c
+            else:
+                xw = pack((torch.rand((t, rows, kk), generator=gen) > 0.5).float().to(dev))[0]
+                unpacked = packing.unpack(packing.PackedSpikes(xw[None], t)).reshape(-1, kk)
+                nbytes = 4 * (rows * kk + kk * c + t * rows * c)
+                flops = GEMM_PIECES * 2 * t * rows * kk * c
+                if key == "K5":
+                    run = lambda: mm_ops.packed_spike_matmul_fwd(xw, w, t=t)
+                    plain = lambda: packed_spike_matmul_ref(xw, w, t=t)
+                else:
+                    tiles = mm_ops._occ_to_grid_tiles(None, xw)
+                    run = lambda: mm_ops.sparse_packed_spike_matmul_fwd(xw, w, tiles, t=t)
+                    plain = lambda: sparse_packed_spike_matmul_ref(xw, w, tiles, t=t)
+            got, want = run(), plain()
+            err = (got - want).abs().max().item()
+            check(bool(torch.allclose(got, want, **GEMM_TOL)),
+                  f"{name} {rows}x{kk}x{c}: max abs err {err:.3g} outside {GEMM_TOL}")
+            if key != "K2":
+                check(torch.equal(got.reshape(-1, c), mm_ops.spike_matmul_fwd(unpacked, w)),
+                      f"{name} {rows}x{kk}x{c}: not equal to K2 on the unpacked operand")
+            rep.add(f"{rows}x{kk}x{c}", count, err, time_ms(run), time_ms(plain),
+                    nbytes, flops, library_ms=time_ms(lambda: torch.matmul(unpacked, w)),
+                    library_tc_ms=matmul_tf32_ms(unpacked, w))
+            del got, want
+        return rep
+
+    reports["K2"] = gemm_report("K2", "spike_matmul", 164, t * b * s, "")
+    reports["K2 decode"] = gemm_report("K2", "spike_matmul", 164, t * b, " decode")
+    reports["K5"] = gemm_report("K5", "packed_spike_matmul", 136, b * s, "")
+    reports["K8"] = gemm_report("K8", "sparse_packed_spike_matmul", 101, b * s, "")
+    step = reports["K2 decode"].entry
+    head_bytes = 4 * LM_D * LM_VOCAB
+    head_ms = bound_ms(head_bytes, 2 * b * LM_D * LM_VOCAB, F32_FLOP_PER_S)[0]
+    weight_bytes = 4 * sum(kk * c * n for kk, c, n in gemm_cases)
+    log(f"K2 per decode step ({t * b} rows, {6 * layers} launches): {step['ms']:.3f} ms against "
+        f"a {step['bound_ms']:.3f} ms bound ({step['bound_by']}: {weight_bytes / 1e9:.2f} GB of "
+        f"f32 weights); the head's f32 GEMM (torch.matmul, {head_bytes / 1e9:.2f} GB) adds a "
+        f"{head_ms:.3f} ms bound")
     return reports
 
 
@@ -914,6 +1196,15 @@ def _mismatch_rows(label, plans, batch, end_to_end=False, limit=MISMATCH_SHARE):
     packed = plan.backend.packed
     tok = execute._tokenizer_exec_packed if packed else execute._tokenizer_exec
     blk = execute._block_exec_packed if packed else execute._block_exec
+    first = "tokenizer"
+    if plan.meta.family == "lm":        # the embedding LIF, then the decoder blocks
+        first = "embed"
+        tok = lambda meta, p, tokens: execute._lif(
+            meta, execute._lm_embed_drive(meta, p, tokens), pack_output=packed)
+        blk = lambda meta, bp, x: execute._lm_block_exec(meta, bp, x, packed=packed)
+        ref_tok, plan_tok = ref.params["embed"], plan.params["embed"]
+    else:
+        ref_tok, plan_tok = ref.params["tokenizer"], plan.params["tokenizer"]
 
     def diff(x, y):
         if not packed:
@@ -922,9 +1213,9 @@ def _mismatch_rows(label, plans, batch, end_to_end=False, limit=MISMATCH_SHARE):
         return flips, (x.words != y.words).sum().item(), x.t * x.words[0].numel()
 
     with torch.inference_mode():
-        x = tok(ref.meta, ref.params["tokenizer"], batch)
-        y = tok(plan.meta, plan.params["tokenizer"], batch)
-        rows = [("tokenizer", *diff(x, y))]
+        x = tok(ref.meta, ref_tok, batch)
+        y = tok(plan.meta, plan_tok, batch)
+        rows = [(first, *diff(x, y))]
         for i, (rb, cb) in enumerate(zip(ref.params["blocks"], plan.params["blocks"])):
             y = blk(plan.meta, cb, y if end_to_end else x)
             x = blk(ref.meta, rb, x)
@@ -1111,7 +1402,9 @@ def _gated_at_live_data(plan, batch, reports):
 
 
 # The kernel of each entry point, by its name in the library (the ungated
-# and gated packed SSA are one kernel, told apart by its last template flag).
+# and gated packed SSA are one kernel, told apart by its last template flag;
+# past Dh = 128 the three SSA entry points share ssa_wide_tc_kernel, told
+# apart by its two flags).
 KERNEL_NAMES = {"lif_parallel_kernel": "K1", "spike_matmul_tc_kernel": "K2",
                 "ssa_tc_kernel": "K3", "lif_pack_kernel": "K4",
                 "packed_spike_matmul_tc_kernel": "K5", "lif_bwd_kernel": "K7",
@@ -1131,34 +1424,46 @@ def _hand_kernels(kernels):
         key = KERNEL_NAMES.get(base)
         if base == "packed_ssa_tc_kernel":
             key = "K9" if name.rstrip(">").endswith("true") else "K6"
+        if base == "ssa_wide_tc_kernel":      # <DQ, kPacked, kGated>
+            packed, gated = (f.strip() == "true" for f in name.split("<")[1].rstrip(">")
+                             .split(",")[1:3])
+            key = "K9" if gated else "K6" if packed else "K3"
         if key:
             out.append((key, name, e))
     return out
 
 
-def _profile_forward(label, plan, batch, tries=3):
-    """One forward under ``torch.profiler`` (after a warm-up): the device time
-    of every CUDA kernel it ran, their count, and the profiled wall time, so
-    that the device's idle share of the forward shows.  Returns the device
-    ms of each of the port's kernels in that forward, by K number.  The
-    profiler at times drops part of a forward's kernels: a profile whose
-    count of the port's launches is not the route's per-forward count is
-    taken again, up to ``tries`` times, and is logged as incomplete."""
-    from torch.profiler import ProfilerActivity, profile
+def _route(plan) -> str:
+    b = plan.backend
+    return b.kind + "+packed" * b.packed + "+sparse" * b.sparse
 
+
+def _profile_forward(label, plan, batch, tries=3):
+    """One forward of a vision plan under :func:`_profile`."""
     from repro_torch import engine
 
     step = engine.make_apply_fn(plan)
-    b = plan.backend
-    route = b.kind + "+packed" * b.packed + "+sparse" * b.sparse
-    want = {k: n for k, n in _per_forward(plan.meta.num_layers, route).items() if n}
+    want = {k: n for k, n in _per_forward(plan.meta.num_layers, _route(plan)).items() if n}
+    return _profile(label, lambda: step(plan.params, batch), want, tries)
+
+
+def _profile(label, run, want, tries=3):
+    """One ``run()`` under ``torch.profiler`` (after a warm-up run): the
+    device time of every CUDA kernel it ran, their count, and the profiled
+    wall time, so that the device's idle share shows.  Returns the device ms
+    of each of the port's kernels in that run, by K number.  The profiler at
+    times drops part of a run's kernels: a profile whose count of the port's
+    launches is not ``want`` is taken again, up to ``tries`` times, and is
+    logged as incomplete."""
+    from torch.profiler import ProfilerActivity, profile
+
     for attempt in range(1, tries + 1):
         with torch.inference_mode():
-            step(plan.params, batch)
+            run()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                step(plan.params, batch)
+                run()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
         kernels = [e for e in prof.key_averages()
@@ -1169,7 +1474,7 @@ def _profile_forward(label, plan, batch, tries=3):
             counts[key] = counts.get(key, 0) + e.count
         if counts == want:
             break
-        log(f"  profile {label}: incomplete (launches {counts}, the forward makes {want}), "
+        log(f"  profile {label}: incomplete (launches {counts}, the run makes {want}), "
             f"attempt {attempt} of {tries}")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0:
@@ -1177,12 +1482,12 @@ def _profile_forward(label, plan, batch, tries=3):
         return {}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     log(f"  profile {label}: {sum(e.count for e in kernels)} CUDA kernels, device busy "
-        f"{busy:.3f} ms of a {wall:.3f} ms profiled forward ({1 - busy / wall:.1%} idle); "
+        f"{busy:.3f} ms of a {wall:.3f} ms profiled run ({1 - busy / wall:.1%} idle); "
         "top: " + ", ".join(f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                             for e in top))
     # the hand kernels' own device time, free of the launch gaps that
     # back-to-back event timing of a short kernel includes
-    log(f"  profile {label}, hand kernels' device time per forward: " + ", ".join(
+    log(f"  profile {label}, hand kernels' device time per run: " + ", ".join(
         f"{name} ({key}) x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
         for key, name, e in mine))
     if counts != want:
@@ -1614,6 +1919,251 @@ def phase_train(dev, smi):
     return launches["K7"], TRAIN_STEPS, k7_ms
 
 
+def _lm_launches(backend, prefills, steps, ordering="quadratic"):
+    """Launches of each kernel over ``prefills`` prefill forwards and
+    ``steps`` decode steps on a kernel route: per prefill one LIF for the
+    embedding and 7 a block, 6 GEMMs a block and (quadratic) one SSA a block;
+    per step the same LIFs and GEMMs and no SSA kernel (the O(d^2) state
+    update is plain PyTorch); the other routes' kernels never launch."""
+    lif, gemm = 1 + 7 * LM_LAYERS, 6 * LM_LAYERS
+    ssa = LM_LAYERS if ordering == "quadratic" else 0
+    want = dict.fromkeys(_counters(), 0)
+    for key, n in zip(PATHS[backend], (prefills * lif + steps * lif, (prefills + steps) * gemm,
+                                       prefills * ssa)):
+        want[key] = n
+    return want
+
+
+def _lm_counted(label, backend, run, want_of):
+    """``run()`` with every launch counter set to 0 just before and read just
+    after; fails unless the counts are ``want_of(run's result)``."""
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = want_of(out)
+    check(launches == want, f"{label} {backend}: launches {launches}, expected {want}")
+    log(f"{label} backend={backend}: launches {launches} (expected {want})")
+    return out, launches
+
+
+def _lm_spike_rates(label, taps):
+    """Spike share of every LIF of one forward (embedding, then q, k, v, attn,
+    proj, fc1, fc2 per block; proj and fc2 carry the AND-NOT join, so theirs is
+    the residual stream's); fails if a block LIF emits no spike."""
+    from repro_torch.core import packing
+
+    names = ["embed"] + [f"block{i}.{u}" for i in range(LM_LAYERS)
+                         for u in ("q", "k", "v", "attn", "proj", "fc1", "fc2")]
+    check(len(taps) == len(names), f"captured {len(taps)} LIF taps, expected {len(names)}")
+    rates = {n: packing.spike_counts(ps).sum().item() / (ps.t * ps.words[0].numel())
+             for n, ps in zip(names, taps)}
+    log(f"  {label}: spike rate per LIF of a prefill: embed {rates['embed']:.3%}")
+    for i in range(LM_LAYERS):
+        log(f"    block{i}: " + ", ".join(f"{k.split('.')[1]} {v:.3%}" for k, v in rates.items()
+                                          if k.startswith(f"block{i}.")))
+    silent = [k for k, v in rates.items() if k.startswith("block") and v == 0]
+    check(not silent, f"{label}: LM block LIFs emit no spike: {silent}")
+    block = [v for k, v in rates.items() if k.startswith("block")]
+    counts = [packing.spike_counts(ps).sum().item() for ps in taps]
+    log(f"  {label}: {len(rates)} LIFs, block LIF rates {min(block):.4%}..{max(block):.3%} "
+        f"(the fewest spikes of a LIF: {min(counts)} of {taps[-1].t * taps[-1].words[0].numel()})")
+
+
+def _lm_routes_equal(label, runs):
+    """The three kernel routes' token streams and logits ``torch.equal``."""
+    for backend in ("cuda+packed", "cuda+packed+sparse"):
+        for key in ("tokens", "logits"):
+            same = torch.equal(runs[backend][key], runs["cuda"][key])
+            log(f"  {label}: {key} {backend} vs cuda: torch.equal {same}")
+            check(same, f"{label} LM {key}: {backend} differs from cuda")
+
+
+def _first_divergence(a, b):
+    """Per request, the first position where two token streams differ (None
+    where they agree)."""
+    out = []
+    for x, y in zip(a, b):
+        diff = (x != y).nonzero()
+        out.append(int(diff[0]) if len(diff) else None)
+    return out
+
+
+def phase_lm(dev, smi, reports):
+    """The spiking LM at full llama3.2-1b width on the card: ``serve_spiking_lm``
+    on the three kernel routes (the main path, launches counted) and the
+    seeded model's spike rates; then the live LM (``live_lm_params``, every
+    block firing) served on the three routes, a linear-ordering prefill,
+    prefill plus steps against the full forward, chunked prefill, every LIF
+    firing, the kernel route against the plain route, and one profiled
+    prefill and decode step per route."""
+    from repro_torch import engine
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.engine import execute
+    from repro_torch.launch.serve import (
+        live_lm_params, serve_lm_plan, serve_spiking_lm, spiking_lm_config)
+    from repro_torch.models import spiking_lm as slm
+
+    cfg = spiking_lm_config(LM_ARCH)
+    log(f"{LM_ARCH} spiking: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads of Dh {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"T={cfg.spike_t}, {cfg.param_dtype}")
+    runs, launches = {}, {}
+    for backend in PATHS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = lambda: serve_spiking_lm(LM_ARCH, num_requests=LM_REQUESTS, prompt_len=LM_PROMPT,
+                                       max_new=LM_NEW, slots=LM_SLOTS, backend=backend,
+                                       device=dev)
+        runs[backend], launches[backend] = _lm_counted(
+            "serve_spiking_lm", backend, run,
+            lambda r: _lm_launches(backend, r["prefills"], r["steps"]))
+        r = runs[backend]
+        check(tuple(r["tokens"].shape) == (LM_REQUESTS, LM_NEW)
+              and tuple(r["logits"].shape) == (LM_REQUESTS, LM_NEW, LM_VOCAB),
+              f"{backend}: tokens {tuple(r['tokens'].shape)}, logits {tuple(r['logits'].shape)}")
+        check(bool(torch.isfinite(r["logits"]).all()), f"{backend}: non-finite logits")
+        steps = sorted(r["step_ms"])
+        log(f"serve {LM_ARCH} backend={backend}: {r['tok_per_s']:.2f} tok/s ({LM_REQUESTS} "
+            f"requests x {LM_NEW} new tokens, prompt {LM_PROMPT}, slots {LM_SLOTS}, "
+            f"{r['seconds']:.3f} s); prefill {', '.join(f'{x:.3f}' for x in r['prefill_ms'])} ms; "
+            f"decode step median {steps[len(steps) // 2]:.3f} ms (min {steps[0]:.3f}, max "
+            f"{steps[-1]:.3f}, {len(steps)} steps); peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB; on {smi}")
+    _lm_routes_equal("seeded", runs)
+    prompts = make_batch(DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=LM_PROMPT,
+                                    global_batch=LM_REQUESTS), 0)["tokens"]
+    batch = torch.from_numpy(prompts[:LM_SLOTS]).long().to(dev)
+    params = slm.init_spiking_lm(torch.Generator(dev).manual_seed(0), cfg)
+    seeded = engine.compile_plan(params, None, cfg, backend="cuda+packed", device=dev)
+    del params
+    with execute.capture_spikes() as taps:
+        logits, _ = engine.prefill(seeded, batch)
+    check(torch.equal(logits[:, -1].cpu(), runs["cuda+packed"]["logits"][:LM_SLOTS, 0]),
+          "the seeded model's prefill differs from serve_spiking_lm's")
+    _lm_spike_rates("seeded model (serve_spiking_lm's weights)", taps)
+    del seeded, taps, logits
+    fail_if_any("phase 6 (serving)")
+
+    # the live LM: every block fires, so the comparisons below see spikes in
+    # every layer
+    params = live_lm_params(cfg, dev)
+    live_runs = {}
+    for backend in PATHS:
+        p_ = engine.compile_plan(params, None, cfg, backend=backend, device=dev)
+        live_runs[backend], _ = _lm_counted(
+            "serve_lm_plan, live LM", backend,
+            lambda: serve_lm_plan(p_, prompts, slots=LM_SLOTS, max_new=LM_NEW, verbose=False),
+            lambda r: _lm_launches(backend, r["prefills"], r["steps"]))
+        del p_
+    _lm_routes_equal("live", live_runs)
+    plan = engine.compile_plan(params, None, cfg, backend="cuda", device=dev)
+    logits_q, state_q = engine.prefill(plan, batch)
+
+    lin = engine.compile_plan(params, None, cfg, backend="cuda", ordering="linear", device=dev)
+    (logits_l, state_l), _ = _lm_counted(
+        "linear-ordering prefill", "cuda", lambda: engine.prefill(lin, batch),
+        lambda _: _lm_launches("cuda", 1, 0, "linear"))
+    same = torch.equal(logits_l, logits_q) and all(
+        torch.equal(a, b_) for a, b_ in zip(state_l.kv, state_q.kv))
+    log(f"  linear-ordering prefill: logits and state torch.equal the quadratic prefill's: {same}")
+    check(same, "linear-ordering prefill differs from the quadratic one")
+    del lin, logits_l, state_l
+
+    # prefill plus steps against the full forward, on the packed plan so that
+    # every LIF's words can be held too; chunked prefill against one-shot
+    pplan = engine.compile_plan(params, None, cfg, backend="cuda+packed", device=dev)
+    new = live_runs["cuda"]["tokens"][:LM_SLOTS, :4].to(dev)
+    seq = torch.cat([batch, new], dim=1)
+    with execute.capture_spikes() as full_taps:
+        full = engine.apply(pplan, seq)
+    with execute.capture_spikes() as pre_taps:
+        logits, state = engine.prefill(pplan, batch)
+    step_err, words_same = (logits - full[:, :LM_PROMPT]).abs().max().item(), True
+    for j in range(new.shape[1]):
+        with execute.capture_spikes() as taps:
+            step_logits, state = engine.decode_step(pplan, state, new[:, j])
+        step_err = max(step_err, (step_logits - full[:, LM_PROMPT + j]).abs().max().item())
+        words_same &= all(torch.equal(a.words[:, :, LM_PROMPT + j], b_.words[:, :, 0])
+                          for a, b_ in zip(full_taps, taps))
+    words_same &= all(torch.equal(a.words[:, :, :LM_PROMPT], b_.words)
+                      for a, b_ in zip(full_taps, pre_taps))
+    _, whole = engine.prefill(pplan, seq)
+    state_same = all(torch.equal(a, b_) for a, b_ in zip(state.kv, whole.kv))
+    log(f"  prefill of {LM_PROMPT} + {new.shape[1]} steps vs the full forward on "
+        f"{seq.shape[1]} tokens: every LIF's words torch.equal {words_same}, state "
+        f"torch.equal {state_same}, logits max abs diff {step_err:.3g} (atol {LM_LOGITS_ATOL})")
+    check(words_same and state_same, "prefill plus steps: spikes or state differ from the "
+          "full forward")
+    check(step_err <= LM_LOGITS_ATOL, f"prefill plus steps: logits differ by {step_err:.3g}")
+    chunked = execute.decode_state_init(plan.meta, LM_SLOTS)
+    for c0 in range(0, LM_PROMPT, LM_CHUNK):
+        _, chunked = engine.prefill_chunk(plan, chunked, batch[:, c0:c0 + LM_CHUNK])
+    same = all(torch.equal(a, b_) for a, b_ in zip(chunked.kv, state_q.kv))
+    log(f"  chunked prefill ({LM_CHUNK}-token chunks) state torch.equal one-shot's: {same}")
+    check(same, "chunked prefill state differs from one-shot prefill's")
+    _lm_spike_rates("live LM", pre_taps)
+    del full_taps, pre_taps, taps, full, whole, state, chunked
+
+    # the kernel route against the plain route on one slot batch: they differ
+    # only in the GEMMs' sum order (the LIF, SSA and normalizer are exact or
+    # the same ops)
+    plain = engine.compile_plan(params, None, cfg, backend="torch", device=dev)
+    del params
+    _mismatch_rows("LM prefill cuda vs torch", (plain, plan), batch)
+    rows = lambda label, limit: _mismatch_rows(label, (plain, plan), batch, end_to_end=True,
+                                               limit=limit)
+    rows("LM prefill cuda vs torch", E2E_SPIKE_SHARE)
+    with torch.inference_mode():
+        want = engine.apply(plain, batch).reshape(-1, LM_VOCAB)
+    _check_logits("LM prefill cuda vs torch (per token)", logits_q.reshape(-1, LM_VOCAB), want,
+                  atol=None)
+    _e2e_controls("LM prefill cuda vs torch (per token)",
+                  lambda: engine.apply(plan, batch).reshape(-1, LM_VOCAB), want, rows)
+    del want
+    ref_run = serve_lm_plan(plain, prompts[:LM_SLOTS], slots=LM_SLOTS, max_new=LM_NEW,
+                            verbose=False)
+    firsts = _first_divergence(live_runs["cuda"]["tokens"][:LM_SLOTS], ref_run["tokens"])
+    diff = (live_runs["cuda"]["logits"][:LM_SLOTS] - ref_run["logits"]).abs()
+    agree = [LM_NEW if f is None else f for f in firsts]
+    common = max(diff[i, :n].max().item() if n else 0.0 for i, n in enumerate(agree))
+    log(f"  greedy streams cuda vs torch, one slot batch: first divergence per request "
+        f"{firsts} (None: all {LM_NEW} tokens agree); logits max abs diff over the common "
+        f"prefix {common:.3g}")
+    del plain, ref_run, diff
+
+    # profiles: one prefill and one decode step per kernel route
+    tok = batch[:, -1]
+    for backend in PATHS:
+        p_ = {"cuda": plan, "cuda+packed": pplan}.get(backend) or engine.compile_plan(
+            live_lm_params(cfg, dev), None, cfg, backend=backend, device=dev)
+        prefill, step = engine.make_prefill_fn(p_), engine.make_decode_step_fn(p_)
+        with torch.inference_mode():
+            _, st = prefill(p_.params, batch)
+        per_prefill = {k: n for k, n in _lm_launches(backend, 1, 0).items() if n}
+        per_step = {k: n for k, n in _lm_launches(backend, 0, 1).items() if n}
+        times = _profile(f"LM prefill {backend}", lambda: prefill(p_.params, batch), per_prefill)
+        step_times = _profile(f"LM decode step {backend}", lambda: step(p_.params, st, tok),
+                              per_step)
+        for key in PATHS[backend]:
+            if key in reports and reports[key].entry["device_ms"] is None:
+                reports[key].entry["device_ms"] = times.get(key)
+        if backend == "cuda":
+            reports["K2 decode"].entry["device_ms"] = step_times.get("K2")
+            bound = reports["K2 decode"].entry["bound_ms"]
+            log(f"  K2 device time per decode step {step_times.get('K2', float('nan')):.3f} ms "
+                f"against its {bound:.3f} ms byte bound")
+        del p_, st
+    for key, rep in reports.items():
+        backend = next(b for b, keys in PATHS.items() if key.split()[0] in keys)
+        per = _lm_launches(backend, 0, 1) if key == "K2 decode" else _lm_launches(backend, 1, 0)
+        n = runs[backend]["steps"] if key == "K2 decode" else runs[backend]["prefills"]
+        rep.entry["launches_per_forward"] = per[key.split()[0]]
+        rep.entry["launches"] = n * per[key.split()[0]]
+    fail_if_any("phase 6")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this smoke test "
@@ -1633,6 +2183,8 @@ def main() -> int:
     smi = phase_card_and_build()
     log("phase 2: kernels vs plain at the spike-iand-former-8-384 main path's shapes")
     reports = phase_kernels(dev, torch.Generator().manual_seed(0))
+    log(f"phase 2 (continued): the kernels at the spiking {LM_ARCH}'s shapes")
+    lm_reports = _lm_kernels(dev, torch.Generator().manual_seed(1))
     fail_if_any("phase 2")
     log(f"phase 3: serve the live {ARCH} on {', '.join(BACKENDS)}, "
         f"{REQUESTS // SLOTS} slot batches of {SLOTS} each")
@@ -1642,16 +2194,22 @@ def main() -> int:
     log(f"phase 5: train {ARCH}, batch {TRAIN_BATCH}, kernel and plain routes")
     torch.cuda.empty_cache()
     launches["K7"], forwards["K7"], reports["K7"].entry["device_ms"] = phase_train(dev, smi)
+    log(f"phase 6: serve the spiking {LM_ARCH} at full width, {LM_REQUESTS} requests, prompt "
+        f"{LM_PROMPT}, {LM_NEW} new tokens, {LM_SLOTS} slots")
+    torch.cuda.empty_cache()
+    phase_lm(dev, smi, lm_reports)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    missing = [k for k, rep in reports.items() if rep.entry["device_ms"] is None]
+    missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()}}.items()
+               if rep.entry["device_ms"] is None]
     if missing:
         fail(f"no complete profile gave the device time of {missing}")
     for key, rep in reports.items():
         rep.entry["launches"] = launches[key]
         rep.entry["launches_per_forward"] = launches[key] / forwards[key]
     print(smi)
-    print(json.dumps({"kernels": [reports[k].entry for k in sorted(reports)]}))
+    print(json.dumps({"kernels": [reports[k].entry for k in sorted(reports)]
+                      + [lm_reports[k].entry for k in sorted(lm_reports)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

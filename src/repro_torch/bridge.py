@@ -6,7 +6,9 @@ arrays, which :func:`to_torch` turns into the port's tensors on a device.
 :func:`to_numpy` goes back.  The tree structure and key names are the same
 in both packages, so no renaming happens here.  Training needs nothing more:
 parameter, gradient and BatchNorm-state trees are such trees, and cross in
-both directions through :func:`to_torch` and :func:`to_numpy`.
+both directions through :func:`to_torch` and :func:`to_numpy`.  So do the
+spiking LM's parameters (``init_spiking_lm``): their ``layers`` tree stacks
+every block's leaves along a leading L axis in both packages.
 
 Packed spike words cross as bit patterns: the JAX package keeps them as
 ``uint32``, the port as ``int32`` (PyTorch on the CPU has no shifts or NOT

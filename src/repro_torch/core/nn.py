@@ -146,6 +146,46 @@ def fold_linear_bn(lin_p, bn_p, bn_state, eps: float = 1e-5):
     return _fold_bn(lin_p["w"], lin_p.get("b"), bn_p, bn_state, eps)
 
 
+def fold_linear_rmsnorm(lin_p, norm_p):
+    """Deploy-time Linear+RMSNorm folding (the LM counterpart of
+    :func:`fold_linear_bn`).
+
+    ``rmsnorm(y; g) = y * rsqrt(mean(y^2) + eps) * g``: the gain folds into
+    the preceding linear exactly, ``y' = x @ (w * g)``, and ``mean(y^2) =
+    sum_j y'_j^2 / (d * g_j^2)``, so the folded unit carries ``w' = w * g``
+    and the coefficients ``nrm = 1 / (d * g^2)``; the deploy graph applies
+    one GEMM and the gain-free epilogue :func:`rms_epilogue`.  Exact in real
+    arithmetic for any nonzero gain; elementwise IEEE products, so the folded
+    arrays equal the JAX package's bit for bit."""
+    g = norm_p["scale"]
+    d = lin_p["w"].shape[-1]
+    folded = {"w": lin_p["w"] * g, "nrm": 1.0 / (d * torch.square(g))}
+    if "b" in lin_p:
+        folded["b"] = lin_p["b"] * g
+    return folded
+
+
+def normed_linear_apply(p, x, *, eps: float = 1e-6):
+    """Folded Linear+RMSNorm unit: GEMM on the pre-scaled weights, then the
+    gain-free normalizer epilogue (see :func:`fold_linear_rmsnorm`)."""
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return rms_epilogue(p["nrm"], y, eps=eps)
+
+
+def rms_epilogue(nrm, y, *, eps: float = 1e-6):
+    """Gain-free dynamic normalizer of a folded Linear+RMSNorm unit:
+    ``y * rsqrt(sum(y^2 * nrm) + eps)`` with ``nrm = 1/(d * g^2)`` from the
+    fold, in f32 and cast back to ``y``'s dtype, as the reference writes it
+    (its sum order and ``rsqrt`` are XLA's, these PyTorch's: the two may
+    differ in the last bit)."""
+    dtype = y.dtype
+    y32 = y.float()
+    var = torch.sum(torch.square(y32) * nrm.float(), dim=-1, keepdim=True)
+    return (y32 * torch.rsqrt(var + eps)).to(dtype)
+
+
 # -- tick-batch reshaping helpers ---------------------------------------------
 
 def fold_time(x):

@@ -1,14 +1,15 @@
-"""Deterministic synthetic data pipelines -- the image half, a copy of the JAX
-package's ``data/pipeline.py`` in numpy alone.
+"""Deterministic synthetic data pipelines -- the token and image streams, a
+copy of the JAX package's ``data/pipeline.py`` in numpy alone.
 
 Batches are a pure function of (seed, step, shard), so any process can
 regenerate exactly its shard of any step, and a restart needs no data-loader
 state beyond the step counter.  Images are low-frequency oriented gratings
 plus noise whose orientation depends on the class, so the Spikformer
-examples have real signal to fit.  The same (config, step) gives the same
-arrays as the JAX package's :func:`make_batch`, bit for bit.  The token
-stream and the modality stubs serve the language models and come with their
-slices.
+examples have real signal to fit; tokens are a Zipf-ish unigram mixture with
+BOS-separated documents of geometric length (the spiking LM's prompts).  The
+same (config, step) gives the same arrays as the JAX package's
+:func:`make_batch`, bit for bit.  The modality stubs come with the generic LM
+substrate.
 """
 
 from __future__ import annotations
@@ -40,6 +41,18 @@ def _rng(cfg: DataConfig, step: int, shard: int) -> np.random.Generator:
         np.random.SeedSequence([cfg.seed, step, shard, 0xC0FFEE]))
 
 
+def token_batch(cfg: DataConfig, step: int, *, shard: int = 0, num_shards: int = 1):
+    """Returns {'tokens': (B/num_shards, S) int32} for this shard of the step."""
+    b = cfg.global_batch // num_shards
+    rng = _rng(cfg, step, shard)
+    z = rng.zipf(1.3, size=(b, cfg.seq_len)).astype(np.int64)
+    tokens = (z % (cfg.vocab_size - 2)) + 2
+    doc_break = rng.random((b, cfg.seq_len)) < (1.0 / cfg.mean_doc_len)
+    tokens = np.where(doc_break, cfg.bos_id, tokens)
+    tokens[:, 0] = cfg.bos_id
+    return {"tokens": tokens.astype(np.int32)}
+
+
 def image_batch(cfg: DataConfig, step: int, *, shard: int = 0, num_shards: int = 1):
     """Returns {'image': (B, H, W, 3) f32 in [0, 1], 'label': (B,) int32}
     for this shard of the step: class-dependent oriented gratings + noise."""
@@ -59,8 +72,9 @@ def image_batch(cfg: DataConfig, step: int, *, shard: int = 0, num_shards: int =
 
 
 def make_batch(cfg: DataConfig, step: int, *, shard: int = 0, num_shards: int = 1):
-    if cfg.kind != "images":
+    fn = {"tokens": token_batch, "images": image_batch}.get(cfg.kind)
+    if fn is None:
         raise NotImplementedError(
-            f"kind={cfg.kind!r}: the token and modality streams serve the language "
-            "models and are ported with them; this package has kind='images'")
-    return image_batch(cfg, step, shard=shard, num_shards=num_shards)
+            f"kind={cfg.kind!r}: the modality stubs come with the generic LM "
+            "substrate; this package has kind='tokens' and kind='images'")
+    return fn(cfg, step, shard=shard, num_shards=num_shards)

@@ -1,19 +1,30 @@
 """Deploy-time fused inference engine (the paper's accelerator view), PyTorch.
 
 * :func:`compile_plan` folds ``(params, state, cfg)`` into a
-  :class:`DeployPlan` on a device: ConvBN/LinearBN pairs become single weight
-  reads, AND-NOT residuals are marked for the fused LIF epilogue, and the
-  backend (plain PyTorch vs the CUDA kernels) becomes a plan property.
+  :class:`DeployPlan` on a device: ConvBN/LinearBN pairs (vision) or
+  Linear+RMSNorm units and the embedding norm (spiking LM) become single
+  weight reads, AND-NOT residuals are marked for the fused LIF epilogue, and
+  the backend (plain PyTorch vs the CUDA kernels) becomes a plan property.
 * :func:`apply` / :func:`make_apply_fn` execute a plan.
+* LM plans decode incrementally: :func:`prefill`, :func:`prefill_chunk` and
+  :func:`decode_step` (and their ``make_*_fn`` factories) carry a
+  :class:`DecodeState` of O(d^2) per head, flat in context length.
 * :func:`plan_stats` accounts for the ops the deploy view eliminated.
 
 The layer list lives in :mod:`repro_torch.engine.layout`, shared with the
-eval graph in ``repro_torch.core``.
+eval graphs in ``repro_torch.core`` and ``repro_torch.models``.
 """
 
 from repro_torch.engine.backend import Backend
-from repro_torch.engine.execute import apply, make_apply_fn
-from repro_torch.engine.plan import DeployPlan, PlanMeta, compile_plan, plan_stats
+from repro_torch.engine.execute import (
+    DecodeState, apply, decode_state_init, decode_step, make_apply_fn, make_decode_step_fn,
+    make_prefill_chunk_fn, make_prefill_fn, prefill, prefill_chunk,
+)
+from repro_torch.engine.plan import (
+    DecodeEntry, DeployPlan, LMDeployCfg, PlanMeta, compile_plan, plan_stats,
+)
 
-__all__ = ["Backend", "apply", "make_apply_fn", "DeployPlan", "PlanMeta",
-           "compile_plan", "plan_stats"]
+__all__ = ["Backend", "apply", "make_apply_fn", "DeployPlan", "PlanMeta", "compile_plan",
+           "plan_stats", "LMDeployCfg", "DecodeEntry", "DecodeState", "decode_state_init",
+           "prefill", "prefill_chunk", "decode_step", "make_prefill_fn",
+           "make_prefill_chunk_fn", "make_decode_step_fn"]

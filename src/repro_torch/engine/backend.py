@@ -21,6 +21,13 @@ all-zero (64-row, 128-feature) word tiles and the plane-gated packed SSA
 skips dead bitplanes; on ``"torch+packed+sparse"`` the plain route skips
 8-token granules and dead planes.  Every skip is exact.
 
+The spiking LM's ops route the same way: its Linear+RMSNorm units ride the
+GEMM routes (:func:`normed_linear_apply`), its full causal SSA the quadratic
+kernels, and the ops of incremental decode -- the decode step, the prefill
+state, the resumable prefill chunk -- run as plain PyTorch on every backend
+(the reference runs them outside any kernel), consuming words under the
+closed packed boundary.
+
 Every compute op of the deploy plan goes through this module, so a plan's
 kernel route is a property of its Backend, with no exemptions at call sites.
 """
@@ -266,3 +273,142 @@ def conv3x3_apply_packed(backend: Backend, p, xp: packing.PackedSpikes) -> torch
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+# -- spiking LM -----------------------------------------------------------------
+
+def normed_linear_apply(backend: Backend, p, x2d: torch.Tensor, *, eps: float) -> torch.Tensor:
+    """Folded Linear+RMSNorm unit (``fold_linear_rmsnorm``) on tick-folded 2-D
+    spikes: the GEMM on the backend's route, as :func:`linear_apply`; the
+    gain-free normalizer as the epilogue."""
+    return cnn.rms_epilogue(p["nrm"], linear_apply(backend, p, x2d), eps=eps)
+
+
+def normed_linear_apply_packed(backend: Backend, p, xp: packing.PackedSpikes, *,
+                               eps: float) -> torch.Tensor:
+    """Folded Linear+RMSNorm on a packed train (W, ..., Din) -> dense
+    normalized drive (T, ..., Dout); the GEMM routed as in
+    :func:`linear_apply_packed`."""
+    return cnn.rms_epilogue(p["nrm"], linear_apply_packed(backend, p, xp), eps=eps)
+
+
+def _unpack(*trains):
+    return tuple(packing.unpack(p) for p in trains)
+
+
+def ssa_decode_step(backend: Backend, state, q, k, v, *, scale: float):
+    """One O(d^2) linear-SSA decode step: ``state`` (T, B, H, Dh, Dh), q/k/v
+    (T, B, H, 1, Dh) spikes of the new token -> ``(state', drive)``.  Plain
+    PyTorch on every backend: the step is two small contractions with no
+    score tile to hand to a kernel."""
+    from repro_torch.core.spiking_attention import ssa_linear_decode_step
+
+    return ssa_linear_decode_step(state, q, k, v, scale=scale)
+
+
+def ssa_decode_step_packed(backend: Backend, state, qp: packing.PackedSpikes,
+                           kp: packing.PackedSpikes, vp: packing.PackedSpikes, *,
+                           scale: float):
+    """Decode step on packed q/k/v trains (words (W, B, H, 1, Dh)):
+    ``Backend.sparse`` takes the word-gated step on either packed route, the
+    closed boundary the word-consuming step; otherwise the trains are
+    unpacked at the op boundary."""
+    from repro_torch.core import spiking_attention as sa
+
+    if backend.sparse:
+        return sa.ssa_linear_decode_step_packed_sparse(state, qp.words, kp.words, vp.words,
+                                                       t=qp.t, scale=scale)
+    if backend.closes_ssa_boundary:
+        return sa.ssa_linear_decode_step_packed(state, qp.words, kp.words, vp.words,
+                                                t=qp.t, scale=scale)
+    return ssa_decode_step(backend, state, *_unpack(qp, kp, vp), scale=scale)
+
+
+def ssa_prefill_state(backend: Backend, k, v):
+    """K^T V decode state after a whole prefix: k/v (T, B, H, S, Dh) ->
+    (T, B, H, Dh, Dh); plain PyTorch on every route (one batched GEMM)."""
+    from repro_torch.core.spiking_attention import ssa_kv_state
+
+    return ssa_kv_state(k, v)
+
+
+def ssa_prefill_state_packed(backend: Backend, kp: packing.PackedSpikes,
+                             vp: packing.PackedSpikes):
+    """Prefill decode state from packed k/v trains: word-consuming under the
+    closed boundary, unpacked at the op boundary otherwise."""
+    if backend.closes_ssa_boundary:
+        from repro_torch.core.spiking_attention import ssa_kv_state_packed
+
+        return ssa_kv_state_packed(kp.words, vp.words, t=kp.t)
+    return ssa_prefill_state(backend, *_unpack(kp, vp))
+
+
+def ssa_prefill_apply(backend: Backend, q, k, v, *, scale: float, ordering: str):
+    """Full causal SSA over a prompt plus the end-of-prefix K^T V state:
+    ``(drive, state)``.  Linear ordering: the causal scan, whose final carry
+    is the state; quadratic: the backend's causal SSA plus one state GEMM."""
+    if ordering == "linear":
+        from repro_torch.core.spiking_attention import ssa_causal_linear_with_state
+
+        return ssa_causal_linear_with_state(q, k, v, scale=scale)
+    drive = ssa_apply(backend, q, k, v, scale=scale, ordering=ordering, causal=True)
+    return drive, ssa_prefill_state(backend, k, v)
+
+
+def ssa_prefill_apply_packed(backend: Backend, qp: packing.PackedSpikes,
+                             kp: packing.PackedSpikes, vp: packing.PackedSpikes, *,
+                             scale: float, ordering: str):
+    """Packed-train :func:`ssa_prefill_apply`: under the closed boundary the
+    words feed the packed SSA kernel plus the word-consuming state GEMM
+    (quadratic) or the packed causal scan (linear); otherwise the trains are
+    unpacked at the op boundary."""
+    if ordering == "quadratic" and backend.closes_ssa_boundary:
+        from repro_torch.core.spiking_attention import ssa_kv_state_packed
+
+        drive = ssa_apply_packed(backend, qp, kp, vp, scale=scale, ordering=ordering,
+                                 causal=True)
+        return drive, ssa_kv_state_packed(kp.words, vp.words, t=kp.t)
+    if ordering == "linear" and backend.closes_ssa_boundary:
+        from repro_torch.core.spiking_attention import ssa_causal_linear_with_state_packed
+
+        return ssa_causal_linear_with_state_packed(qp.words, kp.words, vp.words, t=qp.t,
+                                                   scale=scale)
+    return ssa_prefill_apply(backend, *_unpack(qp, kp, vp), scale=scale, ordering=ordering)
+
+
+def ssa_prefill_chunk(backend: Backend, state, q, k, v, *, scale: float, ordering: str):
+    """One resumable prefill chunk: causal SSA over the chunk's q/k/v, seeded
+    by the running K^T V ``state`` of everything consumed before ->
+    ``(drive, state')``; chained over any chunking of a prompt it equals
+    :func:`ssa_prefill_apply` over the whole prompt, bit for bit.  Linear:
+    the scan seeded with the state; quadratic: the backend's intra-chunk
+    causal SSA plus the read of the state and one state GEMM."""
+    if ordering == "linear":
+        from repro_torch.core.spiking_attention import ssa_causal_linear_with_state
+
+        return ssa_causal_linear_with_state(q, k, v, scale=scale, state=state)
+    from repro_torch.core.spiking_attention import ssa_state_read
+
+    drive = ssa_apply(backend, q, k, v, scale=scale, ordering=ordering, causal=True)
+    drive = drive + ssa_state_read(state, q, scale=scale)
+    return drive, state + ssa_prefill_state(backend, k, v)
+
+
+def ssa_prefill_chunk_packed(backend: Backend, state, qp: packing.PackedSpikes,
+                             kp: packing.PackedSpikes, vp: packing.PackedSpikes, *,
+                             scale: float, ordering: str):
+    """Packed-train :func:`ssa_prefill_chunk`: the chunk's words are the
+    operands everywhere under the closed boundary; otherwise unpacked at the
+    op boundary."""
+    from repro_torch.core import spiking_attention as sa
+
+    if ordering == "linear" and backend.closes_ssa_boundary:
+        return sa.ssa_causal_linear_with_state_packed(qp.words, kp.words, vp.words, t=qp.t,
+                                                      scale=scale, state=state)
+    if ordering == "quadratic" and backend.closes_ssa_boundary:
+        drive = ssa_apply_packed(backend, qp, kp, vp, scale=scale, ordering=ordering,
+                                 causal=True)
+        drive = drive + sa.ssa_state_read_packed(state, qp.words, t=qp.t, scale=scale)
+        return drive, state + ssa_prefill_state_packed(backend, kp, vp)
+    return ssa_prefill_chunk(backend, state, *_unpack(qp, kp, vp), scale=scale,
+                             ordering=ordering)

@@ -18,6 +18,16 @@ every LIF pack epilogue also attaches the occupancy map of its words, which
 rides along with the train (``reshape_elems`` keeps it, the head split drops
 it) to the sparse consumers.
 
+LM plans (``PlanMeta.family == "lm"``) walk the same unit list with the LM
+specifics: folded Linear+RMSNorm units (GEMM on gain-folded weights plus the
+gain-free normalizer epilogue), causal SSA, every residual join fused, the
+pre-normalized embedding table in place of the tokenizer, and the
+rate-decoded head, whose inline RMSNorm is the one norm the plan keeps.  They
+also decode incrementally (:func:`prefill`, :func:`prefill_chunk`,
+:func:`decode_step` and their ``make_*_fn`` factories): the causal SSA's
+linear ordering has an O(d^2)-per-head running K^T V state
+(:class:`DecodeState`), so generation never re-scores the prefix.
+
 All compute -- linears, convs and attention -- goes through
 ``repro_torch.engine.backend``; the executor never calls a kernel or a plain
 version directly, so the plan's backend decides the compute route.
@@ -27,7 +37,9 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.core import nn as cnn
@@ -200,6 +212,8 @@ def _head_packed(meta: PlanMeta, head_params, xp: packing.PackedSpikes):
 
 
 def _execute(meta: PlanMeta, params, batch):
+    if meta.family == "lm":
+        return _lm_exec(meta, params, batch)
     if meta.backend.packed:
         xp = _tokenizer_exec_packed(meta, params["tokenizer"], batch)
         for bparams in params["blocks"]:
@@ -213,14 +227,296 @@ def _execute(meta: PlanMeta, params, batch):
 
 
 def make_apply_fn(plan: DeployPlan):
-    """``fn(params, images) -> logits`` with the plan's static metadata closed
-    over.  ``images``: (B, H, W, C) float32 on the plan's device."""
+    """``fn(params, batch) -> logits`` with the plan's static metadata closed
+    over.  ``batch``: (B, H, W, C) float32 images, or for an LM plan (B, S)
+    int64 tokens, on the plan's device."""
     return functools.partial(_execute, plan.meta)
 
 
+def _tokens(plan: DeployPlan, tokens) -> torch.Tensor:
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.from_numpy(np.array(tokens, dtype=np.int64))   # a copy: writable
+    return tokens.to(device=plan.meta.device, dtype=torch.long)
+
+
 def apply(plan: DeployPlan, batch) -> torch.Tensor:
-    """One-shot convenience: run the plan on an image batch (a tensor or a
-    numpy array; moved to the plan's device)."""
-    images = torch.as_tensor(batch, dtype=torch.float32, device=plan.meta.device)
+    """One-shot convenience: run the plan on a batch (a tensor or a numpy
+    array, moved to the plan's device): images, or for an LM plan (B, S)
+    tokens (or ``{"tokens": ...}``) -> logits (B, S, V)."""
+    if plan.meta.family == "lm":
+        batch = _tokens(plan, batch["tokens"] if isinstance(batch, dict) else batch)
+    else:
+        batch = torch.as_tensor(batch, dtype=torch.float32, device=plan.meta.device)
     with torch.inference_mode():
-        return make_apply_fn(plan)(plan.params, images)
+        return make_apply_fn(plan)(plan.params, batch)
+
+
+# -- spiking LM -----------------------------------------------------------------
+
+def _require_full_f32(x: torch.Tensor) -> None:
+    """The head and the decode-state contractions run on cuBLAS's f32 GEMMs;
+    with TF32 allowed, cuBLAS would round their operands to 10 bits of
+    mantissa (state entries are integers up to the context length, and the
+    head's logits would drift)."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the LM plan's f32 matmuls need "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def _lm_unit(meta: PlanMeta, p, x):
+    """Tick-batched folded Linear+RMSNorm unit on (T, B, S, Din) spikes."""
+    t, b, s, _ = x.shape
+    y = B.normed_linear_apply(meta.backend, p, x.reshape(t * b * s, -1), eps=meta.cfg.norm_eps)
+    return y.reshape(t, b, s, -1)
+
+
+def _lm_unit_packed(meta: PlanMeta, p, xp: packing.PackedSpikes):
+    """Packed-operand folded Linear+RMSNorm: words (W, B, S, Din) -> drive
+    (T, B, S, Dout)."""
+    return B.normed_linear_apply_packed(meta.backend, p, xp, eps=meta.cfg.norm_eps)
+
+
+def _lm_full_ssa(meta: PlanMeta, packed: bool, q, k, v):
+    """The walker's default attention: full causal SSA on the plan's backend."""
+    op = B.ssa_apply_packed if packed else B.ssa_apply
+    return op(meta.backend, q, k, v, scale=meta.cfg.attn_scale,
+              ordering=meta.cfg.attn_ordering, causal=True)
+
+
+def _lm_block_exec(meta: PlanMeta, bparams, x, *, packed: bool, ssa=None,
+                   lif_occupancy=None):
+    """One spiking-LM decoder block in deploy form: x is (T, B, S, D) spikes,
+    or a ``PackedSpikes`` (words (W, B, S, D)) when ``packed``.
+
+    One walker for every datapath: ``packed`` swaps the unit and head-split
+    ops and makes the LIF epilogues emit words, and ``ssa`` (a callable over
+    the head-split q/k/v, by default the full causal SSA) is the only thing
+    the prefill, chunk and decode executors replace -- so the full, prefill
+    and per-token plans cannot diverge."""
+    cfg = meta.cfg
+    unit = _lm_unit_packed if packed else _lm_unit
+    split = split_heads_packed if packed else split_heads
+    if ssa is None:
+        ssa = functools.partial(_lm_full_ssa, meta, packed)
+    acts: dict = {}
+    h = None
+    for u in meta.block_units:
+        if u.role == "qkv":
+            acts[u.name] = _lif(meta, unit(meta, bparams[u.name], x), pack_output=packed,
+                                occupancy=lif_occupancy)
+            continue
+        if u.role == "attn_out":
+            attn = ssa(*(split(acts[n], cfg.num_heads) for n in "qkv"))
+            attn_sp = _lif(meta, merge_heads(attn), pack_output=packed,
+                           occupancy=lif_occupancy)
+            drive = unit(meta, bparams[u.name], attn_sp)
+        elif u.role == "mlp_hidden":
+            h = _lif(meta, unit(meta, bparams[u.name], x), pack_output=packed,
+                     occupancy=lif_occupancy)
+            continue
+        elif u.role == "mlp_out":
+            drive = unit(meta, bparams[u.name], h)
+        else:
+            raise ValueError(f"unknown unit role: {u.role}")
+        # AND-NOT inside the LIF epilogue (bitwise skip & ~s on words)
+        x = _lif(meta, drive, iand_skip=x, pack_output=packed, occupancy=lif_occupancy)
+    return x
+
+
+def _lm_head(meta: PlanMeta, params, rate):
+    """Rate (B, S, D) -> logits (B, S, V): the RMSNorm inline (the one norm of
+    the plan: its input is the rate code, not a linear's output) and a plain
+    f32 GEMM, as in the reference."""
+    from repro_torch.models.layers import rmsnorm_raw
+
+    normed = rmsnorm_raw(params["final_norm"], rate, eps=meta.cfg.norm_eps)
+    return normed @ params["head"]["w"].to(normed.dtype)
+
+
+def _lm_embed_drive(meta: PlanMeta, embed_params, tokens):
+    """tokens (B, S) -> LIF drive (T, B, S, D) from the pre-normalized table,
+    broadcast over T and made contiguous (the kernels take a dense layout)."""
+    emb = embed_params["table"][tokens]
+    return emb[None].expand((meta.cfg.t,) + tuple(emb.shape)).contiguous()
+
+
+def _lm_rate(meta: PlanMeta, params, x, *, packed: bool):
+    """Spike train -> analog rate code (B, S, D): the mean over T, or the
+    popcount over T on words.  Counts are exact integers and each is divided
+    once by T, so the two agree bit for bit."""
+    if not packed:
+        return x.mean(dim=0)
+    dtype = params["embed"]["table"].dtype
+    return packing.spike_counts(x).to(dtype) / x.t
+
+
+def _lm_exec(meta: PlanMeta, params, tokens, ssas=None, *, lif_occupancy=None):
+    """tokens (B, S) -> logits (B, S, V): the encoding LIF, every block (with
+    its walker attention from ``ssas``, by default the full causal SSA), the
+    head."""
+    packed = meta.backend.packed
+    _require_full_f32(params["head"]["w"])
+    x = _lif(meta, _lm_embed_drive(meta, params["embed"], tokens), pack_output=packed,
+             occupancy=lif_occupancy)
+    for bparams, ssa in zip(params["blocks"], ssas or [None] * len(params["blocks"])):
+        x = _lm_block_exec(meta, bparams, x, packed=packed, ssa=ssa,
+                           lif_occupancy=lif_occupancy)
+    return _lm_head(meta, params, _lm_rate(meta, params, x, packed=packed))
+
+
+# -- incremental LM decode ---------------------------------------------------------
+#
+# Everything outside the SSA is positionally local in the LM block (folded
+# units, RMS epilogues and LIF chains act per token; a token's IAND skip is its
+# own residual spikes), so each layer's K^T V state is the only cross-token
+# memory a decode needs, and stepping is bit-exact against the full forward
+# (binary spikes make the attention exact integer arithmetic).
+
+
+@dataclass(frozen=True)
+class DecodeState:
+    """Carried state of an incremental LM decode: one (T, B, H, Dh, Dh)
+    linear-SSA K^T V accumulator per layer, and ``pos``, the tokens consumed
+    (a 0-d int32 tensor).  Constant in size at any context length
+    (``PlanMeta.decode`` records the geometry).  A step returns a new state
+    and leaves its input as it was."""
+
+    kv: tuple[torch.Tensor, ...]
+    pos: torch.Tensor
+
+
+def _decode_entry(meta: PlanMeta):
+    if meta.decode is None:
+        raise ValueError(
+            f"incremental decode is an LM-plan mode; family={meta.family!r} "
+            "plans have no causal running-state decomposition")
+    return meta.decode
+
+
+def decode_state_init(meta: PlanMeta, batch: int) -> DecodeState:
+    """Zero ``DecodeState`` for ``batch`` sequences on the plan's device."""
+    entry = _decode_entry(meta)
+    return DecodeState(
+        kv=tuple(torch.zeros(s, dtype=torch.float32, device=meta.device)
+                 for s in entry.state_shapes(batch)),
+        pos=torch.zeros((), dtype=torch.int32, device=meta.device))
+
+
+def _check_layers(meta: PlanMeta, state: DecodeState) -> None:
+    entry = _decode_entry(meta)
+    if len(state.kv) != entry.num_layers:
+        raise ValueError(f"DecodeState carries {len(state.kv)} layer states, plan has "
+                         f"{entry.num_layers} layers")
+
+
+def _prefill_ssa(meta: PlanMeta, packed: bool, out_kv: list):
+    """Walker attention of prefill: the full causal SSA plus the layer's
+    end-of-prefix K^T V state, appended to ``out_kv``."""
+
+    def ssa(q, k, v):
+        op = B.ssa_prefill_apply_packed if packed else B.ssa_prefill_apply
+        drive, state = op(meta.backend, q, k, v, scale=meta.cfg.attn_scale,
+                          ordering=meta.cfg.attn_ordering)
+        out_kv.append(state)
+        return drive
+
+    return ssa
+
+
+def _decode_ssa(meta: PlanMeta, packed: bool, kv, out_kv: list):
+    """Walker attention of one decode step: the O(d^2) state update and read
+    in place of the full causal SSA."""
+
+    def ssa(q, k, v):
+        step = B.ssa_decode_step_packed if packed else B.ssa_decode_step
+        new_kv, drive = step(meta.backend, kv, q, k, v, scale=meta.cfg.attn_scale)
+        out_kv.append(new_kv)
+        return drive
+
+    return ssa
+
+
+def _chunk_ssa(meta: PlanMeta, packed: bool, kv, out_kv: list):
+    """Walker attention of one resumable prefill chunk: intra-chunk causal SSA
+    seeded by the layer's running state, the advanced state appended."""
+
+    def ssa(q, k, v):
+        op = B.ssa_prefill_chunk_packed if packed else B.ssa_prefill_chunk
+        drive, new_kv = op(meta.backend, kv, q, k, v, scale=meta.cfg.attn_scale,
+                           ordering=meta.cfg.attn_ordering)
+        out_kv.append(new_kv)
+        return drive
+
+    return ssa
+
+
+def _lm_prefill(meta: PlanMeta, params, tokens):
+    """tokens (B, S) -> (logits (B, S, V), DecodeState after the prompt)."""
+    kvs: list = []
+    ssas = [_prefill_ssa(meta, meta.backend.packed, kvs) for _ in params["blocks"]]
+    logits = _lm_exec(meta, params, tokens, ssas)
+    pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=meta.device)
+    return logits, DecodeState(kv=tuple(kvs), pos=pos)
+
+
+def _lm_prefill_chunk(meta: PlanMeta, params, state: DecodeState, tokens):
+    """One prefill chunk: tokens (B, C), the prompt's next C tokens ->
+    (logits (B, C, V), advanced DecodeState).  Chained over a prompt split
+    any way, the chunks' logits concatenate to :func:`_lm_prefill`'s and the
+    final state is bit-equal."""
+    _check_layers(meta, state)
+    kvs: list = []
+    ssas = [_chunk_ssa(meta, meta.backend.packed, kv, kvs) for kv in state.kv]
+    logits = _lm_exec(meta, params, tokens, ssas)
+    return logits, DecodeState(kv=tuple(kvs), pos=state.pos + tokens.shape[1])
+
+
+def _lm_decode_step(meta: PlanMeta, params, state: DecodeState, token):
+    """One generated token: (B,) -> (logits (B, V), advanced state).  The
+    pack epilogues attach no occupancy map (``occupancy=False``): no consumer
+    of a one-token train reads it, as in the reference."""
+    _check_layers(meta, state)
+    kvs: list = []
+    ssas = [_decode_ssa(meta, meta.backend.packed, kv, kvs) for kv in state.kv]
+    logits = _lm_exec(meta, params, token.reshape(token.shape[0], 1), ssas,
+                      lif_occupancy=False)
+    return logits[:, 0], DecodeState(kv=tuple(kvs), pos=state.pos + 1)
+
+
+def make_prefill_fn(plan: DeployPlan):
+    """``fn(params, tokens) -> (logits, DecodeState)`` (LM plans only);
+    ``tokens``: (B, S) int64 on the plan's device."""
+    _decode_entry(plan.meta)
+    return functools.partial(_lm_prefill, plan.meta)
+
+
+def make_prefill_chunk_fn(plan: DeployPlan):
+    """``fn(params, state, tokens) -> (logits, state')``: the prompt's next
+    chunk scored against the running state."""
+    _decode_entry(plan.meta)
+    return functools.partial(_lm_prefill_chunk, plan.meta)
+
+
+def make_decode_step_fn(plan: DeployPlan):
+    """``fn(params, state, token) -> (logits, state')``: one token at a cost
+    flat in context length."""
+    _decode_entry(plan.meta)
+    return functools.partial(_lm_decode_step, plan.meta)
+
+
+def prefill(plan: DeployPlan, tokens) -> tuple[torch.Tensor, DecodeState]:
+    """One-shot convenience: score a prompt (B, S) and initialise decode state."""
+    with torch.inference_mode():
+        return make_prefill_fn(plan)(plan.params, _tokens(plan, tokens))
+
+
+def prefill_chunk(plan: DeployPlan, state: DecodeState, tokens):
+    """One-shot convenience: consume the prompt's next chunk (B, C) resumably."""
+    with torch.inference_mode():
+        return make_prefill_chunk_fn(plan)(plan.params, state, _tokens(plan, tokens))
+
+
+def decode_step(plan: DeployPlan, state: DecodeState, token):
+    """One-shot convenience: advance the decode by one token (B,)."""
+    with torch.inference_mode():
+        return make_decode_step_fn(plan)(plan.params, state, _tokens(plan, token))

@@ -1,14 +1,23 @@
 """Deploy-plan compiler: (params, state, cfg) -> the accelerator's view.
 
-``compile_plan`` performs the paper's deploy-time transformations once,
-ahead of serving: every Conv+BN pair of the tokenizer is folded into a single
-(w, b) via ``fold_conv_bn``, every Linear+BN pair of every block via
-``fold_linear_bn`` -- the BN disappears from the graph entirely.  The block
-layout records which LIFs fuse the AND-NOT residual into their epilogue, and
-the backend (plain PyTorch vs the CUDA kernels) is a plan property.
+``compile_plan`` performs the paper's deploy-time transformations once, ahead
+of serving.  It covers two config families:
 
-A plan lives on one device, the card unless the caller asks for the CPU.
-This slice covers the vision family; spiking-LM plans come in a later one.
+* vision (anything with ``tokenizer_config``): every Conv+BN pair of the
+  tokenizer is folded into a single (w, b) via ``fold_conv_bn``, every
+  Linear+BN pair of every block via ``fold_linear_bn`` -- the BN disappears
+  from the graph entirely;
+* spiking LM (``ArchConfig`` with ``spiking=True``): every Linear+RMSNorm unit
+  is folded via ``fold_linear_rmsnorm`` (gain into the GEMM weights, the
+  gain-free normalizer left as the unit's epilogue), the embedding norm is
+  folded into the embedding table (rows are normalized independently), and
+  the plan-level ``ordering`` picks the causal SSA's quadratic (QK^T)V or
+  chunked-linear Q(K^T V) dataflow.
+
+The block layout records which LIFs fuse the AND-NOT residual into their
+epilogue, and the backend (plain PyTorch vs the CUDA kernels) is a plan
+property.  A plan lives on one device, the card unless the caller asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -20,21 +29,115 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.core import nn as cnn
+from repro_torch.core.lif import LAM_DEFAULT, THETA_DEFAULT
 from repro_torch.engine.backend import Backend, resolve
-from repro_torch.engine.layout import ProjUnit, TokStage, block_layout, tokenizer_layout
+from repro_torch.engine.layout import (
+    ProjUnit, TokStage, block_layout, lm_block_layout, tokenizer_layout,
+)
+
+
+@dataclass(frozen=True)
+class LMDeployCfg:
+    """Deploy view of a spiking-LM ``ArchConfig``: the attribute names the
+    executor shares with ``SpikformerConfig`` (``t``, ``chain_len``,
+    ``theta``, ...), plus the plan-level attention ordering.  The wrapped
+    ``ArchConfig`` stays reachable as ``arch``."""
+
+    arch: Any                          # ArchConfig (frozen dataclass)
+    attn_ordering: str = "quadratic"   # "quadratic" | "linear" (chunked scan)
+
+    @property
+    def t(self) -> int:
+        return self.arch.spike_t
+
+    @property
+    def chain_len(self):
+        return self.arch.spike_chain_len
+
+    @property
+    def theta(self) -> float:
+        return THETA_DEFAULT
+
+    @property
+    def lam(self) -> float:
+        return LAM_DEFAULT
+
+    @property
+    def lif_schedule(self) -> str:
+        return "parallel"
+
+    @property
+    def attn_scale(self) -> float:
+        from repro_torch.models.spiking_lm import ATTN_SCALE
+
+        return ATTN_SCALE
+
+    @property
+    def norm_eps(self) -> float:
+        return self.arch.norm_eps
+
+    @property
+    def num_heads(self) -> int:
+        return self.arch.num_heads
+
+    @property
+    def d_model(self) -> int:
+        return self.arch.d_model
+
+
+@dataclass(frozen=True)
+class DecodeEntry:
+    """Geometry of an LM plan's incremental decode: one (T, B, H, Dh, Dh)
+    K^T V accumulator per layer, whatever the context length (the spiking
+    attention has no softmax, so the linear ordering's running state is all
+    a decode carries)."""
+
+    num_layers: int
+    t: int                             # time steps (the bitplane axis)
+    num_heads: int
+    head_dim: int
+
+    def state_shapes(self, batch: int) -> tuple[tuple[int, ...], ...]:
+        """Per-layer SSA-state shapes of a ``DecodeState`` at this batch."""
+        shp = (self.t, batch, self.num_heads, self.head_dim, self.head_dim)
+        return tuple(shp for _ in range(self.num_layers))
+
+    def state_bytes(self, batch: int, itemsize: int = 4) -> int:
+        """Decode-state footprint, constant in context length."""
+        return sum(itemsize * s[0] * s[1] * s[2] * s[3] * s[4]
+                   for s in self.state_shapes(batch))
+
+    def max_slots(self, budget_bytes: int, itemsize: int = 4) -> int:
+        """Largest slot count whose batched ``DecodeState`` fits in
+        ``budget_bytes`` (the state is linear in slots and has no
+        context-length term, so this is exact)."""
+        per_slot = self.state_bytes(1, itemsize)
+        return budget_bytes // per_slot if per_slot else 0
 
 
 @dataclass(frozen=True)
 class PlanMeta:
     """Static half of a deploy plan."""
 
-    cfg: Any                          # SpikformerConfig (frozen)
+    cfg: Any                          # SpikformerConfig | LMDeployCfg (frozen)
     backend: Backend
     tok_stages: tuple[TokStage, ...]
     block_units: tuple[ProjUnit, ...]
     num_layers: int
     device: torch.device
-    family: str = "vision"
+    family: str = "vision"            # "vision" | "lm"
+
+    @property
+    def decode(self) -> DecodeEntry | None:
+        """Incremental-decode entry point: on every LM plan (stepping the
+        causal SSA's linear-ordering state is exact in either plan
+        ordering), none on vision plans (non-causal attention has no running
+        state)."""
+        if self.family != "lm":
+            return None
+        cfg = self.cfg
+        return DecodeEntry(num_layers=self.num_layers, t=cfg.t, num_heads=cfg.num_heads,
+                           head_dim=cfg.d_model // cfg.num_heads)
 
 
 @dataclass(frozen=True)
@@ -62,36 +165,45 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def compile_plan(params, state, cfg, *, backend="cuda", device=None,
-                 checkpoint=None) -> DeployPlan:
+def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = None,
+                 device=None, checkpoint=None) -> DeployPlan:
     """Fold a trained (params, state, cfg) into a deploy plan on ``device``.
 
     ``params``/``state``: nested dicts of tensors or numpy arrays with the
-    JAX package's structure (see :mod:`repro_torch.bridge`).
+    JAX package's structure (see :mod:`repro_torch.bridge`); ``state`` is
+    None for the spiking LM, which has no BN.
     ``backend``: Backend | "torch" | "cuda" | "torch+packed" | "cuda+packed" |
     "torch+packed+sparse" | "cuda+packed+sparse" (see ``engine.backend.resolve``).
+    ``ordering`` selects the LM plan's causal-SSA dataflow ("quadratic", the
+    default, | "linear"); vision plans take it from ``cfg.attn_ordering``.
     ``checkpoint``: optional checkpoint directory (either package's layout,
-    :mod:`repro_torch.checkpoint.checkpoint`) holding ``{"params", "state"}``;
-    its arrays are restored into the ``params``/``state`` skeleton before
-    folding, as the JAX package's ``compile_plan(checkpoint=)`` does.
+    :mod:`repro_torch.checkpoint.checkpoint`) holding ``{"params", "state"}``
+    (``params`` alone where ``state`` is None); its arrays are restored into
+    the skeleton before folding, as the JAX package's
+    ``compile_plan(checkpoint=)`` does.
     """
+    dev = resolve_device(device)
+    params = bridge.to_torch(params, dev)
+    state = None if state is None else bridge.to_torch(state, dev)
+    if checkpoint is not None:
+        from repro_torch.checkpoint import checkpoint as ckpt
+
+        if state is None:
+            params, _ = ckpt.restore(checkpoint, params)
+        else:
+            restored, _ = ckpt.restore(checkpoint, {"params": params, "state": state})
+            params, state = restored["params"], restored["state"]
     if not hasattr(cfg, "tokenizer_config"):
-        raise NotImplementedError(
-            "spiking-LM deploy plans are ported in a later slice (ROADMAP "
-            "queue 1, item 6); this slice covers the vision configs")
+        return _compile_lm_plan(params, state, cfg, backend=backend,
+                                ordering=ordering or "quadratic", device=dev)
+    if ordering is not None:
+        raise ValueError("ordering is a plan-compile choice only for LM configs; "
+                         "vision plans read cfg.attn_ordering")
     be = resolve(backend)
     if be.packed and cfg.residual != "iand":
         raise ValueError(
             "packed backends require residual='iand': the ADD residual sums "
             "spike trains into non-binary tensors, which cannot be bit-packed")
-    dev = resolve_device(device)
-    params = bridge.to_torch(params, dev)
-    state = bridge.to_torch(state, dev)
-    if checkpoint is not None:
-        from repro_torch.checkpoint import checkpoint as ckpt
-
-        restored, _ = ckpt.restore(checkpoint, {"params": params, "state": state})
-        params, state = restored["params"], restored["state"]
     tok_stages = tokenizer_layout(cfg.tokenizer_config())
     units = block_layout(cfg)
 
@@ -112,6 +224,44 @@ def compile_plan(params, state, cfg, *, backend="cuda", device=None,
                                          "head": params["head"]})
 
 
+def _compile_lm_plan(params, state, cfg, *, backend, ordering, device) -> DeployPlan:
+    """Fold a spiking-LM model (``models.spiking_lm`` parameters, on
+    ``device``) into a deploy plan: RMSNorm gains into the GEMM weights
+    (``fold_linear_rmsnorm``), the embedding norm into the embedding table,
+    the per-layer parameters unstacked from the stacked ``layers`` tree.
+    The head's weights and the final norm are the parameters' own tensors,
+    not copies."""
+    from repro_torch.models.layers import rmsnorm_apply
+    from repro_torch.models.spiking_lm import layer_params
+
+    if not getattr(cfg, "spiking", False):
+        raise ValueError(
+            f"LM deploy plans cover the spiking LM family only; config "
+            f"'{getattr(cfg, 'name', cfg)}' has spiking=False")
+    if state is not None:
+        raise ValueError("the spiking LM carries no BN state; pass state=None")
+    if ordering not in ("quadratic", "linear"):
+        raise ValueError(f"unknown attention ordering: {ordering!r}")
+    be = resolve(backend)
+    units = lm_block_layout(cfg)
+    # token rows are normalized independently, so the fold is the full
+    # RMSNorm precomputed over the table
+    embed = {"table": rmsnorm_apply(params["embed"]["norm"], params["embed"]["table"],
+                                    eps=cfg.norm_eps)}
+    folded_blocks = []
+    for i in range(cfg.num_layers):
+        bp = layer_params(params["layers"], i)
+        folded_blocks.append({u.name: cnn.fold_linear_rmsnorm({"w": bp[u.name]["w"]},
+                                                              bp[u.name]["norm"])
+                              for u in units})
+    meta = PlanMeta(cfg=LMDeployCfg(arch=cfg, attn_ordering=ordering), backend=be,
+                    tok_stages=(), block_units=units, num_layers=cfg.num_layers,
+                    device=device, family="lm")
+    return DeployPlan(meta=meta, params={"embed": embed, "blocks": tuple(folded_blocks),
+                                         "final_norm": params["final_norm"],
+                                         "head": {"w": params["lm_head"]["w"]}})
+
+
 def _numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(_numel(v) for v in tree.values())
@@ -122,8 +272,11 @@ def _numel(tree) -> int:
 
 def plan_stats(plan: DeployPlan) -> dict:
     """Structural op accounting of the deploy plan (what the paper's Table II
-    argues about): every BN is folded away, every IAND rides a LIF epilogue."""
+    argues about): every BN (LM: every RMSNorm but the head's) is folded
+    away, every IAND rides a LIF epilogue."""
     meta = plan.meta
+    if meta.family == "lm":
+        return _lm_plan_stats(plan)
     n_tok = len(meta.tok_stages)
     n_units = len(meta.block_units)
     fused = sum(u.fuse_residual for u in meta.block_units) * meta.num_layers
@@ -147,4 +300,36 @@ def plan_stats(plan: DeployPlan) -> dict:
         "bits_per_spike": (32 * -(-meta.cfg.t // 32) / meta.cfg.t
                            if meta.backend.packed else 32),
         "param_count": _numel(plan.params),
+    }
+
+
+def _lm_plan_stats(plan: DeployPlan) -> dict:
+    """:func:`plan_stats` of an LM plan, with the JAX package's keys; row
+    bundling is not ported, so its keys read off (None/False/0)."""
+    meta = plan.meta
+    cfg = meta.cfg
+    n_units = len(meta.block_units)
+    return {
+        "decode_entry": True,          # per-sequence O(d^2) SSA state, flat in S
+        "decode_state_bytes": meta.decode.state_bytes(1),
+        "folded_linear_rmsnorm": n_units * meta.num_layers,
+        "folded_embed_norm": 1,
+        "rmsnorm_ops": 0,              # folded at plan-compile time
+        "fused_lif_iand_dispatches": 2 * meta.num_layers,
+        "standalone_iand_ops": 0,
+        "standalone_add_ops": 0,
+        # encoding LIF + per block: q, k, v, attn, proj, fc1, fc2
+        "lif_dispatches": 1 + (n_units + 1) * meta.num_layers,
+        "weight_reads": 1 + n_units * meta.num_layers + 1,
+        "attn_ordering": cfg.attn_ordering,
+        "backend": meta.backend.kind,
+        "packed": meta.backend.packed,
+        "sparse": meta.backend.sparse,
+        "bits_per_spike": (32 * -(-cfg.t // 32) / cfg.t if meta.backend.packed else 32),
+        "param_count": _numel(plan.params),
+        "bundled": False,
+        "bundle_rows_merged": 0,
+        "bundle_radius": None,
+        "bundle_budget": None,
+        "bundle_logit_err": None,
     }

@@ -1,15 +1,17 @@
 // Tick-batched softmax-free spiking self-attention: out = (q k^T) v * scale.
 //
-// Three entry points on two tensor-core kernels:
+// Three entry points on three tensor-core kernels (the third for D > 128):
 //
-//   ssa_fwd               dense f32 spikes   ssa_tc_kernel<Dp, W>
+//   ssa_fwd               dense f32 spikes   ssa_tc_kernel<Dp, W>,
+//                                            ssa_wide_tc_kernel<DQ, false, false>
 //     Replaces: src/repro/kernels/spiking_attention/kernel.py::ssa_fwd
 //               (body ssa_kernel).
-//   packed_ssa_fwd        packed words       packed_ssa_tc_kernel<Dp, P, false>
+//   packed_ssa_fwd        packed words       packed_ssa_tc_kernel<Dp, P, false>,
+//                                            ssa_wide_tc_kernel<DQ, true, false>
 //     Replaces: src/repro/kernels/spiking_attention/kernel.py::packed_ssa_fwd
 //               (body packed_ssa_kernel).
-//   sparse_packed_ssa_fwd packed words,      packed_ssa_tc_kernel<Dp, P, true>
-//                         plane-gated
+//   sparse_packed_ssa_fwd packed words,      packed_ssa_tc_kernel<Dp, P, true>,
+//                         plane-gated        ssa_wide_tc_kernel<DQ, true, true>
 //     Replaces: src/repro/kernels/spiking_attention/kernel.py::sparse_packed_ssa_fwd
 //               (body sparse_packed_ssa_kernel).
 //
@@ -23,8 +25,8 @@
 // each carry a spike; a dead plane's output is zero.
 //
 // Operand contract and exactness.  q, k and v are spikes in {0, 1} (every
-// caller passes LIF outputs), D <= 128 and M*D < 2^24.  Then {0, 1} is exact
-// in f16; a score q.k is an integer <= D <= 128, exact in f16 (integers up to
+// caller passes LIF outputs), D <= 512 and M*D < 2^24.  Then {0, 1} is exact
+// in f16; a score q.k is an integer <= D <= 512, exact in f16 (integers up to
 // 2048 are); every partial sum of S v is an integer <= M*D, exact in an f32
 // accumulator whatever the order of the tensor cores' additions; and the
 // final multiply by scale rounds once, as the plain version's does.  So the
@@ -32,14 +34,16 @@
 // bit.  Outside that contract (non-binary operands) the f16 rounding of the
 // operands and scores shows, and the result is not the plain version's.  The
 // shape half of the contract is checked: the entry points return
-// cudaErrorInvalidValue for D > 128 or M*D >= 2^24 (the Python wrappers raise
+// cudaErrorInvalidValue for D > 512 or M*D >= 2^24 (the Python wrappers raise
 // ValueError first).
 //
 // Bound on this card: device bytes.  With binary operands the two products
 // run on the f16 tensor cores (989 TFLOP/s dense); at the main path's shape
 // (G = 384, N = M = 196, D = 32) a dense launch does 1.9 GFLOP (0.002 ms)
 // against 38.5 MB of f32 q, k, v and out (0.011 ms at 3.35 TB/s); a packed
-// launch moves 7.2 MB of words and 9.6 MB of f32 output (0.005 ms).
+// launch moves 7.2 MB of words and 9.6 MB of f32 output (0.005 ms).  At the
+// spiking LM's (llama3.2-1b width, Dh = 512, G = T*B*H = 64, causal) the work
+// is larger but the bound is still bytes up to a few thousand tokens.
 //
 // Tensor-core design (ssa_tc_kernel, packed_ssa_tc_kernel).  One block of W
 // warps per (fold g, tile of 16W query rows[, group of P planes]); warp w owns
@@ -72,6 +76,22 @@
 // phase land on distinct banks; K fragments come from ldmatrix, V's from
 // ldmatrix.trans.
 //
+// Wide (ssa_wide_tc_kernel<DQ, kPacked, kGated>, 128 < D <= 512, DQ = 256 or
+// 512): a warp's 16 x D output tile would need 4*D/8 f32 registers and its q
+// fragments another D/4, too many past D = 128.  So the grid gets an axis over
+// 128-feature slabs of the output (and, packed, over the T planes: grid z is
+// plane * slabs + slab), and each block computes the full-width S = Q K^T of
+// its 64 query rows for every key chunk, then S V[:, slab]: S is recomputed
+// once per slab (4x the Q K^T work at D = 512).  Q (64 rows), the key tile
+// (32 keys) and the slab of the value tile go through shared memory as f16
+// rows padded by 8 halfs -- dense spikes converted from f32, packed ones built
+// from the block's plane of the words (one plane a block, 0x3C00 per set bit)
+// -- and every fragment comes from ldmatrix; 108.5 KB at DQ = 512, two blocks
+// an SM.  A gated block whose plane is dead writes its slab's zeros and
+// returns.  The arithmetic of an output element is the narrow kernels' (S in
+// f32 over 16-feature steps, rounded to f16, O in f32 over 16-key steps), so
+// the exactness argument above is unchanged.
+//
 // Packed (packed_ssa_tc_kernel<Dp, P, kGated>, W = 4 warps): one kernel for both
 // packed entry points; kGated = false is packed_ssa_fwd (every plane computed),
 // kGated = true sparse_packed_ssa_fwd.  The q words and the k and v word tiles are
@@ -103,7 +123,7 @@
 
 namespace {
 
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 512;
 constexpr long long kMaxSum = 1LL << 24;  // M * D stays below: sums of S v exact in f32
 
 // ---- tensor-core kernels ----------------------------------------------------
@@ -197,25 +217,25 @@ __device__ __forceinline__ void scores_to_a(uint32_t (&a)[4], float (&s)[2][4], 
   a[3] = pack_half2(s[1][2], s[1][3]);
 }
 
-// Rows row0 .. row0 + kKeys - 1 of a (rows_total, d) f32 matrix as f16 into
-// dst[kKeys][LD], zero past the matrix, by THREADS threads; vec: d % 4 == 0
-// and src 16-byte aligned.
-template <int DP, int LD, int THREADS>
+// Rows row0 .. row0 + ROWS - 1, features f0 .. f0 + DP - 1 of a (rows_total,
+// d) f32 matrix as f16 into dst[ROWS][LD], zero past the matrix, by THREADS
+// threads; vec: d % 4 == 0, f0 % 4 == 0 and src 16-byte aligned.
+template <int DP, int LD, int THREADS, int ROWS = kKeys>
 __device__ __forceinline__ void stage_f16(__half* dst, const float* src, int row0,
-                                          int rows_total, int d, bool vec) {
+                                          int rows_total, int d, bool vec, int f0 = 0) {
   constexpr int kChunks = DP / 4;
-  for (int c = threadIdx.x; c < kKeys * kChunks; c += THREADS) {
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
     const int r = c / kChunks, f = (c % kChunks) * 4;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < rows_total && f < d) {
-      const float* p = src + static_cast<long long>(row0 + r) * d + f;
+    if (row0 + r < rows_total && f0 + f < d) {
+      const float* p = src + static_cast<long long>(row0 + r) * d + f0 + f;
       if (vec) {
         x = *reinterpret_cast<const float4*>(p);
       } else {
         x.x = p[0];
-        if (f + 1 < d) x.y = p[1];
-        if (f + 2 < d) x.z = p[2];
-        if (f + 3 < d) x.w = p[3];
+        if (f0 + f + 1 < d) x.y = p[1];
+        if (f0 + f + 2 < d) x.z = p[2];
+        if (f0 + f + 3 < d) x.w = p[3];
       }
     }
     auto* o = reinterpret_cast<__half2*>(dst + r * LD + f);
@@ -247,14 +267,43 @@ __device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, 
   }
 }
 
+// Bit plane `bit` of the words at rows row0 .. row0 + ROWS - 1, features f0 ..
+// f0 + DP - 1 of a (rows_total, d) word matrix as f16 (1.0 is 0x3C00) into
+// dst[ROWS][LD], zero past the matrix, by THREADS threads; vec as stage_f16.
+template <int DP, int LD, int THREADS, int ROWS>
+__device__ __forceinline__ void stage_plane_f16(__half* dst, const uint32_t* src, int row0,
+                                                int rows_total, int d, bool vec, int f0,
+                                                int bit) {
+  constexpr int kChunks = DP / 4;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
+    const int r = c / kChunks, f = (c % kChunks) * 4;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows_total && f0 + f < d) {
+      const uint32_t* p = src + static_cast<long long>(row0 + r) * d + f0 + f;
+      if (vec) {
+        x = *reinterpret_cast<const uint4*>(p);
+      } else {
+        x.x = p[0];
+        if (f0 + f + 1 < d) x.y = p[1];
+        if (f0 + f + 2 < d) x.z = p[2];
+        if (f0 + f + 3 < d) x.w = p[3];
+      }
+    }
+    *reinterpret_cast<uint2*>(dst + r * LD + f) =
+        make_uint2(plane_half2(merge_words(x.x, x.y, bit), 0),
+                   plane_half2(merge_words(x.z, x.w, bit), 0));
+  }
+}
+
 // One warp's 16 x Dp output tile, times scale, into og (n, d); pair: float2
 // stores (d even, og 8-byte aligned).
+// Features from f0 on (a slab of the wide kernel).
 template <int NT>
 __device__ __forceinline__ void store_tile(float* og, const float (&o)[NT][4], int row0, int n,
-                                           int d, float scale, bool pair, int lane) {
+                                           int d, float scale, bool pair, int lane, int f0 = 0) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    const int f = 8 * j + 2 * (lane & 3);
+    const int f = f0 + 8 * j + 2 * (lane & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + (lane >> 2) + 8 * h;
@@ -480,6 +529,117 @@ packed_ssa_tc_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict
   }
 }
 
+// ---- head dims past 128 -------------------------------------------------------
+
+constexpr int kWideWarps = 4;    // warps of 16 query rows per block of the wide kernel
+constexpr int kWideKeys = 32;    // keys per staged tile of the wide kernel
+constexpr int kSlab = 128;       // output features per block of the wide kernel
+
+template <int DQ>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  return 2 * ((16 * kWideWarps + kWideKeys) * (DQ + 8) + kWideKeys * (kSlab + 8));
+}
+
+// Rows r0 .. r0 + R - 1, features f0 .. f0 + W - 1 of fold (or word plane and
+// fold) `base` of an (rows_total, d) operand as f16: f32 spikes, or bit `bit`
+// of words.
+template <bool kPacked, int W, int LD, int THREADS, int R>
+__device__ __forceinline__ void stage_operand(__half* dst, const void* src, long long base,
+                                              int r0, int rows_total, int d, bool vec, int f0,
+                                              int bit) {
+  if constexpr (kPacked) {
+    stage_plane_f16<W, LD, THREADS, R>(
+        dst, static_cast<const uint32_t*>(src) + base * rows_total * d, r0, rows_total, d, vec,
+        f0, bit);
+  } else {
+    stage_f16<W, LD, THREADS, R>(dst, static_cast<const float*>(src) + base * rows_total * d,
+                                 r0, rows_total, d, vec, f0);
+  }
+}
+
+// One kernel for all three entry points at 128 < D <= DQ.  Grid (fold, tile of
+// 64 query rows, plane * slabs + slab): a block computes the full-width scores
+// S = Q K^T of its rows and then S V for one 128-feature slab of the output,
+// so S is recomputed once per slab.  kPacked: q, k and v are words, and the
+// block's plane (blockIdx.z / slabs) is staged as f16 from the bits; with
+// kGated a dead plane's slab is written as zeros.  Dense: plane 0, f32 spikes
+// staged as f16.  Q, K and V go through shared memory as f16 rows padded by 8
+// halfs, and every fragment comes from ldmatrix (.trans for V).
+template <int DQ, bool kPacked, bool kGated>
+__global__ void __launch_bounds__(32 * kWideWarps)
+ssa_wide_tc_kernel(const void* __restrict__ qv, const void* __restrict__ kv,
+                   const void* __restrict__ vv, const int* __restrict__ live,
+                   float* __restrict__ out, int g_total, int n, int m, int d, int t_total,
+                   int slabs, float scale, int causal, int vec, int pair) {
+  constexpr int LDQ = DQ + 8;      // halfs, q and k rows
+  constexpr int LDV = kSlab + 8;   // halfs, v rows
+  constexpr int KS = DQ / 16;
+  constexpr int NT = kSlab / 8;
+  constexpr int ROWS = 16 * kWideWarps;
+  constexpr int THREADS = 32 * kWideWarps;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __half* qs = reinterpret_cast<__half*>(tc_smem);  // [ROWS][LDQ]
+  __half* ks = qs + ROWS * LDQ;                      // [kWideKeys][LDQ]
+  __half* vs = ks + kWideKeys * LDQ;                 // [kWideKeys][LDV]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long g = blockIdx.x;
+  const int q0 = blockIdx.y * ROWS;
+  const int row0 = q0 + 16 * warp;
+  const int plane = blockIdx.z / slabs, f0 = (blockIdx.z % slabs) * kSlab;
+  const long long base = kPacked ? static_cast<long long>(plane >> 5) * g_total + g : g;
+  float* og = out + (static_cast<long long>(plane) * g_total + g) * n * d;
+
+  if (kGated && live[g * t_total + plane] == 0) {  // a dead plane: its slab is zero
+    const int rows = min(ROWS, n - q0), cols = min(kSlab, d - f0);
+    for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
+      og[static_cast<long long>(q0 + e / cols) * d + f0 + e % cols] = 0.0f;
+    }
+    return;
+  }
+  const int bit = plane & 31;
+  stage_operand<kPacked, DQ, LDQ, THREADS, ROWS>(qs, qv, base, q0, n, d, vec, 0, bit);
+
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+
+  const int kv_end = causal ? min(m, q0 + ROWS) : m;
+  const int warp_end = row0 >= n ? 0 : causal ? min(kv_end, row0 + 16) : kv_end;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kWideKeys) {
+    __syncthreads();  // q staged; every warp is done with the previous tile
+    stage_operand<kPacked, DQ, LDQ, THREADS, kWideKeys>(ks, kv, base, kv0, m, d, vec, 0, bit);
+    stage_operand<kPacked, kSlab, LDV, THREADS, kWideKeys>(vs, vv, base, kv0, m, d, vec, f0, bit);
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kWideKeys / 16; ++c) {
+      const int key0 = kv0 + 16 * c;
+      if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
+      float s[2][4] = {};
+#pragma unroll 4
+      for (int st = 0; st < KS; ++st) {
+        uint32_t a[4], b[4];  // a: rows 16w + (0..15), features 16st + (0..7 | 8..15)
+        ldsm_x4(a, qs + (16 * warp + (lane & 15)) * LDQ + 16 * st + 8 * (lane >> 4));
+        ldsm_x4(b, ks + (16 * c + (lane & 7) + 8 * (lane >> 4)) * LDQ + 16 * st +
+                       8 * ((lane >> 3) & 1));
+        mma_16816(s[0], a, b[0], b[1]);
+        mma_16816(s[1], a, b[2], b[3]);
+      }
+      uint32_t a[4];
+      scores_to_a(a, s, causal, row0, key0, lane);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t b[4];  // V rows 16c + (0..7 | 8..15), slab features 16j + (0..7 | 8..15)
+        ldsm_x4_trans(b, vs + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDV + 16 * j +
+                             8 * (lane >> 4));
+        mma_16816(o[2 * j], a, b[0], b[1]);
+        mma_16816(o[2 * j + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  store_tile<NT>(og, o, row0, n, d, scale, pair, lane, f0);
+}
+
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
@@ -538,7 +698,27 @@ int launch_packed_tc(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The operand contract's shape half (see the header): D <= 128 and M * D < 2^24,
+// Past D = 128: ssa_wide_tc_kernel, D rounded up to 256 or 512 for the scores.
+template <bool kPacked, bool kGated>
+int launch_wide(const void* q, const void* k, const void* v, const int* live, float* out, int g,
+                int n, int m, int d, int t_total, float scale, int causal, cudaStream_t stream) {
+  const auto kernel = d <= 256 ? ssa_wide_tc_kernel<256, kPacked, kGated>
+                               : ssa_wide_tc_kernel<512, kPacked, kGated>;
+  const size_t smem = d <= 256 ? wide_smem_bytes<256>() : wide_smem_bytes<512>();
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = d % 4 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16);
+  const int pair = d % 2 == 0 && aligned(out, 8);
+  const int slabs = (d + kSlab - 1) / kSlab;
+  const dim3 grid(static_cast<unsigned>(g),
+                  static_cast<unsigned>((n + 16 * kWideWarps - 1) / (16 * kWideWarps)),
+                  static_cast<unsigned>((kPacked ? t_total : 1) * slabs));
+  kernel<<<grid, 32 * kWideWarps, smem, stream>>>(q, k, v, live, out, g, n, m, d, t_total, slabs,
+                                                  scale, causal, vec, pair);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The operand contract's shape half (see the header): D <= 512 and M * D < 2^24,
 // so that every partial sum of S v is exact in f32.  Operands past it are refused.
 bool exact_shape(int m, int d) {
   return d >= 1 && d <= kMaxD && m >= 1 && static_cast<long long>(m) * d < kMaxSum;
@@ -558,7 +738,8 @@ int launch_packed_d(const void* qw, const void* kw, const void* vw, const void* 
   if (d <= 16) return launch_packed_tc<16, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
   if (d <= 32) return launch_packed_tc<32, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
   if (d <= 64) return launch_packed_tc<64, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  return launch_packed_tc<128, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 128) return launch_packed_tc<128, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  return launch_wide<true, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
 }
 
 }  // namespace
@@ -591,7 +772,8 @@ extern "C" int ssa_fwd(const void* q, const void* k, const void* v, void* out, i
   if (d <= 16) return launch_dense_rows<16>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
   if (d <= 32) return launch_dense_rows<32>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
   if (d <= 64) return launch_dense_rows<64>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
-  return launch_dense_rows<128>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  if (d <= 128) return launch_dense_rows<128>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  return launch_wide<false, false>(qf, kf, vf, nullptr, o, g, n, m, d, 1, scale, causal, s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

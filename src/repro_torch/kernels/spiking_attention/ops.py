@@ -12,12 +12,13 @@ over a transposed view, and the kernels assume a dense layout.  Ragged token
 counts are masked in the kernels, so nothing is padded.
 
 Operand contract of the kernels: q, k and v are spikes in {0, 1} (every
-caller passes LIF outputs), Dh <= 128 and M * Dh < 2^24; the shape half is
+caller passes LIF outputs), Dh <= 512 and M * Dh < 2^24; the shape half is
 checked (:func:`check_exact_shape`) on the card route, the CPU route runs the
 plain f32 version whatever the shape, as the reference does.  All three run
 both products on the f16 tensor cores with f32 accumulation, which is exact
-there (scores are integers <= 128, sums integers < 2^24), so they equal the
-plain f32 versions bit for bit.
+there (scores are integers <= 512, sums integers < 2^24), so they equal the
+plain f32 versions bit for bit.  Past Dh = 128 (the spiking LM's heads) the
+three share one kernel that splits the output into 128-feature slabs.
 
 :func:`ssa_op` is differentiable on both devices (:class:`_SsaOp`): the
 forward is :func:`ssa_fwd`, the backward the three bilinear contractions of
@@ -37,13 +38,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.spiking_attention.ref import (
     packed_ssa_ref, sparse_packed_ssa_ref, ssa_ref)
 
-MAX_HEAD_DIM = 128   # the kernels' widest register tile (kMaxD in ssa.cu)
+MAX_HEAD_DIM = 512   # the kernels' widest head (kMaxD in ssa.cu): scores stay <= 2048
 MAX_SUM = 2 ** 24    # M * Dh stays below it: every partial sum of S v exact in f32
 
 
 def check_exact_shape(what: str, m: int, d: int) -> None:
-    """The shape half of the kernels' operand contract: Dh <= 128 (the widest
-    register tile) and M * Dh < 2^24 (every partial sum of S v, an integer
+    """The shape half of the kernels' operand contract: Dh <= 512 (every score,
+    an integer <= Dh, exact in f16) and M * Dh < 2^24 (every partial sum of S v, an integer
     <= M * Dh, exact in an f32 accumulator whatever the tensor cores' order).
     Raises ``ValueError`` outside it; ``ssa.cu``'s entry points refuse the
     same operands."""
@@ -66,7 +67,7 @@ _SPARSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
 def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
             causal: bool = False) -> torch.Tensor:
     """q (G, N, D), k/v (G, M, D) f32 spikes in {0, 1} -> (G, N, D); no
-    zero-sized dims, D <= 128, M * D < 2^24.
+    zero-sized dims, D <= 512, M * D < 2^24.
 
     Replaces the TPU kernel ``repro.kernels.spiking_attention.kernel.ssa_fwd``.
     On the card: ``ssa_tc_kernel``, one block of 16 warps (16 query rows
@@ -74,10 +75,13 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
     196-token fold is one block; q, k, v read as f32 and converted to f16
     (k and v through shared memory), both products on
     ``mma.sync.m16n8k16`` with f32 accumulators, S handed from the C to the
-    A fragment in registers.  Bound by device bytes (q, k, v read and out
-    written once).  Exact while the operands are binary and M * D < 2^24:
-    f16 holds 0/1 and every score (<= 128), f32 every partial sum, so the
-    result equals :func:`ssa_ref` bit for bit."""
+    A fragment in registers.  Past D = 128, ``ssa_wide_tc_kernel``: 64 query
+    rows a block, one 128-feature slab of the output each, the full-width
+    scores recomputed per slab, every operand staged as f16 in shared
+    memory.  Bound by device bytes (q, k, v read and out written once).
+    Exact while the operands are binary and M * D < 2^24: f16 holds 0/1 and
+    every score (<= 512), f32 every partial sum, so the result equals
+    :func:`ssa_ref` bit for bit."""
     g, n, d = q.shape
     m = k.shape[1]
     if k.shape != (g, m, d) or v.shape != (g, m, d):
@@ -103,7 +107,7 @@ ssa_fwd.launches = 0
 def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: int,
                    scale: float, causal: bool = False) -> torch.Tensor:
     """q words (W, G, N, D), k/v words (W, G, M, D), int32 with W = ceil(t/32)
-    -> (T, G, N, D) f32; no zero-sized dims, D <= 128, M * D < 2^24.
+    -> (T, G, N, D) f32; no zero-sized dims, D <= 512, M * D < 2^24.
 
     Replaces the TPU kernel
     ``repro.kernels.spiking_attention.kernel.packed_ssa_fwd``.  On the card:
@@ -111,9 +115,11 @@ def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: i
     :func:`sparse_packed_ssa_fwd` with every plane computed: one block of
     four warps per (fold, 64 query rows, P planes of one word), each plane's
     f16 fragments built straight from the bits, both products on
-    ``mma.sync.m16n8k16`` with f32 accumulators.  Bound by device bytes.
-    Exact for any words with M * D < 2^24, so the result equals
-    :func:`packed_ssa_ref` bit for bit."""
+    ``mma.sync.m16n8k16`` with f32 accumulators; past D = 128 the wide
+    kernel of :func:`ssa_fwd` with one plane a block, its f16 operands built
+    from that plane's bits.  Bound by device bytes.  Exact for any words with
+    D <= 512 and M * D < 2^24, so the result equals :func:`packed_ssa_ref`
+    bit for bit."""
     _check_packed("packed ssa", qw, kw, vw, t)
     w, g, n, d = qw.shape
     m = kw.shape[2]
@@ -149,7 +155,7 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
                           causal: bool = False) -> torch.Tensor:
     """:func:`packed_ssa_fwd` with a (G, T) int32 plane liveness ``live``:
     output plane t of fold g is computed only where ``live[g, t]`` is
-    nonzero and is zero elsewhere; no zero-sized dims, D <= 128, M * D < 2^24.
+    nonzero and is zero elsewhere; no zero-sized dims, D <= 512, M * D < 2^24.
 
     Replaces the TPU kernel
     ``repro.kernels.spiking_attention.kernel.sparse_packed_ssa_fwd``.  On the
@@ -158,9 +164,10 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     read once for all P planes, each plane's f16 fragments are built
     straight from the bits (1.0 is 0x3C00), and both products run on
     ``mma.sync.m16n8k16`` with f32 accumulators.  A block whose P planes are
-    all dead writes zeros without staging.  Bound by device bytes (the words
+    all dead writes zeros without staging; past D = 128 the wide kernel of
+    :func:`packed_ssa_fwd`, gated by plane.  Bound by device bytes (the words
     read and the f32 output written once).  Exact for any words with
-    M * D < 2^24 (bits are 0/1, scores <= 128), so the result equals
+    M * D < 2^24 (bits are 0/1, scores <= 512), so the result equals
     :func:`packed_ssa_fwd` and :func:`sparse_packed_ssa_ref` bit for bit."""
     _check_packed("sparse packed ssa", qw, kw, vw, t)
     w, g, n, d = qw.shape

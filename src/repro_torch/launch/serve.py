@@ -1,4 +1,5 @@
-"""Vision serving through the deploy engine (PyTorch port).
+"""Serving through the deploy engine (PyTorch port): vision slot batches and
+the spiking LM's synchronous slots.
 
 ``--vision`` compiles the Spike-(IAND-)Former into a folded/fused deploy
 plan once at startup -- BN folded into the weight reads, AND-NOT residuals
@@ -24,6 +25,21 @@ layers bit-packed along time (``repro_torch.core.packing``);
 ``torch+packed+sparse`` / ``cuda+packed+sparse`` also skip all-zero word
 tiles and dead bitplanes, located by the occupancy maps the LIF pack
 epilogues attach (the logits are those of the packed plan).
+
+``--spiking-lm`` greedy-decodes synchronous slot batches of prompts from a
+compiled LM deploy plan of ``spiking_lm_config(--arch)`` (RMSNorm gains
+folded into the GEMM weights, the embedding norm into the table, causal SSA
+on the plan's backend, ``--ordering quadratic|linear``).  Decode is
+incremental: one prefill scores a slot batch's prompts and initialises the
+O(d^2)-per-head ``DecodeState``, then one ``decode_step`` per new token, at
+a cost flat in context length.  The weights are drawn from a seeded
+``torch.Generator`` on the plan's device, the prompts by ``token_batch``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --spiking-lm \
+        --arch llama3.2-1b --backend cuda+packed
+    PYTHONPATH=src python -m repro_torch.launch.serve --spiking-lm \
+        --arch llama3.2-1b_smoke --requests 3 --prompt-len 8 --max-new 4 \
+        --slots 2 --backend torch --device cpu
 """
 
 from __future__ import annotations
@@ -37,7 +53,9 @@ import torch
 from repro_torch import engine
 from repro_torch.configs.spike_iand_former import get_vision_config
 from repro_torch.core import spikformer as sf
+from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.engine.plan import resolve_device
+from repro_torch.models.lm import get_config
 
 
 def _sync(device: torch.device) -> None:
@@ -157,13 +175,224 @@ def serve_vision(arch: str, *, num_requests: int, slots: int = 4,
     return serve_plan(plan, images, slots=slots, verbose=verbose)
 
 
+# -- spiking LM -----------------------------------------------------------------
+
+def spiking_lm_config(arch: str):
+    """Spiking deploy flavour of a text arch config, as the JAX package adapts
+    it: T = 4 time steps and 4 heads sized for binary spike trains (the
+    llama3.2-1b width: Dh = 2048 / 4 = 512)."""
+    cfg = get_config(arch)
+    if cfg.modality != "text":
+        raise ValueError(f"spiking-LM serving targets text archs; {arch} is {cfg.modality}")
+    return cfg.replace(spiking=True, spike_t=4, num_heads=4, head_dim=None)
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """Argmax over the vocabulary, as int64 (the embedding gather's index)."""
+    return torch.argmax(logits, dim=-1)
+
+
+def _pad_batch(x: torch.Tensor, mult: int):
+    """Pad the leading (request) axis to a multiple of ``mult`` by repeating
+    the last row; returns (padded, true_size).  The JAX package pads slot
+    batches to the data-parallel degree of a mesh; the port serves on one
+    device (degree 1), and keeps it for the mesh slice."""
+    b = x.shape[0]
+    r = (-b) % mult
+    if r:
+        x = torch.cat([x, x[-1:].expand((r,) + tuple(x.shape[1:]))], dim=0)
+    return x, b
+
+
+def _warm_sizes(slots: int, num_requests: int) -> set[int]:
+    """Every batch size the slot loop will see: the full slot batch and the
+    ragged last one."""
+    sizes = {min(slots, num_requests)}
+    if num_requests % slots:
+        sizes.add(num_requests % slots)
+    return sizes
+
+
+def _compile_lm_serving(arch: str, *, backend, ordering, mesh, seed, device):
+    """The setup of spiking-LM serving: config, weights drawn from
+    ``torch.Generator(device).manual_seed(seed)`` on the plan's device, and
+    the one plan compile -- returns (cfg, plan).  The weights are dropped
+    when this returns; the plan keeps its folded copies."""
+    from repro_torch.models import spiking_lm as slm
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded LM serving is not ported yet (ROADMAP 1.6, the mesh); "
+            "serve on one device with mesh=None")
+    dev = resolve_device(device)
+    cfg = spiking_lm_config(arch)
+    params = slm.init_spiking_lm(torch.Generator(dev).manual_seed(seed), cfg)
+    plan = engine.compile_plan(params, None, cfg, backend=backend, ordering=ordering,
+                               device=dev)
+    return cfg, plan
+
+
+# The seeded LM's AND-NOT residual loses about half its spikes at each of its
+# 2L joins (a branch LIF fires on some 30-50% of a row that still spikes), so
+# at llama3.2-1b depth the stream falls silent before the last blocks (at
+# d_model 1024 on the CPU, from block 13 on).  live_lm_params keeps every
+# block firing, for the checks that need it: the RMSNorm gains of the two
+# units that feed the joins (proj, fc2) are LIVE_BRANCH_GAIN, so their LIFs
+# fire less and each join removes fewer spikes.
+LIVE_BRANCH_GAIN = 0.5
+
+
+def live_lm_params(cfg, device=None, seed: int = 0):
+    """The parameters of ``init_spiking_lm(torch.Generator(device).manual_seed(
+    seed), cfg)`` with the proj and fc2 RMSNorm gains of every block set to
+    :data:`LIVE_BRANCH_GAIN`: a spiking LM whose residual stream, and so every
+    block, still fires at full depth."""
+    from repro_torch.models import spiking_lm as slm
+
+    params = slm.init_spiking_lm(torch.Generator(resolve_device(device)).manual_seed(seed), cfg)
+    for unit in ("proj", "fc2"):
+        params["layers"][unit]["norm"]["scale"].fill_(LIVE_BRANCH_GAIN)
+    return params
+
+
+class _Marks:
+    """Time marks on the plan's device: CUDA events on the card (read after a
+    synchronise), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_ms(self) -> list[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        return [1e3 * (b - a) for a, b in zip(self.marks, self.marks[1:])]
+
+
+def serve_lm_plan(plan, prompts, *, slots: int = 4, max_new: int = 16,
+                  verbose: bool = True) -> dict:
+    """Greedy-decode ``prompts`` (N, S) through an LM ``plan`` in synchronous
+    slot batches of ``slots``: per batch one prefill, whose last position
+    gives the first new token, then ``max_new - 1`` decode steps.  One
+    warm-up prefill and step per batch size come first (they also build the
+    kernels).
+
+    Returns a dict: ``done`` (the JAX package's result: (request, its
+    ``max_new`` tokens) pairs in order), ``tokens`` (N, max_new) and
+    ``logits`` (N, max_new, V), the logits each token was drawn from, on the
+    host; ``prefills`` and ``steps`` run (warm-up included); ``prefill_ms``
+    and ``step_ms``, each served prefill's and step's time on the device
+    (CUDA events; the host clock on the CPU); ``seconds``, the served loop
+    on the host clock, and ``tok_per_s``, new tokens over it."""
+    dev = plan.meta.device
+    prefill = engine.make_prefill_fn(plan)
+    step = engine.make_decode_step_fn(plan)
+    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long).to(dev)
+    num_requests, prompt_len = prompts.shape
+    out = {"done": [], "prefills": 0, "steps": 0, "prefill_ms": [], "step_ms": []}
+    tokens, logits_kept = [], []
+    with torch.inference_mode():
+        for bp in sorted(_warm_sizes(slots, num_requests)):
+            _, st = prefill(plan.params, torch.zeros((bp, prompt_len), dtype=torch.long,
+                                                     device=dev))
+            step(plan.params, st, torch.zeros((bp,), dtype=torch.long, device=dev))
+            out["prefills"] += 1
+            out["steps"] += 1
+        _sync(dev)
+        t0 = time.perf_counter()
+        for start in range(0, num_requests, slots):
+            seq = prompts[start:start + slots]
+            marks = _Marks(dev)
+            marks.mark()
+            logits, state = prefill(plan.params, seq)
+            marks.mark()
+            drawn = [logits[:, -1]]
+            tok = greedy_sample(drawn[0])
+            outs = [tok]
+            for _ in range(max_new - 1):
+                logits, state = step(plan.params, state, tok)
+                marks.mark()
+                drawn.append(logits)
+                tok = greedy_sample(logits)
+                outs.append(tok)
+            out["prefills"] += 1
+            out["steps"] += max_new - 1
+            gen = torch.stack(outs, dim=1).cpu()          # the host copy syncs the batch
+            ms = marks.intervals_ms()
+            out["prefill_ms"].append(ms[0])
+            out["step_ms"] += ms[1:]
+            tokens.append(gen)
+            logits_kept.append(torch.stack(drawn, dim=1).cpu())
+            out["done"] += [(start + j, gen[j].numpy()) for j in range(gen.shape[0])]
+            if verbose:
+                print(f"[serve] slot batch {start // slots}: generated "
+                      f"{gen.shape[0]}x{max_new} tokens")
+        out["seconds"] = time.perf_counter() - t0
+    out["tokens"], out["logits"] = torch.cat(tokens), torch.cat(logits_kept)
+    out["tok_per_s"] = num_requests * max_new / out["seconds"]
+    if verbose:
+        ps = engine.plan_stats(plan)
+        where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        spikes = ", packed spikes" if ps["packed"] else ""
+        spikes += ", sparse skipping" if ps["sparse"] else ""
+        steps = out["step_ms"]
+        print(f"[serve] {num_requests} requests, {num_requests * max_new} new tokens in "
+              f"{out['seconds']:.3f}s ({out['tok_per_s']:.1f} tok/s on {where}; prefill "
+              f"{sum(out['prefill_ms']) / len(out['prefill_ms']):.2f} ms, step "
+              f"{sum(steps) / max(len(steps), 1):.2f} ms; LM plan: "
+              f"{ps['folded_linear_rmsnorm']} folded Linear+RMSNorm units, "
+              f"{ps['fused_lif_iand_dispatches']} fused LIF+IAND dispatches, "
+              f"ordering={ps['attn_ordering']}, backend={ps['backend']}{spikes}; "
+              f"prefill+step decode, {ps['decode_state_bytes']} B state/seq, flat in "
+              "context)")
+    return out
+
+
+def serve_spiking_lm(arch: str, *, num_requests: int, prompt_len: int, max_new: int,
+                     slots: int = 4, backend: str = "cuda", ordering: str = "quadratic",
+                     mesh=None, seed: int = 0, device=None, verbose: bool = True) -> dict:
+    """Serve ``spiking_lm_config(arch)`` from a compiled deploy plan, greedy
+    decode: the JAX package's arguments (``mesh`` must be None), on the card
+    unless ``device="cpu"``.  The weights come from ``seed`` (see
+    :func:`_compile_lm_serving`), the ``num_requests`` prompts of
+    ``prompt_len`` tokens from ``token_batch`` at ``seed``, step 0, as in the
+    JAX package; :func:`serve_lm_plan` says what the result holds (its
+    ``done`` is the JAX function's result)."""
+    cfg, plan = _compile_lm_serving(arch, backend=backend, ordering=ordering, mesh=mesh,
+                                    seed=seed, device=device)
+    dcfg = DataConfig(seed=seed, vocab_size=cfg.vocab_size, seq_len=prompt_len,
+                      global_batch=num_requests)
+    prompts = make_batch(dcfg, 0)["tokens"]
+    return serve_lm_plan(plan, prompts, slots=slots, max_new=max_new, verbose=verbose)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--vision", action="store_true", required=True,
-                    help="serve a vision Spikformer via the deploy engine")
-    ap.add_argument("--arch", default="spike-iand-former-8-384")
-    ap.add_argument("--requests", type=int, default=24)
-    ap.add_argument("--slots", type=int, default=8)
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--vision", action="store_true",
+                      help="serve a vision Spikformer via the deploy engine")
+    mode.add_argument("--spiking-lm", action="store_true",
+                      help="greedy-decode a spiking LM from a compiled deploy plan")
+    ap.add_argument("--arch", default=None,
+                    help="default: spike-iand-former-8-384 (--vision), llama3.2-1b "
+                         "(--spiking-lm)")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="default: 24 (--vision), 8 (--spiking-lm)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="default: 8 (--vision), 4 (--spiking-lm)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--ordering", default="quadratic", choices=["quadratic", "linear"],
+                    help="causal-SSA dataflow of the LM plan")
     ap.add_argument("--backend", default="cuda",
                     choices=["torch", "cuda", "torch+packed", "cuda+packed",
                              "torch+packed+sparse", "cuda+packed+sparse"])
@@ -172,8 +401,15 @@ def main():
                          "plain versions on the host)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    serve_vision(args.arch, num_requests=args.requests, slots=args.slots,
-                 backend=args.backend, device=args.device, seed=args.seed)
+    if args.spiking_lm:
+        serve_spiking_lm(args.arch or "llama3.2-1b", num_requests=args.requests or 8,
+                         prompt_len=args.prompt_len, max_new=args.max_new,
+                         slots=args.slots or 4, backend=args.backend, ordering=args.ordering,
+                         seed=args.seed, device=args.device)
+        return
+    serve_vision(args.arch or "spike-iand-former-8-384", num_requests=args.requests or 24,
+                 slots=args.slots or 8, backend=args.backend, device=args.device,
+                 seed=args.seed)
 
 
 if __name__ == "__main__":

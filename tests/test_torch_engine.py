@@ -200,8 +200,19 @@ def test_serve_vision_cpu_backends_agree():
 
 
 def test_lm_config_is_refused():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        engine.compile_plan({}, None, object(), device="cpu")
+    """LM plans cover the spiking LM only, which carries no BN state: a
+    non-spiking ``ArchConfig`` and a non-None state are refused with the JAX
+    package's ``ValueError``s."""
+    from repro_torch.launch.serve import spiking_lm_config
+    from repro_torch.models import spiking_lm as tslm
+
+    cfg = spiking_lm_config("llama3.2-1b_smoke")
+    params = tslm.init_spiking_lm(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="spiking=False"):
+        engine.compile_plan(params, None, cfg.replace(spiking=False), device="cpu")
+    with pytest.raises(ValueError, match="state=None"):
+        engine.compile_plan(params, {"bn": {}}, cfg, device="cpu")
+    assert engine.compile_plan(params, None, cfg, device="cpu").meta.family == "lm"
 
 
 @pytest.mark.cuda

@@ -262,8 +262,11 @@ def test_ssa_linear_packed_vs_jax(ref):
     np.testing.assert_array_equal(
         tsa.ssa_kv_state_packed(words[1], words[2], t=t).numpy(),
         np.asarray(ref.sa.ssa_kv_state_packed(_jwords(words[1]), _jwords(words[2]), t=t)))
-    with pytest.raises(NotImplementedError, match="spiking-LM"):
-        tsa.ssa_linear_packed(*words, t=t, causal=True)
+    for chunk in (4, 16):     # the causal scan, ragged and one chunk
+        np.testing.assert_array_equal(
+            tsa.ssa_linear_packed(*words, t=t, causal=True, chunk=chunk).numpy(),
+            np.asarray(ref.sa.ssa_linear_packed(*map(_jwords, words), t=t, causal=True,
+                                                chunk=chunk)))
 
 
 def test_packed_wrappers_never_take_the_plain_version_off_the_cpu():
@@ -340,6 +343,9 @@ def test_packed_matmul_kernel_vs_plain_and_dense_kernel_on_card(card, m, k, c, t
     ((1, 2, 40, 32), 33, False), ((1, 2, 40, 32), 40, False),      # multi-word T, every plane
     ((1, 2, 24, 20), 33, True), ((1, 1, 20, 128), 40, True),
     ((1, 2, 1, 20), 4, False), ((1, 4, 196, 128), 4, True),
+    # past Dh = 128: the wide kernel, one plane and one 128-feature slab a block
+    ((1, 2, 70, 129), 4, True), ((1, 2, 33, 200), 4, False), ((1, 1, 70, 257), 2, True),
+    ((1, 2, 70, 512), 4, False), ((4, 4, 32, 512), 4, True), ((1, 1, 24, 200), 33, True),
 ])
 def test_packed_ssa_kernel_vs_plain_on_card(card, shape, t, causal):
     qw, kw, vw = (_words(s, t, shape).to(card) for s in (1, 2, 3))

@@ -411,6 +411,11 @@ def test_sparse_packed_matmul_kernel_vs_packed_kernel_on_card(card, m, k, c, t, 
     ((1, 2, 40, 32), 33, True, None, False), ((1, 2, 40, 32), 40, True, None, False),
     ((1, 2, 40, 32), 40, False, None, False),
     ((1, 4, 196, 128), 4, False, None, True), ((1, 4, 196, 128), 4, True, None, True),
+    # past Dh = 128: the wide kernel, gated by plane
+    ((1, 2, 70, 129), 4, True, None, False), ((4, 4, 32, 512), 4, True, None, False),
+    ((1, 2, 57, 200), 4, False, 40, False), ((1, 2, 40, 200), 4, True, 57, False),
+    ((1, 1, 24, 200), 33, True, None, False),
+    ((1, 2, 196, 512), 4, False, None, True), ((1, 2, 196, 512), 4, True, None, True),
 ])
 def test_sparse_packed_ssa_kernel_vs_packed_kernel_on_card(card, shape, t, causal, m, ones,
                                                           share):

@@ -88,10 +88,18 @@ def test_ssa_op_takes_head_split_views():
     ((1, 2, 3, 57, 20), 40, False, False), ((1, 2, 3, 57, 20), 40, True, False),   # N != M
     ((1, 2, 3, 40, 20), 57, False, False), ((1, 2, 3, 40, 20), 57, True, False),
     ((1, 1, 4, 196, 128), None, False, True), ((1, 1, 4, 196, 128), None, True, True),
+    # past Dh = 128: the wide kernel (128-feature output slabs), up to Dh = 512
+    ((1, 1, 2, 70, 129), None, True, False), ((1, 2, 2, 33, 256), None, False, False),
+    ((1, 1, 2, 70, 257), None, True, False), ((1, 1, 2, 70, 512), None, False, False),
+    ((4, 4, 4, 32, 512), None, True, False),    # the spiking LM's prefill: G = 64, N = 32
+    ((1, 2, 3, 57, 200), 40, False, False), ((1, 2, 3, 40, 200), 57, True, False),
+    ((1, 2, 2, 1, 200), None, True, False),
+    ((1, 1, 2, 196, 512), None, False, True), ((1, 1, 2, 196, 512), None, True, True),
 ])
 def test_ssa_kernel_bit_exact_vs_plain_on_card(card, shape, m, causal, ones):
-    """The tensor-core kernel equals the plain f32 version bit for bit; all
-    ones at Dh=128 give the largest scores (128) and sums (128 * 196)."""
+    """The tensor-core kernels equal the plain f32 version bit for bit; all
+    ones at Dh=128 and 512 give the largest scores (the head dim) and sums
+    (Dh * 196)."""
     kv_shape = shape[:3] + (m or shape[3], shape[4])
     q = torch.from_numpy(_qkv(4, shape)[0])
     k, v = (torch.from_numpy(a) for a in _qkv(5, kv_shape)[:2])
@@ -117,17 +125,19 @@ def test_ssa_kernel_takes_head_split_views_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 512])
 @pytest.mark.parametrize("fn", ["ssa_fwd", "packed_ssa_fwd", "sparse_packed_ssa_fwd"])
-def test_ssa_kernels_at_the_exactness_bound_on_card(card, fn):
-    """All ones at Dh=32 with M = 2^19 - 1 keys: every output is M * Dh =
-    2^24 - 32, the largest sum below the bound, and equals the plain
-    version; one key more (M * Dh == 2^24) the wrapper raises ValueError and
-    the C entry point, called directly, refuses the operands."""
+def test_ssa_kernels_at_the_exactness_bound_on_card(card, fn, d):
+    """All ones with M = 2^24 / Dh - 1 keys (Dh = 32: the narrow kernels,
+    Dh = 512: the wide one): every output is M * Dh = 2^24 - Dh, the largest
+    sum below the bound, and equals the plain version; one key more (M * Dh
+    == 2^24) the wrapper raises ValueError and the C entry point, called
+    directly, refuses the operands."""
     from repro_torch.core import packing as tpk
     from repro_torch.kernels import _build
     from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref
 
-    d, t = 32, 4
+    t = 4
     edge = 2 ** 24 // d
     for m in (edge - 1, edge):
         if fn == "ssa_fwd":
@@ -164,4 +174,56 @@ def test_ssa_kernels_at_the_exactness_bound_on_card(card, fn):
             raw = _build.kernel("ssa", fn, tops._SPARSE_ARGTYPES)
             err = raw(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), live.data_ptr(),
                       out.data_ptr(), 1, 3, m, d, t, 1.0, 0, stream)
+        assert err == 1     # cudaErrorInvalidValue
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["ssa_fwd", "packed_ssa_fwd", "sparse_packed_ssa_fwd"])
+def test_ssa_kernels_at_max_head_dim_on_card(card, fn):
+    """Dh = 512 (the widest head) runs and equals the plain version; Dh = 513
+    is refused by the wrapper (ValueError) and by the C entry point, called
+    directly (cudaErrorInvalidValue)."""
+    from repro_torch.core import packing as tpk
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref, sparse_packed_ssa_ref
+
+    t, g, n = 4, 3, 21
+    for d in (tops.MAX_HEAD_DIM, tops.MAX_HEAD_DIM + 1):
+        trains = [torch.from_numpy(a).to(card) for a in _qkv(d, (t, g, n, d))]
+        if fn == "ssa_fwd":
+            q, k, v = (x.reshape(t * g, n, d) for x in trains)
+            call = lambda: tops.ssa_fwd(q, k, v, scale=0.125, causal=True)
+            plain = lambda: ssa_ref(q, k, v, causal=True)
+        else:
+            q, k, v = (tpk.pack(x).words for x in trains)
+            live = tops._plane_liveness(q, k, v, t)
+            call = ((lambda: tops.packed_ssa_fwd(q, k, v, t=t, scale=0.125, causal=True))
+                    if fn == "packed_ssa_fwd"
+                    else (lambda: tops.sparse_packed_ssa_fwd(q, k, v, live, t=t, scale=0.125,
+                                                             causal=True)))
+            plain = ((lambda: packed_ssa_ref(q, k, v, t=t, scale=0.125, causal=True))
+                     if fn == "packed_ssa_fwd"
+                     else (lambda: sparse_packed_ssa_ref(q, k, v, live, t=t, scale=0.125,
+                                                         causal=True)))
+        if d <= tops.MAX_HEAD_DIM:
+            got = call()
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain())
+            continue
+        with pytest.raises(ValueError, match="head dim"):
+            call()
+        out = torch.empty((t * g, n, d), device=card)
+        stream = _build.stream(card)
+        if fn == "ssa_fwd":
+            raw = _build.kernel("ssa", fn, tops._ARGTYPES)
+            err = raw(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), t * g, n, n, d,
+                      0.125, 1, stream)
+        elif fn == "packed_ssa_fwd":
+            raw = _build.kernel("ssa", fn, tops._PACKED_ARGTYPES)
+            err = raw(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g, n, n, d, t,
+                      0.125, 1, stream)
+        else:
+            raw = _build.kernel("ssa", fn, tops._SPARSE_ARGTYPES)
+            err = raw(q.data_ptr(), k.data_ptr(), v.data_ptr(), live.data_ptr(),
+                      out.data_ptr(), g, n, n, d, t, 0.125, 1, stream)
         assert err == 1     # cudaErrorInvalidValue

@@ -3,8 +3,8 @@ CPU at the shapes the card tests use.
 
 ``ssa_fwd`` and ``sparse_packed_ssa_fwd`` run both products on the f16
 tensor cores (``mma.m16n8k16``) with f32 accumulators.  For spikes in {0, 1},
-Dh <= 128 and M * Dh < 2^24 that is exact: 0 and 1 are exact in f16, a score
-is an integer <= Dh <= 128 (f16 holds integers up to 2048), and every partial
+Dh <= 512 and M * Dh < 2^24 that is exact: 0 and 1 are exact in f16, a score
+is an integer <= Dh <= 512 (f16 holds integers up to 2048), and every partial
 sum of S v is an integer below 2^24, exact in f32 whatever the order.  These
 tests round the operands and scores to f16 as the kernels do, accumulate in
 f32 in the kernels' order (16 features, then 16 keys, per step), and hold
@@ -31,11 +31,13 @@ PLANES = 4                  # planes per block of the gated kernel at Dh <= 32
 
 # (G, N, M, Dh, all ones): the card tests' shapes -- ragged Dh, N = M = 1,
 # N != M both ways, and the largest scores (128) and sums (128 * 196) of the
-# main path's token count
+# vision path's token count; past Dh = 128 the wide kernel's (the spiking LM's
+# Dh = 512 and a ragged 200, all ones at 512: scores 512, sums 512 * 196)
 SHAPES = [(4, 49, 49, 16, False), (3, 33, 33, 8, False), (3, 33, 33, 13, False),
           (4, 49, 49, 20, False), (2, 1, 1, 20, False), (3, 57, 40, 20, False),
           (3, 40, 57, 20, False), (2, 65, 65, 48, False), (2, 70, 70, 128, False),
-          (2, 196, 196, 128, True)]
+          (2, 196, 196, 128, True), (2, 57, 40, 200, False), (2, 33, 33, 512, False),
+          (1, 196, 196, 512, True)]
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +104,7 @@ def test_f16_holds_binary_operands_and_scores(g, n, m, d, ones):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("g,n,m,d,ones", [SHAPES[i] for i in (2, 5, 6, 8, 9)])
+@pytest.mark.parametrize("g,n,m,d,ones", [SHAPES[i] for i in (2, 5, 6, 8, 9, 10, 11, 12)])
 def test_tensor_core_order_equals_plain_and_jax(ref, g, n, m, d, ones, causal):
     q, k, v = _operands(2 * d + m, g, n, m, d, ones)
     got = _tensor_core_order(*(_pad16(torch.from_numpy(x)).half() for x in (q, k, v)),
@@ -197,8 +199,9 @@ def test_plane_f16_is_the_unpacked_plane():
 
 @pytest.mark.parametrize("fn", ["ssa_fwd", "packed_ssa_fwd", "sparse_packed_ssa_fwd"])
 def test_kernel_wrappers_raise_above_max_head_dim(fn):
-    """Dh = 129 exceeds the kernels' widest register tile: the wrapper
-    refuses it for any tensor off the CPU, before the kernel is looked up."""
+    """Dh = 513 exceeds the kernels' widest head (a score could pass 512, and
+    the wide kernel's shared memory is sized for 512): the wrapper refuses it
+    for any tensor off the CPU, before the kernel is looked up."""
     d = tops.MAX_HEAD_DIM + 1
     if fn == "ssa_fwd":
         x = torch.empty((2, 5, d), device="meta")
@@ -213,7 +216,7 @@ def test_kernel_wrappers_raise_above_max_head_dim(fn):
         call()
 
 
-@pytest.mark.parametrize("d", [8, 20, 32, 128])
+@pytest.mark.parametrize("d", [8, 20, 32, 128, 200, 512])
 def test_exact_shape_bound(d):
     """M * Dh < 2^24 keeps every partial sum of S v exact in f32: the helper
     passes the last M below the bound and raises at M * Dh == 2^24."""
@@ -240,3 +243,36 @@ def test_kernel_wrappers_raise_at_the_exactness_bound(fn):
                 else (lambda: tops.sparse_packed_ssa_fwd(q, kv, kv, live, t=4, scale=0.125)))
     with pytest.raises(ValueError, match="2\\^24"):
         call()
+
+
+@pytest.mark.parametrize("d", [tops.MAX_HEAD_DIM, tops.MAX_HEAD_DIM + 1])
+def test_max_head_dim_edge(d):
+    """Dh = 512 is the widest head the kernels take (its scores, <= 512, are
+    exact in f16); Dh = 513 is refused."""
+    assert tops.MAX_HEAD_DIM == 512
+    if d <= tops.MAX_HEAD_DIM:
+        tops.check_exact_shape("ssa", 2 ** 24 // d - 1, d)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            tops.check_exact_shape("ssa", 1, d)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cpu_wrappers_at_max_head_dim_equal_plain_and_jax(ref, causal):
+    """Dh = 512 on the CPU: the three wrappers take it and return the plain
+    versions' result, which equals the kernels' order and the JAX oracle."""
+    t, g, n, d = 4, 2, 33, tops.MAX_HEAD_DIM
+    rng = np.random.default_rng(d)
+    trains = [(rng.random((t, g, n, d)) > 0.5).astype(np.float32) for _ in range(3)]
+    dense = [torch.from_numpy(a).reshape(t * g, n, d) for a in trains]
+    got = tops.ssa_fwd(*dense, scale=0.125, causal=causal)
+    assert torch.equal(got, ssa_ref(*dense, causal=causal))
+    assert torch.equal(got, _tensor_core_order(*(x.half() for x in dense), causal=causal))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ref.ssa_ref(*(x.numpy() for x in dense), causal=causal)))
+    words = [tpk.pack(torch.from_numpy(a)).words for a in trains]
+    live = tops._plane_liveness(*words, t)
+    packed = tops.packed_ssa_fwd(*words, t=t, scale=0.125, causal=causal)
+    sparse = tops.sparse_packed_ssa_fwd(*words, live, t=t, scale=0.125, causal=causal)
+    assert torch.equal(packed.reshape(got.shape), got)
+    assert torch.equal(sparse, packed)

@@ -155,8 +155,8 @@ def test_make_batch_images_bit_equal_vs_jax(ref, img_size, classes, batch):
                 assert got[key].dtype == want[key].dtype
                 np.testing.assert_array_equal(got[key], want[key])
     assert dataclasses.astuple(tdata.DataConfig()) == dataclasses.astuple(ref.data.DataConfig())
-    with pytest.raises(NotImplementedError, match="tokens"):
-        tdata.make_batch(tdata.DataConfig(kind="tokens"), 0)
+    with pytest.raises(NotImplementedError, match="audio_stub"):
+        tdata.make_batch(tdata.DataConfig(kind="audio_stub"), 0)
 
 
 def _ckpt_tree():
