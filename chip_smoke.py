@@ -75,13 +75,38 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      prefill (spikes and state ``torch.equal``), the kernel route against
      the plain route (layer by layer; end to end within E2E_SPIKE_SHARE,
      which the control builds must exceed; the first diverging token), and
-     one profiled prefill and decode step per route.
+     one profiled prefill and decode step per route;
+  7. continuous serving of the same LM (``launch.scheduler.ContinuousScheduler``
+     through ``serve_continuous_plan``) on the live LM: 12 ``token_batch``
+     requests, prompt lengths cycled over 8, 32 and 77, ``max_new`` 16...9, 4
+     slots, the queue bounded at 12, closed loop, on the three kernel routes,
+     and with 16-token chunked admission on ``cuda``, each run's launches
+     counted (a batch-1 prefill or chunk as a prefill; the sparse decode step
+     gathers the token's train from the plan's table, 112 LIF + 96 GEMM); every
+     request completes and the streams ``torch.equal`` across routes and
+     admissions, and each equal its single-stream decode teacher-forced, but
+     where that decode's top-2 margin is within LM_LOGITS_ATOL (the head's
+     cuBLAS order may differ between 1 and 4 rows); paging at prompt 32 (four
+     batch-1 prefills scattered equal a 4-row prefill's state, and a step from
+     either the same logits; gather then scatter round-trips) and the
+     scatter's time; a 77-token admission against the plain route (spikes
+     per layer, logits) and in 16-token chunks (state ``torch.equal`` the
+     one-shot state); ``serve_spiking_lm_continuous`` on phase 6's uniform
+     workload against ``serve_spiking_lm``'s streams and tok/s; the sparse
+     plan's train table against the plain encoding LIF on all 128,256 rows;
+     ``compile_plan(bundle=0.0)`` and ``bundle`` at ``llama3.2-1b_smoke`` on
+     the kernel and plain routes; tok/s, occupancy, TTFT, stall per tick, one
+     profiled batch-1 admission at 77 tokens and 4-slot step per route, and
+     ``decode_slot_report``'s capacity beside the plan.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
 (N = M = 32, 512, 2048, all ones, ragged Dh=200 with N != M, M * Dh just
 below 2^24; one key more refused), every kernel timed per prefill, K2 also
-per decode step.  The last lines are the card's ``nvidia-smi`` name and power limit,
+per decode step; and every kernel of phase 7's path at the shapes phase 7
+adds (batch-1 admissions and chunk buckets, N = 8...77 tokens, and the
+4-slot step) against its plain version, each row also against the same row
+at another row count.  The last lines are the card's ``nvidia-smi`` name and power limit,
 a JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 In the JSON line ``launches`` is the count over the live main-path run of
 the kernel's path (warm-up forward included) and ``launches_per_forward``
@@ -161,6 +186,11 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_EVAL = 16, 3, 2
 LM_ARCH = "llama3.2-1b"
 LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SLOTS, LM_CHUNK = 8, 32, 16, 4, 8
 LM_LAYERS, LM_D, LM_FF, LM_HEADS, LM_DH, LM_VOCAB = 16, 2048, 8192, 4, 512, 128256
+# The workload of phase 7, continuous serving at the same width: prompt lengths
+# cycled over CONT_LENS, max_new LM_NEW - (i % (CONT_SPREAD + 1)) (16...9), the
+# admission queue bounded at CONT_PENDING, closed loop; chunked admission in
+# CONT_CHUNK-token chunks (buckets 16, 13 and 8) on the cuda route.
+CONT_REQUESTS, CONT_LENS, CONT_SPREAD, CONT_PENDING, CONT_CHUNK = 12, (8, 32, 77), 7, 12, 16
 # Decode against the full forward on the card: spikes and state are exact
 # integer arithmetic, but the head is a cuBLAS f32 GEMM whose order may
 # differ between B and B*S rows: logits within LM_LOGITS_ATOL (2048-term f32
@@ -460,14 +490,28 @@ def phase_kernels(dev, gen):
     return reports
 
 
+def _admission_lens():
+    """Token counts of one sequence on phase 7's path: the prompt lengths of
+    one-shot admission and the chunk buckets of chunked admission."""
+    from repro_torch.launch.scheduler import _chunk_buckets
+
+    return sorted(set(CONT_LENS).union(*(_chunk_buckets(n, CONT_CHUNK) for n in CONT_LENS)))
+
+
 def _lm_ssa_sets(gen, dev):
     """(label, q, k, v, causal) of the LM's attention beside the main path's
-    (G = T*B*H = 64, N = M = 32, Dh = 512, causal): longer prompts (512, 2048),
-    all ones at Dh = 512 (the largest scores, 512), ragged Dh = 200 with
-    N != M both ways, and all ones with M * Dh just below 2^24 (one query
-    tile, not causal: every output is the largest exact sum)."""
+    (G = T*B*H = 64, N = M = 32, Dh = 512, causal): one sequence (G = T*H =
+    16) at phase 7's admission and chunk lengths with some folds all zero
+    (dead planes for K9), longer prompts (512, 2048), all ones at Dh = 512
+    (the largest scores, 512), ragged Dh = 200 with N != M both ways, and all
+    ones with M * Dh just below 2^24 (one query tile, not causal: every
+    output is the largest exact sum)."""
     binary = lambda shape: (torch.rand(shape, generator=gen) > 0.5).float().to(dev)
     g, d = 4 * LM_SLOTS * LM_HEADS, LM_DH
+    for n in _admission_lens():
+        q, k = binary((4 * LM_HEADS, n, d)), binary((4 * LM_HEADS, n, d))
+        q[1::5], k[2::7] = 0.0, 0.0
+        yield f"G={4 * LM_HEADS} N=M={n} dead folds", q, k, binary((4 * LM_HEADS, n, d)), True
     for n in (512, 2048):
         yield f"N=M={n}", binary((g, n, d)), binary((g, n, d)), binary((g, n, d)), True
     ones = torch.ones((g, 512, d), device=dev)
@@ -704,6 +748,91 @@ def _lm_kernels(dev, gen):
         f"f32 weights); the head's f32 GEMM (torch.matmul, {head_bytes / 1e9:.2f} GB) adds a "
         f"{head_ms:.3f} ms bound")
     return reports
+
+
+def _admission_kernels(dev, gen):
+    """The LIF and GEMM kernels at the shapes phase 7 adds (K3, K6 and K9 are
+    in :func:`_lm_ssa_sets`): batch-1 admissions and chunk buckets
+    (:func:`_admission_lens` tokens) and the packed GEMMs of the LM_SLOTS-slot
+    step.  K1/K4 (with the occupancy map) at those token counts ``torch.equal``
+    their plain versions; K2 at T*N rows and K5/K8 at N rows within GEMM_TOL of
+    theirs, K5 and K8 (some tiles dead, the ragged last row group among them)
+    ``torch.equal`` K2 on the unpacked operand, and each kernel's first rows
+    ``torch.equal`` the same rows at the largest row count (paging relies on
+    rows being independent)."""
+    from repro_torch.core import lif as tlif
+    from repro_torch.core import packing
+    from repro_torch.kernels.lif_parallel import ops as lif_ops
+    from repro_torch.kernels.lif_parallel.ref import lif_pack_ref
+    from repro_torch.kernels.spike_matmul import ops as mm_ops
+    from repro_torch.kernels.spike_matmul.ref import (
+        packed_spike_matmul_ref, sparse_packed_spike_matmul_ref)
+
+    t = 4
+    rows = sorted(set(_admission_lens()) | {LM_SLOTS})
+    binary = lambda shape: (torch.rand(shape, generator=gen) > 0.5).float().to(dev)
+    pack = lambda x: packing.pack(x).words
+
+    # -- K1 and K4 (with its occupancy map) at the token counts of one sequence --------
+    for n in rows:
+        for width, iand in ((LM_D, False), (LM_D, True), (LM_FF, False)):
+            drive = torch.randn((t, n * width), generator=gen).to(dev)
+            drive[:, ::3] = torch.round(drive[:, ::3] * 8) / 8
+            skip = binary((t, n * width)) if iand else None
+            got = lif_ops.lif_parallel_fwd(drive, chain_len=t, lam=0.25, theta=0.5,
+                                           reset="hard", skip=skip)
+            check(torch.equal(got, tlif.lif_parallel(drive, iand_skip=skip)),
+                  f"K1 {n}x{width} iand={iand}: not equal to the plain version")
+            sk = pack(skip) if iand else None
+            words, occ = lif_ops.lif_parallel_pack_fwd(drive, chain_len=t, lam=0.25, theta=0.5,
+                                                       reset="hard", skip_words=sk,
+                                                       occ_cols=width)
+            ref = lif_pack_ref(drive, chain_len=t, skip_words=sk)
+            check(torch.equal(words, ref) and torch.equal(
+                occ, packing.occupancy_map(ref.reshape(1, n, width))),
+                f"K4 {n}x{width} iand={iand}: words or occupancy map not equal to the plain "
+                "version")
+    log(f"  K1, K4 (+ occupancy map) at {rows} tokens of width {LM_D} (iand off/on) and "
+        f"{LM_FF}: torch.equal the plain versions")
+
+    # -- K2, K5, K8 at few, ragged rows --------------------------------------------------
+    top = max(rows)
+    errs = []
+    for kk, c in ((LM_D, LM_D), (LM_D, LM_FF), (LM_FF, LM_D)):
+        w = (torch.randn((kk, c), generator=gen) * kk ** -0.5).to(dev)
+        spikes = binary((t, top, kk))
+        spikes[:, :, 128:384] = 0.0                  # dead feature tiles in every row group
+        spikes[:, 64:, :1024] = 0.0                  # and in the ragged last group
+        full2 = mm_ops.spike_matmul_fwd(spikes.reshape(-1, kk), w)
+        xw_all = pack(spikes)[0]
+        full5 = mm_ops.packed_spike_matmul_fwd(xw_all, w, t=t)
+        for m in rows:
+            x = spikes[:, :m].reshape(t * m, kk)
+            got2 = mm_ops.spike_matmul_fwd(x, w)
+            want2 = mm_ops.spike_matmul_ref(x, w)
+            errs.append((got2 - want2).abs().max().item())
+            check(bool(torch.allclose(got2, want2, **GEMM_TOL)),
+                  f"K2 {t * m}x{kk}x{c}: max abs err {errs[-1]:.3g} outside {GEMM_TOL}")
+            xw = xw_all[:m].contiguous()
+            tiles = mm_ops._occ_to_grid_tiles(
+                packing.occupancy_map(xw.reshape(1, m, kk))[0], xw)
+            got5 = mm_ops.packed_spike_matmul_fwd(xw, w, t=t)
+            got8 = mm_ops.sparse_packed_spike_matmul_fwd(xw, w, tiles, t=t)
+            check(bool(torch.allclose(got5, packed_spike_matmul_ref(xw, w, t=t), **GEMM_TOL))
+                  and bool(torch.allclose(got8, sparse_packed_spike_matmul_ref(
+                      xw, w, tiles, t=t), **GEMM_TOL)),
+                  f"K5/K8 {m}x{kk}x{c}: outside {GEMM_TOL} of the plain versions")
+            check(torch.equal(got5.reshape(-1, c), got2) and torch.equal(got8, got5),
+                  f"K5/K8 {m}x{kk}x{c}: not equal to K2 on the unpacked operand")
+            check(torch.equal(full2.reshape(t, top, c)[:, :m], got2.reshape(t, m, c))
+                  and torch.equal(full5[:, :m], got5),
+                  f"K2/K5 {m} rows x{kk}x{c}: rows differ from the same rows at {top}")
+        dead = int((tiles == 0).sum()), tiles.numel()
+        del w, spikes, full2, xw_all, full5
+    log(f"  K2 at {[t * m for m in rows]} rows, K5/K8 at {rows} rows x {LM_D}/{LM_FF} (K8 "
+        f"gated, {dead[0]} of {dead[1]} tiles dead at {top} rows): within {GEMM_TOL} of the "
+        f"plain versions (max abs err {max(errs):.3g}), K5 == K8 == K2 on the unpacked "
+        f"operand, and each row torch.equal the same row at {top} rows")
 
 
 def _lif_backward(dev, gen):
@@ -1919,17 +2048,26 @@ def phase_train(dev, smi):
     return launches["K7"], TRAIN_STEPS, k7_ms
 
 
-def _lm_launches(backend, prefills, steps, ordering="quadratic"):
-    """Launches of each kernel over ``prefills`` prefill forwards and
-    ``steps`` decode steps on a kernel route: per prefill one LIF for the
-    embedding and 7 a block, 6 GEMMs a block and (quadratic) one SSA a block;
-    per step the same LIFs and GEMMs and no SSA kernel (the O(d^2) state
-    update is plain PyTorch); the other routes' kernels never launch."""
+def _lm_launches(backend, prefills, steps, ordering="quadratic", compiles=0):
+    """Launches of each kernel over ``prefills`` prefill forwards (or
+    resumable chunks), ``steps`` decode steps and ``compiles`` plan compiles
+    on a kernel route: per prefill one LIF for the embedding and 7 a block, 6
+    GEMMs a block and (quadratic) one SSA a block; per step the same LIFs and
+    GEMMs and no SSA kernel (the O(d^2) state update is plain PyTorch), but on
+    the sparse route no embedding LIF (the step gathers the token's train from
+    the plan's train table); per sparse compile one K4 per block of
+    ``bundling.ROW_BLOCK`` vocabulary rows (the train table); the other
+    routes' kernels never launch."""
+    from repro_torch.core.bundling import ROW_BLOCK
+
+    sparse = backend.endswith("+sparse")
     lif, gemm = 1 + 7 * LM_LAYERS, 6 * LM_LAYERS
+    step_lif = lif - sparse
     ssa = LM_LAYERS if ordering == "quadratic" else 0
+    table = compiles * -(-LM_VOCAB // ROW_BLOCK) if sparse else 0
     want = dict.fromkeys(_counters(), 0)
-    for key, n in zip(PATHS[backend], (prefills * lif + steps * lif, (prefills + steps) * gemm,
-                                       prefills * ssa)):
+    for key, n in zip(PATHS[backend], (prefills * lif + steps * step_lif + table,
+                                       (prefills + steps) * gemm, prefills * ssa)):
         want[key] = n
     return want
 
@@ -2018,7 +2156,7 @@ def phase_lm(dev, smi, reports):
                                        device=dev)
         runs[backend], launches[backend] = _lm_counted(
             "serve_spiking_lm", backend, run,
-            lambda r: _lm_launches(backend, r["prefills"], r["steps"]))
+            lambda r: _lm_launches(backend, r["prefills"], r["steps"], compiles=1))
         r = runs[backend]
         check(tuple(r["tokens"].shape) == (LM_REQUESTS, LM_NEW)
               and tuple(r["logits"].shape) == (LM_REQUESTS, LM_NEW, LM_VOCAB),
@@ -2162,6 +2300,279 @@ def phase_lm(dev, smi, reports):
         rep.entry["launches_per_forward"] = per[key.split()[0]]
         rep.entry["launches"] = n * per[key.split()[0]]
     fail_if_any("phase 6")
+    return runs["cuda"]
+
+
+def _ms_stats(seconds):
+    xs = sorted(1e3 * x for x in seconds)
+    if not xs:
+        return "none"
+    return (f"median {xs[len(xs) // 2]:.3f} ms, max {xs[-1]:.3f} ms over {len(xs)} "
+            "admitting ticks")
+
+
+def _near_ties(label, plan, prompt, stream):
+    """The single-stream decode of ``prompt`` (batch-1 prefill, then batch-1
+    steps) teacher-forced on ``stream``: the positions where its argmax is not
+    the stream's token, with its top-2 margin there.  Fails at a position
+    whose margin exceeds LM_LOGITS_ATOL (no near-tie of the head's f32 GEMM
+    can explain the difference)."""
+    from repro_torch import engine
+
+    prefill, step = engine.make_prefill_fn(plan), engine.make_decode_step_fn(plan)
+    dev = plan.meta.device
+    out = []
+    with torch.inference_mode():
+        logits, st = prefill(plan.params, torch.as_tensor(prompt, device=dev).long()[None])
+        row = logits[0, -1]
+        for j, tok in enumerate(stream):
+            if j:
+                logits, st = step(plan.params, st, torch.tensor([stream[j - 1]], device=dev))
+                row = logits[0]
+            if int(row.argmax()) != tok:
+                top2 = torch.topk(row, 2).values
+                out.append((j, (top2[0] - top2[1]).item()))
+    for j, margin in out:
+        check(margin <= LM_LOGITS_ATOL, f"{label}: token {j} differs from the single-stream "
+              f"decode, whose top-2 margin there is {margin:.3g} (> {LM_LOGITS_ATOL})")
+    return out
+
+
+def phase_continuous(dev, smi, sync_cuda):
+    """Continuous serving of the spiking LM at full llama3.2-1b width
+    (``ContinuousScheduler`` through ``serve_continuous_plan``) on the live
+    LM: the phase-7 workload (CONT_REQUESTS requests, prompt lengths cycled
+    over CONT_LENS, ragged ``max_new``) on the three kernel routes with every
+    launch counted, and chunked admission on ``cuda``; the streams equal across
+    routes and admissions and each equal its single-stream decode (near-ties
+    of the head aside); paging, the uniform workload through
+    ``serve_spiking_lm_continuous`` against phase 6's ``serve_spiking_lm``,
+    the sparse plan's train table, bundling at the smoke width, and the
+    readings: tok/s, occupancy, TTFT, stall per tick, the admission's and the
+    step's device time per hand kernel, the scatter's time, slot capacity."""
+    from repro_torch import engine
+    from repro_torch.core import bundling
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.serve import (
+        live_lm_params, serve_continuous_plan, serve_spiking_lm_continuous,
+        serving_requests, spiking_lm_config)
+    from repro_torch.models import spiking_lm as slm
+
+    cfg = spiking_lm_config(LM_ARCH)
+    prompts = make_batch(DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=max(CONT_LENS),
+                                    global_batch=CONT_REQUESTS), 0)["tokens"]
+    requests = lambda: serving_requests(prompts, prompt_lens=CONT_LENS, max_new=LM_NEW,
+                                        max_new_spread=CONT_SPREAD)
+    want_tokens = sum(r.max_new for r in requests())
+    params = live_lm_params(cfg, dev)
+    streams, served = {}, {}
+
+    def serve(label, backend, plan, chunk=None):
+        run = lambda: serve_continuous_plan(plan, requests(), slots=LM_SLOTS,
+                                            max_pending=CONT_PENDING, prefill_chunk=chunk)
+        admissions = "prefill_chunks" if chunk else "admitted"
+        (done, st), _ = _lm_counted(
+            label, backend, run,
+            lambda out: _lm_launches(backend, out[1]["warm_prefill_shapes"]
+                                     + out[1][admissions], 1 + out[1]["steps"]))
+        check(len(done) == CONT_REQUESTS and st["rejected"] == 0
+              and st["new_tokens"] == want_tokens,
+              f"{label} {backend}: {len(done)} of {CONT_REQUESTS} done, {st['rejected']} "
+              f"rejected, {st['new_tokens']} new tokens (want {want_tokens})")
+        ttft = sorted(1e3 * r.first_token_s for r in st["requests"])
+        log(f"  {label} {backend}: {st['new_tokens'] / st['wall_s']:.2f} tok/s "
+            f"({st['new_tokens']} tokens in {st['wall_s']:.3f} s), {st['steps']} steps, slot "
+            f"occupancy {st['slot_occupancy']:.3f}, TTFT p50 {np.percentile(ttft, 50):.1f} ms "
+            f"p90 {np.percentile(ttft, 90):.1f} ms, prefill_s {st['prefill_s']:.3f}, decode_s "
+            f"{st['decode_s']:.3f}, stall per tick {_ms_stats(st['stall_s'])}, "
+            f"{st['warm_prefill_shapes']} warm prefill shapes "
+            f"({st['prefill_chunks']} chunks); on {smi}")
+        return {rid: list(map(int, toks)) for rid, toks in done}
+
+    for backend in PATHS:
+        plan = engine.compile_plan(params, None, cfg, backend=backend, device=dev)
+        streams[backend] = serve("continuous", backend, plan)
+        if backend == "cuda":
+            streams["cuda chunked"] = serve(f"continuous, chunk {CONT_CHUNK}", backend, plan,
+                                            chunk=CONT_CHUNK)
+            ties = []
+            for req in requests():
+                ties += _near_ties(f"continuous cuda rid {req.rid}", plan, req.prompt,
+                                   streams["cuda"][req.rid])
+            log(f"  continuous cuda vs the single-stream decode (batch-1 prefill and steps, "
+                f"teacher-forced): {len(ties)} of {want_tokens} tokens differ, at top-2 "
+                f"margins {[f'{m:.3g}' for _, m in ties]} (each must be <= {LM_LOGITS_ATOL})")
+            _paging(plan, prompts)
+            _admission_vs_plain(plan, params, cfg, prompts)
+            _slot_capacity(plan, smi)
+        if backend.endswith("sparse"):
+            words = plan.params["embed"]["train_words"]
+            plain = dataclasses.replace(plan, meta=dataclasses.replace(
+                plan.meta, backend=engine.Backend("torch", packed=True, sparse=True)))
+            same = torch.equal(words, bundling.row_train_table(plain))
+            log(f"  sparse plan's train table {tuple(words.shape)} torch.equal the plain "
+                f"route's encoding-LIF words on all {words.shape[1]} rows: {same}")
+            check(same, "the sparse plan's train table differs from the plain encoding LIF's")
+        _profile_admission(backend, plan, prompts)
+        del plan
+        torch.cuda.empty_cache()
+    del params
+    for key in ("cuda+packed", "cuda+packed+sparse", "cuda chunked"):
+        same = streams[key] == streams["cuda"]
+        log(f"  continuous streams {key} vs cuda: equal {same}")
+        check(same, f"continuous streams of {key} differ from cuda's")
+    fail_if_any("phase 7 (continuous)")
+
+    # the uniform workload of phase 6 through the user's entry point
+    run = lambda: serve_spiking_lm_continuous(LM_ARCH, num_requests=LM_REQUESTS,
+                                              prompt_len=LM_PROMPT, max_new=LM_NEW,
+                                              slots=LM_SLOTS, backend="cuda", device=dev,
+                                              return_stats=True)
+    (done, st), _ = _lm_counted("serve_spiking_lm_continuous", "cuda", run,
+                                lambda out: _lm_launches("cuda", 1 + out[1]["admitted"],
+                                                         1 + out[1]["steps"]))
+    firsts = []
+    for rid, toks in done:
+        diff = (torch.from_numpy(toks) != sync_cuda["tokens"][rid]).nonzero()
+        if len(diff):
+            j = int(diff[0])
+            top2 = torch.topk(sync_cuda["logits"][rid, j], 2).values
+            firsts.append((rid, j, (top2[0] - top2[1]).item()))
+    for rid, j, margin in firsts:
+        check(margin <= LM_LOGITS_ATOL, f"uniform workload rid {rid}: token {j} differs from "
+              f"serve_spiking_lm's, whose top-2 margin there is {margin:.3g}")
+    check(len(done) == LM_REQUESTS, f"uniform workload: {len(done)} of {LM_REQUESTS} done")
+    cont_tps = st["new_tokens"] / st["wall_s"]
+    log(f"  uniform workload ({LM_REQUESTS} requests, prompt {LM_PROMPT}, {LM_NEW} new, "
+        f"{LM_SLOTS} slots, cuda): continuous {cont_tps:.2f} tok/s against synchronous "
+        f"{sync_cuda['tok_per_s']:.2f} tok/s (phase 6); {st['steps']} steps, occupancy "
+        f"{st['slot_occupancy']:.3f}; streams differ from serve_spiking_lm's in "
+        f"{len(firsts)} requests {firsts}; on {smi}")
+
+    # bundling at the smoke width, on the kernel route and the plain route
+    scfg = spiking_lm_config(f"{LM_ARCH}_smoke")
+    sparams = slm.init_spiking_lm(torch.Generator(dev).manual_seed(0), scfg)
+    tokens = torch.arange(scfg.vocab_size, device=dev)[None]
+    with torch.inference_mode():
+        base = engine.apply(engine.compile_plan(sparams, None, scfg, backend="cuda",
+                                                device=dev), tokens)
+        exact = engine.apply(engine.compile_plan(sparams, None, scfg, backend="cuda",
+                                                 device=dev, bundle=0.0), tokens)
+    check(torch.equal(base, exact), "compile_plan(bundle=0.0) changes the smoke logits")
+    for budget in (0.0, 1e9):
+        infos = {b: bundling.bundle(engine.compile_plan(sparams, None, scfg, backend=b,
+                                                        device=dev), budget=budget).meta.bundle
+                 for b in ("cuda", "torch")}
+        log(f"  bundle {scfg.name} budget {budget:g}: cuda {infos['cuda']}, torch "
+            f"{infos['torch']}")
+        check((infos["cuda"].radius, infos["cuda"].num_bundles)
+              == (infos["torch"].radius, infos["torch"].num_bundles),
+              f"bundle(budget={budget}) picks another radius on the kernel route")
+    log(f"  compile_plan(bundle=0.0) at {scfg.name}: logits torch.equal the unbundled "
+        f"plan's: {torch.equal(base, exact)}")
+    fail_if_any("phase 7")
+
+
+def _slot_capacity(plan, smi):
+    """``decode_slot_report`` of the plan: its state bytes per slot and the
+    slots the card's free memory buys beside the plan's weights."""
+    from repro_torch.engine import analysis
+
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(plan.meta.device)
+    rep = analysis.decode_slot_report(plan, slots=LM_SLOTS, budget_bytes=free,
+                                      prompt_lens=CONT_LENS)
+    check(rep["state_bytes_per_slot"] == 268_435_456,
+          f"state bytes per slot {rep['state_bytes_per_slot']}, expected 268435456")
+    log(f"  decode_slot_report: {rep['state_bytes_per_slot']} B of state per slot, "
+        f"{rep['state_bytes_batch']} B at {LM_SLOTS} slots, {rep['bytes_per_step_dense']} B "
+        f"per step (dense edges and state); max_slots {rep['max_slots']} in the "
+        f"{free} B free of {total} beside the plan (the state alone, no activations); on {smi}")
+
+
+def _paging(plan, prompts):
+    """On the live LM at prompt 32: four batch-1 prefills scattered out of
+    order equal a 4-row prefill's kv and pos; one decode step from either
+    gives equal logits; gather then scatter round-trips; and the scatter's
+    time at full width."""
+    from repro_torch import engine
+
+    batch = torch.from_numpy(prompts[:LM_SLOTS, :LM_PROMPT]).long().to(plan.meta.device)
+    prefill, step = engine.make_prefill_fn(plan), engine.make_decode_step_fn(plan)
+    with torch.inference_mode():
+        _, want = prefill(plan.params, batch)
+        st = engine.decode_state_batch_init(plan.meta, LM_SLOTS)
+        for slot in (2, 0, 3, 1):
+            _, row = prefill(plan.params, batch[slot:slot + 1])
+            st = engine.decode_state_scatter(st, slot, row, 0)
+        same = all(torch.equal(a, b) for a, b in zip(st.kv, want.kv)) and \
+            st.pos.tolist() == [LM_PROMPT] * LM_SLOTS
+        tok = batch[:, -1]
+        logits_equal = torch.equal(step(plan.params, st, tok)[0], step(plan.params, want, tok)[0])
+        back = engine.decode_state_scatter(st, 1, engine.decode_state_gather(st, 1), 0)
+        round_trip = all(torch.equal(a, b) for a, b in zip(back.kv, st.kv)) and \
+            torch.equal(back.pos, st.pos)
+        ms = time_ms(lambda: engine.decode_state_scatter(st, 1, row, 0), reps=10, warmup=2)
+    log(f"  paging at prompt {LM_PROMPT}: four batch-1 prefills scattered (slots 2, 0, 3, 1) "
+        f"torch.equal a {LM_SLOTS}-row prefill's kv and pos: {same}; one decode step's logits "
+        f"torch.equal: {logits_equal}; gather then scatter round-trips: {round_trip}")
+    log(f"  decode_state_scatter at full width ({2 * sum(x.numel() * 4 for x in st.kv)} B "
+        f"copied): {ms:.3f} ms (CUDA events, mean of 10)")
+    check(same and logits_equal and round_trip, "paging: scattered state, its step or the "
+          "gather round trip differs")
+
+
+def _admission_vs_plain(plan, params, cfg, prompts):
+    """The kernel route's admission shapes held against the plain route on the
+    live LM: one batch-1 admission at the longest prompt, each layer fed the
+    plain plan's input and each plan on its own, and the same prompt admitted
+    in CONT_CHUNK-token chunks (its ragged last chunk among them): the chunked
+    state ``torch.equal`` the one-shot state on the kernel route, and the last
+    chunk's logits against the plain route's one-shot logits."""
+    from repro_torch import engine
+
+    dev = plan.meta.device
+    n = max(CONT_LENS)
+    prompt = torch.from_numpy(prompts[:1, :n]).long().to(dev)
+    plain = engine.compile_plan(params, None, cfg, backend="torch", device=dev)
+    label = f"admission (batch 1, {n} tokens) cuda vs torch"
+    _mismatch_rows(label, (plain, plan), prompt)
+    _mismatch_rows(label, (plain, plan), prompt, end_to_end=True, limit=E2E_SPIKE_SHARE)
+    logits, state = engine.prefill(plan, prompt)
+    want, _ = engine.prefill(plain, prompt)
+    _check_logits(label, logits[0], want[0], atol=E2E_LOGITS_ATOL)
+    chunked = engine.decode_state_init(plan.meta, 1)
+    sizes = []
+    for c0 in range(0, n, CONT_CHUNK):
+        last, chunked = engine.prefill_chunk(plan, chunked, prompt[:, c0:c0 + CONT_CHUNK])
+        sizes.append(last.shape[1])
+    same = all(torch.equal(a, b) for a, b in zip(chunked.kv, state.kv)) and \
+        int(chunked.pos) == n
+    log(f"  {n}-token admission in chunks {sizes} on cuda: state torch.equal the one-shot "
+        f"prefill's: {same}")
+    check(same, f"chunked admission ({sizes}): state differs from the one-shot prefill's")
+    _check_logits(f"last chunk ({sizes[-1]} tokens) cuda vs the torch route's one-shot "
+                  "prefill", last[0], want[0, -sizes[-1]:], atol=E2E_LOGITS_ATOL)
+    del plain
+
+
+def _profile_admission(backend, plan, prompts):
+    """One batch-1 admission at the longest prompt and one step of the slot
+    batch under ``torch.profiler``: each hand kernel's device time."""
+    from repro_torch import engine
+
+    prefill, step = engine.make_prefill_fn(plan), engine.make_decode_step_fn(plan)
+    dev = plan.meta.device
+    prompt = torch.from_numpy(prompts[:1, :max(CONT_LENS)]).long().to(dev)
+    with torch.inference_mode():
+        _, st = prefill(plan.params, torch.from_numpy(prompts[:LM_SLOTS, :LM_PROMPT]).long()
+                        .to(dev))
+    tok = torch.zeros((LM_SLOTS,), dtype=torch.long, device=dev)
+    want = lambda p, s: {k: n for k, n in _lm_launches(backend, p, s).items() if n}
+    _profile(f"admission (batch 1, {max(CONT_LENS)} tokens) {backend}",
+             lambda: prefill(plan.params, prompt), want(1, 0))
+    _profile(f"{LM_SLOTS}-slot decode step {backend}", lambda: step(plan.params, st, tok),
+             want(0, 1))
 
 
 def main() -> int:
@@ -2185,6 +2596,8 @@ def main() -> int:
     reports = phase_kernels(dev, torch.Generator().manual_seed(0))
     log(f"phase 2 (continued): the kernels at the spiking {LM_ARCH}'s shapes")
     lm_reports = _lm_kernels(dev, torch.Generator().manual_seed(1))
+    log("phase 2 (continued): the kernels at phase 7's admission, chunk and step shapes")
+    _admission_kernels(dev, torch.Generator().manual_seed(2))
     fail_if_any("phase 2")
     log(f"phase 3: serve the live {ARCH} on {', '.join(BACKENDS)}, "
         f"{REQUESTS // SLOTS} slot batches of {SLOTS} each")
@@ -2197,7 +2610,11 @@ def main() -> int:
     log(f"phase 6: serve the spiking {LM_ARCH} at full width, {LM_REQUESTS} requests, prompt "
         f"{LM_PROMPT}, {LM_NEW} new tokens, {LM_SLOTS} slots")
     torch.cuda.empty_cache()
-    phase_lm(dev, smi, lm_reports)
+    sync_cuda = phase_lm(dev, smi, lm_reports)
+    log(f"phase 7: continuous serving of the spiking {LM_ARCH}, {CONT_REQUESTS} requests, "
+        f"prompts {CONT_LENS}, {LM_NEW} new tokens (spread {CONT_SPREAD}), {LM_SLOTS} slots")
+    torch.cuda.empty_cache()
+    phase_continuous(dev, smi, sync_cuda)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()}}.items()

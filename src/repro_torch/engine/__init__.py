@@ -8,7 +8,10 @@
 * :func:`apply` / :func:`make_apply_fn` execute a plan.
 * LM plans decode incrementally: :func:`prefill`, :func:`prefill_chunk` and
   :func:`decode_step` (and their ``make_*_fn`` factories) carry a
-  :class:`DecodeState` of O(d^2) per head, flat in context length.
+  :class:`DecodeState` of O(d^2) per head, flat in context length;
+  :func:`decode_state_batch_init`, :func:`decode_state_scatter` and
+  :func:`decode_state_gather` page sequences in and out of one batched state
+  (continuous serving, ``launch.scheduler``).
 * :func:`plan_stats` accounts for the ops the deploy view eliminated.
 
 The layer list lives in :mod:`repro_torch.engine.layout`, shared with the
@@ -17,7 +20,8 @@ eval graphs in ``repro_torch.core`` and ``repro_torch.models``.
 
 from repro_torch.engine.backend import Backend
 from repro_torch.engine.execute import (
-    DecodeState, apply, decode_state_init, decode_step, make_apply_fn, make_decode_step_fn,
+    DecodeState, apply, decode_state_batch_init, decode_state_gather, decode_state_init,
+    decode_state_scatter, decode_step, make_apply_fn, make_decode_step_fn,
     make_prefill_chunk_fn, make_prefill_fn, prefill, prefill_chunk,
 )
 from repro_torch.engine.plan import (
@@ -26,5 +30,6 @@ from repro_torch.engine.plan import (
 
 __all__ = ["Backend", "apply", "make_apply_fn", "DeployPlan", "PlanMeta", "compile_plan",
            "plan_stats", "LMDeployCfg", "DecodeEntry", "DecodeState", "decode_state_init",
+           "decode_state_batch_init", "decode_state_scatter", "decode_state_gather",
            "prefill", "prefill_chunk", "decode_step", "make_prefill_fn",
            "make_prefill_chunk_fn", "make_decode_step_fn"]

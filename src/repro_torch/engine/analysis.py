@@ -1,9 +1,18 @@
-"""Measured spike sparsity of a plan's forward (the part of the JAX
-package's ``engine/analysis.py`` that the sparse datapath needs).
+"""Measured spike sparsity of a plan's forward, and the spiking LM's traffic
+and serving pricers (the parts of the JAX package's ``engine/analysis.py``
+that the sparse datapath and LM serving need).
 
 :func:`sparsity_report` runs a packed plan once under
 ``engine.execute.capture_spikes`` and reports, per LIF tap and aggregated,
 the skip rates each sparse consumer sees on those activations.
+
+:func:`lm_spike_traffic` and :func:`lm_decode_traffic` price the spiking LM's
+inter-layer spike edges (``engine.layout``) dense against packed;
+:func:`decode_slot_report` and :func:`prefill_chunk_report` size a continuous
+service (decode-state bytes per slot, the slots a memory budget buys, the
+warm-shape bill, chunked-prefill residency).  All four are analytic: they
+count bytes from shapes and run nothing.  The port serves on one device, so
+the reference's ``mesh=`` pricing raises here.
 """
 
 from __future__ import annotations
@@ -70,4 +79,162 @@ def sparsity_report(plan, batch) -> dict:
         "occ_tile_zero_rate": tot["zero_tiles"] / tot["tiles"],
         "token_granule_zero_rate": tot["zero_granules"] / tot["granules"],
         "spike_rate": tot["spikes"] / tot["slots"],
+    }
+
+
+# -- LM traffic and serving pricers ------------------------------------------------
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "cross-device traffic pricing needs the mesh, which is not ported yet "
+            "(ROADMAP 1.6); pass mesh=None")
+
+
+def _is_sparse(backend) -> bool:
+    from repro_torch.engine.backend import resolve
+
+    return backend is not None and resolve(backend).sparse
+
+
+def _boundary_closed(backend, ordering: str) -> bool:
+    """Do the q/k/v edges move packed words into the SSA?  Under a backend
+    whose packed SSA consumes words directly, on either ordering."""
+    from repro_torch.engine.backend import resolve
+
+    if backend is None:
+        return False
+    return resolve(backend).closes_ssa_boundary and ordering in ("quadratic", "linear")
+
+
+def _price_edges(edges, t: int, *, batch: int, boundary_closed: bool,
+                 sparse: bool = False) -> dict:
+    """Each spike edge priced dense (f32 over T) and packed (uint32 words),
+    with the q/k/v edges priced dense unless the SSA boundary is closed, and
+    the occupancy maps' bytes under ``sparse``."""
+    per_edge = [{
+        "name": e.name,
+        "elems": e.elems * batch,
+        "ssa_boundary": e.ssa_boundary,
+        "dense_bytes": packing.dense_nbytes(t, e.elems * batch),
+        "packed_bytes": packing.packed_nbytes(t, e.elems * batch),
+        "occupancy_bytes": packing.occupancy_nbytes(t, e.elems * batch),
+    } for e in edges]
+    dense = sum(e["dense_bytes"] for e in per_edge)
+    packed = sum(e["packed_bytes"] for e in per_edge)
+    occupancy = sum(e["occupancy_bytes"] for e in per_edge)
+    packed_ssa_dense = sum(
+        e["dense_bytes"] if e["ssa_boundary"] and not boundary_closed else e["packed_bytes"]
+        for e in per_edge)
+    out = {
+        "t": t,
+        "batch": batch,
+        "ssa_boundary_closed": boundary_closed,
+        "edges": per_edge,
+        "dense_bytes": dense,
+        "packed_bytes": packed,
+        "reduction": dense / packed,
+        "packed_bytes_ssa_dense": packed_ssa_dense,
+        "reduction_ssa_dense": dense / packed_ssa_dense,
+    }
+    if sparse:
+        # the sparse datapath moves the same packed words plus the occupancy
+        # maps (1/128 of the words); its gain is skipped compute, measured by
+        # sparsity_report, not priced here
+        out["occupancy_bytes"] = occupancy
+        out["packed_sparse_bytes"] = packed + occupancy
+        out["reduction_sparse"] = dense / (packed + occupancy)
+    return out
+
+
+def lm_spike_traffic(cfg, *, seq_len: int, batch: int = 1, backend=None,
+                     ordering: str = "quadratic", mesh=None) -> dict:
+    """Inter-layer spike bytes of one spiking-LM forward pass at ``seq_len``
+    tokens (``cfg`` an ``ArchConfig``), dense against packed; the q/k/v edges
+    count packed only where the backend's packed SSA consumes the words."""
+    from repro_torch.engine.layout import lm_spike_edges
+
+    _no_mesh(mesh)
+    return _price_edges(lm_spike_edges(cfg, seq_len=seq_len), cfg.spike_t, batch=batch,
+                        boundary_closed=_boundary_closed(backend, ordering),
+                        sparse=_is_sparse(backend))
+
+
+def lm_decode_traffic(cfg, *, batch: int = 1, backend=None, mesh=None) -> dict:
+    """Per-generated-token traffic of incremental decode: the S=1 spike edges
+    (``layout.lm_decode_spike_edges``) plus the O(d^2) SSA state each step
+    reads and writes back -- all flat in the prefix length.  The decode step
+    consumes q/k/v words directly under ``Backend.closes_ssa_boundary``."""
+    from repro_torch.engine.backend import resolve
+    from repro_torch.engine.layout import lm_decode_spike_edges
+
+    _no_mesh(mesh)
+    closed = backend is not None and resolve(backend).closes_ssa_boundary
+    priced = _price_edges(lm_decode_spike_edges(cfg), cfg.spike_t, batch=batch,
+                          boundary_closed=closed, sparse=_is_sparse(backend))
+    dh = cfg.d_model // cfg.num_heads
+    state_bytes = 4 * cfg.num_layers * cfg.spike_t * batch * cfg.num_heads * dh * dh
+    priced["decode_state_bytes"] = state_bytes
+    # each step reads the state and writes the updated one back
+    priced["state_bytes_per_step"] = 2 * state_bytes
+    priced["dense_bytes_per_step"] = priced["dense_bytes"] + 2 * state_bytes
+    priced["packed_bytes_per_step"] = priced["packed_bytes_ssa_dense"] + 2 * state_bytes
+    return priced
+
+
+def _lm_entry(plan, what: str):
+    entry = plan.meta.decode
+    if entry is None:
+        raise ValueError(f"{what} stats are an LM-plan mode (family={plan.meta.family!r})")
+    return entry
+
+
+def decode_slot_report(plan, *, slots: int, budget_bytes: int | None = None,
+                       prompt_lens=()) -> dict:
+    """Decode-slot accounting of a continuous service on ``plan``: per-slot and
+    whole-batch ``DecodeState`` bytes, per-step bytes at the slot count (state
+    read and write plus the S=1 spike edges), the slot capacity a memory
+    budget buys (``max_slots``, exact: the state has no context-length term),
+    and the warm-shape bill: one step shape for the slot batch plus one
+    prefill shape per distinct prompt length."""
+    entry = _lm_entry(plan, "decode-slot")
+    traffic = lm_decode_traffic(plan.meta.cfg.arch, batch=slots, backend=plan.meta.backend)
+    report = {
+        "slots": slots,
+        "state_bytes_per_slot": entry.state_bytes(1),
+        "state_bytes_batch": entry.state_bytes(slots),
+        "bytes_per_step_dense": traffic["dense_bytes_per_step"],
+        "bytes_per_step_packed": traffic["packed_bytes_per_step"],
+        "warm_step_shapes": 1,
+        "warm_prefill_shapes": len(set(prompt_lens)),
+        "prompt_len_buckets": tuple(sorted(set(prompt_lens))),
+    }
+    if budget_bytes is not None:
+        report["budget_bytes"] = budget_bytes
+        report["max_slots"] = entry.max_slots(budget_bytes)
+    return report
+
+
+def prefill_chunk_report(plan, *, seq_len: int, chunk: int, batch: int = 1) -> dict:
+    """Resident-memory accounting of chunked against one-shot prefill at prompt
+    length ``seq_len``: the dominant activation plane of a prefill is a
+    (T, B, S, d_model) f32 tensor per block edge, so one-shot residency grows
+    with S while the chunked path holds a C-token plane plus the O(d^2)
+    ``DecodeState``, flat in S.  ``chunk_buckets`` is the warm-shape bill (the
+    chunk size and the ragged tail, if any)."""
+    entry = _lm_entry(plan, "prefill-chunk")
+    cfg = plan.meta.cfg.arch
+    plane = 4 * cfg.spike_t * batch * cfg.d_model      # bytes per token column
+    full, ragged = divmod(seq_len, chunk)
+    buckets = ([chunk] if full else []) + ([ragged] if ragged else [])
+    return {
+        "seq_len": seq_len,
+        "chunk": chunk,
+        "num_chunks": full + (1 if ragged else 0),
+        "chunk_buckets": buckets,
+        "state_bytes": entry.state_bytes(batch),
+        "oneshot_plane_bytes": plane * seq_len,
+        "chunked_plane_bytes": plane * chunk + entry.state_bytes(batch),
+        "plane_reduction": plane * seq_len / (plane * chunk + entry.state_bytes(batch)),
     }

@@ -350,14 +350,15 @@ def _lm_rate(meta: PlanMeta, params, x, *, packed: bool):
     return packing.spike_counts(x).to(dtype) / x.t
 
 
-def _lm_exec(meta: PlanMeta, params, tokens, ssas=None, *, lif_occupancy=None):
-    """tokens (B, S) -> logits (B, S, V): the encoding LIF, every block (with
-    its walker attention from ``ssas``, by default the full causal SSA), the
-    head."""
+def _lm_exec(meta: PlanMeta, params, tokens, ssas=None, *, lif_occupancy=None, x=None):
+    """tokens (B, S) -> logits (B, S, V): the encoding LIF (or the encoding
+    train ``x`` given), every block (with its walker attention from ``ssas``,
+    by default the full causal SSA), the head."""
     packed = meta.backend.packed
     _require_full_f32(params["head"]["w"])
-    x = _lif(meta, _lm_embed_drive(meta, params["embed"], tokens), pack_output=packed,
-             occupancy=lif_occupancy)
+    if x is None:
+        x = _lif(meta, _lm_embed_drive(meta, params["embed"], tokens), pack_output=packed,
+                 occupancy=lif_occupancy)
     for bparams, ssa in zip(params["blocks"], ssas or [None] * len(params["blocks"])):
         x = _lm_block_exec(meta, bparams, x, packed=packed, ssa=ssa,
                            lif_occupancy=lif_occupancy)
@@ -400,6 +401,55 @@ def decode_state_init(meta: PlanMeta, batch: int) -> DecodeState:
         kv=tuple(torch.zeros(s, dtype=torch.float32, device=meta.device)
                  for s in entry.state_shapes(batch)),
         pos=torch.zeros((), dtype=torch.int32, device=meta.device))
+
+
+# -- decode-state paging (continuous batching) ---------------------------------------
+#
+# The rows of a batched DecodeState are independent (the K^T V accumulators carry
+# no cross-row terms, and nothing in a step mixes rows), so a serving scheduler
+# can page sequences in and out of one live batched state: prefill a new prompt
+# at its own length, copy its per-layer planes into a freed slot, and keep
+# stepping the one slot-batch shape (``launch.scheduler``).  Each helper returns
+# a new state and leaves its inputs as they were.
+
+
+def decode_state_batch_init(meta: PlanMeta, slots: int) -> DecodeState:
+    """Zero batched ``DecodeState`` for a ``slots``-wide serving batch on the
+    plan's device, with a per-slot position vector ``pos`` of shape (slots,)
+    int32 (slots decode at ragged depths; ``decode_step``'s ``pos + 1``
+    advances it elementwise)."""
+    entry = _decode_entry(meta)
+    return DecodeState(
+        kv=tuple(torch.zeros(s, dtype=torch.float32, device=meta.device)
+                 for s in entry.state_shapes(slots)),
+        pos=torch.zeros((slots,), dtype=torch.int32, device=meta.device))
+
+
+def decode_state_scatter(batch_state: DecodeState, slot: int, seq_state: DecodeState,
+                         src: int = 0) -> DecodeState:
+    """Page row ``src`` of ``seq_state`` into slot ``slot`` of a batched state:
+    each per-layer plane is cloned and row ``src`` copied into it on the batch
+    axis (axis 1 of the (T, B, H, Dh, Dh) planes), and the slot's position
+    takes the source's token count (``seq_state.pos`` 0-d, or a vector read at
+    ``src``).  The target must carry a per-slot ``pos`` vector."""
+    if batch_state.pos.ndim == 0:
+        raise ValueError(
+            "scatter target must carry a per-slot pos vector (use "
+            "decode_state_batch_init for the serving batch)")
+    index = torch.full((1,), slot, dtype=torch.long, device=batch_state.pos.device)
+    kv = tuple(bkv.clone().index_copy_(1, index, skv.narrow(1, src, 1))
+               for bkv, skv in zip(batch_state.kv, seq_state.kv))
+    src_pos = seq_state.pos if seq_state.pos.ndim == 0 else seq_state.pos[src]
+    pos = batch_state.pos.clone().index_copy_(0, index, src_pos.reshape(1))
+    return DecodeState(kv=kv, pos=pos)
+
+
+def decode_state_gather(batch_state: DecodeState, slot: int) -> DecodeState:
+    """Slot ``slot`` of a batched state as a batch-1 ``DecodeState`` (a copy;
+    the inverse of :func:`decode_state_scatter`)."""
+    kv = tuple(bkv[:, slot:slot + 1].clone() for bkv in batch_state.kv)
+    pos = batch_state.pos if batch_state.pos.ndim == 0 else batch_state.pos[slot]
+    return DecodeState(kv=kv, pos=pos.clone())
 
 
 def _check_layers(meta: PlanMeta, state: DecodeState) -> None:
@@ -474,12 +524,18 @@ def _lm_prefill_chunk(meta: PlanMeta, params, state: DecodeState, tokens):
 def _lm_decode_step(meta: PlanMeta, params, state: DecodeState, token):
     """One generated token: (B,) -> (logits (B, V), advanced state).  The
     pack epilogues attach no occupancy map (``occupancy=False``): no consumer
-    of a one-token train reads it, as in the reference."""
+    of a one-token train reads it, as in the reference.  A plan with the
+    train table (every sparse LM plan) fetches the token's encoding train
+    from it, one gather in place of the encoding LIF."""
     _check_layers(meta, state)
+    tokens = token.reshape(token.shape[0], 1)
+    x = None
+    if meta.backend.packed and "train_words" in params["embed"]:
+        # the encoding train is a function of the token's embedding row alone
+        x = packing.PackedSpikes(params["embed"]["train_words"][:, tokens], meta.cfg.t)
     kvs: list = []
     ssas = [_decode_ssa(meta, meta.backend.packed, kv, kvs) for kv in state.kv]
-    logits = _lm_exec(meta, params, token.reshape(token.shape[0], 1), ssas,
-                      lif_occupancy=False)
+    logits = _lm_exec(meta, params, tokens, ssas, lif_occupancy=False, x=x)
     return logits[:, 0], DecodeState(kv=tuple(kvs), pos=state.pos + 1)
 
 

@@ -126,6 +126,7 @@ class PlanMeta:
     num_layers: int
     device: torch.device
     family: str = "vision"            # "vision" | "lm"
+    bundle: Any = None                # core.bundling.BundleInfo of an applied row bundling
 
     @property
     def decode(self) -> DecodeEntry | None:
@@ -166,7 +167,7 @@ def resolve_device(device) -> torch.device:
 
 
 def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = None,
-                 device=None, checkpoint=None) -> DeployPlan:
+                 device=None, checkpoint=None, bundle: float | None = None) -> DeployPlan:
     """Fold a trained (params, state, cfg) into a deploy plan on ``device``.
 
     ``params``/``state``: nested dicts of tensors or numpy arrays with the
@@ -181,6 +182,11 @@ def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = N
     (``params`` alone where ``state`` is None); its arrays are restored into
     the skeleton before folding, as the JAX package's
     ``compile_plan(checkpoint=)`` does.
+    ``bundle``: optional max-abs logit-error budget for the embedding
+    row-bundling transform (:mod:`repro_torch.core.bundling`; LM plans only;
+    ``0.0`` = exact duplicate-train dedup).  Every sparse LM plan carries the
+    per-row packed train table (``bundling.attach_train_table``), which its
+    decode step reads in place of the encoding LIF.
     """
     dev = resolve_device(device)
     params = bridge.to_torch(params, dev)
@@ -194,8 +200,19 @@ def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = N
             restored, _ = ckpt.restore(checkpoint, {"params": params, "state": state})
             params, state = restored["params"], restored["state"]
     if not hasattr(cfg, "tokenizer_config"):
-        return _compile_lm_plan(params, state, cfg, backend=backend,
+        from repro_torch.core import bundling
+
+        plan = _compile_lm_plan(params, state, cfg, backend=backend,
                                 ordering=ordering or "quadratic", device=dev)
+        if bundle is not None:
+            plan = bundling.bundle(plan, budget=bundle)
+        if plan.meta.backend.sparse:
+            plan = bundling.attach_train_table(plan)
+        return plan
+    if bundle is not None:
+        raise ValueError(
+            "row bundling applies to LM embedding tables only; vision plans "
+            "have no token-row/spike-train factorisation to bundle")
     if ordering is not None:
         raise ValueError("ordering is a plan-compile choice only for LM configs; "
                          "vision plans read cfg.attn_ordering")
@@ -304,10 +321,12 @@ def plan_stats(plan: DeployPlan) -> dict:
 
 
 def _lm_plan_stats(plan: DeployPlan) -> dict:
-    """:func:`plan_stats` of an LM plan, with the JAX package's keys; row
-    bundling is not ported, so its keys read off (None/False/0)."""
+    """:func:`plan_stats` of an LM plan, with the JAX package's keys (the
+    bundle keys read ``PlanMeta.bundle``: the measured oracle deviation of the
+    applied transform, None when bundling is off)."""
     meta = plan.meta
     cfg = meta.cfg
+    info = meta.bundle
     n_units = len(meta.block_units)
     return {
         "decode_entry": True,          # per-sequence O(d^2) SSA state, flat in S
@@ -327,9 +346,9 @@ def _lm_plan_stats(plan: DeployPlan) -> dict:
         "sparse": meta.backend.sparse,
         "bits_per_spike": (32 * -(-cfg.t // 32) / cfg.t if meta.backend.packed else 32),
         "param_count": _numel(plan.params),
-        "bundled": False,
-        "bundle_rows_merged": 0,
-        "bundle_radius": None,
-        "bundle_budget": None,
-        "bundle_logit_err": None,
+        "bundled": info is not None,
+        "bundle_rows_merged": info.rows_merged if info else 0,
+        "bundle_radius": info.radius if info else None,
+        "bundle_budget": info.budget if info else None,
+        "bundle_logit_err": info.logit_err if info else None,
     }

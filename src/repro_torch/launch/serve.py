@@ -1,5 +1,5 @@
-"""Serving through the deploy engine (PyTorch port): vision slot batches and
-the spiking LM's synchronous slots.
+"""Serving through the deploy engine (PyTorch port): vision slot batches, and
+the spiking LM in synchronous slots or continuously batched.
 
 ``--vision`` compiles the Spike-(IAND-)Former into a folded/fused deploy
 plan once at startup -- BN folded into the weight reads, AND-NOT residuals
@@ -25,6 +25,17 @@ layers bit-packed along time (``repro_torch.core.packing``);
 ``torch+packed+sparse`` / ``cuda+packed+sparse`` also skip all-zero word
 tiles and dead bitplanes, located by the occupancy maps the LIF pack
 epilogues attach (the logits are those of the packed plan).
+
+``--spiking-lm --continuous`` serves the same plan with continuous batching
+(``launch.scheduler``): a bounded admission queue, each admitted prompt
+prefilled alone and its ``DecodeState`` paged into a freed slot of one live
+batched state, finished requests retired mid-flight; ``--prompt-lens``,
+``--max-new-spread``, ``--max-pending`` and ``--prefill-chunk`` shape the
+workload and the admission.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --spiking-lm --continuous \
+        --arch llama3.2-1b_smoke --device cpu --prompt-lens 4,6,9 \
+        --max-new-spread 4 --slots 2
 
 ``--spiking-lm`` greedy-decodes synchronous slot batches of prompts from a
 compiled LM deploy plan of ``spiking_lm_config(--arch)`` (RMSNorm gains
@@ -55,6 +66,8 @@ from repro_torch.configs.spike_iand_former import get_vision_config
 from repro_torch.core import spikformer as sf
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.engine.plan import resolve_device
+from repro_torch.launch.scheduler import ContinuousScheduler, Request
+from repro_torch.launch.scheduler import greedy as greedy_sample
 from repro_torch.models.lm import get_config
 
 
@@ -185,11 +198,6 @@ def spiking_lm_config(arch: str):
     if cfg.modality != "text":
         raise ValueError(f"spiking-LM serving targets text archs; {arch} is {cfg.modality}")
     return cfg.replace(spiking=True, spike_t=4, num_heads=4, head_dim=None)
-
-
-def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
-    """Argmax over the vocabulary, as int64 (the embedding gather's index)."""
-    return torch.argmax(logits, dim=-1)
 
 
 def _pad_batch(x: torch.Tensor, mult: int):
@@ -375,6 +383,100 @@ def serve_spiking_lm(arch: str, *, num_requests: int, prompt_len: int, max_new: 
     return serve_lm_plan(plan, prompts, slots=slots, max_new=max_new, verbose=verbose)
 
 
+def serving_requests(prompts, *, prompt_lens, max_new, max_new_spread: int = 0,
+                     eos_id: int | None = None):
+    """Request list for continuous serving from an (N, S_max) prompt batch:
+    request ``i`` takes the first ``prompt_lens[i % len(prompt_lens)]`` tokens
+    of row ``i`` (mixed prompt lengths) and decodes
+    ``max_new - (i % (max_new_spread + 1))`` tokens (ragged completion; spread
+    0 is uniform).  Deterministic, so a reference path can rebuild the same
+    workload."""
+    prompts = np.asarray(prompts)
+    lens = [int(s) for s in prompt_lens]
+    return [Request(rid=i, prompt=prompts[i, :lens[i % len(lens)]].astype(np.int64),
+                    max_new=max(1, max_new - (i % (max_new_spread + 1))), eos_id=eos_id)
+            for i in range(prompts.shape[0])]
+
+
+def serve_continuous_plan(plan, requests, *, slots: int = 4, max_pending: int | None = None,
+                          prefill_chunk: int | None = None, verbose: bool = True):
+    """Serve ``requests`` (:class:`repro_torch.launch.scheduler.Request`) through
+    an LM ``plan`` with a ``ContinuousScheduler``, closed loop: every prompt
+    length (or chunk bucket) and the step are warmed first (on the card this
+    also builds the kernels), then the timed run.
+
+    Returns ``(done, stats)``: ``done`` the JAX package's result, (request id,
+    its tokens as an int64 array) per completed request in completion order;
+    ``stats`` the scheduler's ``stats()`` plus ``wall_s`` (the served run on
+    the host clock), ``warm_prefill_shapes``, ``warm_step_shapes``,
+    ``stall_s`` (the admission work of each tick that admitted) and
+    ``requests`` (the completed ``Request`` records, with their times)."""
+    requests = list(requests)
+    dev = plan.meta.device
+    sched = ContinuousScheduler(
+        plan, slots=slots,
+        max_pending=max_pending if max_pending is not None else max(len(requests), 1),
+        prefill_chunk=prefill_chunk)
+    warmed = sched.warm(sorted({r.prompt_len for r in requests}))
+    _sync(dev)
+    t0 = time.perf_counter()
+    completed = sched.run(requests)
+    dt = time.perf_counter() - t0
+    done = [(r.rid, np.asarray(r.tokens, np.int64)) for r in completed]
+    stats = sched.stats()
+    stats.update(wall_s=dt, warm_prefill_shapes=warmed, warm_step_shapes=1,
+                 stall_s=list(sched.stall_s), requests=completed)
+    if verbose:
+        ps = engine.plan_stats(plan)
+        where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        spikes = ", packed spikes" if ps["packed"] else ""
+        spikes += ", sparse skipping" if ps["sparse"] else ""
+        print(f"[serve] continuous: {len(completed)}/{len(requests)} requests, "
+              f"{stats['new_tokens']} new tokens in {dt:.3f}s "
+              f"({stats['new_tokens'] / dt:.1f} tok/s on {where}; {stats['steps']} steps at "
+              f"{slots} slots, occupancy {stats['slot_occupancy']:.2f}, queue high-water "
+              f"{stats['queue_high_water']}, {warmed} prefill shape(s) + 1 step shape; "
+              f"backend={ps['backend']}{spikes}, ordering={ps['attn_ordering']})")
+    return done, stats
+
+
+def serve_spiking_lm_continuous(arch: str, *, num_requests: int, prompt_len: int,
+                                max_new: int, slots: int = 4, backend: str = "cuda",
+                                ordering: str = "quadratic", mesh=None, seed: int = 0,
+                                prompt_lens=None, max_new_spread: int = 0,
+                                max_pending: int | None = None,
+                                prefill_chunk: int | None = None, device=None,
+                                verbose: bool = True, return_stats: bool = False):
+    """Serve ``spiking_lm_config(arch)`` with continuous batching (greedy
+    decode): the JAX package's arguments (``mesh`` must be None), on the card
+    unless ``device="cpu"``.
+
+    The plan, weights and sampler are :func:`serve_spiking_lm`'s; only the
+    scheduling differs: a ``ContinuousScheduler`` pages each admitted
+    prompt's ``DecodeState`` into a freed slot of one live batched state and
+    retires finished sequences mid-flight (:func:`serve_continuous_plan`).
+    ``prompt_lens`` (default ``[prompt_len]``) cycles mixed prompt lengths
+    over the requests, as the multiset given (repeats keep their share;
+    only warming dedupes); the prompts are ``token_batch`` rows at ``seed``,
+    step 0, of the longest length.  ``max_new_spread`` staggers the
+    per-request decode lengths (ragged completion).  ``prefill_chunk``
+    admits by decode-interleaved chunked prefill.  Returns the list of
+    (request id, tokens), and with ``return_stats`` the stats too."""
+    cfg, plan = _compile_lm_serving(arch, backend=backend, ordering=ordering, mesh=mesh,
+                                    seed=seed, device=device)
+    # the requested mixture as given: a set here would turn "32,32,64" (2:1)
+    # into a 1:1 cycle
+    lens = [int(s) for s in (prompt_lens or [prompt_len])]
+    dcfg = DataConfig(seed=seed, vocab_size=cfg.vocab_size, seq_len=max(lens),
+                      global_batch=num_requests)
+    prompts = make_batch(dcfg, 0)["tokens"]
+    reqs = serving_requests(prompts, prompt_lens=lens, max_new=max_new,
+                            max_new_spread=max_new_spread)
+    done, stats = serve_continuous_plan(plan, reqs, slots=slots, max_pending=max_pending,
+                                        prefill_chunk=prefill_chunk, verbose=verbose)
+    return (done, stats) if return_stats else done
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -393,6 +495,23 @@ def main():
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--ordering", default="quadratic", choices=["quadratic", "linear"],
                     help="causal-SSA dataflow of the LM plan")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching decode service (--spiking-lm): admission "
+                         "queue with backpressure, per-slot DecodeState paging, ragged "
+                         "completion and eviction; one step shape per slot count")
+    ap.add_argument("--prompt-lens", default=None, metavar="L1,L2,...",
+                    help="mixed prompt lengths for --continuous (cycled over the "
+                         "requests; default: --prompt-len)")
+    ap.add_argument("--max-new-spread", type=int, default=0,
+                    help="stagger per-request decode lengths by up to this many tokens "
+                         "(--continuous: ragged completion)")
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="admission-queue bound for --continuous (backpressure; "
+                         "default: the request count)")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="C",
+                    help="decode-interleaved chunked admission for --continuous: one "
+                         "resumable C-token prefill chunk per scheduler tick (default: "
+                         "one-shot prefill)")
     ap.add_argument("--backend", default="cuda",
                     choices=["torch", "cuda", "torch+packed", "cuda+packed",
                              "torch+packed+sparse", "cuda+packed+sparse"])
@@ -401,6 +520,15 @@ def main():
                          "plain versions on the host)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if args.spiking_lm and args.continuous:
+        lens = [int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens else None
+        serve_spiking_lm_continuous(
+            args.arch or "llama3.2-1b", num_requests=args.requests or 8,
+            prompt_len=args.prompt_len, max_new=args.max_new, slots=args.slots or 4,
+            backend=args.backend, ordering=args.ordering, seed=args.seed, prompt_lens=lens,
+            max_new_spread=args.max_new_spread, max_pending=args.max_pending,
+            prefill_chunk=args.prefill_chunk, device=args.device)
+        return
     if args.spiking_lm:
         serve_spiking_lm(args.arch or "llama3.2-1b", num_requests=args.requests or 8,
                          prompt_len=args.prompt_len, max_new=args.max_new,

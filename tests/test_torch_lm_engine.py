@@ -377,8 +377,9 @@ def test_lm_plan_routes_attention_through_the_kernel_wrappers(route):
         for k, (m, n) in wrap.items():
             setattr(m, n, recorder(k, saved[k]))
         for ordering in ("quadratic", "linear"):
+            plan = _plan(4, route, ordering)     # a sparse plan's train table runs K4 here
             calls.clear()
-            engine.apply(_plan(4, route, ordering), tokens)
+            engine.apply(plan, tokens)
             path = {"cuda": ("K1", "K2", "K3"), "cuda+packed": ("K4", "K5", "K6"),
                     "cuda+packed+sparse": ("K4", "K8", "K9")}[route]
             want = dict(zip(path, (1 + 7 * 2, 6 * 2, 2 if ordering == "quadratic" else 0)))
