@@ -98,15 +98,42 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      the kernel and plain routes; tok/s, occupancy, TTFT, stall per tick, one
      profiled batch-1 admission at 77 tokens and 4-slot step per route, and
      ``decode_slot_report``'s capacity beside the plan.
+  8. a prompt past M * Dh = 2^24: the spiking LM at llama3.2-1b width, depth
+     cut to 2 layers, prefills one 33,024-token prompt on the three kernel
+     routes (K3, K6, K9 sum two key ranges; launches counted) and with the
+     linear ordering on ``cuda``: logits and state ``torch.equal`` across all
+     four;
+  9. the paper's 8-bit bitplane input: ``core.encoding.bitplane_conv`` with
+     the kernel route's 3x3 spike conv on the 8-384's folded encoding conv, a
+     slot batch of 224x224 uint8 images (8 planes, one K2 launch, counted),
+     held against the same function over the plain GEMM (GEMM_TOL on the
+     encoding drive) and reported against the direct cuDNN conv (TF32 off),
+     with the encoding LIF's spikes of the two sum orders compared;
+ 10. the graph checks of ``engine.analysis`` on the three kernel routes at
+     full width, each with its negative case: no BN in the 8-384 deploy graph
+     (the train-mode graph has 52), no RMSNorm layer in the llama3.2-1b plan
+     (the oracle forward has 98), no axis of the prompt length in the decode
+     step (after 24 tokens) or a 5-token prefill chunk (after 37; the full
+     forward has it), every hand-kernel launch recorded;
+ 11. learning parity: the JAX package's example run (embed 48, 2 layers,
+     16x16 images, 4 classes, 300 SGD steps of batch 16, 20 held-out
+     batches) through ``train_spikformer`` on the kernel route (launches
+     counted) and on the plain route from the same seed, held-out accuracies
+     within LEARN_BAND of each other and above chance.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
 (N = M = 32, 512, 2048, all ones, ragged Dh=200 with N != M, M * Dh just
-below 2^24; one key more refused), every kernel timed per prefill, K2 also
-per decode step; and every kernel of phase 7's path at the shapes phase 7
-adds (batch-1 admissions and chunk buckets, N = 8...77 tokens, and the
-4-slot step) against its plain version, each row also against the same row
-at another row count.  The last lines are the card's ``nvidia-smi`` name and power limit,
+below 2^24, and one key more: two key ranges), every kernel timed per
+prefill, K2 also per decode step; every kernel of phase 7's path at the
+shapes phase 7 adds (batch-1 admissions and chunk buckets, N = 8...77
+tokens, and the 4-slot step) against its plain version, each row also
+against the same row at another row count; K1, K4 and K7 on bf16 drives at
+the 8-384 shapes (``torch.equal``, timed against their byte bounds, then
+the bf16 path -- ``core.lif.lif`` on bf16 drives, one forward and one
+training step's LIFs -- with its launches counted); and K3, K6 and K9 past
+the 2^24 edge (N = M = 33,024, Dh = 512, causal, near-all-ones operands,
+every row ``torch.equal`` the plain version in 1024-row slices).  The last lines are the card's ``nvidia-smi`` name and power limit,
 a JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 In the JSON line ``launches`` is the count over the live main-path run of
 the kernel's path (warm-up forward included) and ``launches_per_forward``
@@ -121,7 +148,11 @@ model's own operands.  The entries named ``*@llama3.2-1b`` are the LM
 path's: per prefill forward at its shapes (``... decode``: K2 per decode
 step), ``launches`` over the prefills (the decode steps) of phase 6's
 ``serve_spiking_lm`` run on the kernel's route, ``device_ms`` from one
-profiled prefill (step).
+profiled prefill (step).  The entries after those are this slice's: the
+bf16 forms of K1, K4, K7 (per forward, K7 per training step; ``launches``
+from the bf16 path), K3/K6/K9 past 2^24 (per launch; ``launches`` from phase
+8's prefills) and K2 at the bitplane input's shape (``launches`` from phase
+9); their ``device_ms`` is not measured (null).
 """
 
 from __future__ import annotations
@@ -530,8 +561,8 @@ def _lm_kernels(dev, gen):
     """The kernels of the spiking LM's path at its shapes (llama3.2-1b width,
     slot batch 4, prompt 32, T = 4): K3, K6 and K9 at Dh = 512 on the main
     path's operands and on the sets of :func:`_lm_ssa_sets`, each
-    ``torch.equal`` its plain version, and one key past M * Dh = 2^24
-    refused; then every kernel timed per prefill forward beside its plain
+    ``torch.equal`` its plain version, and one key past M * Dh = 2^24 (two
+    key ranges) too; then every kernel timed per prefill forward beside its plain
     version, its bound and the library calls, and K2 per decode step (16
     rows).  Returns the reports of the LM entries of the JSON line."""
     from repro_torch.core import lif as tlif
@@ -591,21 +622,20 @@ def _lm_kernels(dev, gen):
         del want, got, got6, got9, words, live
     log(f"K3, K6, K9 at Dh={dh}: torch.equal the plain versions (K9 also K6) on "
         + "; ".join(labels))
-    past = 2 ** 24 // dh
+    past = 2 ** 24 // dh            # one key more: two key ranges (ref.key_range)
     kv = torch.ones((1, past, dh), device=dev)
-    refused = []
-    for name, call in (("K3", lambda: ssa_ops.ssa_fwd(kv[:, :3], kv, kv, scale=0.125)),
-                       ("K6", lambda: ssa_ops.packed_ssa_fwd(*(pack(x[None]) for x in
-                                                              (kv[:, :3], kv, kv)),
-                                                            t=1, scale=0.125))):
-        try:
-            call()
-            refused.append(f"{name} accepted")
-        except ValueError as e:
-            refused.append(f"{name} refused ({str(e)[:60]})")
-    check(all("refused" in r for r in refused), f"M * Dh = 2^24 at Dh={dh}: {refused}")
-    log(f"  one key more (M={past}, M*Dh = 2^24): " + ", ".join(refused))
-    del kv
+    words = [pack(x[None]) for x in (kv[:, :3], kv, kv)]
+    at_edge = {"K3": (ssa_ops.ssa_fwd(kv[:, :3], kv, kv, scale=0.125),
+                      ssa_ref(kv[:, :3], kv, kv, scale=0.125)),
+               "K6": (ssa_ops.packed_ssa_fwd(*words, t=1, scale=0.125),
+                      packed_ssa_ref(*words, t=1, scale=0.125))}
+    for name, (got, want) in at_edge.items():
+        check(torch.equal(got, want) and got.max().item() == 2 ** 24 * 0.125,
+              f"{name} at M * Dh = 2^24 (Dh={dh}): not equal to the plain version or "
+              f"largest output {got.max().item()}")
+    log(f"  one key more (M={past}, M*Dh = 2^24, two key ranges): K3 and K6 taken, "
+        "torch.equal the plain versions, every output 2^24 * 0.125")
+    del kv, words, at_edge
 
     # -- K3, K6, K9 timed ------------------------------------------------------------------
     def ssa_case(rep, label, count, qs, ks, vs, causal=True):
@@ -1551,9 +1581,9 @@ def _hand_kernels(kernels):
         name = e.key.split(ns)[1].split("(")[0]
         base = name.split("<")[0]
         key = KERNEL_NAMES.get(base)
-        if base == "packed_ssa_tc_kernel":
-            key = "K9" if name.rstrip(">").endswith("true") else "K6"
-        if base == "ssa_wide_tc_kernel":      # <DQ, kPacked, kGated>
+        if base == "packed_ssa_tc_kernel":    # <Dp, P, kGated, kSplit>
+            key = "K9" if name.split("<")[1].split(",")[2].strip() == "true" else "K6"
+        if base == "ssa_wide_tc_kernel":      # <DQ, kPacked, kGated, kSplit>
             packed, gated = (f.strip() == "true" for f in name.split("<")[1].rstrip(">")
                              .split(",")[1:3])
             key = "K9" if gated else "K6" if packed else "K3"
@@ -2048,7 +2078,8 @@ def phase_train(dev, smi):
     return launches["K7"], TRAIN_STEPS, k7_ms
 
 
-def _lm_launches(backend, prefills, steps, ordering="quadratic", compiles=0):
+def _lm_launches(backend, prefills, steps, ordering="quadratic", compiles=0,
+                 layers=LM_LAYERS):
     """Launches of each kernel over ``prefills`` prefill forwards (or
     resumable chunks), ``steps`` decode steps and ``compiles`` plan compiles
     on a kernel route: per prefill one LIF for the embedding and 7 a block, 6
@@ -2057,13 +2088,13 @@ def _lm_launches(backend, prefills, steps, ordering="quadratic", compiles=0):
     the sparse route no embedding LIF (the step gathers the token's train from
     the plan's train table); per sparse compile one K4 per block of
     ``bundling.ROW_BLOCK`` vocabulary rows (the train table); the other
-    routes' kernels never launch."""
+    routes' kernels never launch.  ``layers``: the plan's depth."""
     from repro_torch.core.bundling import ROW_BLOCK
 
     sparse = backend.endswith("+sparse")
-    lif, gemm = 1 + 7 * LM_LAYERS, 6 * LM_LAYERS
+    lif, gemm = 1 + 7 * layers, 6 * layers
     step_lif = lif - sparse
-    ssa = LM_LAYERS if ordering == "quadratic" else 0
+    ssa = layers if ordering == "quadratic" else 0
     table = compiles * -(-LM_VOCAB // ROW_BLOCK) if sparse else 0
     want = dict.fromkeys(_counters(), 0)
     for key, n in zip(PATHS[backend], (prefills * lif + steps * step_lif + table,
@@ -2575,6 +2606,533 @@ def _profile_admission(backend, plan, prompts):
              want(0, 1))
 
 
+# -- the LIF kernels in bf16 (phase 2) ------------------------------------------------
+
+def _lif_bf16(dev, gen):
+    """K1 (+IAND), K4 (+IAND) and K7 on bf16 drives at the 8-384 main path's
+    LIF shapes (slot batch 8; K7 at the training batch's), each ``torch.equal``
+    its plain version in bf16 (every chain_len 1/2/4 x reset x IAND on the
+    largest shape), timed per forward (K7 per training step) beside its byte
+    bound: 2 bytes an element read or written."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.lif_parallel import ops as lif_ops
+    from repro_torch.kernels.lif_parallel.ref import (
+        lif_pack_ref, lif_parallel_ref, lif_parallel_ref_grad)
+
+    t, ntok, d, hid = 4, 196, 384, 1536
+    src = "src/repro_torch/kernels/lif_parallel/csrc/lif_parallel.cu"
+    tpu = "src/repro/kernels/lif_parallel/kernel.py:{}"
+    reps = {"K1": KernelReport("lif_parallel bf16", src, tpu.format(144)),
+            "K4": KernelReport("lif_pack bf16", src, tpu.format(174)),
+            "K7": KernelReport("lif_parallel_bwd bf16", src, tpu.format(211))}
+    fwd_cases = [(SLOTS * 112 * 112 * 48, False, 1), (SLOTS * 56 * 56 * 96, False, 1 + 8),
+                 (SLOTS * 28 * 28 * 192, False, 1), (SLOTS * ntok * d, False, 1 + 4 * 8),
+                 (SLOTS * ntok * d, True, 2 * 8)]
+    bwd_cases = [(TRAIN_BATCH * 112 * 112 * 48, 1), (TRAIN_BATCH * 56 * 56 * 96, 1),
+                 (TRAIN_BATCH * 28 * 28 * 192, 1), (TRAIN_BATCH * ntok * d, 1 + 6 * 8),
+                 (TRAIN_BATCH * ntok * hid, 8)]
+    big = max(n for n, _ in bwd_cases)
+    drive = torch.randn((t, big), generator=gen).to(dev)
+    drive[:, ::3] = torch.round(drive[:, ::3] * 8) / 8      # membranes exactly on theta too
+    drive = drive.bfloat16()
+    cot = (torch.randn((t, big), generator=gen) * 0.5).to(dev).bfloat16()
+    skip = (torch.rand((t, big), generator=gen) > 0.5).to(dev).bfloat16()
+    skip_words = packing.pack(skip.float()).words
+    n0 = fwd_cases[0][0]
+    part = lambda a, n: a[:, :n].contiguous()
+    x, sk, skw, g = (part(a, n0) for a in (drive, skip, skip_words, cot))
+    bad = []
+    for reset in ("hard", "soft"):
+        for chain in (1, 2, 4):
+            kw = dict(chain_len=chain, lam=0.25, theta=0.5, reset=reset)
+            for iand in (False, True):
+                if not torch.equal(lif_ops.lif_parallel_fwd(x, skip=sk if iand else None, **kw),
+                                   lif_parallel_ref(x, skip=sk if iand else None, **kw)):
+                    bad.append(f"K1 reset={reset} chain_len={chain} iand={iand}")
+                if not torch.equal(
+                        lif_ops.lif_parallel_pack_fwd(x, skip_words=skw if iand else None, **kw),
+                        lif_pack_ref(x, skip_words=skw if iand else None, **kw)):
+                    bad.append(f"K4 reset={reset} chain_len={chain} iand={iand}")
+            if not torch.equal(lif_ops.lif_parallel_bwd(x, g, **kw),
+                               lif_parallel_ref_grad(x, g, chain_len=chain, reset=reset)):
+                bad.append(f"K7 reset={reset} chain_len={chain}")
+    check(not bad, f"bf16 LIF kernels differ from their plain versions: {bad}")
+    log(f"K1, K4, K7 in bf16: torch.equal their plain versions (bf16 eager PyTorch) at N={n0} "
+        "for reset x chain_len 1/2/4 x IAND")
+    kw = dict(chain_len=t, lam=0.25, theta=0.5, reset="hard")
+    for n, iand, count in fwd_cases:
+        x, sk, skw = part(drive, n), (part(skip, n) if iand else None), (
+            part(skip_words, n) if iand else None)
+        run = lambda: lif_ops.lif_parallel_fwd(x, skip=sk, **kw)
+        plain = lambda: lif_parallel_ref(x, skip=sk, **kw)
+        check(torch.equal(run(), plain()), f"K1 bf16 N={n}: not equal to the plain version")
+        reps["K1"].add(f"N={n} iand={iand}", count, 0.0, time_ms(run), time_ms(plain),
+                       2 * t * n * (3 if iand else 2), 5 * t * n, peak=F32_FLOP_PER_S)
+        run = lambda: lif_ops.lif_parallel_pack_fwd(x, skip_words=skw, **kw)
+        plain = lambda: lif_pack_ref(x, skip_words=skw, **kw)
+        check(torch.equal(run(), plain()), f"K4 bf16 N={n}: not equal to the plain version")
+        reps["K4"].add(f"N={n} iand={iand}", count, 0.0, time_ms(run), time_ms(plain),
+                       2 * t * n + 4 * n * (2 if iand else 1), 5 * t * n, peak=F32_FLOP_PER_S)
+    for n, count in bwd_cases:
+        x, g = part(drive, n), part(cot, n)
+        run = lambda: lif_ops.lif_parallel_bwd(x, g, **kw)
+        plain = lambda: lif_parallel_ref_grad(x, g, chain_len=t)
+        check(torch.equal(run(), plain()), f"K7 bf16 N={n}: not equal to the plain version")
+        reps["K7"].add(f"N={n}", count, 0.0, time_ms(run), time_ms(plain, reps=5), 6 * t * n,
+                       20 * t * n, peak=F32_FLOP_PER_S)
+    del drive, cot, skip, skip_words
+    return reps
+
+
+def _lif_bf16_path(dev, gen, reps):
+    """The bf16 forms' path: the neuron dispatch ``core.lif.lif`` on the kernel
+    route with bf16 drives -- every LIF of one 8-384 forward (slot batch 8;
+    dense, then packed) and of one training step's backward (batch 16, by
+    autograd through ``lif``) -- with the launch counters set to 0 just
+    before and read just after: 60 K1, 60 K4 and 60 K7."""
+    from repro_torch.core import packing
+    from repro_torch.core.lif import lif
+
+    t, ntok, d, hid = 4, 196, 384, 1536
+    units = ("q", "k", "v", "attn", "proj", "fc1", "fc2")
+    block = [(ntok * (hid if u == "fc1" else d), u in ("proj", "fc2")) for u in units] * 8
+    per_image = [(112 * 112 * 48, False), (56 * 56 * 96, False), (28 * 28 * 192, False),
+                 (ntok * d, False)] + block
+    fwd = [(SLOTS * n, iand) for n, iand in per_image]
+    bwd = [TRAIN_BATCH * n for n, _ in per_image]
+    drive = torch.randn((t, max(bwd)), generator=gen).to(dev).bfloat16()
+    skip = (torch.rand((t, max(n for n, _ in fwd)), generator=gen) > 0.5).to(dev).bfloat16()
+    skip_words = packing.PackedSpikes(packing.pack(skip.float()).words, t)
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    for n, j in fwd:
+        out = lif(drive[:, :n], use_kernel=True, iand_skip=skip[:, :n] if j else None)
+        check(out.dtype == torch.bfloat16, f"bf16 lif returned {out.dtype}")
+        lif(drive[:, :n], use_kernel=True, pack_output=True,
+            iand_skip=packing.PackedSpikes(skip_words.words[:, :n], t) if j else None)
+    for n in bwd:
+        x = drive[:, :n].clone().requires_grad_(True)
+        with torch.enable_grad():
+            (dx,) = torch.autograd.grad(lif(x, use_kernel=True), x, torch.ones_like(x))
+        check(dx.dtype == torch.bfloat16, f"bf16 lif backward returned {dx.dtype}")
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(K1=len(fwd) + len(bwd), K4=len(fwd), K7=len(bwd))
+    check(launches == want, f"bf16 lif path: launches {launches}, expected {want}")
+    log(f"bf16 lif path (core.lif.lif, kernel route, one 8-384 forward dense and packed and "
+        f"one training step's LIFs with their backward): launches {launches}")
+    for key, rep in reps.items():
+        rep.entry["launches"] = launches[key]
+        rep.entry["launches_per_forward"] = launches[key] / (1 + (key == "K1"))
+
+
+# -- K3, K6, K9 past M * Dh = 2^24 (phase 2) --------------------------------------------
+
+PAST_EDGE_LEN = 2 ** 24 // LM_DH + 256    # 33,024 tokens: key ranges of 32,704 and 320
+PAST_EDGE_ROWS = 1024                      # query rows per plain-version chunk
+
+
+def _near_ones(gen, shape, dev, zero_q=False):
+    """Spikes that are almost all ones (the largest sums): one q feature in
+    64 at random, or one entry in 512 at random, zero."""
+    x = torch.ones(shape, device=dev)
+    if zero_q:
+        x[..., ::64] = (torch.rand(x[..., ::64].shape, generator=gen) > 0.5).float().to(dev)
+    else:
+        x[(torch.rand(shape, generator=gen) < 1 / 512).to(dev)] = 0.0
+    return x
+
+
+def _ssa_past_edge(dev, gen):
+    """K3, K6 and K9 at the LM's head dim past the 2^24 edge: a causal
+    PAST_EDGE_LEN-token prompt of one sequence (K3: G = T*H = 16; K6, K9: G =
+    H = 4 folds of T = 4 planes), near-all-ones spikes, so the sums past 2^24
+    round.  Every output row is held ``torch.equal`` to the plain version,
+    which runs the same key ranges in PAST_EDGE_ROWS-row slices of the queries
+    (``q0``) so that its scores fit; the kernel is timed beside the plain
+    version's slices and its bound (the causal triangle's operations on the
+    tensor cores).  No single PyTorch call computes the function at this size
+    (the f16 ``torch.bmm`` pair's scores would take 70 GB): library_ms null."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.spiking_attention import ops as ssa_ops
+    from repro_torch.kernels.spiking_attention.ref import (
+        key_range, packed_ssa_ref, sparse_packed_ssa_ref, ssa_ref)
+
+    t, h, dh, s = 4, LM_HEADS, LM_DH, PAST_EDGE_LEN
+    src = "src/repro_torch/kernels/spiking_attention/csrc/ssa.cu"
+    tpu = "src/repro/kernels/spiking_attention/kernel.py:{}"
+    q = _near_ones(gen, (t * h, s, dh), dev, zero_q=True)
+    k = torch.ones((t * h, s, dh), device=dev)
+    v = _near_ones(gen, (t * h, s, dh), dev)
+    words = [packing.pack(x.reshape(t, h, s, dh)).words for x in (q, k, v)]
+    live = ssa_ops._plane_liveness(*words, t)
+    pairs = s * (s + 1) // 2
+    cases = {
+        "K3": ("ssa", 62, lambda: ssa_ops.ssa_fwd(q, k, v, scale=0.125, causal=True),
+               lambda a, b: ssa_ref(q[:, a:b], k, v, causal=True, q0=a),
+               4 * 4 * t * h * s * dh),
+        "K6": ("packed_ssa", 164,
+               lambda: ssa_ops.packed_ssa_fwd(*words, t=t, scale=0.125, causal=True),
+               lambda a, b: packed_ssa_ref(words[0][:, :, a:b], *words[1:], t=t, causal=True,
+                                           q0=a),
+               4 * 3 * h * s * dh + 4 * t * h * s * dh),
+        "K9": ("sparse_packed_ssa", 139,
+               lambda: ssa_ops.sparse_packed_ssa_fwd(*words, live, t=t, scale=0.125,
+                                                     causal=True),
+               lambda a, b: sparse_packed_ssa_ref(words[0][:, :, a:b], *words[1:], live, t=t,
+                                                  causal=True, q0=a),
+               4 * 3 * h * s * dh + 4 * t * h * s * dh)}
+    reps, rounded = {}, None
+    for key, (name, line, run, plain, nbytes) in cases.items():
+        rep = KernelReport(f"{name}@{LM_ARCH} past 2^24", src, tpu.format(line))
+        got = run()
+        torch.cuda.synchronize()
+        if key == "K3":
+            got = got.reshape(t, h, s, dh)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        same, plain_ms = True, 0.0
+        for a in range(0, s, PAST_EDGE_ROWS):
+            b = min(s, a + PAST_EDGE_ROWS)
+            start.record()
+            want = plain(a, b)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms += start.elapsed_time(end)
+            same &= torch.equal(got[:, :, a:b], want.reshape(t, h, b - a, dh))
+            del want
+        check(same, f"{key} past 2^24 (N = M = {s}, Dh = {dh}): not equal to the plain version")
+        if rounded is None:        # outputs whose sum passed 2^24 (odd ones are rounded)
+            rounded = int((got[:, :, 2 ** 24 // dh:] / 0.125 > 2 ** 24).sum())
+        ms = time_ms(run, reps=3, warmup=1)
+        rep.add(f"G={t * h if key == 'K3' else h} N=M={s} Dh={dh} causal, two key ranges "
+                f"({key_range(s, dh)} + {s - key_range(s, dh)})", 1, 0.0, ms, plain_ms,
+                nbytes, 4 * t * h * pairs * dh)
+        reps[key] = rep
+        del got
+    log(f"K3, K6, K9 past M*Dh = 2^24 (N = M = {s}, Dh = {dh}, causal, near-all-ones): every "
+        f"row torch.equal the plain version (range split, {PAST_EDGE_ROWS}-row slices); "
+        f"{rounded} outputs of the rows past {2 ** 24 // dh} keys exceed 2^24 / 0.125")
+    check(rounded > 0, "past 2^24: no output passed 2^24, so no range addition rounded")
+    del q, k, v, words, live
+    return reps
+
+
+# -- phase 8: a prompt past the 2^24 edge through the LM's prefill ----------------------
+
+LONG_LAYERS = 2     # depth of the long-prompt LM (full llama3.2-1b width)
+
+
+def phase_long_prompt(dev, smi, past_reps):
+    """The spiking LM at llama3.2-1b width, depth cut to LONG_LAYERS, prefills
+    one PAST_EDGE_LEN-token prompt (past M * Dh = 2^24 at Dh 512, where the
+    quadratic ordering's K3/K6/K9 sum two key ranges) on the three kernel
+    routes, every launch counted, and on ``cuda`` with the linear ordering
+    (no SSA kernel: the K^T V state in plain PyTorch): logits and state
+    ``torch.equal`` across routes and orderings.  Sets the launches of the
+    past-edge entries."""
+    from repro_torch import engine
+    from repro_torch.launch.serve import live_lm_params, spiking_lm_config
+
+    cfg = spiking_lm_config(LM_ARCH).replace(num_layers=LONG_LAYERS)
+    params = live_lm_params(cfg, dev)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, PAST_EDGE_LEN))).to(dev)
+    ref, launches = None, {}
+    for backend, ordering in (("cuda", "linear"), ("cuda", "quadratic"),
+                              ("cuda+packed", "quadratic"), ("cuda+packed+sparse", "quadratic")):
+        plan = engine.compile_plan(params, None, cfg, backend=backend, ordering=ordering,
+                                   device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        counters = _counters()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        logits, state = engine.prefill(plan, tokens)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counters.items()}
+        want = _lm_launches(backend, 1, 0, ordering=ordering, layers=LONG_LAYERS)
+        check(got == want, f"long prompt {backend} {ordering}: launches {got}, expected {want}")
+        check(tuple(logits.shape) == (1, PAST_EDGE_LEN, LM_VOCAB)
+              and bool(torch.isfinite(logits).all()), f"long prompt {backend} {ordering}: "
+              f"logits {tuple(logits.shape)} not finite or misshapen")
+        if ref is None:
+            ref = (logits, state)
+            same = "the reference"
+        else:
+            same = (torch.equal(logits, ref[0]) and int(state.pos) == int(ref[1].pos)
+                    and all(torch.equal(a, b) for a, b in zip(state.kv, ref[1].kv)))
+            check(same, f"long prompt {backend} {ordering}: logits or state differ from cuda "
+                  "linear")
+            same = f"torch.equal cuda linear: {same}"
+        if ordering == "quadratic":
+            launches[backend] = got
+        log(f"long prompt ({PAST_EDGE_LEN} tokens, {LONG_LAYERS} layers at {LM_ARCH} width) "
+            f"{backend} {ordering}: prefill {seconds:.3f} s ({PAST_EDGE_LEN / seconds:.0f} "
+            f"tok/s), launches {got}, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB; logits and state "
+            f"{same}; on {smi}")
+        del plan, logits, state
+    del ref, params
+    for key, backend in (("K3", "cuda"), ("K6", "cuda+packed"), ("K9", "cuda+packed+sparse")):
+        past_reps[key].entry["launches"] = launches[backend][key]
+        past_reps[key].entry["launches_per_forward"] = launches[backend][key]
+    fail_if_any("phase 8")
+
+
+# -- phase 9: the 8-bit bitplane input on the spike GEMM --------------------------------
+
+def phase_bitplane(dev, smi):
+    """The paper's bitplane input (Sec. III-A) at the 8-384's encoding conv:
+    ``core.encoding.bitplane_conv`` on a slot batch of 224 x 224 uint8 images
+    with the kernel route's 3x3 spike conv (K2 on im2col patches of the 8
+    planes, one launch, counted) and the live model's folded encoding weights.
+    Held against the same function over the plain GEMM (on the encoding
+    drive, the output over 255: GEMM_TOL) and reported against the direct
+    cuDNN conv of the image (TF32 off); the encoding LIF's spikes (maxpool, T
+    = 4) of the two sum orders compared.  Returns K2's report at this shape
+    (library_ms: cuDNN on the same 8 B binary planes)."""
+    from repro_torch.core import encoding
+    from repro_torch.core import nn as cnn
+    from repro_torch.core.lif import lif
+    from repro_torch.kernels.spike_matmul import ops as mm_ops
+    from repro_torch.launch.serve import live_model
+
+    plan, _ = live_model(ARCH, SLOTS, "cuda", dev)
+    enc = plan.params["tokenizer"][0]                     # {"w": (3, 3, 3, 48), "b": (48,)}
+    w, bias = enc["w"], enc["b"]
+    cout = w.shape[-1]
+    gen = torch.Generator().manual_seed(9)
+    image = torch.randint(0, 256, (SLOTS, 224, 224, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+    spike_conv = lambda p, x: mm_ops.conv3x3_op(x, p["w"])
+    plain_conv = lambda p, x: mm_ops.spike_matmul_ref(mm_ops._im2col(x, 3), p["w"].reshape(
+        -1, cout)).reshape(tuple(x.shape[:3]) + (cout,))
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    got = encoding.bitplane_conv(spike_conv, {"w": w}, image)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want_launches = dict.fromkeys(counters, 0)
+    want_launches["K2"] = 1
+    check(launches == want_launches, f"bitplane_conv: launches {launches}, expected "
+          f"{want_launches}")
+    plain = encoding.bitplane_conv(plain_conv, {"w": w}, image)
+    direct = cnn.conv_apply({"w": w}, image.float())
+    drives = {"bitplane over K2": got / 255 + bias, "bitplane over the plain GEMM":
+              plain / 255 + bias, "direct cuDNN conv": cnn.conv_apply(enc, image.float() / 255)}
+    err = (drives["bitplane over K2"] - drives["bitplane over the plain GEMM"]).abs().max().item()
+    check(bool(torch.allclose(drives["bitplane over K2"], drives["bitplane over the plain GEMM"],
+                              **GEMM_TOL)),
+          f"bitplane_conv over K2 vs over the plain GEMM: max abs err {err:.3g} on the "
+          f"encoding drive, outside {GEMM_TOL}")
+    log(f"bitplane_conv ({SLOTS} x 224 x 224 uint8, 8 planes, one K2 launch of "
+        f"{8 * SLOTS * 224 * 224} rows x 27 x {cout}): vs the plain GEMM max abs err "
+        f"{(got - plain).abs().max().item():.3g} on the output, {err:.3g} on the encoding "
+        f"drive (GEMM_TOL); vs the direct cuDNN conv of the image max abs "
+        f"{(got - direct).abs().max().item():.3g} (output), "
+        f"{(drives['bitplane over K2'] - drives['direct cuDNN conv']).abs().max().item():.3g} "
+        "(drive), reported")
+    pooled = {k: cnn.maxpool(y) for k, y in drives.items()}
+    spikes = {k: lif(y[None].expand((4,) + tuple(y.shape)), use_kernel=True)
+              for k, y in pooled.items()}
+    total = spikes["direct cuDNN conv"].numel()
+    for a, b in (("bitplane over K2", "direct cuDNN conv"),
+                 ("bitplane over K2", "bitplane over the plain GEMM"),
+                 ("bitplane over the plain GEMM", "direct cuDNN conv")):
+        flips = int((spikes[a] != spikes[b]).sum())
+        log(f"  encoding LIF spikes, {a} vs {b}: {flips} of {total} differ ({flips / SLOTS:.1f} "
+            f"of {total // SLOTS} per image; PERF.md records 123 of 2.4 M for cuDNN vs im2col)")
+    planes = encoding.to_bitplanes(image).reshape(-1, 224, 224, 3)
+    cols, w2 = mm_ops._im2col(planes, 3), w.reshape(-1, cout).contiguous()
+    m = cols.shape[0]
+    rep = KernelReport("spike_matmul@bitplane", "src/repro_torch/kernels/spike_matmul/csrc/"
+                       "spike_matmul.cu", "src/repro/kernels/spike_matmul/kernel.py:164")
+    rep.add(f"{m}x27x{cout} (8 planes x {SLOTS} images)", 1,
+            (mm_ops.spike_matmul_fwd(cols, w2) - mm_ops.spike_matmul_ref(cols, w2)).abs()
+            .max().item(), time_ms(lambda: mm_ops.spike_matmul_fwd(cols, w2)),
+            time_ms(lambda: mm_ops.spike_matmul_ref(cols, w2)),
+            4 * (m * 27 + 27 * cout + m * cout), GEMM_PIECES * 2 * m * 27 * cout,
+            library_ms=time_ms(lambda: cnn.conv_apply({"w": w}, planes)))
+    rep.entry["launches"] = launches["K2"]
+    rep.entry["launches_per_forward"] = launches["K2"]
+    whole = time_ms(lambda: encoding.bitplane_conv(spike_conv, {"w": w}, image))
+    plain_ms = time_ms(lambda: encoding.bitplane_conv(plain_conv, {"w": w}, image))
+    one_conv = time_ms(lambda: cnn.conv_apply({"w": w}, image.float()))
+    log(f"  bitplane_conv over K2, the whole function (planes, im2col, K2, recombination): "
+        f"{whole:.3f} ms; over the plain GEMM {plain_ms:.3f} ms; one direct cuDNN conv of the "
+        f"{SLOTS} images (TF32 off) {one_conv:.3f} ms; on {smi}")
+    del plan, image, got, plain, direct, drives, pooled, spikes, planes, cols
+    fail_if_any("phase 9")
+    return rep
+
+
+# -- phase 10: the graph checks at full width on the kernel routes ----------------------
+
+GRAPH_PROMPTS = (24, 37)   # prompt lengths that collide with no model dim (the reference's)
+GRAPH_CHUNK = 5
+
+
+def _kernel_counts(hist):
+    """Hand-kernel launches a recorded call reported, by K number (each
+    wrapper reports under its own name)."""
+    return {key: hist[f"kernel.{fn.__name__}"] for key, fn in _counters().items()}
+
+
+def phase_graph_checks(dev):
+    """``engine.analysis``'s graph checks on the kernel routes at full width,
+    each with the hand-kernel launches the recorder saw held to the route's
+    counts: no BatchNorm in the 8-384 deploy graph (the train-mode graph has
+    one per BN layer); no RMSNorm layer in the llama3.2-1b plan (the oracle
+    forward counts 6 per block + 2); the decode step after a 24-token prompt
+    and a 5-token prefill chunk after a 37-token one carry no axis of the
+    prompt length (the full re-scoring forward does)."""
+    from repro_torch import engine
+    from repro_torch.configs.spike_iand_former import get_vision_config
+    from repro_torch.core import spikformer as sf
+    from repro_torch.engine import analysis
+    from repro_torch.launch.serve import live_lm_params, live_model, spiking_lm_config
+    from repro_torch.models import spiking_lm as slm
+
+    vcfg = get_vision_config(ARCH)
+    for backend in PATHS:
+        plan, images = live_model(ARCH, 2, backend, dev)
+        fn = engine.make_apply_fn(plan)
+        bn = analysis.bn_op_count(fn, plan.params, images)
+        seen = _kernel_counts(analysis.op_histogram(fn, plan.params, images))
+        want = _per_forward(vcfg.num_layers, backend)
+        check(bn == 0 and seen == want, f"8-384 deploy graph {backend}: {bn} BN ops, kernels "
+              f"seen {seen}, expected {want}")
+        log(f"graph 8-384 deploy {backend}: {bn} BN-signature ops; hand-kernel launches "
+            f"recorded {seen}")
+        del plan
+    params, state = sf.init(torch.Generator().manual_seed(0), vcfg, device=dev)
+    bn_train = analysis.bn_op_count(
+        lambda p, s_, x: sf.apply(p, s_, x, vcfg, train=True)[0], params, state, images)
+    n_bn = 4 + 6 * vcfg.num_layers
+    check(bn_train == n_bn, f"train-mode 8-384 graph: {bn_train} BN ops, expected {n_bn}")
+    log(f"graph 8-384 train mode (the negative case): {bn_train} BN-signature ops (one per BN "
+        f"layer: {n_bn})")
+    del params, state, images
+
+    cfg = spiking_lm_config(LM_ARCH)
+    params = live_lm_params(cfg, dev)
+    rng = np.random.default_rng(10)
+    toks = lambda s: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s))).to(dev)
+    oracle = analysis.rmsnorm_op_count(
+        lambda p, tk: slm.forward(p, {"tokens": tk}, cfg), params, toks(8))
+    n_rms = 6 * cfg.num_layers + 2
+    check(oracle == n_rms, f"oracle LM forward: {oracle} RMSNorm layers, expected {n_rms}")
+    short, long_ = GRAPH_PROMPTS
+    for backend in PATHS:
+        plan = engine.compile_plan(params, None, cfg, backend=backend, device=dev)
+        apply_fn = engine.make_apply_fn(plan)
+        rms = analysis.rmsnorm_op_count(apply_fn, plan.params, toks(8))
+        step = engine.make_decode_step_fn(plan)
+        _, state = engine.prefill(plan, toks(short))
+        tok = toks(1)[:, 0]
+        dims = analysis.op_dims(step, plan.params, state, tok)
+        seen = _kernel_counts(analysis.op_histogram(step, plan.params, state, tok))
+        want = _lm_launches(backend, 0, 1)
+        chunk = engine.make_prefill_chunk_fn(plan)
+        _, state = engine.prefill(plan, toks(long_))
+        cdims = analysis.op_dims(chunk, plan.params, state, toks(GRAPH_CHUNK))
+        cseen = _kernel_counts(analysis.op_histogram(chunk, plan.params, state,
+                                                     toks(GRAPH_CHUNK)))
+        cwant = _lm_launches(backend, 1, 0)
+        check(rms == 0, f"LM plan {backend}: {rms} RMSNorm layers")
+        check(short not in dims and seen == want, f"decode step {backend}: prompt axis "
+              f"{short} in its graph {short in dims}, kernels seen {seen}, expected {want}")
+        check(long_ not in cdims and GRAPH_CHUNK in cdims and cseen == cwant,
+              f"prefill chunk {backend}: prompt axis {long_} in its graph {long_ in cdims}, "
+              f"chunk axis {GRAPH_CHUNK in cdims}, kernels seen {cseen}, expected {cwant}")
+        log(f"graph {LM_ARCH} {backend}: {rms} RMSNorm layers in the plan; decode step after "
+            f"{short} tokens: axis {short} absent ({len(dims)} axis lengths), kernels recorded "
+            f"{seen}; {GRAPH_CHUNK}-token chunk after {long_}: axis {long_} absent, "
+            f"{GRAPH_CHUNK} present, kernels recorded {cseen}")
+        if backend == "cuda":
+            full = analysis.op_dims(apply_fn, plan.params, toks(short))
+            check(short in full, f"the re-scoring forward over {short} tokens has no "
+                  f"{short}-axis: the dims check could not see a prefix")
+            log(f"graph {LM_ARCH} negative cases: the oracle forward counts {oracle} RMSNorm "
+                f"layers (6 per block, {cfg.num_layers} blocks in a Python loop, + embed + "
+                f"final); the full re-scoring forward over {short} tokens carries axis {short}: "
+                f"{short in full}")
+        del plan, state
+    del params
+    fail_if_any("phase 10")
+
+
+# -- phase 11: learning parity on the card -----------------------------------------------
+
+LEARN_CONFIG = dict(embed_dim=48, num_layers=2, num_heads=4, t=4, img_size=16,
+                    num_classes=4, residual="iand", tokenizer_pools=(False, False, True, True))
+LEARN_STEPS, LEARN_BATCH, LEARN_LR, LEARN_EVAL = 300, 16, 0.05, 20
+LEARN_BAND, CHANCE = 0.10, 0.25
+
+
+def phase_learning(dev, smi):
+    """The JAX package's example run (``examples/train_spikformer.py``'s
+    config, 300 SGD steps of batch 16 at lr 0.05, 20 held-out batches) on the
+    card: ``train_spikformer`` on the kernel route (K1, K7, K3; launches
+    counted) and the same steps on the plain route from the same seed.  The
+    band: held-out accuracies within LEARN_BAND of each other, both above
+    chance by at least half the plain route's margin."""
+    from repro_torch.core import spikformer as sf
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as ttrain
+
+    cfg = sf.SpikformerConfig(**LEARN_CONFIG)
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    kern = ttrain.train_spikformer(cfg, steps=LEARN_STEPS, batch=LEARN_BATCH, lr=LEARN_LR,
+                                   device=dev, eval_batches=LEARN_EVAL, verbose=False)
+    kern_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    n_lif, forwards = 4 + 7 * cfg.num_layers, LEARN_STEPS + LEARN_EVAL
+    want = dict.fromkeys(counters, 0)
+    want.update(K1=n_lif * forwards, K3=cfg.num_layers * forwards, K7=n_lif * LEARN_STEPS)
+    check(launches == want, f"learning run: launches {launches}, expected {want}")
+
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False)
+    params, state = sf.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    dcfg = DataConfig(kind="images", seed=0, global_batch=LEARN_BATCH, img_size=cfg.img_size,
+                      num_classes=cfg.num_classes)
+
+    def data(i):
+        b = make_batch(dcfg, i)
+        return (torch.from_numpy(b["image"]).to(dev),
+                torch.from_numpy(b["label"]).long().to(dev))
+
+    t0 = time.perf_counter()
+    for i in range(LEARN_STEPS):
+        params, state, loss, _ = ttrain.train_step(params, state, *data(i), plain_cfg, lr=LEARN_LR)
+    accs = []
+    with torch.no_grad():
+        for i in range(LEARN_EVAL):
+            image, label = data(100_000 + i)
+            logits, _ = sf.apply(params, state, image, plain_cfg, train=False)
+            accs.append(float((logits.argmax(-1) == label).float().mean()))
+    plain_s = time.perf_counter() - t0
+    plain_acc, kern_acc = sum(accs) / len(accs), kern["heldout_acc"]
+    floor = CHANCE + (plain_acc - CHANCE) / 2
+    check(abs(kern_acc - plain_acc) <= LEARN_BAND and min(kern_acc, plain_acc) >= floor
+          and plain_acc > CHANCE, f"learning parity: kernel route {kern_acc:.3f}, plain route "
+          f"{plain_acc:.3f} (band {LEARN_BAND}, floor {floor:.3f})")
+    log(f"learning parity ({LEARN_STEPS} steps, batch {LEARN_BATCH}, lr {LEARN_LR}, the JAX "
+        f"example's config): held-out accuracy kernel route {kern_acc:.4f}, plain route "
+        f"{plain_acc:.4f} (band {LEARN_BAND}, floor {floor:.3f}); final loss "
+        f"{kern['losses'][-1]:.4f} / {loss.item():.4f}; launches {launches}; "
+        f"{kern_s:.1f} s / {plain_s:.1f} s; on {smi}")
+    fail_if_any("phase 11")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this smoke test "
@@ -2598,6 +3156,11 @@ def main() -> int:
     lm_reports = _lm_kernels(dev, torch.Generator().manual_seed(1))
     log("phase 2 (continued): the kernels at phase 7's admission, chunk and step shapes")
     _admission_kernels(dev, torch.Generator().manual_seed(2))
+    log("phase 2 (continued): K1, K4, K7 on bf16 drives at the 8-384 shapes")
+    bf16_reports = _lif_bf16(dev, torch.Generator().manual_seed(3))
+    _lif_bf16_path(dev, torch.Generator().manual_seed(4), bf16_reports)
+    log(f"phase 2 (continued): K3, K6, K9 past M * Dh = 2^24 at Dh = {LM_DH}")
+    past_reports = _ssa_past_edge(dev, torch.Generator().manual_seed(5))
     fail_if_any("phase 2")
     log(f"phase 3: serve the live {ARCH} on {', '.join(BACKENDS)}, "
         f"{REQUESTS // SLOTS} slot batches of {SLOTS} each")
@@ -2615,6 +3178,18 @@ def main() -> int:
         f"prompts {CONT_LENS}, {LM_NEW} new tokens (spread {CONT_SPREAD}), {LM_SLOTS} slots")
     torch.cuda.empty_cache()
     phase_continuous(dev, smi, sync_cuda)
+    log(f"phase 8: a {PAST_EDGE_LEN}-token prompt (past M * Dh = 2^24) through the spiking "
+        f"{LM_ARCH}'s prefill, {LONG_LAYERS} layers")
+    torch.cuda.empty_cache()
+    phase_long_prompt(dev, smi, past_reports)
+    log(f"phase 9: the 8-bit bitplane input of the {ARCH}'s encoding conv on K2")
+    torch.cuda.empty_cache()
+    bitplane_report = phase_bitplane(dev, smi)
+    log("phase 10: graph checks on the kernel routes at full width")
+    torch.cuda.empty_cache()
+    phase_graph_checks(dev)
+    log("phase 11: learning parity, the JAX example's training run on both routes")
+    phase_learning(dev, smi)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()}}.items()
@@ -2625,8 +3200,10 @@ def main() -> int:
         rep.entry["launches"] = launches[key]
         rep.entry["launches_per_forward"] = launches[key] / forwards[key]
     print(smi)
+    extra = [*bf16_reports.values(), *past_reports.values(), bitplane_report]
     print(json.dumps({"kernels": [reports[k].entry for k in sorted(reports)]
-                      + [lm_reports[k].entry for k in sorted(lm_reports)]}))
+                      + [lm_reports[k].entry for k in sorted(lm_reports)]
+                      + [rep.entry for rep in extra]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -70,14 +70,38 @@ def _step(v, i_t, *, theta, lam, reset, surrogate):
 
 def lif_serial(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,
                lam: float = LAM_DEFAULT, reset: str = "hard",
+               v0: torch.Tensor | None = None,
                surrogate: str = "boxcar") -> torch.Tensor:
-    """Serial tick-batching LIF. ``drive``: (T, ...). Returns spikes (T, ...)."""
-    v = torch.zeros_like(drive[0])
+    """Serial tick-batching LIF. ``drive``: (T, ...). Returns spikes (T, ...).
+    ``v0``: the membrane before the first step (default zeros)."""
+    v = torch.zeros_like(drive[0]) if v0 is None else v0
     spikes = []
     for i_t in drive:
         v, s = _step(v, i_t, theta=theta, lam=lam, reset=reset, surrogate=surrogate)
         spikes.append(s)
-    return torch.stack(spikes)
+    return _stack(spikes, drive)
+
+
+def _stack(spikes, drive):
+    """The steps' spikes as (T, ...); an empty (0, ...) train for T = 0, as a
+    scan over no steps gives."""
+    return torch.stack(spikes) if spikes else drive.new_zeros(drive.shape)
+
+
+def lif_serial_with_state(drive: torch.Tensor, v0: torch.Tensor, *,
+                          theta: float = THETA_DEFAULT, lam: float = LAM_DEFAULT,
+                          reset: str = "hard") -> tuple[torch.Tensor, torch.Tensor]:
+    """Like :func:`lif_serial` from the membrane ``v0``, but also returns the
+    final membrane (for serving): ``(spikes (T, ...), v_T)``.  A train split
+    at any step and resumed from the returned membrane gives the same spikes
+    and membrane.  Forward only (the spike is a plain Heaviside)."""
+    v, spikes = v0, []
+    for i_t in drive:
+        u = lam * v + i_t
+        s = (u >= theta).to(drive.dtype)
+        v = u * (1.0 - s) if reset == "hard" else u - theta * s
+        spikes.append(s)
+    return _stack(spikes, drive), v
 
 
 def lif_parallel(drive: torch.Tensor, *, theta: float = THETA_DEFAULT,

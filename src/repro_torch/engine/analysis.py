@@ -1,6 +1,6 @@
-"""Measured spike sparsity of a plan's forward, and the spiking LM's traffic
-and serving pricers (the parts of the JAX package's ``engine/analysis.py``
-that the sparse datapath and LM serving need).
+"""Measured spike sparsity of a plan's forward, the spiking LM's traffic
+and serving pricers, and the graph checks (the parts of the JAX package's
+``engine/analysis.py`` that the port's paths need).
 
 :func:`sparsity_report` runs a packed plan once under
 ``engine.execute.capture_spikes`` and reports, per LIF tap and aggregated,
@@ -13,14 +13,28 @@ service (decode-state bytes per slot, the slots a memory budget buys, the
 warm-shape bill, chunked-prefill residency).  All four are analytic: they
 count bytes from shapes and run nothing.  The port serves on one device, so
 the reference's ``mesh=`` pricing raises here.
+
+The graph checks (:func:`op_histogram`, :func:`op_dims`, :func:`bn_op_count`,
+:func:`rmsnorm_op_count`) verify a plan's structural promises -- no BatchNorm
+in the folded vision graph, no RMSNorm layer in the LM plan, decode steps and
+prefill chunks flat in the prompt length -- on the graph of one real call.
+The JAX package walks the jaxpr, the trace of one call at concrete shapes;
+here :class:`OpRecorder` records one call as it runs (on the CPU or on the
+card): every aten op with its operand and result shapes, every
+``record_function`` region entered, and every hand-kernel launch, which the
+kernel wrappers report themselves (``kernels._build.report_launch``: a
+ctypes launch never reaches the dispatcher).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import packing
 
@@ -238,3 +252,107 @@ def prefill_chunk_report(plan, *, seq_len: int, chunk: int, batch: int = 1) -> d
         "chunked_plane_bytes": plane * chunk + entry.state_bytes(batch),
         "plane_reduction": plane * seq_len / (plane * chunk + entry.state_bytes(batch)),
     }
+
+
+# -- graph checks on a recorded call ---------------------------------------------
+
+# BatchNorm's signature in the vision graph: core/nn.py::bn_apply normalises
+# by torch.rsqrt in both modes, as the JAX package's _BN_PRIMS reads it.
+# VISION ONLY: LM graphs use rsqrt legitimately (the folded units' normaliser
+# and the head), so they are checked with rmsnorm_op_count.
+_BN_OPS = ("aten.rsqrt.",)
+_BN_NAMES = ("batch_norm",)
+# models/layers.py::rmsnorm_apply runs inside a record_function region of
+# this name: an RMSNorm LAYER is counted by name, as the JAX package counts
+# its named pjit (the folded units' rsqrt epilogue is not such a layer).
+RMSNORM_REGION = "rmsnorm_apply"
+_REGION_OP = "profiler._record_function_enter_new"
+
+
+def _tensors(tree):
+    """The tensors of nested dicts, tuples, lists and dataclasses."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+
+
+class OpRecorder(TorchDispatchMode):
+    """Records one call as it runs: ``ops`` lists ``(name, shapes)`` per
+    operation in order -- ``aten.<op>.<overload>`` with the shapes of its
+    tensor operands and results, ``region.<name>`` for a ``record_function``
+    region entered, and ``kernel.<entry point>`` with its operands' shapes
+    for each hand-kernel launch (:meth:`record_launch`, called by the
+    kernel wrappers)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: list[tuple[str, tuple]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = str(func)
+        if name.startswith(_REGION_OP):
+            self.ops.append((f"region.{args[0]}", ()))
+        else:
+            shapes = tuple(tuple(x.shape) for x in _tensors((args, kwargs or {}, out)))
+            self.ops.append((name, shapes))
+        return out
+
+    def record_launch(self, name: str, operands) -> None:
+        self.ops.append((f"kernel.{name}", tuple(tuple(x.shape) for x in operands)))
+
+
+def record(fn, *args, **kwargs) -> OpRecorder:
+    """Run ``fn(*args, **kwargs)`` once under an :class:`OpRecorder` (no
+    autograd graph is built) and return the recorder."""
+    with torch.no_grad(), OpRecorder() as rec:
+        fn(*args, **kwargs)
+    return rec
+
+
+def op_histogram(fn, *args, **kwargs) -> Counter:
+    """Operation name -> count over one recorded call of ``fn`` (aten
+    overloads, regions, hand-kernel entry points; see :class:`OpRecorder`)."""
+    return Counter(name for name, _ in record(fn, *args, **kwargs).ops)
+
+
+def op_dims(fn, *args, **kwargs) -> set:
+    """Every axis length of every tensor in one recorded call of ``fn``:
+    its arguments, and every operation's operands and results, hand-kernel
+    launches included (the counterpart of the JAX package's ``jaxpr_dims``).
+
+    The falsifiable form of a "cost is flat in S" claim: record the call and
+    assert the sequence length S is NOT in this set -- a step that re-scored
+    an S-token prefix, or carried the prompt in its state, would hold an
+    S-sized axis somewhere."""
+    dims = {d for x in _tensors((args, kwargs)) for d in x.shape}
+    for _, shapes in record(fn, *args, **kwargs).ops:
+        for shape in shapes:
+            dims.update(shape)
+    return dims
+
+
+def bn_op_count(fn, *args, **kwargs) -> int:
+    """Number of BatchNorm-signature operations (``aten.rsqrt``, any
+    ``batch_norm`` op) in one recorded call of ``fn``: 0 for a folded vision
+    plan.  Vision graphs only -- LM graphs use rsqrt in their normalisers;
+    count those with :func:`rmsnorm_op_count`."""
+    hist = op_histogram(fn, *args, **kwargs)
+    return sum(n for name, n in hist.items()
+               if name.startswith(_BN_OPS) or any(b in name for b in _BN_NAMES))
+
+
+def rmsnorm_op_count(fn, *args, **kwargs) -> int:
+    """Number of RMSNorm layer applications (``models.layers.rmsnorm_apply``,
+    counted by its named region) in one recorded call of ``fn``: 0 for a
+    folded LM plan, whose gains live in the GEMM weights and whose head
+    normalises inline (``rmsnorm_raw``)."""
+    return op_histogram(fn, *args, **kwargs)[f"region.{RMSNORM_REGION}"]

@@ -26,6 +26,7 @@ import subprocess
 from pathlib import Path
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
@@ -161,7 +162,8 @@ def check_operands(what: str, *operands: tuple[torch.Tensor, torch.dtype]) -> No
     """The kernels take contiguous tensors on one CUDA device, each of the
     dtype paired with it: ``check_operands(what, (x, torch.int32), (w,
     torch.float32))``.  Packed spike words are int32 (the uint32 bit
-    pattern); everything else is float32."""
+    pattern); everything else is float32, but for the LIF kernels' bf16
+    drives."""
     dev = operands[0][0].device
     for x, dtype in operands:
         if x.device != dev or x.device.type != "cuda":
@@ -176,3 +178,18 @@ def check_operands(what: str, *operands: tuple[torch.Tensor, torch.dtype]) -> No
 def stream(device: torch.device) -> int:
     """Raw handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def report_launch(name: str, *operands) -> None:
+    """Hand the entry point ``name`` and its operands (tensors; None is
+    skipped) to an active graph recorder
+    (:class:`repro_torch.engine.analysis.OpRecorder`, a
+    ``TorchDispatchMode``): a kernel launched through ctypes never reaches
+    PyTorch's dispatcher, so the recorder would not see it otherwise.  With
+    no dispatch mode active it costs one C call."""
+    if not torch._C._len_torch_dispatch_stack():
+        return
+    for mode in _get_current_dispatch_mode_stack():
+        record = getattr(mode, "record_launch", None)
+        if record is not None:
+            record(name, tuple(x for x in operands if x is not None))

@@ -12,6 +12,11 @@ tail themselves, so nothing is padded.  The packed forms can also return the
 occupancy map of their words (``occupancy=True``), counted in the pack
 kernel's epilogue.
 
+The drive is float32 or bfloat16 (:data:`DRIVE_DTYPES`), as the JAX
+package's kernels take either: a bf16 chain rounds every product and sum to
+bf16, the dense forms return spikes (and take a skip) in the drive's dtype,
+and the backward returns the cotangent in it.
+
 :func:`lif_parallel_op` is differentiable on both devices: :class:`_LifOp`
 runs :func:`lif_parallel_fwd` forward and :func:`lif_parallel_bwd` backward
 (the JAX package's ``_lif_op`` custom VJP).  The fused-IAND and packed forms
@@ -31,19 +36,22 @@ from repro_torch.kernels.lif_parallel.ref import (
     lif_pack_ref, lif_parallel_ref, lif_parallel_ref_grad)
 
 SURROGATE_WIDTH = 1.0   # the backward kernel's boxcar, as the JAX package's _SURR_WIDTH
+DRIVE_DTYPES = (torch.float32, torch.bfloat16)
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _PACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+                  ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                  ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 
 
 def _check_args(what, drive, skip, skip_rows, chain_len, reset):
+    if drive.dtype not in DRIVE_DTYPES:
+        raise TypeError(f"{what}: the drive must be float32 or bfloat16, got {drive.dtype}")
     t_total, n = drive.shape
     if reset not in ("hard", "soft"):
         raise ValueError(f"unknown reset mode: {reset}")
@@ -58,7 +66,7 @@ def _launch(name, argtypes, drive, skip, skip_dtype, out, chain_len, lam, theta,
             occ=None):
     """Launch the C entry point ``name`` of lif_parallel.cu into ``out``.
     ``occ`` is the packed form's (map, row width) pair (map None: no map)."""
-    operands = [(drive, torch.float32)] + ([] if skip is None else [(skip, skip_dtype)])
+    operands = [(drive, drive.dtype)] + ([] if skip is None else [(skip, skip_dtype)])
     _build.check_operands(name, *operands)
     if out.numel() == 0:
         return
@@ -70,6 +78,7 @@ def _launch(name, argtypes, drive, skip, skip_dtype, out, chain_len, lam, theta,
     if occ is not None:
         pointers.append(ptr(occ[0]))
         sizes.append(occ[1])
+    sizes.append(int(drive.dtype == torch.bfloat16))
     with torch.cuda.device(drive.device):
         err = fn(*pointers, *sizes, _build.stream(drive.device))
     _build.check(err, "lif_parallel", name)
@@ -78,16 +87,18 @@ def _launch(name, argtypes, drive, skip, skip_dtype, out, chain_len, lam, theta,
 def lif_parallel_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
                      theta: float, reset: str,
                      skip: torch.Tensor | None = None) -> torch.Tensor:
-    """drive: (T, N) -> spikes (T, N), or IAND(skip, spikes) if skip is given."""
+    """drive: (T, N) f32 or bf16 -> spikes (T, N) in the drive's dtype, or
+    IAND(skip, spikes) if skip (the drive's dtype) is given."""
     _check_args("lif_parallel_fwd", drive, skip, drive.shape[0], chain_len, reset)
     if drive.device.type == "cpu":
         return lif_parallel_ref(drive, chain_len=chain_len, lam=lam, theta=theta,
                                 reset=reset, skip=skip)
     out = torch.empty_like(drive)
-    _launch("lif_parallel_fwd", _ARGTYPES, drive, skip, torch.float32, out, chain_len,
+    _launch("lif_parallel_fwd", _ARGTYPES, drive, skip, drive.dtype, out, chain_len,
             lam, theta, reset)
     if out.numel():
         lif_parallel_fwd.launches += 1
+        _build.report_launch("lif_parallel_fwd", drive, skip, out)
     return out
 
 
@@ -98,7 +109,7 @@ def lif_parallel_pack_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
                           theta: float, reset: str,
                           skip_words: torch.Tensor | None = None,
                           occ_cols: int = 0):
-    """drive: (T, N) f32 -> spike words (ceil(T/32), N) int32, bit t % 32 of
+    """drive: (T, N) f32 or bf16 -> spike words (ceil(T/32), N) int32, bit t % 32 of
     word t // 32; with ``skip_words`` (same shape as the result) the bitwise
     IAND ``skip_words & ~words``.  With ``occ_cols`` = D > 0 (N a multiple of
     D) it returns ``(words, occ)``: the occupancy map of the final words read
@@ -123,6 +134,7 @@ def lif_parallel_pack_fwd(drive: torch.Tensor, *, chain_len: int, lam: float,
             out, chain_len, lam, theta, reset, occ=(occ, occ_cols))
     if out.numel():
         lif_parallel_pack_fwd.launches += 1
+        _build.report_launch("lif_parallel_pack_fwd", drive, skip_words, out, occ)
     return out if occ is None else (out, occ)
 
 
@@ -132,8 +144,9 @@ lif_parallel_pack_fwd.launches = 0
 def lif_parallel_bwd(drive: torch.Tensor, g: torch.Tensor, *, chain_len: int,
                      lam: float, theta: float, reset: str,
                      width: float = SURROGATE_WIDTH) -> torch.Tensor:
-    """drive, g: (T, N) -> dx (T, N), the VJP of :func:`lif_parallel_fwd`
-    with respect to the drive under the boxcar surrogate of ``width``."""
+    """drive, g: (T, N), f32 or bf16 alike -> dx (T, N) in their dtype, the
+    VJP of :func:`lif_parallel_fwd` with respect to the drive under the
+    boxcar surrogate of ``width``."""
     _check_args("lif_parallel_bwd", drive, None, 0, chain_len, reset)
     if g.shape != drive.shape:
         raise ValueError(f"lif_parallel_bwd: cotangent shape {tuple(g.shape)} != "
@@ -144,7 +157,7 @@ def lif_parallel_bwd(drive: torch.Tensor, g: torch.Tensor, *, chain_len: int,
                              f"not {width}")
         return lif_parallel_ref_grad(drive, g, chain_len=chain_len, lam=lam,
                                      theta=theta, reset=reset)
-    _build.check_operands("lif_parallel_bwd", (drive, torch.float32), (g, torch.float32))
+    _build.check_operands("lif_parallel_bwd", (drive, drive.dtype), (g, drive.dtype))
     dx = torch.empty_like(drive)
     if dx.numel() == 0:
         return dx
@@ -152,9 +165,11 @@ def lif_parallel_bwd(drive: torch.Tensor, g: torch.Tensor, *, chain_len: int,
     t_total, n = drive.shape
     with torch.cuda.device(drive.device):
         err = fn(drive.data_ptr(), g.data_ptr(), dx.data_ptr(), t_total, n, chain_len,
-                 lam, theta, int(reset == "soft"), width, _build.stream(drive.device))
+                 lam, theta, int(reset == "soft"), width,
+                 int(drive.dtype == torch.bfloat16), _build.stream(drive.device))
     _build.check(err, "lif_parallel", "lif_parallel_bwd")
     lif_parallel_bwd.launches += 1
+    _build.report_launch("lif_parallel_bwd", drive, g, dx)
     return dx
 
 
@@ -231,7 +246,7 @@ def lif_pack_op(drive: torch.Tensor, *, chain_len: int | None = None,
                 lam: float = 0.25, theta: float = 0.5, reset: str = "hard",
                 occupancy: bool = False):
     """LIF whose kernel epilogue packs the T-step train into words.
-    drive: (T, ...) f32 -> words (ceil(T/32), ...) int32
+    drive: (T, ...) f32 or bf16 -> words (ceil(T/32), ...) int32
     (``repro_torch.core.packing`` layout).  ``occupancy=True`` also returns
     the occupancy map of the words (``(words, occ)``).  Forward-only."""
     _forward_only("lif_pack_op", drive)
@@ -247,7 +262,7 @@ def lif_iand_pack_op(drive: torch.Tensor, skip_words: torch.Tensor, *,
                      chain_len: int | None = None, lam: float = 0.25,
                      theta: float = 0.5, reset: str = "hard", occupancy: bool = False):
     """Fused LIF+IAND, packed in and packed out: the residual is the bitwise
-    ``skip_words & ~words`` inside the kernel epilogue.  drive: (T, ...) f32,
+    ``skip_words & ~words`` inside the kernel epilogue.  drive: (T, ...) f32 or bf16,
     skip_words: (ceil(T/32), ...) int32 -> words of the same shape.
     ``occupancy=True`` also returns the map of the post-IAND words.
     Forward-only."""

@@ -76,6 +76,7 @@ def spike_matmul_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                  _build.stream(x.device))
     _build.check(err, "spike_matmul", "spike_matmul_fwd")
     spike_matmul_fwd.launches += 1
+    _build.report_launch("spike_matmul_fwd", x, w, out)
     return out
 
 
@@ -108,6 +109,7 @@ def packed_spike_matmul_fwd(xw: torch.Tensor, w: torch.Tensor, *, t: int) -> tor
                  _build.stream(xw.device))
     _build.check(err, "spike_matmul", "packed_spike_matmul_fwd")
     packed_spike_matmul_fwd.launches += 1
+    _build.report_launch("packed_spike_matmul_fwd", xw, w, out)
     return out
 
 
@@ -153,6 +155,7 @@ def sparse_packed_spike_matmul_fwd(xw: torch.Tensor, w: torch.Tensor, tiles: tor
                  t, _build.stream(xw.device))
     _build.check(err, "spike_matmul", "sparse_packed_spike_matmul_fwd")
     sparse_packed_spike_matmul_fwd.launches += 1
+    _build.report_launch("sparse_packed_spike_matmul_fwd", xw, w, tiles, out)
     return out
 
 

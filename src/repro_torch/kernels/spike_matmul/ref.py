@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import nn as cnn
 from repro_torch.core.packing import OCC_TILE
 from repro_torch.core.spiking_attention import _bitplanes
 
@@ -32,3 +33,16 @@ def sparse_packed_spike_matmul_ref(xw: torch.Tensor, w: torch.Tensor, tiles: tor
     alive = (tiles != 0).repeat_interleave(OCC_ROWS, 0)[:m]
     alive = alive.repeat_interleave(OCC_TILE, 1)[:, :k]
     return packed_spike_matmul_ref(torch.where(alive, xw, 0), w, t=t)
+
+
+def conv1x1_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """1x1 conv oracle: x (N, H, W, Cin), w (Cin, Cout) -> (N, H, W, Cout) in
+    f32."""
+    return torch.einsum("nhwc,cd->nhwd", x.float(), w.float())
+
+
+def conv3x3_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 conv oracle: x (N, H, W, Cin), w (3, 3, Cin, Cout) HWIO, SAME
+    padding, stride 1 -> (N, H, W, Cout), a direct f32 convolution (cuDNN
+    with TF32 off on the card: ``core.nn.conv_apply``)."""
+    return cnn.conv_apply({"w": w.float()}, x.float())

@@ -25,16 +25,24 @@
 // each carry a spike; a dead plane's output is zero.
 //
 // Operand contract and exactness.  q, k and v are spikes in {0, 1} (every
-// caller passes LIF outputs), D <= 512 and M*D < 2^24.  Then {0, 1} is exact
-// in f16; a score q.k is an integer <= D <= 512, exact in f16 (integers up to
-// 2048 are); every partial sum of S v is an integer <= M*D, exact in an f32
-// accumulator whatever the order of the tensor cores' additions; and the
-// final multiply by scale rounds once, as the plain version's does.  So the
-// f16 products with f32 accumulation below equal the plain f32 version bit for
-// bit.  Outside that contract (non-binary operands) the f16 rounding of the
-// operands and scores shows, and the result is not the plain version's.  The
-// shape half of the contract is checked: the entry points return
-// cudaErrorInvalidValue for D > 512 or M*D >= 2^24 (the Python wrappers raise
+// caller passes LIF outputs) and D <= 512.  Then {0, 1} is exact in f16; a
+// score q.k is an integer <= D <= 512, exact in f16 (integers up to 2048
+// are).  The keys are summed in ranges of R keys (key_range: R = M while
+// M*D < 2^24, else the largest multiple of 64 with R*D < 2^24), ascending:
+// every partial sum of S v within a range is an integer <= R*D < 2^24, exact
+// in an f32 accumulator whatever the order of the tensor cores' additions;
+// each range's partial, from zero, is then added into the output (held in
+// the output tensor between ranges, unscaled) with one f32 rounding; and the
+// final multiply by scale rounds once.  The plain version sums the same
+// ranges in the same order, so the f16 products with f32 accumulation below
+// equal it bit for bit at any M (below the 2^24 edge there is one range and
+// no rounding at all).  Each kernel has a last template flag kSplit: the
+// range loop's instantiation, launched only past the edge, and the one-range
+// one, whose code and registers are those of a kernel without ranges.  The causal mask reads absolute key positions in
+// every range.  Outside that contract (non-binary operands) the f16 rounding
+// of the operands and scores shows, and the result is not the plain
+// version's.  The shape half of the contract is checked: the entry points
+// return cudaErrorInvalidValue for D > 512 (the Python wrappers raise
 // ValueError first).
 //
 // Bound on this card: device bytes.  With binary operands the two products
@@ -124,12 +132,20 @@
 namespace {
 
 constexpr int kMaxD = 512;
-constexpr long long kMaxSum = 1LL << 24;  // M * D stays below: sums of S v exact in f32
+constexpr long long kMaxSum = 1LL << 24;  // R * D stays below: sums of S v exact in f32
 
 // ---- tensor-core kernels ----------------------------------------------------
 
 constexpr int kPackedWarps = 4;  // warps of 16 query rows per block of the packed kernel
-constexpr int kKeys = 64;  // keys per staged tile
+constexpr int kKeys = 64;  // keys per staged tile (a multiple of the wide kernel's)
+
+// Keys per range of the S v sum (the header's exactness argument): all M
+// while M * D < 2^24, else the largest multiple of kKeys whose sums stay
+// below 2^24.  kernels/spiking_attention/ref.py::key_range is the same.
+int key_range(int m, int d) {
+  if (static_cast<long long>(m) * d < kMaxSum) return m;
+  return static_cast<int>((kMaxSum - 1) / d / kKeys * kKeys);
+}
 
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
@@ -296,11 +312,14 @@ __device__ __forceinline__ void stage_plane_f16(__half* dst, const uint32_t* src
 }
 
 // One warp's 16 x Dp output tile, times scale, into og (n, d); pair: float2
-// stores (d even, og 8-byte aligned).
-// Features from f0 on (a slab of the wide kernel).
+// loads and stores (d even, og 8-byte aligned).  Features from f0 on (a slab
+// of the wide kernel).  add: the tile is first added to what og holds, the
+// unscaled sum of the earlier key ranges (each thread reads back only what it
+// wrote itself).
 template <int NT>
 __device__ __forceinline__ void store_tile(float* og, const float (&o)[NT][4], int row0, int n,
-                                           int d, float scale, bool pair, int lane, int f0 = 0) {
+                                           int d, float scale, bool pair, int lane, int f0,
+                                           bool add) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int f = f0 + 8 * j + 2 * (lane & 3);
@@ -309,7 +328,22 @@ __device__ __forceinline__ void store_tile(float* og, const float (&o)[NT][4], i
       const int row = row0 + (lane >> 2) + 8 * h;
       if (row >= n || f >= d) continue;
       float* p = og + static_cast<long long>(row) * d + f;
-      const float x0 = o[j][2 * h] * scale, x1 = o[j][2 * h + 1] * scale;
+      float x0 = o[j][2 * h], x1 = o[j][2 * h + 1];
+      if (add) {
+        float y0, y1 = 0.0f;
+        if (pair) {
+          const float2 y = load2(p);
+          y0 = y.x;
+          y1 = y.y;
+        } else {
+          y0 = p[0];
+          if (f + 1 < d) y1 = p[1];
+        }
+        x0 = __fadd_rn(y0, x0);
+        x1 = __fadd_rn(y1, x1);
+      }
+      x0 = __fmul_rn(x0, scale);
+      x1 = __fmul_rn(x1, scale);
       if (pair) {
         *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
       } else {
@@ -320,12 +354,13 @@ __device__ __forceinline__ void store_tile(float* og, const float (&o)[NT][4], i
   }
 }
 
-// WARPS warps of 16 query rows each per block.
-template <int DP, int WARPS>
+// WARPS warps of 16 query rows each per block.  kSplit: the keys are summed
+// in ranges of `range` (M * D >= 2^24); otherwise in one, and `range` is unused.
+template <int DP, int WARPS, bool kSplit>
 __global__ void __launch_bounds__(32 * WARPS)
 ssa_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, int n, int m, int d,
-              float scale, int causal, int vec, int pair) {
+              int range, float scale, int causal, int vec, int pair) {
   constexpr int LD = DP + 8;   // halfs: 16-byte row pad, conflict-free ldmatrix
   constexpr int KS = DP / 16;  // k16 steps of Q K^T
   constexpr int NT = DP / 8;   // n8 tiles of O
@@ -356,43 +391,48 @@ ssa_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float o[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-
   const int kv_end = causal ? min(m, q0 + 16 * WARPS) : m;
   const int warp_end = row0 >= n ? 0 : causal ? min(kv_end, row0 + 16) : kv_end;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kKeys) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_f16<DP, LD, 32 * WARPS>(ks, kg, kv0, m, d, vec);
-    stage_f16<DP, LD, 32 * WARPS>(vs, vg, kv0, m, d, vec);
-    __syncthreads();
+  for (int r0 = 0;; r0 += range) {  // key ranges, ascending: exact sums in each
+    const int r1 = kSplit ? min(kv_end, r0 + range) : kv_end;
+    float o[NT][4];
 #pragma unroll
-    for (int c = 0; c < kKeys / 16; ++c) {
-      const int key0 = kv0 + 16 * c;
-      if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
-      float s[2][4] = {};
+    for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+    for (int kv0 = r0; kv0 < r1; kv0 += kKeys) {
+      __syncthreads();  // every warp is done with the previous tile
+      stage_f16<DP, LD, 32 * WARPS>(ks, kg, kv0, m, d, vec);
+      stage_f16<DP, LD, 32 * WARPS>(vs, vg, kv0, m, d, vec);
+      __syncthreads();
 #pragma unroll
-      for (int st = 0; st < KS; ++st) {
-        uint32_t b[4];  // keys 16c + (0..7 | 8..15) x features 16st + (0..7 | 8..15)
-        ldsm_x4(b, ks + (16 * c + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * st +
-                       8 * ((lane >> 3) & 1));
-        mma_16816(s[0], qf[st], b[0], b[1]);
-        mma_16816(s[1], qf[st], b[2], b[3]);
-      }
-      uint32_t a[4];
-      scores_to_a(a, s, causal, row0, key0, lane);
+      for (int c = 0; c < kKeys / 16; ++c) {
+        const int key0 = kv0 + 16 * c;
+        if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
+        float s[2][4] = {};
 #pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t b[4];  // V rows 16c + (0..7 | 8..15), features 16j + (0..7 | 8..15)
-        ldsm_x4_trans(b, vs + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 16 * j +
-                             8 * (lane >> 4));
-        mma_16816(o[2 * j], a, b[0], b[1]);
-        mma_16816(o[2 * j + 1], a, b[2], b[3]);
+        for (int st = 0; st < KS; ++st) {
+          uint32_t b[4];  // keys 16c + (0..7 | 8..15) x features 16st + (0..7 | 8..15)
+          ldsm_x4(b, ks + (16 * c + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * st +
+                         8 * ((lane >> 3) & 1));
+          mma_16816(s[0], qf[st], b[0], b[1]);
+          mma_16816(s[1], qf[st], b[2], b[3]);
+        }
+        uint32_t a[4];
+        scores_to_a(a, s, causal, row0, key0, lane);
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          uint32_t b[4];  // V rows 16c + (0..7 | 8..15), features 16j + (0..7 | 8..15)
+          ldsm_x4_trans(b, vs + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 16 * j +
+                               8 * (lane >> 4));
+          mma_16816(o[2 * j], a, b[0], b[1]);
+          mma_16816(o[2 * j + 1], a, b[2], b[3]);
+        }
       }
     }
+    const bool last = !kSplit || r1 >= kv_end;
+    store_tile<NT>(out + g * n * d, o, row0, n, d, last ? scale : 1.0f, pair, lane, 0,
+                   kSplit && r0 > 0);
+    if (last) break;
   }
-  store_tile<NT>(out + g * n * d, o, row0, n, d, scale, pair, lane);
 }
 
 template <int DP>
@@ -408,12 +448,12 @@ __host__ __device__ constexpr int packed_tc_smem_bytes() {
 // kPackedWarps warps of 16 query rows each and P planes (P divides 32) per
 // block.  kGated: live holds the (G, T) plane liveness, and dead planes are
 // skipped; otherwise live is unused and every plane is computed.
-template <int DP, int P, bool kGated>
+template <int DP, int P, bool kGated, bool kSplit>
 __global__ void __launch_bounds__(32 * kPackedWarps)
 packed_ssa_tc_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict__ kw,
                      const uint32_t* __restrict__ vw, const int* __restrict__ live,
                      float* __restrict__ out, int g_total, int n, int m, int d, int t_total,
-                     float scale, int causal, int vec, int pair) {
+                     int range, float scale, int causal, int vec, int pair) {
   constexpr int LDK = DP + 8;  // words: 64-bit reads of rows g at 8-bank steps
   constexpr int LDV = DP + 4;  // words: 32-bit reads of rows 2*t4 (+1) at 8-bank steps
   constexpr int KS = DP / 16;
@@ -465,67 +505,71 @@ packed_ssa_tc_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict
     }
   }
 
-  float o[P][NT][4];
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) o[p][j][0] = o[p][j][1] = o[p][j][2] = o[p][j][3] = 0.0f;
-
   const int kv_end = causal ? min(m, q0 + 16 * WARPS) : m;
   const int warp_end = row0 >= n ? 0 : causal ? min(kv_end, row0 + 16) : kv_end;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kKeys) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_words<DP, LDK, 32 * WARPS>(ks, kg, kv0, m, d, vec);
-    stage_words<DP, LDV, 32 * WARPS>(vs, vg, kv0, m, d, vec);
-    __syncthreads();
+  for (int r0 = 0;; r0 += range) {  // key ranges, ascending: exact sums in each
+    const int r1 = kSplit ? min(kv_end, r0 + range) : kv_end;
+    float o[P][NT][4];
 #pragma unroll
-    for (int c = 0; c < kKeys / 16; ++c) {
-      const int key0 = kv0 + 16 * c;
-      if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
-      float s[P][2][4] = {};
+    for (int p = 0; p < P; ++p)
 #pragma unroll
-      for (int st = 0; st < KS; ++st) {
-        uint32_t kb[2][2];  // n8 tile j (keys 16c + 8j + g), b0/b1 (features +0 / +8)
+      for (int j = 0; j < NT; ++j) o[p][j][0] = o[p][j][1] = o[p][j][2] = o[p][j][3] = 0.0f;
+    for (int kv0 = r0; kv0 < r1; kv0 += kKeys) {
+      __syncthreads();  // every warp is done with the previous tile
+      stage_words<DP, LDK, 32 * WARPS>(ks, kg, kv0, m, d, vec);
+      stage_words<DP, LDV, 32 * WARPS>(vs, vg, kv0, m, d, vec);
+      __syncthreads();
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+      for (int c = 0; c < kKeys / 16; ++c) {
+        const int key0 = kv0 + 16 * c;
+        if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
+        float s[P][2][4] = {};
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint2 w = *reinterpret_cast<const uint2*>(
-                ks + (16 * c + 8 * j + gid) * LDK + 16 * st + 8 * h + 2 * t4);
-            kb[j][h] = merge_words(w.x, w.y, bit0);
+        for (int st = 0; st < KS; ++st) {
+          uint32_t kb[2][2];  // n8 tile j (keys 16c + 8j + g), b0/b1 (features +0 / +8)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint2 w = *reinterpret_cast<const uint2*>(
+                  ks + (16 * c + 8 * j + gid) * LDK + 16 * st + 8 * h + 2 * t4);
+              kb[j][h] = merge_words(w.x, w.y, bit0);
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            if (!((live_mask >> p) & 1u)) continue;
+            mma_16816(s[p][0], qf[p][st], plane_half2(kb[0][0], p), plane_half2(kb[0][1], p));
+            mma_16816(s[p][1], qf[p][st], plane_half2(kb[1][0], p), plane_half2(kb[1][1], p));
           }
         }
+        uint32_t a[P][4];
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          if (!((live_mask >> p) & 1u)) continue;
-          mma_16816(s[p][0], qf[p][st], plane_half2(kb[0][0], p), plane_half2(kb[0][1], p));
-          mma_16816(s[p][1], qf[p][st], plane_half2(kb[1][0], p), plane_half2(kb[1][1], p));
-        }
-      }
-      uint32_t a[P][4];
+        for (int p = 0; p < P; ++p) scores_to_a(a[p], s[p], causal, row0, key0, lane);
 #pragma unroll
-      for (int p = 0; p < P; ++p) scores_to_a(a[p], s[p], causal, row0, key0, lane);
+        for (int j = 0; j < NT; ++j) {
+          uint32_t vb[2];  // b0/b1: keys 16c + 2*t4 (+1), and + 8; feature 8j + g
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t vb[2];  // b0/b1: keys 16c + 2*t4 (+1), and + 8; feature 8j + g
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t* r = vs + (16 * c + 8 * h + 2 * t4) * LDV + 8 * j + gid;
+            vb[h] = merge_words(r[0], r[LDV], bit0);
+          }
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t* r = vs + (16 * c + 8 * h + 2 * t4) * LDV + 8 * j + gid;
-          vb[h] = merge_words(r[0], r[LDV], bit0);
-        }
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          if (!((live_mask >> p) & 1u)) continue;
-          mma_16816(o[p][j], a[p], plane_half2(vb[0], p), plane_half2(vb[1], p));
+          for (int p = 0; p < P; ++p) {
+            if (!((live_mask >> p) & 1u)) continue;
+            mma_16816(o[p][j], a[p], plane_half2(vb[0], p), plane_half2(vb[1], p));
+          }
         }
       }
     }
-  }
+    const bool last = !kSplit || r1 >= kv_end;
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
-    if (p0 + p >= t_total) break;
-    store_tile<NT>(out + (static_cast<long long>(p0 + p) * g_total + g) * n * d, o[p], row0, n,
-                   d, scale, pair, lane);
+    for (int p = 0; p < P; ++p) {
+      if (p0 + p >= t_total) break;
+      store_tile<NT>(out + (static_cast<long long>(p0 + p) * g_total + g) * n * d, o[p], row0, n,
+                     d, last ? scale : 1.0f, pair, lane, 0, kSplit && r0 > 0);
+    }
+    if (last) break;
   }
 }
 
@@ -565,12 +609,12 @@ __device__ __forceinline__ void stage_operand(__half* dst, const void* src, long
 // kGated a dead plane's slab is written as zeros.  Dense: plane 0, f32 spikes
 // staged as f16.  Q, K and V go through shared memory as f16 rows padded by 8
 // halfs, and every fragment comes from ldmatrix (.trans for V).
-template <int DQ, bool kPacked, bool kGated>
+template <int DQ, bool kPacked, bool kGated, bool kSplit>
 __global__ void __launch_bounds__(32 * kWideWarps)
 ssa_wide_tc_kernel(const void* __restrict__ qv, const void* __restrict__ kv,
                    const void* __restrict__ vv, const int* __restrict__ live,
                    float* __restrict__ out, int g_total, int n, int m, int d, int t_total,
-                   int slabs, float scale, int causal, int vec, int pair) {
+                   int slabs, int range, float scale, int causal, int vec, int pair) {
   constexpr int LDQ = DQ + 8;      // halfs, q and k rows
   constexpr int LDV = kSlab + 8;   // halfs, v rows
   constexpr int KS = DQ / 16;
@@ -600,44 +644,48 @@ ssa_wide_tc_kernel(const void* __restrict__ qv, const void* __restrict__ kv,
   const int bit = plane & 31;
   stage_operand<kPacked, DQ, LDQ, THREADS, ROWS>(qs, qv, base, q0, n, d, vec, 0, bit);
 
-  float o[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-
   const int kv_end = causal ? min(m, q0 + ROWS) : m;
   const int warp_end = row0 >= n ? 0 : causal ? min(kv_end, row0 + 16) : kv_end;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kWideKeys) {
-    __syncthreads();  // q staged; every warp is done with the previous tile
-    stage_operand<kPacked, DQ, LDQ, THREADS, kWideKeys>(ks, kv, base, kv0, m, d, vec, 0, bit);
-    stage_operand<kPacked, kSlab, LDV, THREADS, kWideKeys>(vs, vv, base, kv0, m, d, vec, f0, bit);
-    __syncthreads();
+  for (int r0 = 0;; r0 += range) {  // key ranges, ascending: exact sums in each
+    const int r1 = kSplit ? min(kv_end, r0 + range) : kv_end;
+    float o[NT][4];
 #pragma unroll
-    for (int c = 0; c < kWideKeys / 16; ++c) {
-      const int key0 = kv0 + 16 * c;
-      if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
-      float s[2][4] = {};
+    for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+    for (int kv0 = r0; kv0 < r1; kv0 += kWideKeys) {
+      __syncthreads();  // q staged; every warp is done with the previous tile
+      stage_operand<kPacked, DQ, LDQ, THREADS, kWideKeys>(ks, kv, base, kv0, m, d, vec, 0, bit);
+      stage_operand<kPacked, kSlab, LDV, THREADS, kWideKeys>(vs, vv, base, kv0, m, d, vec, f0, bit);
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < kWideKeys / 16; ++c) {
+        const int key0 = kv0 + 16 * c;
+        if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
+        float s[2][4] = {};
 #pragma unroll 4
-      for (int st = 0; st < KS; ++st) {
-        uint32_t a[4], b[4];  // a: rows 16w + (0..15), features 16st + (0..7 | 8..15)
-        ldsm_x4(a, qs + (16 * warp + (lane & 15)) * LDQ + 16 * st + 8 * (lane >> 4));
-        ldsm_x4(b, ks + (16 * c + (lane & 7) + 8 * (lane >> 4)) * LDQ + 16 * st +
-                       8 * ((lane >> 3) & 1));
-        mma_16816(s[0], a, b[0], b[1]);
-        mma_16816(s[1], a, b[2], b[3]);
-      }
-      uint32_t a[4];
-      scores_to_a(a, s, causal, row0, key0, lane);
+        for (int st = 0; st < KS; ++st) {
+          uint32_t a[4], b[4];  // a: rows 16w + (0..15), features 16st + (0..7 | 8..15)
+          ldsm_x4(a, qs + (16 * warp + (lane & 15)) * LDQ + 16 * st + 8 * (lane >> 4));
+          ldsm_x4(b, ks + (16 * c + (lane & 7) + 8 * (lane >> 4)) * LDQ + 16 * st +
+                         8 * ((lane >> 3) & 1));
+          mma_16816(s[0], a, b[0], b[1]);
+          mma_16816(s[1], a, b[2], b[3]);
+        }
+        uint32_t a[4];
+        scores_to_a(a, s, causal, row0, key0, lane);
 #pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t b[4];  // V rows 16c + (0..7 | 8..15), slab features 16j + (0..7 | 8..15)
-        ldsm_x4_trans(b, vs + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDV + 16 * j +
-                             8 * (lane >> 4));
-        mma_16816(o[2 * j], a, b[0], b[1]);
-        mma_16816(o[2 * j + 1], a, b[2], b[3]);
+        for (int j = 0; j < NT / 2; ++j) {
+          uint32_t b[4];  // V rows 16c + (0..7 | 8..15), slab features 16j + (0..7 | 8..15)
+          ldsm_x4_trans(b, vs + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDV + 16 * j +
+                               8 * (lane >> 4));
+          mma_16816(o[2 * j], a, b[0], b[1]);
+          mma_16816(o[2 * j + 1], a, b[2], b[3]);
+        }
       }
     }
+    const bool last = !kSplit || r1 >= kv_end;
+    store_tile<NT>(og, o, row0, n, d, last ? scale : 1.0f, pair, lane, f0, kSplit && r0 > 0);
+    if (last) break;
   }
-  store_tile<NT>(og, o, row0, n, d, scale, pair, lane, f0);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -652,18 +700,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int DP, int WARPS>
+template <int DP, int WARPS, bool kSplit>
 int launch_dense(const float* q, const float* k, const float* v, float* out, int g, int n,
                  int m, int d, float scale, int causal, cudaStream_t stream) {
   const size_t smem = 2 * kKeys * (DP + 8) * sizeof(__half);
-  const cudaError_t err = allow_smem(ssa_tc_kernel<DP, WARPS>, smem);
+  const cudaError_t err = allow_smem(ssa_tc_kernel<DP, WARPS, kSplit>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = d % 4 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16);
   const int pair = d % 2 == 0 && aligned(out, 8);
   const dim3 grid(static_cast<unsigned>(g),
                   static_cast<unsigned>((n + 16 * WARPS - 1) / (16 * WARPS)));
-  ssa_tc_kernel<DP, WARPS><<<grid, 32 * WARPS, smem, stream>>>(q, k, v, out, n, m, d, scale,
-                                                               causal, vec, pair);
+  ssa_tc_kernel<DP, WARPS, kSplit><<<grid, 32 * WARPS, smem, stream>>>(
+      q, k, v, out, n, m, d, key_range(m, d), scale, causal, vec, pair);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -673,37 +721,48 @@ int launch_dense(const float* q, const float* k, const float* v, float* out, int
 // warps holds every row and eight such blocks fit an SM against two of 16
 // warps: at G = 384, N = 64, Dh = 32 (slot batch 8) they take 4.7 us of device
 // time against 6.0 us on an H100 (src/repro_torch/launch/timing.py).
-template <int DP>
+template <int DP, bool kSplit>
 int launch_dense_rows(const float* q, const float* k, const float* v, float* out, int g, int n,
                       int m, int d, float scale, int causal, cudaStream_t stream) {
-  if (n <= 64) return launch_dense<DP, 4>(q, k, v, out, g, n, m, d, scale, causal, stream);
-  return launch_dense<DP, 16>(q, k, v, out, g, n, m, d, scale, causal, stream);
+  if (n <= 64) return launch_dense<DP, 4, kSplit>(q, k, v, out, g, n, m, d, scale, causal, stream);
+  return launch_dense<DP, 16, kSplit>(q, k, v, out, g, n, m, d, scale, causal, stream);
 }
 
-template <int DP, bool kGated>
+// Past the 2^24 edge (key_range < M) the kernels' range-split instantiation;
+// below it the one-range instantiation, whose code is the loop without ranges.
+template <int DP>
+int launch_dense_split(const float* q, const float* k, const float* v, float* out, int g,
+                       int n, int m, int d, float scale, int causal, cudaStream_t stream) {
+  if (key_range(m, d) < m) {
+    return launch_dense_rows<DP, true>(q, k, v, out, g, n, m, d, scale, causal, stream);
+  }
+  return launch_dense_rows<DP, false>(q, k, v, out, g, n, m, d, scale, causal, stream);
+}
+
+template <int DP, bool kGated, bool kSplit>
 int launch_packed_tc(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
                      const int* live, float* out, int g, int n, int m, int d, int t_total,
                      float scale, int causal, cudaStream_t stream) {
   constexpr int P = planes_per_block<DP>();
   const size_t smem = packed_tc_smem_bytes<DP>();
-  const cudaError_t err = allow_smem(packed_ssa_tc_kernel<DP, P, kGated>, smem);
+  const cudaError_t err = allow_smem(packed_ssa_tc_kernel<DP, P, kGated, kSplit>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = d % 4 == 0 && aligned(qw, 16) && aligned(kw, 16) && aligned(vw, 16);
   const int pair = d % 2 == 0 && aligned(out, 8);
   const dim3 grid(static_cast<unsigned>(g),
                   static_cast<unsigned>((n + 16 * kPackedWarps - 1) / (16 * kPackedWarps)),
                   static_cast<unsigned>((t_total + P - 1) / P));
-  packed_ssa_tc_kernel<DP, P, kGated><<<grid, 32 * kPackedWarps, smem, stream>>>(
-      qw, kw, vw, live, out, g, n, m, d, t_total, scale, causal, vec, pair);
+  packed_ssa_tc_kernel<DP, P, kGated, kSplit><<<grid, 32 * kPackedWarps, smem, stream>>>(
+      qw, kw, vw, live, out, g, n, m, d, t_total, key_range(m, d), scale, causal, vec, pair);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Past D = 128: ssa_wide_tc_kernel, D rounded up to 256 or 512 for the scores.
-template <bool kPacked, bool kGated>
+template <bool kPacked, bool kGated, bool kSplit>
 int launch_wide(const void* q, const void* k, const void* v, const int* live, float* out, int g,
                 int n, int m, int d, int t_total, float scale, int causal, cudaStream_t stream) {
-  const auto kernel = d <= 256 ? ssa_wide_tc_kernel<256, kPacked, kGated>
-                               : ssa_wide_tc_kernel<512, kPacked, kGated>;
+  const auto kernel = d <= 256 ? ssa_wide_tc_kernel<256, kPacked, kGated, kSplit>
+                               : ssa_wide_tc_kernel<512, kPacked, kGated, kSplit>;
   const size_t smem = d <= 256 ? wide_smem_bytes<256>() : wide_smem_bytes<512>();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -714,14 +773,24 @@ int launch_wide(const void* q, const void* k, const void* v, const int* live, fl
                   static_cast<unsigned>((n + 16 * kWideWarps - 1) / (16 * kWideWarps)),
                   static_cast<unsigned>((kPacked ? t_total : 1) * slabs));
   kernel<<<grid, 32 * kWideWarps, smem, stream>>>(q, k, v, live, out, g, n, m, d, t_total, slabs,
-                                                  scale, causal, vec, pair);
+                                                  key_range(m, d), scale, causal, vec, pair);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The operand contract's shape half (see the header): D <= 512 and M * D < 2^24,
-// so that every partial sum of S v is exact in f32.  Operands past it are refused.
-bool exact_shape(int m, int d) {
-  return d >= 1 && d <= kMaxD && m >= 1 && static_cast<long long>(m) * d < kMaxSum;
+// The operand contract's shape half (see the header): 1 <= D <= 512 (every
+// score exact in f16, and the wide kernel's shared memory) and M >= 1.
+// Operands past it are refused.
+bool exact_shape(int m, int d) { return d >= 1 && d <= kMaxD && m >= 1; }
+
+template <bool kGated, bool kSplit>
+int launch_packed_dp(const uint32_t* q, const uint32_t* k, const uint32_t* v, const int* lv,
+                     float* o, int g, int n, int m, int d, int t_total, float scale, int causal,
+                     cudaStream_t s) {
+  if (d <= 16) return launch_packed_tc<16, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 32) return launch_packed_tc<32, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 64) return launch_packed_tc<64, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (d <= 128) return launch_packed_tc<128, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  return launch_wide<true, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
 }
 
 template <bool kGated>
@@ -735,11 +804,10 @@ int launch_packed_d(const void* qw, const void* kw, const void* vw, const void* 
   const auto* lv = static_cast<const int*>(live);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (d <= 16) return launch_packed_tc<16, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  if (d <= 32) return launch_packed_tc<32, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  if (d <= 64) return launch_packed_tc<64, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  if (d <= 128) return launch_packed_tc<128, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  return launch_wide<true, kGated>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  if (key_range(m, d) < m) {
+    return launch_packed_dp<kGated, true>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  }
+  return launch_packed_dp<kGated, false>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
 }
 
 }  // namespace
@@ -769,11 +837,14 @@ extern "C" int ssa_fwd(const void* q, const void* k, const void* v, void* out, i
   const auto* vf = static_cast<const float*>(v);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (d <= 16) return launch_dense_rows<16>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
-  if (d <= 32) return launch_dense_rows<32>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
-  if (d <= 64) return launch_dense_rows<64>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
-  if (d <= 128) return launch_dense_rows<128>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
-  return launch_wide<false, false>(qf, kf, vf, nullptr, o, g, n, m, d, 1, scale, causal, s);
+  if (d <= 16) return launch_dense_split<16>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  if (d <= 32) return launch_dense_split<32>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  if (d <= 64) return launch_dense_split<64>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  if (d <= 128) return launch_dense_split<128>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
+  if (key_range(m, d) < m) {
+    return launch_wide<false, false, true>(qf, kf, vf, nullptr, o, g, n, m, d, 1, scale, causal, s);
+  }
+  return launch_wide<false, false, false>(qf, kf, vf, nullptr, o, g, n, m, d, 1, scale, causal, s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -12,13 +12,16 @@ over a transposed view, and the kernels assume a dense layout.  Ragged token
 counts are masked in the kernels, so nothing is padded.
 
 Operand contract of the kernels: q, k and v are spikes in {0, 1} (every
-caller passes LIF outputs), Dh <= 512 and M * Dh < 2^24; the shape half is
-checked (:func:`check_exact_shape`) on the card route, the CPU route runs the
-plain f32 version whatever the shape, as the reference does.  All three run
-both products on the f16 tensor cores with f32 accumulation, which is exact
-there (scores are integers <= 512, sums integers < 2^24), so they equal the
-plain f32 versions bit for bit.  Past Dh = 128 (the spiking LM's heads) the
-three share one kernel that splits the output into 128-feature slabs.
+caller passes LIF outputs) and Dh <= 512; the shape half is checked
+(:func:`check_exact_shape`) on the card route, the CPU route runs the plain
+f32 version whatever the shape, as the reference does.  All three run both
+products on the f16 tensor cores with f32 accumulation, which is exact there
+(scores are integers <= 512); the keys are summed in ranges whose sums stay
+integers below 2^24 (``ref.key_range``; one range below M * Dh = 2^24), and
+the range partials are added in ascending order as the plain versions add
+them, so the kernels equal the plain f32 versions bit for bit at any key
+count.  Past Dh = 128 (the spiking LM's heads) the three share one kernel
+that splits the output into 128-feature slabs.
 
 :func:`ssa_op` is differentiable on both devices (:class:`_SsaOp`): the
 forward is :func:`ssa_fwd`, the backward the three bilinear contractions of
@@ -39,20 +42,17 @@ from repro_torch.kernels.spiking_attention.ref import (
     packed_ssa_ref, sparse_packed_ssa_ref, ssa_ref)
 
 MAX_HEAD_DIM = 512   # the kernels' widest head (kMaxD in ssa.cu): scores stay <= 2048
-MAX_SUM = 2 ** 24    # M * Dh stays below it: every partial sum of S v exact in f32
 
 
-def check_exact_shape(what: str, m: int, d: int) -> None:
-    """The shape half of the kernels' operand contract: Dh <= 512 (every score,
-    an integer <= Dh, exact in f16) and M * Dh < 2^24 (every partial sum of S v, an integer
-    <= M * Dh, exact in an f32 accumulator whatever the tensor cores' order).
-    Raises ``ValueError`` outside it; ``ssa.cu``'s entry points refuse the
-    same operands."""
+def check_exact_shape(what: str, d: int) -> None:
+    """The shape half of the kernels' operand contract: Dh <= 512 (every
+    score, an integer <= Dh, exact in f16; the wide kernel's shared memory).
+    Any key count is taken: the S v sum runs over key ranges whose partial
+    sums stay exact in f32 (``ref.key_range``).  Raises ``ValueError``
+    outside it; ``ssa.cu``'s entry points refuse the same operands."""
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{what}: head dim {d} > {MAX_HEAD_DIM}")
-    if m * d >= MAX_SUM:
-        raise ValueError(f"{what}: M * Dh = {m} * {d} >= 2^24, past the bound that "
-                         "keeps the tensor cores' f32 sums exact")
+
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -67,7 +67,7 @@ _SPARSE_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
 def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
             causal: bool = False) -> torch.Tensor:
     """q (G, N, D), k/v (G, M, D) f32 spikes in {0, 1} -> (G, N, D); no
-    zero-sized dims, D <= 512, M * D < 2^24.
+    zero-sized dims, D <= 512.
 
     Replaces the TPU kernel ``repro.kernels.spiking_attention.kernel.ssa_fwd``.
     On the card: ``ssa_tc_kernel``, one block of 16 warps (16 query rows
@@ -79,9 +79,10 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
     rows a block, one 128-feature slab of the output each, the full-width
     scores recomputed per slab, every operand staged as f16 in shared
     memory.  Bound by device bytes (q, k, v read and out written once).
-    Exact while the operands are binary and M * D < 2^24: f16 holds 0/1 and
-    every score (<= 512), f32 every partial sum, so the result equals
-    :func:`ssa_ref` bit for bit."""
+    Exact while the operands are binary: f16 holds 0/1 and every score
+    (<= 512), f32 every partial sum of a key range, and the ranges' partials
+    are added in :func:`ssa_ref`'s order, so the result equals it bit for
+    bit at any M."""
     g, n, d = q.shape
     m = k.shape[1]
     if k.shape != (g, m, d) or v.shape != (g, m, d):
@@ -89,7 +90,7 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.device.type == "cpu":
         return ssa_ref(q, k, v, scale=scale, causal=causal)
-    check_exact_shape("ssa_fwd", m, d)
+    check_exact_shape("ssa_fwd", d)
     _build.check_operands("ssa_fwd", *((x, torch.float32) for x in (q, k, v)))
     out = torch.empty_like(q)
     fn = _build.kernel("ssa", "ssa_fwd", _ARGTYPES)
@@ -98,6 +99,7 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                  d, scale, int(causal), _build.stream(q.device))
     _build.check(err, "ssa", "ssa_fwd")
     ssa_fwd.launches += 1
+    _build.report_launch("ssa_fwd", q, k, v, out)
     return out
 
 
@@ -107,7 +109,7 @@ ssa_fwd.launches = 0
 def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: int,
                    scale: float, causal: bool = False) -> torch.Tensor:
     """q words (W, G, N, D), k/v words (W, G, M, D), int32 with W = ceil(t/32)
-    -> (T, G, N, D) f32; no zero-sized dims, D <= 512, M * D < 2^24.
+    -> (T, G, N, D) f32; no zero-sized dims, D <= 512.
 
     Replaces the TPU kernel
     ``repro.kernels.spiking_attention.kernel.packed_ssa_fwd``.  On the card:
@@ -117,15 +119,15 @@ def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: i
     f16 fragments built straight from the bits, both products on
     ``mma.sync.m16n8k16`` with f32 accumulators; past D = 128 the wide
     kernel of :func:`ssa_fwd` with one plane a block, its f16 operands built
-    from that plane's bits.  Bound by device bytes.  Exact for any words with
-    D <= 512 and M * D < 2^24, so the result equals :func:`packed_ssa_ref`
-    bit for bit."""
+    from that plane's bits.  Bound by device bytes.  Exact for any words
+    (key ranges as in :func:`ssa_fwd`), so the result equals
+    :func:`packed_ssa_ref` bit for bit."""
     _check_packed("packed ssa", qw, kw, vw, t)
     w, g, n, d = qw.shape
     m = kw.shape[2]
     if qw.device.type == "cpu":
         return packed_ssa_ref(qw, kw, vw, t=t, scale=scale, causal=causal)
-    check_exact_shape("packed_ssa_fwd", m, d)
+    check_exact_shape("packed_ssa_fwd", d)
     _build.check_operands("packed_ssa_fwd", *((x, torch.int32) for x in (qw, kw, vw)))
     out = torch.empty((t, g, n, d), dtype=torch.float32, device=qw.device)
     fn = _build.kernel("ssa", "packed_ssa_fwd", _PACKED_ARGTYPES)
@@ -134,6 +136,7 @@ def packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *, t: i
                  d, t, scale, int(causal), _build.stream(qw.device))
     _build.check(err, "ssa", "packed_ssa_fwd")
     packed_ssa_fwd.launches += 1
+    _build.report_launch("packed_ssa_fwd", qw, kw, vw, out)
     return out
 
 
@@ -155,7 +158,7 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
                           causal: bool = False) -> torch.Tensor:
     """:func:`packed_ssa_fwd` with a (G, T) int32 plane liveness ``live``:
     output plane t of fold g is computed only where ``live[g, t]`` is
-    nonzero and is zero elsewhere; no zero-sized dims, D <= 512, M * D < 2^24.
+    nonzero and is zero elsewhere; no zero-sized dims, D <= 512.
 
     Replaces the TPU kernel
     ``repro.kernels.spiking_attention.kernel.sparse_packed_ssa_fwd``.  On the
@@ -166,8 +169,8 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     ``mma.sync.m16n8k16`` with f32 accumulators.  A block whose P planes are
     all dead writes zeros without staging; past D = 128 the wide kernel of
     :func:`packed_ssa_fwd`, gated by plane.  Bound by device bytes (the words
-    read and the f32 output written once).  Exact for any words with
-    M * D < 2^24 (bits are 0/1, scores <= 512), so the result equals
+    read and the f32 output written once).  Exact for any words (bits are
+    0/1, scores <= 512, key ranges as in :func:`ssa_fwd`), so the result equals
     :func:`packed_ssa_fwd` and :func:`sparse_packed_ssa_ref` bit for bit."""
     _check_packed("sparse packed ssa", qw, kw, vw, t)
     w, g, n, d = qw.shape
@@ -176,7 +179,7 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         raise ValueError(f"plane liveness {tuple(live.shape)} != {(g, t)}")
     if qw.device.type == "cpu":
         return sparse_packed_ssa_ref(qw, kw, vw, live, t=t, scale=scale, causal=causal)
-    check_exact_shape("sparse_packed_ssa_fwd", m, d)
+    check_exact_shape("sparse_packed_ssa_fwd", d)
     _build.check_operands("sparse_packed_ssa_fwd", *((x, torch.int32)
                                                       for x in (qw, kw, vw, live)))
     out = torch.empty((t, g, n, d), dtype=torch.float32, device=qw.device)
@@ -187,6 +190,7 @@ def sparse_packed_ssa_fwd(qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
                  _build.stream(qw.device))
     _build.check(err, "ssa", "sparse_packed_ssa_fwd")
     sparse_packed_ssa_fwd.launches += 1
+    _build.report_launch("sparse_packed_ssa_fwd", qw, kw, vw, live, out)
     return out
 
 

@@ -13,6 +13,11 @@ Three measurements:
 ``train``  SGD steps of ``train_spikformer`` (the kernel route) after
            ``--warmup`` steps: each step on the host clock, ending in a
            device sync; the same statistics.
+``lm``     decode steps of the live spiking LM (``live_lm_params``) on each
+           kernel route: a slot batch of prompts prefilled, then ``--steps``
+           greedy decode steps after ``--warmup``, each on the host clock
+           from its call to the host copy of its tokens, as
+           ``serve_lm_plan`` steps; the same statistics.
 ``ssa``    the dense SSA entry point ``ssa_fwd`` on random binary operands
            of shape (G, N, Dh): held ``torch.equal`` to its plain version,
            then CUDA events over back-to-back calls (as ``chip_smoke.py``
@@ -25,6 +30,7 @@ default the one holding this file)::
 
     python src/repro_torch/launch/timing.py serve --batches 20
     python src/repro_torch/launch/timing.py train --steps 20
+    python src/repro_torch/launch/timing.py lm --steps 20
     python src/repro_torch/launch/timing.py --src ../other/src ssa --g 384 --n 64 --dh 32
 
 Every line printed starts with ``[timing]`` and names the ``repro_torch``
@@ -87,6 +93,38 @@ def time_train(arch: str, steps: int, warmup: int, batch: int, device) -> dict[s
     return spread(out["step_ms"][warmup:])
 
 
+def time_lm(arch: str, steps: int, warmup: int, slots: int, prompt: int, device,
+            routes=ROUTES) -> dict[str, dict[str, float]]:
+    """ms per decode step of ``slots`` sequences of the live spiking ``arch``
+    on each of ``routes``, after a prefill of ``prompt``-token prompts and
+    ``warmup`` steps; each step from its call to the host copy of its
+    greedy tokens."""
+    from repro_torch import engine
+    from repro_torch.launch.serve import live_lm_params, spiking_lm_config
+
+    cfg = spiking_lm_config(arch)
+    params = live_lm_params(cfg, device)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (slots, prompt), generator=gen).to(device)
+    out = {}
+    for backend in routes:
+        plan = engine.compile_plan(params, None, cfg, backend=backend, device=device)
+        step = engine.make_decode_step_fn(plan)
+        times = []
+        with torch.inference_mode():
+            logits, state = engine.make_prefill_fn(plan)(plan.params, tokens)
+            tok = logits[:, -1].argmax(-1)
+            for _ in range(warmup + steps):
+                t0 = time.perf_counter()
+                logits, state = step(plan.params, state, tok)
+                tok = logits.argmax(-1)
+                tok.cpu()
+                times.append(1e3 * (time.perf_counter() - t0))
+        out[backend] = spread(times[warmup:])
+        del plan, step, state, logits
+    return out
+
+
 def time_ssa(g: int, n: int, dh: int, reps: int, device) -> dict[str, float | None]:
     """``ssa_fwd`` on binary (g, n, dh) operands: ``events_ms`` (CUDA events
     over ``reps`` back-to-back calls after 3 warm-ups; host clock on the
@@ -147,6 +185,14 @@ def main(argv=None) -> None:
     tr.add_argument("--steps", type=int, default=20)
     tr.add_argument("--warmup", type=int, default=2)
     tr.add_argument("--batch", type=int, default=16)
+    lm = sub.add_parser("lm", help="ms per decode step of the spiking LM")
+    lm.add_argument("--arch", default="llama3.2-1b")
+    lm.add_argument("--steps", type=int, default=20)
+    lm.add_argument("--warmup", type=int, default=2)
+    lm.add_argument("--slots", type=int, default=4)
+    lm.add_argument("--prompt", type=int, default=32)
+    lm.add_argument("--routes", default=",".join(ROUTES),
+                    help="comma-separated backends (default: the three kernel routes)")
     ss = sub.add_parser("ssa", help="ms per ssa_fwd call")
     ss.add_argument("--g", type=int, default=384)
     ss.add_argument("--n", type=int, default=196)
@@ -168,6 +214,12 @@ def main(argv=None) -> None:
             print(f"{head} serve {args.arch} backend={route} slot batch {args.slots}, "
                   f"{args.batches} batches after {args.warmup} warm-up: ms per slot batch "
                   + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+    elif args.what == "lm":
+        for route, st in time_lm(args.arch, args.steps, args.warmup, args.slots, args.prompt,
+                                 dev, tuple(args.routes.split(","))).items():
+            print(f"{head} lm {args.arch} backend={route} {args.slots} slots, prompt "
+                  f"{args.prompt}, {args.steps} decode steps after {args.warmup} warm-up: ms "
+                  "per step " + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
     elif args.what == "train":
         s = time_train(args.arch, args.steps, args.warmup, args.batch, dev)
         print(f"{head} train {args.arch} batch {args.batch}, {args.steps} steps after "

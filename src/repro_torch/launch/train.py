@@ -83,13 +83,15 @@ def _sync(dev: torch.device) -> None:
 def train_spikformer(arch_or_cfg, *, steps: int, batch: int, lr: float = 0.05,
                      seed: int = 0, device=None, ckpt_dir=None,
                      eval_batches: int = 20, log_every: int = 25,
-                     verbose: bool = True) -> dict:
+                     verbose: bool = True, init=None) -> dict:
     """Train a vision config (a registry name or a ``SpikformerConfig``) for
     ``steps`` SGD steps of ``batch`` images on the kernel route (the
     config's ``use_kernel`` set), then measure held-out accuracy
     on ``eval_batches`` batches (steps 100000 on of the data stream) in eval
     mode.  Weights come from ``sf.init(torch.Generator().manual_seed(seed))``,
-    data from ``DataConfig(kind="images", seed=seed)``.  ``ckpt_dir``: save
+    or from ``init``, a ``(params, state)`` pair of trees (e.g. the JAX
+    package's initial weights through ``bridge.to_torch``), data from
+    ``DataConfig(kind="images", seed=seed)``.  ``ckpt_dir``: save
     ``{"params", "state"}`` there after the last step (the JAX package's
     layout, which ``engine.compile_plan(checkpoint=)`` reads).
 
@@ -101,7 +103,11 @@ def train_spikformer(arch_or_cfg, *, steps: int, batch: int, lr: float = 0.05,
     cfg = get_vision_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
     cfg = dataclasses.replace(cfg, use_kernel=True)
     dev = resolve_device(device)
-    params, state = sf.init(torch.Generator().manual_seed(seed), cfg, device=dev)
+    if init is None:
+        params, state = sf.init(torch.Generator().manual_seed(seed), cfg, device=dev)
+    else:
+        params, state = (rebuild(tree, iter([x.to(dev) for x in leaves(tree)]))
+                         for tree in init)
     dcfg = DataConfig(kind="images", seed=seed, global_batch=batch, img_size=cfg.img_size,
                       num_classes=cfg.num_classes)
 

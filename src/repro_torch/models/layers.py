@@ -24,7 +24,9 @@ def rmsnorm_raw(p, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
 
 
 def rmsnorm_apply(p, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm as a layer of the oracle view and of the embedding fold (the
-    JAX package jits it to count it in a jaxpr; here it is
-    :func:`rmsnorm_raw`)."""
-    return rmsnorm_raw(p, x, eps=eps)
+    """RMSNorm as a layer of the oracle view and of the embedding fold:
+    :func:`rmsnorm_raw` inside a ``record_function`` region named
+    ``rmsnorm_apply``, which ``engine.analysis.rmsnorm_op_count`` counts (the
+    JAX package jits it to count it in a jaxpr by name)."""
+    with torch.profiler.record_function("rmsnorm_apply"):
+        return rmsnorm_raw(p, x, eps=eps)

@@ -21,10 +21,11 @@ T, N = 4, 300   # N ragged: not a multiple of the TPU kernel's 128 lanes
 def ref():
     """The JAX reference (absent where only the card's tests run)."""
     pytest.importorskip("jax")
-    from repro.core.lif import lif, lif_parallel, lif_serial
+    from repro.core.lif import lif, lif_parallel, lif_serial, lif_serial_with_state
     from repro.kernels.lif_parallel import ops as jops
 
-    jlif = SimpleNamespace(lif=lif, lif_parallel=lif_parallel, lif_serial=lif_serial)
+    jlif = SimpleNamespace(lif=lif, lif_parallel=lif_parallel, lif_serial=lif_serial,
+                           lif_serial_with_state=lif_serial_with_state)
     return SimpleNamespace(lif=jlif, ops=jops)
 
 
@@ -86,6 +87,33 @@ def test_lif_serial_bit_exact_vs_jax_and_parallel(ref, reset):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(
         got.numpy(), tlif.lif_parallel(torch.from_numpy(drive), reset=reset).numpy())
+
+
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+def test_lif_serial_from_v0_vs_jax(ref, reset):
+    """``lif_serial(v0=)``: the membrane before the first step, bit-exact
+    against the JAX package's."""
+    drive, v0 = _drive(41), _drive(42, (N,))
+    want = ref.lif.lif_serial(drive, reset=reset, v0=v0)
+    got = tlif.lif_serial(torch.from_numpy(drive), reset=reset, v0=torch.from_numpy(v0))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+@pytest.mark.parametrize("split", [0, 1, 3, 5, 8])
+def test_lif_serial_with_state_split_anywhere(ref, reset, split):
+    """``lif_serial_with_state`` bit-exact against the JAX package's, and a
+    train split at any step and resumed from the returned membrane equals
+    the unsplit run in spikes and final membrane (``torch.equal``)."""
+    drive, v0 = torch.from_numpy(_drive(43, (8, N))), torch.from_numpy(_drive(44, (N,)))
+    s_full, v_full = tlif.lif_serial_with_state(drive, v0, reset=reset)
+    want_s, want_v = ref.lif.lif_serial_with_state(drive.numpy(), v0.numpy(), reset=reset)
+    np.testing.assert_array_equal(s_full.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(v_full.numpy(), np.asarray(want_v))
+    s1, v1 = tlif.lif_serial_with_state(drive[:split], v0, reset=reset)
+    s2, v2 = tlif.lif_serial_with_state(drive[split:], v1, reset=reset)
+    assert torch.equal(torch.cat([s1, s2]), s_full) and torch.equal(v2, v_full)
+    assert torch.equal(s_full, tlif.lif_serial(drive, reset=reset, v0=v0))
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])

@@ -25,8 +25,9 @@ def ref():
     pytest.importorskip("jax")
     from repro.core import nn as jnn
     from repro.kernels.spike_matmul import ops as jops
+    from repro.kernels.spike_matmul import ref as jref
 
-    return SimpleNamespace(nn=jnn, ops=jops)
+    return SimpleNamespace(nn=jnn, ops=jops, ref=jref)
 
 
 @pytest.fixture
@@ -78,6 +79,31 @@ def test_conv1x1_vs_pallas_kernel(ref):
     want = ref.ops.conv1x1_op(x, w, interpret=True)
     got = tops.conv1x1_op(torch.from_numpy(x), torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# The oracles the reference's kernel tests use (tests/test_kernels.py), on
+# spikes and on analog inputs: f32 sums in another order than XLA's, rtol 1e-5.
+ORACLE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_conv_oracles_vs_jax(ref, binary):
+    from repro_torch.kernels.spike_matmul.ref import conv1x1_ref, conv3x3_ref
+
+    x = _spikes(3, (2, 8, 7, 16)) if binary else _weights(3, (2, 8, 7, 16))
+    w1, w3 = _weights(1, (16, 32)), _weights(2, (3, 3, 16, 32))
+    got1 = conv1x1_ref(torch.from_numpy(x), torch.from_numpy(w1))
+    got3 = conv3x3_ref(torch.from_numpy(x), torch.from_numpy(w3))
+    np.testing.assert_allclose(got1.numpy(), np.asarray(ref.ref.conv1x1_ref(x, w1)),
+                               **ORACLE_TOL)
+    np.testing.assert_allclose(got3.numpy(), np.asarray(ref.ref.conv3x3_ref(x, w3)),
+                               **ORACLE_TOL)
+    if binary:   # the reference's own use: the conv wrappers against the oracles
+        xt = torch.from_numpy(x)
+        np.testing.assert_allclose(tops.conv1x1_op(xt, torch.from_numpy(w1)).numpy(),
+                                   got1.numpy(), **ORACLE_TOL)
+        np.testing.assert_allclose(tops.conv3x3_op(xt, torch.from_numpy(w3)).numpy(),
+                                   got3.numpy(), **ORACLE_TOL)
 
 
 @pytest.mark.parametrize("m,k,c", [(0, 8, 4), (5, 0, 4), (5, 8, 0)])

@@ -24,9 +24,10 @@ def ref():
     pytest.importorskip("jax")
     from repro.core.spiking_attention import merge_heads, split_heads, ssa
     from repro.kernels.spiking_attention.ops import ssa_op
+    from repro.kernels.spiking_attention.ref import ssa_linear_ref
 
     return SimpleNamespace(ssa=ssa, ssa_op=ssa_op, split_heads=split_heads,
-                           merge_heads=merge_heads)
+                           merge_heads=merge_heads, ssa_linear_ref=ssa_linear_ref)
 
 
 @pytest.fixture
@@ -57,6 +58,20 @@ def test_ssa_bit_exact_vs_jax(ref, ordering):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(
         got.numpy(), tops.ssa_op(*map(torch.from_numpy, (q, k, v))).numpy())
+
+
+def test_ssa_linear_ref_vs_jax_and_quadratic(ref):
+    """The linear-ordering oracle Q (K^T V): within rtol 1e-5 of the JAX
+    oracle and of the quadratic plain version (no softmax, so the two
+    orderings agree; f32 sums in another order)."""
+    from repro_torch.kernels.spiking_attention.ref import ssa_linear_ref
+
+    q, k, v = (a.reshape(-1, 49, 16) for a in _qkv(9))
+    got = ssa_linear_ref(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref.ssa_linear_ref(q, k, v)),
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got.numpy(), ssa_ref(*map(torch.from_numpy, (q, k, v))).numpy(),
+                               rtol=1e-5, atol=0)
 
 
 def test_split_merge_heads_vs_jax(ref):
@@ -128,53 +143,40 @@ def test_ssa_kernel_takes_head_split_views_on_card(card):
 @pytest.mark.parametrize("d", [32, 512])
 @pytest.mark.parametrize("fn", ["ssa_fwd", "packed_ssa_fwd", "sparse_packed_ssa_fwd"])
 def test_ssa_kernels_at_the_exactness_bound_on_card(card, fn, d):
-    """All ones with M = 2^24 / Dh - 1 keys (Dh = 32: the narrow kernels,
-    Dh = 512: the wide one): every output is M * Dh = 2^24 - Dh, the largest
-    sum below the bound, and equals the plain version; one key more (M * Dh
-    == 2^24) the wrapper raises ValueError and the C entry point, called
-    directly, refuses the operands."""
+    """Around the 2^24 edge (Dh = 32: the narrow kernels, Dh = 512: the wide
+    one), M = 2^24 / Dh - 1, 2^24 / Dh and 2^24 / Dh + 4096 keys: all ones
+    (every output M * Dh, the largest sums, exact in f32 at these M) and
+    near-ones (one q feature in 64 and one v entry in 512 at zero, so the
+    totals past 2^24 are odd and round), each ``torch.equal`` its plain
+    version, which sums the same key ranges in the same order."""
     from repro_torch.core import packing as tpk
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref
+    from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref, sparse_packed_ssa_ref
 
-    t = 4
+    t, n = 4, 5
     edge = 2 ** 24 // d
-    for m in (edge - 1, edge):
-        if fn == "ssa_fwd":
-            q, kv = torch.ones((1, 3, d), device=card), torch.ones((1, m, d), device=card)
-            call = lambda: tops.ssa_fwd(q, kv, kv, scale=1.0)
-            plain = lambda: ssa_ref(q, kv, kv, scale=1.0)
-        else:
-            q = tpk.pack(torch.ones((t, 1, 1, 3, d), device=card)).words.reshape(1, 1, 3, d)
-            kv = torch.full((1, 1, m, d), 2 ** t - 1, dtype=torch.int32, device=card)
-            live = torch.ones((1, t), dtype=torch.int32, device=card)
-            plain = lambda: packed_ssa_ref(q, kv, kv, t=t, scale=1.0)
-            call = ((lambda: tops.packed_ssa_fwd(q, kv, kv, t=t, scale=1.0))
-                    if fn == "packed_ssa_fwd"
-                    else (lambda: tops.sparse_packed_ssa_fwd(q, kv, kv, live, t=t, scale=1.0)))
-        if m < edge:
-            got = call()
+    for m in (edge - 1, edge, edge + 4096):
+        for ones in (True, False):
+            q, v = torch.ones((t, n, d), device=card), torch.ones((t, m, d), device=card)
+            if not ones:
+                q[..., ::64] = (torch.rand(q[..., ::64].shape, device=card) > 0.5).float()
+                v[torch.rand(v.shape, device=card) < 1 / 512] = 0.0
+            k = torch.ones((t, m, d), device=card)
+            if fn == "ssa_fwd":
+                got = tops.ssa_fwd(q, k, v, scale=1.0)
+                want = ssa_ref(q, k, v, scale=1.0)
+            else:
+                qw, kw, vw = (tpk.pack(x[:, None]).words for x in (q, k, v))
+                if fn == "packed_ssa_fwd":
+                    got = tops.packed_ssa_fwd(qw, kw, vw, t=t, scale=1.0)
+                    want = packed_ssa_ref(qw, kw, vw, t=t, scale=1.0)
+                else:
+                    live = tops._plane_liveness(qw, kw, vw, t)
+                    got = tops.sparse_packed_ssa_fwd(qw, kw, vw, live, t=t, scale=1.0)
+                    want = sparse_packed_ssa_ref(qw, kw, vw, live, t=t, scale=1.0)
             torch.cuda.synchronize()
-            assert got.max().item() == m * d
-            assert torch.equal(got, plain())
-            continue
-        with pytest.raises(ValueError, match="2\\^24"):
-            call()
-        out = torch.empty((t, 1, 3, d), device=card)
-        stream = _build.stream(card)
-        if fn == "ssa_fwd":
-            raw = _build.kernel("ssa", fn, tops._ARGTYPES)
-            err = raw(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(), 1, 3, m, d,
-                      1.0, 0, stream)
-        elif fn == "packed_ssa_fwd":
-            raw = _build.kernel("ssa", fn, tops._PACKED_ARGTYPES)
-            err = raw(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(), 1, 3, m, d,
-                      t, 1.0, 0, stream)
-        else:
-            raw = _build.kernel("ssa", fn, tops._SPARSE_ARGTYPES)
-            err = raw(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), live.data_ptr(),
-                      out.data_ptr(), 1, 3, m, d, t, 1.0, 0, stream)
-        assert err == 1     # cudaErrorInvalidValue
+            assert torch.equal(got, want), (m, ones)
+            if ones:
+                assert got.max().item() == m * d
 
 
 @pytest.mark.cuda

@@ -5,7 +5,11 @@ CPU at the shapes the card tests use.
 tensor cores (``mma.m16n8k16``) with f32 accumulators.  For spikes in {0, 1},
 Dh <= 512 and M * Dh < 2^24 that is exact: 0 and 1 are exact in f16, a score
 is an integer <= Dh <= 512 (f16 holds integers up to 2048), and every partial
-sum of S v is an integer below 2^24, exact in f32 whatever the order.  These
+sum of S v is an integer below 2^24, exact in f32 whatever the order.  Past
+M * Dh = 2^24 the keys are summed in ranges that keep each range's sums
+below 2^24, the range partials added in ascending order (one rounding each),
+in the kernels and the plain versions alike; held within 1e-6 of the JAX
+oracle there.  These
 tests round the operands and scores to f16 as the kernels do, accumulate in
 f32 in the kernels' order (16 features, then 16 keys, per step), and hold
 the result ``torch.equal`` to the port's plain versions and to the JAX
@@ -22,7 +26,8 @@ import torch
 from repro_torch import bridge
 from repro_torch.core import packing as tpk
 from repro_torch.kernels.spiking_attention import ops as tops
-from repro_torch.kernels.spiking_attention.ref import packed_ssa_ref, ssa_ref
+from repro_torch.kernels.spiking_attention.ref import (
+    KEY_TILE, MAX_SUM, key_range, packed_ssa_ref, ssa_ref)
 
 torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
 
@@ -218,18 +223,23 @@ def test_kernel_wrappers_raise_above_max_head_dim(fn):
 
 @pytest.mark.parametrize("d", [8, 20, 32, 128, 200, 512])
 def test_exact_shape_bound(d):
-    """M * Dh < 2^24 keeps every partial sum of S v exact in f32: the helper
-    passes the last M below the bound and raises at M * Dh == 2^24."""
-    edge = tops.MAX_SUM // d if tops.MAX_SUM % d == 0 else -(-tops.MAX_SUM // d)
-    tops.check_exact_shape("ssa", edge - 1, d)
-    with pytest.raises(ValueError, match="2\\^24"):
-        tops.check_exact_shape("ssa", edge, d)
+    """M * Dh < 2^24 keeps every partial sum of S v exact in f32: below the
+    edge the keys form one range; from M * Dh = 2^24 on they are summed in
+    ranges of R keys, R the largest multiple of the kernels' 64-key tile
+    with R * Dh < 2^24, and the shape check takes any M."""
+    edge = -(-MAX_SUM // d)            # the first M with M * Dh >= 2^24
+    assert key_range(edge - 1, d) == edge - 1
+    r = key_range(edge, d)
+    assert r % KEY_TILE == 0 and r * d < MAX_SUM <= (r + KEY_TILE) * d
+    assert key_range(10 * edge, d) == r
+    tops.check_exact_shape("ssa", d)
 
 
 @pytest.mark.parametrize("fn", ["ssa_fwd", "packed_ssa_fwd", "sparse_packed_ssa_fwd"])
 def test_kernel_wrappers_raise_at_the_exactness_bound(fn):
-    """Dh = 32 with M = 2^19 keys: M * Dh == 2^24, refused off the CPU before
-    the kernel is looked up."""
+    """Dh = 32 with M = 2^19 keys: M * Dh == 2^24, no longer refused for its
+    shape (the key ranges keep the sums exact); a tensor off the CPU that is
+    not on the card is still refused before the kernel is looked up."""
     d, m = 32, 2 ** 24 // 32
     if fn == "ssa_fwd":
         q, kv = torch.empty((2, 5, d), device="meta"), torch.empty((2, m, d), device="meta")
@@ -241,7 +251,7 @@ def test_kernel_wrappers_raise_at_the_exactness_bound(fn):
         call = ((lambda: tops.packed_ssa_fwd(q, kv, kv, t=4, scale=0.125))
                 if fn == "packed_ssa_fwd"
                 else (lambda: tops.sparse_packed_ssa_fwd(q, kv, kv, live, t=4, scale=0.125)))
-    with pytest.raises(ValueError, match="2\\^24"):
+    with pytest.raises(ValueError, match="CUDA device"):
         call()
 
 
@@ -251,10 +261,89 @@ def test_max_head_dim_edge(d):
     exact in f16); Dh = 513 is refused."""
     assert tops.MAX_HEAD_DIM == 512
     if d <= tops.MAX_HEAD_DIM:
-        tops.check_exact_shape("ssa", 2 ** 24 // d - 1, d)
+        tops.check_exact_shape("ssa", d)
     else:
         with pytest.raises(ValueError, match="head dim"):
-            tops.check_exact_shape("ssa", 1, d)
+            tops.check_exact_shape("ssa", d)
+
+
+# Past the 2^24 edge (G = 1, N = 8, Dh = 32, M = 2^19 + 4096: two key ranges,
+# 524,224 and 4,160 keys): "near-ones" leaves one q feature in 64 and one k
+# or v entry in 512 at zero, so the totals pass 2^24 with odd values, which
+# f32 rounds; the range partials stay exact.  Against the JAX oracle (one
+# f32 einsum over all keys, XLA's own order) within RTOL_PAST_EDGE: each of
+# the two sums rounds at most once more than the exact value (2^-24 each).
+PAST_EDGE = dict(g=1, n=8, d=32, m=2 ** 19 + 4096)
+RTOL_PAST_EDGE = 1e-6
+
+
+def _past_edge_operands(kind):
+    g, n, d, m = (PAST_EDGE[x] for x in "gndm")
+    rng = np.random.default_rng(7)
+    if kind == "random":
+        return [(rng.random((g, r, d)) > 0.5).astype(np.float32) for r in (n, m, m)]
+    q, k, v = (np.ones((g, r, d), np.float32) for r in (n, m, m))
+    if kind == "near-ones":
+        q[..., 0::64] = rng.random(q[..., 0::64].shape) > 0.5
+        k[rng.random(k.shape) < 1 / 512] = 0.0
+        v[rng.random(v.shape) < 1 / 512] = 0.0
+    return [q, k, v]
+
+
+def _range_order(q, k, v, r, scale=0.125):
+    """The kernels' order from exact pieces: each range's S v in float64
+    (integers below 2^24, so exact in f32 too), the partials added in f32
+    in ascending key order, the scale last."""
+    out = None
+    for k0 in range(0, k.shape[1], r):
+        s = np.einsum("gnd,gmd->gnm", q.astype(np.float64), k[:, k0:k0 + r].astype(np.float64))
+        part = np.einsum("gnm,gmd->gnd", s, v[:, k0:k0 + r].astype(np.float64))
+        assert part.max() < MAX_SUM
+        part = part.astype(np.float32)
+        out = part if out is None else out + part
+    return out * np.float32(scale)
+
+
+@pytest.mark.parametrize("kind", ["ones", "near-ones", "random"])
+def test_range_split_past_the_edge_vs_jax(ref, kind):
+    """M * Dh past 2^24, not causal: the plain version sums two key ranges
+    exactly and adds them in order (``torch.equal`` to that order built from
+    float64 pieces), and is within RTOL_PAST_EDGE of the JAX oracle."""
+    q, k, v = _past_edge_operands(kind)
+    d, m = PAST_EDGE["d"], PAST_EDGE["m"]
+    r = key_range(m, d)
+    assert (r, m - r) == (524224, 4160)
+    got = ssa_ref(*map(torch.from_numpy, (q, k, v)))
+    assert torch.equal(got, torch.from_numpy(_range_order(q, k, v, r)))
+    if kind != "random":
+        assert got.max().item() / 0.125 > MAX_SUM       # the sums pass 2^24
+    if kind == "ones":
+        assert got.max().item() == m * d * 0.125
+    want = np.asarray(ref.ssa_ref(q, k, v))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_PAST_EDGE, atol=0)
+
+
+def test_range_split_causal_slice_uses_absolute_positions():
+    """Causal past the edge on a slice of the queries (``q0``): query rows
+    at positions 32,700..32,830 of a 32,832-key sequence at Dh = 512 (two
+    ranges of 32,704 and 128 keys) see key j iff j <= their position, and
+    equal the kernels' order built from float64 pieces per row; the first
+    rows past 32,704 keys straddle the two ranges."""
+    d, m, q0, n = 512, 32832, 32700, 131
+    rng = np.random.default_rng(3)
+    q = np.ones((1, n, d), np.float32)
+    q[..., 0::64] = rng.random(q[..., 0::64].shape) > 0.5
+    k = np.ones((1, m, d), np.float32)
+    v = (rng.random((1, m, 4)) > 0.2).astype(np.float32).repeat(d // 4, axis=2)
+    r = key_range(m, d)
+    assert r == 32704
+    got = ssa_ref(*map(torch.from_numpy, (q, k, v)), causal=True, q0=q0).numpy()
+    for i in (0, 3, 4, 5, 60, n - 1):
+        p = q0 + i
+        want = _range_order(q[:, i:i + 1], k[:, :p + 1], v[:, :p + 1], r)
+        np.testing.assert_array_equal(got[:, i:i + 1], want)
+    # one range's all-ones partial is below 2^24 (r * d), the total past it
+    assert r * d < MAX_SUM < m * d
 
 
 @pytest.mark.parametrize("causal", [False, True])

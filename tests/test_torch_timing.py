@@ -36,6 +36,16 @@ def test_train_on_the_cpu(capsys):
     assert all(f"{k} " in line for k in ("median", "q1", "q3", "mean", "min", "max"))
 
 
+def test_lm_on_the_cpu(capsys):
+    timing.main(["--device", "cpu", "lm", "--arch", "llama3.2-1b_smoke", "--steps", "2",
+                 "--warmup", "1", "--slots", "2", "--prompt", "5", "--routes", "cuda,torch"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2 and all("2 slots, prompt 5, 2 decode steps after 1 warm-up" in x
+                                   for x in lines)
+    assert "backend=cuda " in lines[0] and "backend=torch " in lines[1]
+    assert all(f"{k} " in lines[0] for k in ("median", "q1", "q3", "mean", "min", "max"))
+
+
 def test_no_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
