@@ -119,7 +119,26 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      16x16 images, 4 classes, 300 SGD steps of batch 16, 20 held-out
      batches) through ``train_spikformer`` on the kernel route (launches
      counted) and on the plain route from the same seed, held-out accuracies
-     within LEARN_BAND of each other and above chance.
+     within LEARN_BAND of each other and above chance;
+ 12. the mesh (``compile_plan(mesh=)``): a gloo world of MESH_RANKS ranks,
+     all on this card (``launch.mesh.spawn_world``; the ranks find the
+     kernels phase 1 built), runs the live 8-384 (slot batch 8) on 1x2, 2x1
+     and 2x2 and the live llama3.2-1b (a prefill of 4 x 32 tokens, then
+     MESH_STEPS greedy steps, the state gathered with
+     ``decode_state_full``) on 1x2 and 2x2, on the three kernel routes,
+     each ``torch.equal`` the single-device plan this process ran first
+     (the LM's logits and 1 GiB state by sha256 of their bytes); every
+     rank's launches equal the single-device counts and its kernels' shapes
+     those of its shard (GEMM columns 384/m and 1536/m, SSA folds over its
+     rows and heads); under the packed routes every spike edge on the wire
+     is int32, and on the non-sparse routes its ring bytes, summed over the
+     data shards, equal ``spike_traffic`` / ``lm_spike_traffic``'s
+     ``mesh=`` pricing; then ``serve_spiking_lm_continuous(mesh="2x1")``
+     on phase 7's workload, one-shot and chunked, equal to the
+     single-device streams.  Each rank's wall and device time per case is
+     printed (ranks time-sliced on one card: not a scaling figure), and a
+     2-rank world reports whether gloo takes CUDA tensors and times its
+     all-gather of one dense edge on CUDA tensors against host staging.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
@@ -133,7 +152,11 @@ the 8-384 shapes (``torch.equal``, timed against their byte bounds, then
 the bf16 path -- ``core.lif.lif`` on bf16 drives, one forward and one
 training step's LIFs -- with its launches counted); and K3, K6 and K9 past
 the 2^24 edge (N = M = 33,024, Dh = 512, causal, near-all-ones operands,
-every row ``torch.equal`` the plain version in 1024-row slices).  The last lines are the card's ``nvidia-smi`` name and power limit,
+every row ``torch.equal`` the plain version in 1024-row slices); and K2, K5
+and K8 at a model shard's 192 and 96 columns and a data shard's half rows,
+each launch ``torch.equal`` the full launch's block, and K4's occupancy map
+at 192 and 384 columns equal to the map recomputed from its words.  The last
+lines are the card's ``nvidia-smi`` name and power limit,
 a JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 In the JSON line ``launches`` is the count over the live main-path run of
 the kernel's path (warm-up forward included) and ``launches_per_forward``
@@ -3133,6 +3156,456 @@ def phase_learning(dev, smi):
     fail_if_any("phase 11")
 
 
+# -- phase 12: the mesh ------------------------------------------------------------------
+#
+# Gloo worlds of MESH_RANKS processes spawned on this card (one H100: every
+# rank shares cuda:0, so the ranks' times are time-sliced, not a scaling
+# figure).  The ranks find the kernels phase 1 built.  References come from
+# this process, before the world starts, on the same card and inputs.
+
+MESH_RANKS = 4
+VISION_MESHES = ((1, 2), (2, 1), (2, 2))
+LM_MESHES = ((1, 2), (2, 2))
+MESH_STEPS = 4                  # decode steps after the prefill of the LM check
+MESH_TIMEOUT = 480.0            # seconds the 4-rank world may take
+PROBE_TIMEOUT = 90.0
+
+
+def _digest(x: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes: the gathered 1 GiB LM state (and the
+    logits) compared with the reference without moving them between
+    processes; equal digests are equal bytes, stricter than ``torch.equal``."""
+    import hashlib
+
+    return hashlib.sha256(x.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _lm_decode_run(plan, batch, steps=MESH_STEPS):
+    """Prefill ``batch`` and greedy-decode ``steps`` tokens: (the prefill's
+    and each step's logits, the tokens, the final state)."""
+    from repro_torch import engine
+
+    logits, state = engine.prefill(plan, batch)
+    outs, tok = [logits], logits[:, -1].argmax(-1)
+    toks = [tok]
+    for _ in range(steps):
+        logits, state = engine.decode_step(plan, state, tok)
+        outs.append(logits)
+        tok = logits.argmax(-1)
+        toks.append(tok)
+    return outs, torch.stack(toks), state
+
+
+def _lm_digests(outs, toks, state):
+    """Digests of a decode run's logits and of its final state gathered whole
+    (``decode_state_full``), the tokens and the position."""
+    from repro_torch import engine
+
+    full = engine.decode_state_full(state)
+    return {"logits": [_digest(x) for x in outs], "tokens": toks.cpu(),
+            "state": [_digest(kv) for kv in full.kv], "pos": int(full.pos)}
+
+
+def _mesh_cont_kw(dev):
+    """Phase 7's continuous workload, as ``serve_spiking_lm_continuous``
+    arguments (the seeded weights of ``_compile_lm_serving``)."""
+    return dict(num_requests=CONT_REQUESTS, prompt_len=max(CONT_LENS), prompt_lens=list(CONT_LENS),
+                max_new=LM_NEW, max_new_spread=CONT_SPREAD, slots=LM_SLOTS,
+                max_pending=CONT_PENDING, backend="cuda", device=dev, verbose=False)
+
+
+def _gemm_shapes(rec):
+    """(weight columns of every spike-GEMM launch, SSA folds of every SSA
+    launch) in one recorded call."""
+    cols, folds = [], []
+    for name, shapes in rec.ops:
+        if name.startswith("kernel.") and "matmul" in name:
+            cols.append(shapes[1][1])
+        elif name.startswith("kernel.") and "ssa" in name:
+            folds.append(shapes[0][-3])
+    return sorted(cols), folds
+
+
+def _mesh_rank(rank, lm_batch, device, arch, lm_arch):
+    """One rank of the phase-12 world: the live ``arch`` on VISION_MESHES and
+    the live ``lm_arch`` on LM_MESHES over the three kernel routes, then
+    continuous serving on 2x1; every result a CPU tensor, a digest or a
+    number.  On a CPU ``device`` (a rehearsal at smoke width) the wrappers
+    run their plain versions, and times are host-clock only."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import engine
+    from repro_torch.engine import analysis
+    from repro_torch.launch.serve import (
+        live_lm_params, live_model, serve_spiking_lm_continuous, spiking_lm_config)
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    counters = _counters()
+    out = {"vision": {}, "lm": {}}
+
+    def counted(fn):
+        for f in counters.values():
+            f.launches = 0
+        if not on_card:
+            t0 = time.perf_counter()
+            result = fn()
+            wall = 1e3 * (time.perf_counter() - t0)
+            return result, {k: f.launches for k, f in counters.items()}, wall, None
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        return result, {k: f.launches for k, f in counters.items()}, wall, start.elapsed_time(end)
+
+    with torch.inference_mode():
+        for route in PATHS:
+            for mesh in VISION_MESHES:
+                plan, images = live_model(arch, SLOTS, route, dev, mesh=mesh)
+                fn = engine.make_apply_fn(plan)
+                fn(plan.params, images)                         # warm-up
+                logits, launches, wall, device_ms = counted(lambda: fn(plan.params, images))
+                rec = analysis.record(fn, plan.params, images)
+                edges = [c for c in rec.collectives if c["kind"] == "edge"]
+                out["vision"][(route, mesh)] = {
+                    "logits": logits.cpu(), "launches": launches, "wall_ms": wall,
+                    "device_ms": device_ms, "shapes": _gemm_shapes(rec),
+                    "dtypes": sorted({c["dtype"] for c in edges}), "edges": len(edges),
+                    "wire_bytes": sum(c["wire_bytes"] for c in edges),
+                    "local_mesh": plan.meta.mesh.shape}
+                del plan, fn
+        cfg = spiking_lm_config(lm_arch)
+        params = live_lm_params(cfg, dev)
+        batch = lm_batch.to(dev)
+        for route in PATHS:
+            for mesh in LM_MESHES:
+                plan = engine.compile_plan(params, None, cfg, backend=route, device=dev,
+                                           mesh=mesh)
+                run, launches, wall, device_ms = counted(lambda: _lm_decode_run(plan, batch))
+                res = _lm_digests(*run)
+                del run
+                pre = engine.make_prefill_fn(plan)
+                rec = analysis.record(pre, plan.params, batch)
+                edges = [c for c in rec.collectives if c["kind"] == "edge"]
+                res.update(launches=launches, wall_ms=wall, device_ms=device_ms,
+                           shapes=_gemm_shapes(rec), dtypes=sorted({c["dtype"] for c in edges}),
+                           edges=len(edges), wire_bytes=sum(c["wire_bytes"] for c in edges))
+                out["lm"][(route, mesh)] = res
+                del plan, pre, rec
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+        for label, chunk in (("one-shot", None), ("chunked", CONT_CHUNK)):
+            t0 = time.perf_counter()
+            done = serve_spiking_lm_continuous(lm_arch, mesh="2x1", prefill_chunk=chunk,
+                                               **_mesh_cont_kw(dev))
+            out[f"cont-{label}"] = ({rid: toks.tolist() for rid, toks in done},
+                                    time.perf_counter() - t0)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else None
+    return out
+
+
+def _gloo_cuda_probe(rank):
+    """Does this torch build's gloo take CUDA tensors for
+    ``all_gather_into_tensor`` and ``reduce_scatter_tensor``?  Each answer is
+    the exception's first line, or "takes them" with the result checked.
+    The mesh hands gloo its CUDA tensors (``launch.mesh.MeshAxis``), so a
+    refusal fails phase 12 before this probe runs.  Then the list-form
+    all-gather the mesh uses
+    (``launch.mesh.MeshAxis``) of one 8-384 dense edge (4 x 4 x 196 x 768
+    f32, 9.6 MB a rank) timed on CUDA tensors and staged through host memory
+    by hand, median of 7 after 2 warm-ups."""
+    import statistics
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    got = {}
+    x = torch.full((4,), rank + 1, dtype=torch.int32, device=dev)
+    try:
+        o = torch.empty(8, dtype=torch.int32, device=dev)
+        dist.all_gather_into_tensor(o, x)
+        got["all_gather_into_tensor on CUDA tensors"] = (
+            f"takes them (right: {o.tolist() == [1] * 4 + [2] * 4})")
+    except Exception as e:  # the answer, reported
+        got["all_gather_into_tensor on CUDA tensors"] = (
+            f"{type(e).__name__}: {str(e).splitlines()[0][:160]}")
+    try:
+        o = torch.empty(2, dtype=torch.int32, device=dev)
+        dist.reduce_scatter_tensor(o, torch.arange(4, dtype=torch.int32, device=dev))
+        got["reduce_scatter_tensor on CUDA tensors"] = (
+            f"takes them (right: {o.tolist() == [4 * rank, 4 * rank + 2]})")
+    except Exception as e:
+        got["reduce_scatter_tensor on CUDA tensors"] = (
+            f"{type(e).__name__}: {str(e).splitlines()[0][:160]}")
+    edge = torch.rand((4, 4, 196, 768), device=dev)
+
+    def direct():
+        out = torch.empty((2,) + tuple(edge.shape), device=dev)
+        dist.all_gather(list(out.unbind(0)), edge)
+        return out
+
+    def staged():
+        host = edge.cpu()
+        out = torch.empty((2,) + tuple(edge.shape))
+        dist.all_gather(list(out.unbind(0)), host)
+        return out.to(dev)
+
+    for label, fn in (("on the CUDA tensors", direct), ("staged through host memory", staged)):
+        times = []
+        for i in range(9):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(1e3 * (time.perf_counter() - t0))
+        same = torch.equal(out[rank], edge)
+        got[f"all_gather of 9.6 MB {label}"] = (f"{statistics.median(times):.2f} ms (own "
+                                                f"block back: {same})")
+    return got
+
+
+def _gemm_columns(dev, gen):
+    """K2, K5 and K8 at the column counts a model shard launches them with
+    (192 and 96 of the 8-384's 384- and 1536-wide units) and at half the
+    rows (a data shard): each launch ``torch.equal`` the matching block of
+    the full launch (a column's sum order does not depend on how many
+    columns or rows the launch has).  And K4's occupancy map at the local
+    widths of a model shard (192) and whole (384), equal to the map
+    ``packing.occupancy_map`` recomputes from the words (what
+    ``backend.word_allgather`` does where the local width is no multiple of
+    OCC_TILE)."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.lif_parallel import ops as lif_ops
+    from repro_torch.kernels.spike_matmul import ops as mm_ops
+
+    t, m = 4, 4 * SLOTS * 196 // 4
+    for k, c in ((384, 384), (384, 1536), (1536, 384)):
+        spikes = (torch.rand((t, m, k), generator=gen) > 0.7).float().to(dev)
+        w = ((torch.rand((k, c), generator=gen) * 2 - 1) / k ** 0.5).to(dev)
+        xw = packing.pack(spikes).words[0]
+        tiles = mm_ops._occ_to_grid_tiles(None, xw)
+        kernels = {
+            "K2": (lambda w_, rows=m: mm_ops.spike_matmul_fwd(
+                spikes[:, :rows].reshape(-1, k), w_).reshape(t, rows, -1)),
+            "K5": (lambda w_, rows=m: mm_ops.packed_spike_matmul_fwd(xw[:rows].contiguous(),
+                                                                     w_, t=t)),
+            "K8": (lambda w_, rows=m: mm_ops.sparse_packed_spike_matmul_fwd(
+                xw[:rows].contiguous(), w_,
+                tiles if rows == m else mm_ops._occ_to_grid_tiles(None, xw[:rows].contiguous()),
+                t=t))}
+        for key, run in kernels.items():
+            full = run(w)
+            same = []
+            for cols in (192, 96):
+                for j in range(c // cols):
+                    part = run(w[:, j * cols:(j + 1) * cols].contiguous())
+                    same.append(torch.equal(part, full[..., j * cols:(j + 1) * cols]))
+            half = torch.equal(run(w, m // 2), full[:, :m // 2])
+            check(all(same) and half, f"{key} K={k} C={c}: a column block or the half-row "
+                  f"launch differs from the full launch ({sum(same)}/{len(same)} blocks equal, "
+                  f"half rows {half})")
+            # one process on the card: the shard's launch alone, not time-sliced
+            w2 = w[:, :c // 2].contiguous()
+            times = (time_ms(lambda: run(w)), time_ms(lambda: run(w2)),
+                     time_ms(lambda: run(w, m // 2)))
+            log(f"  {key} K={k} C={c}: {len(same)} launches at 192 and 96 columns and one at "
+                f"{m // 2} of {m} rows torch.equal the full launch's blocks: "
+                f"{all(same) and half}; ms full {times[0]:.4f}, {c // 2} columns "
+                f"{times[1]:.4f}, half rows {times[2]:.4f}")
+    from repro_torch.kernels.spiking_attention import ops as ssa_ops
+
+    # the SSA at a model shard's 6 of 12 heads, the shard alone on the card
+    g = t * SLOTS * 12
+    q, kk, v = ((torch.rand((g, 196, 32), generator=gen) > 0.5).float().to(dev)
+                for _ in range(3))
+    full_ms = time_ms(lambda: ssa_ops.ssa_fwd(q, kk, v, scale=0.125))
+    qh, kh, vh = (x[:g // 2].contiguous() for x in (q, kk, v))
+    shard_ms = time_ms(lambda: ssa_ops.ssa_fwd(qh, kh, vh, scale=0.125))
+    log(f"  K3 at G={g} (12 heads) {full_ms:.4f} ms, at G={g // 2} (a shard's 6 heads) "
+        f"{shard_ms:.4f} ms")
+    drive = torch.randn((t, SLOTS * 196 * 384), generator=gen).to(dev)
+    for cols in (192, 384):
+        words, occ = lif_ops.lif_parallel_pack_fwd(drive, chain_len=t, lam=0.25, theta=0.5,
+                                                   reset="hard", occ_cols=cols)
+        want = packing.occupancy_map(words.reshape(words.shape[0], -1, cols))
+        same = torch.equal(occ, want)
+        check(same, f"K4 occupancy at {cols} columns differs from the recomputed map")
+        log(f"  K4 occupancy map of {cols}-wide rows torch.equal packing.occupancy_map of its "
+            f"words: {same}")
+
+
+def _mesh_expected_shapes(route, mesh):
+    """(sorted GEMM weight columns, SSA folds) of one 8-384 forward on a
+    (data, model) shard: the tokenizer's three spike convs at full width,
+    every block unit at its local columns, each SSA on the local heads."""
+    d, m = mesh
+    cols = sorted([96, 192, 384] + [384 // m] * 5 * 8 + [1536 // m] * 8)
+    folds = SLOTS // d * 12 // m * (4 if route == "cuda" else 1)
+    return cols, [folds] * 8
+
+
+def _lm_expected_shapes(route, mesh):
+    """One LM prefill on a (data, model) shard: every unit replicated (full
+    columns), the SSA on the local heads of the shard's rows."""
+    d, m = mesh
+    cols = sorted(([LM_D] * 4 + [LM_FF, LM_D]) * LM_LAYERS)
+    folds = LM_SLOTS // d * LM_HEADS // m * (4 if route == "cuda" else 1)
+    return cols, [folds] * LM_LAYERS
+
+
+def phase_mesh(dev, smi, arch=ARCH, lm_arch=LM_ARCH):
+    """The mesh (``compile_plan(mesh=)``) on a gloo world of MESH_RANKS ranks
+    sharing this card: the live 8-384 at slot batch 8 on 1x2, 2x1 and 2x2 and
+    the live llama3.2-1b (prefill of 4 x 32 tokens and MESH_STEPS greedy
+    steps) on 1x2 and 2x2, on the three kernel routes, each ``torch.equal``
+    the single-device plan of its route; every rank's hand-kernel launches
+    and their shapes those of its shard; under the packed routes every spike
+    edge on the wire int32, and its bytes those the pricers give; then
+    ``serve_spiking_lm_continuous(mesh="2x1")`` on phase 7's workload,
+    one-shot and chunked, equal to the single-device streams.  With a CPU
+    ``dev`` and smoke archs it rehearses the same paths (no launch, shape,
+    wire-byte or device-time checks: those hold the full widths on the
+    card)."""
+    from repro_torch import engine
+    from repro_torch.configs.spike_iand_former import get_vision_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.engine import analysis
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.launch.serve import (
+        live_lm_params, live_model, serve_spiking_lm_continuous, spiking_lm_config)
+
+    on_card = dev.type == "cuda"
+    empty_cache = torch.cuda.empty_cache if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    vision_ref = {}
+    with torch.inference_mode():
+        for route in PATHS:
+            plan, images = live_model(arch, SLOTS, route, dev)
+            vision_ref[route] = engine.apply(plan, images).cpu()
+            del plan
+        cfg = spiking_lm_config(lm_arch)
+        prompts = make_batch(DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=LM_PROMPT,
+                                        global_batch=LM_SLOTS), 0)["tokens"]
+        lm_batch = torch.from_numpy(prompts).long()
+        params = live_lm_params(cfg, dev)
+        lm_ref = {}
+        for route in PATHS:
+            plan = engine.compile_plan(params, None, cfg, backend=route, device=dev)
+            lm_ref[route] = _lm_digests(*_lm_decode_run(plan, lm_batch.to(dev)))
+            del plan
+        del params
+        empty_cache()
+        cont_ref = dict(serve_spiking_lm_continuous(lm_arch, **_mesh_cont_kw(dev)))
+    empty_cache()
+    log(f"  references (single device) in {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    ranks = spawn_world(_mesh_rank, MESH_RANKS, (lm_batch, str(dev), arch, lm_arch),
+                        timeout=MESH_TIMEOUT)
+    log(f"  {MESH_RANKS}-rank world (gloo, every rank on {dev}) ran in "
+        f"{time.perf_counter() - t0:.1f} s; peak memory per rank "
+        + ", ".join(f"{r['peak_gib'] or 0:.2f}" for r in ranks) + f" GiB; on {smi}")
+    fmt = lambda x: "not measured" if x is None else f"{x:.2f}"
+
+    for route in PATHS:
+        for mesh in VISION_MESHES:
+            for rank, r in enumerate(ranks):
+                got = r["vision"][(route, mesh)]
+                label = f"8-384 {route} mesh {mesh[0]}x{mesh[1]} rank {rank}"
+                check(got["local_mesh"] == mesh, f"{label}: laid out as {got['local_mesh']}")
+                check(torch.equal(got["logits"], vision_ref[route]),
+                      f"{label}: logits differ from the single-device plan's")
+                if route != "cuda":
+                    check(got["dtypes"] in (["int32"], []) and (got["dtypes"] or mesh[1] == 1),
+                          f"{label}: wire dtypes {got['dtypes']}")
+                if not on_card:
+                    continue
+                want = _per_forward(8, route)
+                check(got["launches"] == want, f"{label}: launches {got['launches']}, "
+                      f"expected {want}")
+                check(got["shapes"] == _mesh_expected_shapes(route, mesh),
+                      f"{label}: kernel shapes {got['shapes']} are not the shard's")
+                if not route.endswith("sparse"):    # the sparse route gathers maps too
+                    priced = analysis.spike_traffic(get_vision_config(arch), batch=SLOTS,
+                                                    backend=route, mesh=mesh)
+                    key = ("cross_device_dense_bytes" if route == "cuda"
+                           else "cross_device_packed_bytes")
+                    check(mesh[0] * got["wire_bytes"] == priced[key],
+                          f"{label}: {got['wire_bytes']} wire bytes x {mesh[0]} data shards "
+                          f"!= the pricing's {priced[key]}")
+            g = ranks[0]["vision"][(route, mesh)]
+            log(f"  8-384 {route} {mesh[0]}x{mesh[1]}: logits torch.equal single device on all "
+                f"ranks; per rank launches {g['launches']}; {g['edges']} spike edges on the wire "
+                f"({g['dtypes']}, {g['wire_bytes']} B per model group); wall / device ms per "
+                "rank " + ", ".join(f"{r['vision'][(route, mesh)]['wall_ms']:.2f} / "
+                                    f"{fmt(r['vision'][(route, mesh)]['device_ms'])}"
+                                    for r in ranks) + " (time-sliced on one card)")
+    for route in PATHS:
+        ref = lm_ref[route]
+        for mesh in LM_MESHES:
+            for rank, r in enumerate(ranks):
+                got = r["lm"][(route, mesh)]
+                label = f"{LM_ARCH} {route} mesh {mesh[0]}x{mesh[1]} rank {rank}"
+                same = (got["logits"] == ref["logits"] and got["state"] == ref["state"]
+                        and torch.equal(got["tokens"], ref["tokens"]) and got["pos"] == ref["pos"])
+                check(same, f"{label}: prefill/step logits, tokens or gathered state differ "
+                      "from the single-device plan's")
+                if route != "cuda":
+                    check(got["dtypes"] == ["int32"], f"{label}: wire dtypes {got['dtypes']}")
+                if not on_card:
+                    continue
+                want = _lm_launches(route, 1, MESH_STEPS)
+                check(got["launches"] == want, f"{label}: launches {got['launches']}, "
+                      f"expected {want}")
+                check(got["shapes"] == _lm_expected_shapes(route, mesh),
+                      f"{label}: kernel shapes are not the shard's")
+                if not route.endswith("sparse"):    # the sparse route gathers maps too
+                    priced = analysis.lm_spike_traffic(cfg, seq_len=LM_PROMPT, batch=LM_SLOTS,
+                                                       backend=route, mesh=mesh)
+                    key = ("cross_device_dense_bytes" if route == "cuda"
+                           else "cross_device_packed_bytes")
+                    check(mesh[0] * got["wire_bytes"] == priced[key],
+                          f"{label}: {got['wire_bytes']} wire bytes x {mesh[0]} data shards "
+                          f"!= the pricing's {priced[key]}")
+            g = ranks[0]["lm"][(route, mesh)]
+            log(f"  {LM_ARCH} {route} {mesh[0]}x{mesh[1]}: prefill + {MESH_STEPS} steps, logits "
+                f"and gathered state torch.equal single device on all ranks; per rank launches "
+                f"{g['launches']}; {g['edges']} spike edges per prefill ({g['dtypes']}, "
+                f"{g['wire_bytes']} B per model group); wall / device ms per rank "
+                + ", ".join(f"{r['lm'][(route, mesh)]['wall_ms']:.1f} / "
+                            f"{fmt(r['lm'][(route, mesh)]['device_ms'])}" for r in ranks)
+                + " (prefill + steps, time-sliced on one card)")
+    want = {rid: toks.tolist() for rid, toks in cont_ref.items()}
+    for label in ("one-shot", "chunked"):
+        for rank, r in enumerate(ranks):
+            streams, seconds = r[f"cont-{label}"]
+            check(streams == want, f"continuous 2x1 {label} rank {rank}: streams differ from "
+                  "the single-device run")
+        log(f"  serve_spiking_lm_continuous(mesh='2x1') {label}: {len(want)} streams equal the "
+            "single-device run on all ranks; wall s per rank "
+            + ", ".join(f"{r[f'cont-{label}'][1]:.2f}" for r in ranks))
+    fail_if_any("phase 12")
+    if on_card:
+        try:
+            probe = spawn_world(_gloo_cuda_probe, 2, timeout=PROBE_TIMEOUT)[0]
+        except (RuntimeError, TimeoutError) as e:   # the answer is logged, never relied on
+            probe = {"probe": f"the world failed: {str(e).splitlines()[0][:160]}"}
+        for op, answer in probe.items():
+            log(f"  gloo {op} (torch {torch.__version__}, 2 ranks): {answer}")
+    log(f"phase 12 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this smoke test "
@@ -3161,6 +3634,9 @@ def main() -> int:
     _lif_bf16_path(dev, torch.Generator().manual_seed(4), bf16_reports)
     log(f"phase 2 (continued): K3, K6, K9 past M * Dh = 2^24 at Dh = {LM_DH}")
     past_reports = _ssa_past_edge(dev, torch.Generator().manual_seed(5))
+    log("phase 2 (continued): K2, K5, K8 at a model shard's columns and a data shard's rows; "
+        "K4's occupancy map at a shard's width")
+    _gemm_columns(dev, torch.Generator().manual_seed(6))
     fail_if_any("phase 2")
     log(f"phase 3: serve the live {ARCH} on {', '.join(BACKENDS)}, "
         f"{REQUESTS // SLOTS} slot batches of {SLOTS} each")
@@ -3190,6 +3666,9 @@ def main() -> int:
     phase_graph_checks(dev)
     log("phase 11: learning parity, the JAX example's training run on both routes")
     phase_learning(dev, smi)
+    log(f"phase 12: the mesh, a gloo world of {MESH_RANKS} ranks on this card")
+    torch.cuda.empty_cache()
+    phase_mesh(dev, smi)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()}}.items()

@@ -133,18 +133,28 @@ def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
     return int(name.split("_")[1])
 
 
-def _load_leaf(path: Path, entry: dict) -> torch.Tensor:
-    arr = np.load(path)
+def _load_leaf(path: Path, entry: dict, sharding=None) -> torch.Tensor:
+    """One stored leaf as a tensor; under a ``sharding``
+    (``distributed.sharding.NamedSharding``) only this rank's block of it,
+    read from a memory map so the rest of the file is never loaded."""
+    arr = np.load(path, mmap_mode="r" if sharding is not None else None)
+    if sharding is not None:
+        arr = np.ascontiguousarray(arr[sharding.local_slices(arr.shape)])
     if entry["dtype"] in _VIEW_DTYPES:
         torch_dtype, _, signed, _ = _VIEW_DTYPES[entry["dtype"]]
         return torch.from_numpy(arr.view(signed)).view(torch_dtype)
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str | os.PathLike, target, *, step: int | None = None):
+def restore(ckpt_dir: str | os.PathLike, target, *, step: int | None = None,
+            shardings=None):
     """Restore into the structure of ``target``, a tree of tensors: each leaf
     comes back with its target's dtype and device (latest step by default).
-    Returns (tree, manifest)."""
+    ``shardings``: optional tree of the same structure whose leaves are
+    ``distributed.sharding.NamedSharding`` (or None: the whole leaf) --
+    each rank loads only its block of each sharded leaf (elastic remesh: the
+    mesh the checkpoint was saved from is irrelevant).  Returns (tree,
+    manifest)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -154,13 +164,16 @@ def restore(ckpt_dir: str | os.PathLike, target, *, step: int | None = None):
     manifest = json.loads((d / "manifest.json").read_text())
     by_name = {e["name"]: e for e in manifest["leaves"]}
 
+    shard_of = dict(flatten_with_names(shardings)) if shardings is not None else {}
+
     def load(name, leaf):
         if name not in by_name:
             raise KeyError(f"checkpoint missing leaf {name}")
-        arr = _load_leaf(d / by_name[name]["file"], by_name[name])
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"{name}: checkpoint shape {tuple(arr.shape)} != target "
+        entry = by_name[name]
+        if tuple(entry["shape"]) != tuple(leaf.shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(entry['shape'])} != target "
                              f"{tuple(leaf.shape)}")
+        arr = _load_leaf(d / entry["file"], entry, shard_of.get(name))
         return arr.to(device=leaf.device, dtype=leaf.dtype)
 
     return _map_with_names(load, target), manifest

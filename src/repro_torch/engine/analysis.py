@@ -6,13 +6,15 @@ and serving pricers, and the graph checks (the parts of the JAX package's
 ``engine.execute.capture_spikes`` and reports, per LIF tap and aggregated,
 the skip rates each sparse consumer sees on those activations.
 
-:func:`lm_spike_traffic` and :func:`lm_decode_traffic` price the spiking LM's
-inter-layer spike edges (``engine.layout``) dense against packed;
+:func:`spike_traffic`, :func:`lm_spike_traffic` and :func:`lm_decode_traffic`
+price the inter-layer spike edges (``engine.layout``) dense against packed,
+and under ``mesh=`` the bytes each edge moves between ranks;
 :func:`decode_slot_report` and :func:`prefill_chunk_report` size a continuous
 service (decode-state bytes per slot, the slots a memory budget buys, the
-warm-shape bill, chunked-prefill residency).  All four are analytic: they
-count bytes from shapes and run nothing.  The port serves on one device, so
-the reference's ``mesh=`` pricing raises here.
+warm-shape bill, chunked-prefill residency).  All are analytic: they count
+bytes from shapes and run nothing.  :func:`collective_report` is their
+measured face: every collective one real call of a sharded plan makes, with
+its dtype and ring wire bytes.
 
 The graph checks (:func:`op_histogram`, :func:`op_dims`, :func:`bn_op_count`,
 :func:`rmsnorm_op_count`) verify a plan's structural promises -- no BatchNorm
@@ -23,7 +25,8 @@ here :class:`OpRecorder` records one call as it runs (on the CPU or on the
 card): every aten op with its operand and result shapes, every
 ``record_function`` region entered, and every hand-kernel launch, which the
 kernel wrappers report themselves (``kernels._build.report_launch``: a
-ctypes launch never reaches the dispatcher).
+ctypes launch never reaches the dispatcher), and every collective, which the
+mesh axes report (``launch.mesh.MeshAxis``).
 """
 
 from __future__ import annotations
@@ -99,11 +102,27 @@ def sparsity_report(plan, batch) -> dict:
 # -- LM traffic and serving pricers ------------------------------------------------
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "cross-device traffic pricing needs the mesh, which is not ported yet "
-            "(ROADMAP 1.6); pass mesh=None")
+def _traffic_sharding(mesh, family: str):
+    """Coerce a pricer's ``mesh=`` argument into the family's resolved
+    ``ShardingCfg`` (None passes through)."""
+    if mesh is None:
+        return None
+    from repro_torch.engine.plan import _resolve_sharding
+
+    return _resolve_sharding(mesh, family)
+
+
+def _edge_mesh_degree(edge, rules: dict, sizes: dict) -> int:
+    """Tensor-parallel degree of one spike edge: the product of mesh-axis
+    sizes its feature (last) logical axis maps to under the plan's rules (1 =
+    the edge is replicated or shard-local)."""
+    if not edge.axes:
+        return 1
+    mapped = rules.get(edge.axes[-1])
+    if mapped is None:
+        return 1
+    names = mapped if isinstance(mapped, tuple) else (mapped,)
+    return math.prod(sizes.get(n, 1) for n in names)
 
 
 def _is_sparse(backend) -> bool:
@@ -123,10 +142,11 @@ def _boundary_closed(backend, ordering: str) -> bool:
 
 
 def _price_edges(edges, t: int, *, batch: int, boundary_closed: bool,
-                 sparse: bool = False) -> dict:
-    """Each spike edge priced dense (f32 over T) and packed (uint32 words),
-    with the q/k/v edges priced dense unless the SSA boundary is closed, and
-    the occupancy maps' bytes under ``sparse``."""
+                 sparse: bool = False, scfg=None) -> dict:
+    """Each spike edge priced dense (f32 over T) and packed (32-bit words),
+    with the q/k/v edges priced dense unless the SSA boundary is closed, the
+    occupancy maps' bytes under ``sparse``, and under a sharding ``scfg``
+    each edge's cross-rank bytes."""
     per_edge = [{
         "name": e.name,
         "elems": e.elems * batch,
@@ -135,6 +155,20 @@ def _price_edges(edges, t: int, *, batch: int, boundary_closed: bool,
         "packed_bytes": packing.packed_nbytes(t, e.elems * batch),
         "occupancy_bytes": packing.occupancy_nbytes(t, e.elems * batch),
     } for e in edges]
+    if scfg is not None:
+        sizes = dict(zip(scfg.mesh_axes, scfg.mesh_shape))
+        rules = scfg.rules_dict
+        for e, pe in zip(edges, per_edge):
+            m = _edge_mesh_degree(e, rules, sizes)
+            # an ssa_boundary edge's consumer (the per-head-local SSA) reads
+            # only the local head shard: sharded, but never on the wire
+            crosses = m > 1 and not e.ssa_boundary
+            pe["tp_degree"] = m
+            pe["crosses_devices"] = crosses
+            # fleet-total ring all-gather bytes over the whole (global) batch:
+            # every shard's block travels to the m-1 other shards
+            pe["cross_device_dense_bytes"] = (m - 1) * pe["dense_bytes"] if crosses else 0
+            pe["cross_device_packed_bytes"] = (m - 1) * pe["packed_bytes"] if crosses else 0
     dense = sum(e["dense_bytes"] for e in per_edge)
     packed = sum(e["packed_bytes"] for e in per_edge)
     occupancy = sum(e["occupancy_bytes"] for e in per_edge)
@@ -159,34 +193,65 @@ def _price_edges(edges, t: int, *, batch: int, boundary_closed: bool,
         out["occupancy_bytes"] = occupancy
         out["packed_sparse_bytes"] = packed + occupancy
         out["reduction_sparse"] = dense / (packed + occupancy)
+    if scfg is not None:
+        xd = sum(e["cross_device_dense_bytes"] for e in per_edge)
+        xp = sum(e["cross_device_packed_bytes"] for e in per_edge)
+        out["mesh"] = {"shape": tuple(scfg.mesh_shape), "axes": tuple(scfg.mesh_axes)}
+        out["cross_device_dense_bytes"] = xd
+        out["cross_device_packed_bytes"] = xp
+        # exactly t / ceil(t/32): every crossing edge moves words
+        out["cross_device_reduction"] = (xd / xp) if xp else None
     return out
+
+
+def spike_traffic(cfg, *, batch: int = 1, img_size: int | None = None, backend=None,
+                  mesh=None) -> dict:
+    """Inter-layer spike bytes of one vision forward pass (``cfg`` a
+    ``SpikformerConfig``), dense against packed, over
+    ``layout.spike_edges``; the q/k/v edges count packed only where the
+    backend's packed SSA consumes the words.  ``mesh`` (ShardingCfg | "dxm"
+    | (data, model)) also prices each edge's cross-rank bytes under the
+    column-parallel vision plan: an edge whose feature axis maps to a model
+    axis of size m > 1 is produced feature-sharded and all-gathered by its
+    consumer (fleet-total wire bytes = edge bytes x (m - 1)), except the
+    q/k/v edges, whose consumer is the head-local SSA.  Data shards move no
+    activations between them."""
+    from repro_torch.engine.layout import spike_edges
+
+    return _price_edges(spike_edges(cfg, img_size=img_size), cfg.t, batch=batch,
+                        boundary_closed=_boundary_closed(backend, cfg.attn_ordering),
+                        sparse=_is_sparse(backend), scfg=_traffic_sharding(mesh, "vision"))
 
 
 def lm_spike_traffic(cfg, *, seq_len: int, batch: int = 1, backend=None,
                      ordering: str = "quadratic", mesh=None) -> dict:
     """Inter-layer spike bytes of one spiking-LM forward pass at ``seq_len``
     tokens (``cfg`` an ``ArchConfig``), dense against packed; the q/k/v edges
-    count packed only where the backend's packed SSA consumes the words."""
+    count packed only where the backend's packed SSA consumes the words.
+    ``mesh`` prices cross-rank bytes under the head-sharded LM schedule: the
+    attention LIF output is the one crossing edge per block (the embed and
+    ffn edges feed model-replicated units, q/k/v the head-local SSA)."""
     from repro_torch.engine.layout import lm_spike_edges
 
-    _no_mesh(mesh)
     return _price_edges(lm_spike_edges(cfg, seq_len=seq_len), cfg.spike_t, batch=batch,
                         boundary_closed=_boundary_closed(backend, ordering),
-                        sparse=_is_sparse(backend))
+                        sparse=_is_sparse(backend), scfg=_traffic_sharding(mesh, "lm"))
 
 
 def lm_decode_traffic(cfg, *, batch: int = 1, backend=None, mesh=None) -> dict:
     """Per-generated-token traffic of incremental decode: the S=1 spike edges
     (``layout.lm_decode_spike_edges``) plus the O(d^2) SSA state each step
     reads and writes back -- all flat in the prefix length.  The decode step
-    consumes q/k/v words directly under ``Backend.closes_ssa_boundary``."""
+    consumes q/k/v words directly under ``Backend.closes_ssa_boundary``.
+    ``mesh`` prices cross-rank bytes per step (the attention edge crosses);
+    the K^T V state stays on its head shard, so state bytes never cross."""
     from repro_torch.engine.backend import resolve
     from repro_torch.engine.layout import lm_decode_spike_edges
 
-    _no_mesh(mesh)
     closed = backend is not None and resolve(backend).closes_ssa_boundary
     priced = _price_edges(lm_decode_spike_edges(cfg), cfg.spike_t, batch=batch,
-                          boundary_closed=closed, sparse=_is_sparse(backend))
+                          boundary_closed=closed, sparse=_is_sparse(backend),
+                          scfg=_traffic_sharding(mesh, "lm"))
     dh = cfg.d_model // cfg.num_heads
     state_bytes = 4 * cfg.num_layers * cfg.spike_t * batch * cfg.num_heads * dh * dh
     priced["decode_state_bytes"] = state_bytes
@@ -194,6 +259,8 @@ def lm_decode_traffic(cfg, *, batch: int = 1, backend=None, mesh=None) -> dict:
     priced["state_bytes_per_step"] = 2 * state_bytes
     priced["dense_bytes_per_step"] = priced["dense_bytes"] + 2 * state_bytes
     priced["packed_bytes_per_step"] = priced["packed_bytes_ssa_dense"] + 2 * state_bytes
+    if mesh is not None:
+        priced["cross_device_state_bytes"] = 0   # the state is pinned to its shard
     return priced
 
 
@@ -213,7 +280,8 @@ def decode_slot_report(plan, *, slots: int, budget_bytes: int | None = None,
     and the warm-shape bill: one step shape for the slot batch plus one
     prefill shape per distinct prompt length."""
     entry = _lm_entry(plan, "decode-slot")
-    traffic = lm_decode_traffic(plan.meta.cfg.arch, batch=slots, backend=plan.meta.backend)
+    traffic = lm_decode_traffic(plan.meta.cfg.arch, batch=slots, backend=plan.meta.backend,
+                                mesh=getattr(plan.meta, "sharding", None))
     report = {
         "slots": slots,
         "state_bytes_per_slot": entry.state_bytes(1),
@@ -288,13 +356,15 @@ class OpRecorder(TorchDispatchMode):
     """Records one call as it runs: ``ops`` lists ``(name, shapes)`` per
     operation in order -- ``aten.<op>.<overload>`` with the shapes of its
     tensor operands and results, ``region.<name>`` for a ``record_function``
-    region entered, and ``kernel.<entry point>`` with its operands' shapes
-    for each hand-kernel launch (:meth:`record_launch`, called by the
-    kernel wrappers)."""
+    region entered, ``kernel.<entry point>`` with its operands' shapes for
+    each hand-kernel launch (:meth:`record_launch`, called by the kernel
+    wrappers), and ``collective.<primitive>`` for each collective of a mesh
+    axis, whose details ``collectives`` keeps (:meth:`record_collective`)."""
 
     def __init__(self):
         super().__init__()
         self.ops: list[tuple[str, tuple]] = []
+        self.collectives: list[dict] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -308,6 +378,13 @@ class OpRecorder(TorchDispatchMode):
 
     def record_launch(self, name: str, operands) -> None:
         self.ops.append((f"kernel.{name}", tuple(tuple(x.shape) for x in operands)))
+
+    def record_collective(self, entry: dict) -> None:
+        """One collective of a mesh axis (``launch.mesh.MeshAxis``): its
+        primitive, axis, kind, dtype, output shape, group size and wire
+        bytes."""
+        self.collectives.append(entry)
+        self.ops.append((f"collective.{entry['primitive']}", (entry["shape"],)))
 
 
 def record(fn, *args, **kwargs) -> OpRecorder:
@@ -356,3 +433,32 @@ def rmsnorm_op_count(fn, *args, **kwargs) -> int:
     folded LM plan, whose gains live in the GEMM weights and whose head
     normalises inline (``rmsnorm_raw``)."""
     return op_histogram(fn, *args, **kwargs)[f"region.{RMSNORM_REGION}"]
+
+
+def collective_report(fn, *args, **kwargs) -> dict:
+    """Every collective of one recorded call of ``fn`` on this rank (a
+    sharded plan's executor: every rank of the world runs it alike), with
+    operand dtype and ring wire bytes -- the measured face of the sharded
+    traffic pricing, and the falsifiable form of the packed-boundary
+    contract: under a packed backend every spike edge that crosses ranks
+    moves int32 words (the uint32 bit pattern; no ``packing.unpack`` output
+    ever crosses).
+
+    ``collectives`` holds the walkers' spike edges (the collectives inside
+    the JAX package's ``shard_map`` body, each with ``primitive``, ``axis``,
+    ``dtype``, ``shape``, ``axis_size`` and ``wire_bytes``); ``outputs``
+    the data shards' head inputs assembled over ``data`` (what the JAX
+    package's ``out_specs`` assemble), apart.  Wire bytes are ring totals
+    per group, as the JAX package counts them: all_gather moves (size-1) x
+    out_bytes, reduce_scatter (size-1) x in_bytes, psum 2 (size-1) x
+    in_bytes.  Summed over the d data shards of a (d, m) mesh, the spike
+    edges' bytes are the pricers' ``cross_device_*_bytes``."""
+    rec = record(fn, *args, **kwargs)
+    edges = [c for c in rec.collectives if c["kind"] == "edge"]
+    return {
+        "num_collectives": len(edges),
+        "collectives": edges,
+        "wire_bytes": sum(c["wire_bytes"] for c in edges),
+        "dtypes": sorted({c["dtype"] for c in edges}),
+        "outputs": [c for c in rec.collectives if c["kind"] != "edge"],
+    }

@@ -30,6 +30,8 @@ closed packed boundary.
 
 Every compute op of the deploy plan goes through this module, so a plan's
 kernel route is a property of its Backend, with no exemptions at call sites.
+So does every cross-rank spike edge of a sharded plan (:func:`spike_allgather`
+and the packed-word collectives), on a mesh axis of ``launch.mesh``.
 """
 
 from __future__ import annotations
@@ -87,6 +89,97 @@ def resolve(spec) -> Backend:
             raise ValueError(f"unknown backend flag(s): {bad} in {spec!r}")
         return Backend(kind, packed=bool(flags), sparse="sparse" in flags)
     raise TypeError(f"cannot resolve backend from {spec!r}")
+
+
+# -- packed-word collectives: the cross-rank face of the closed boundary ----------
+#
+# Under a sharded plan the tensor-parallel shards exchange inter-layer spike
+# activations.  These helpers keep that exchange in the packed domain: the
+# collective operand is the int32 word tensor of a ``PackedSpikes`` train
+# (the uint32 bit pattern; never the unpacked f32 spikes), so cross-rank
+# activation bytes shrink by the same ceil(T/32)/T factor as on-chip traffic.
+# Occupancy maps move alongside when their OCC_TILE tiling survives the cut
+# (local feature dim a multiple of the tile), and are recomputed from the
+# moved words otherwise -- either way the map stays consistent with the
+# words.  ``axis`` is a ``launch.mesh.MeshAxis`` (the model axis of the
+# plan's mesh); every rank of it calls the helper alike.
+
+
+def word_allgather(xp: packing.PackedSpikes, axis) -> packing.PackedSpikes:
+    """All-gather a feature-sharded packed train along its last (feature)
+    axis: local words (W, ..., F/m) -> full words (W, ..., F), int32 on the
+    wire.  Shard i's columns land at block i -- the single-device feature
+    order, which keeps the downstream GEMMs exact."""
+    words = axis.all_gather(xp.words, -1)
+    occ = None
+    if xp.occ is not None:
+        occ = (axis.all_gather(xp.occ, -1) if xp.words.shape[-1] % packing.OCC_TILE == 0
+               else packing.occupancy_map(words))
+    return packing.PackedSpikes(words, xp.t, occ=occ)
+
+
+def word_psum(xp: packing.PackedSpikes, axis) -> packing.PackedSpikes:
+    """Sum partial packed trains across shards -- valid only when the shards'
+    set bits are disjoint (each spike produced by exactly one shard), where
+    the integer sum IS the bitwise OR (no bit carries; the int32 pattern is
+    the uint32 one).  Occupancy popcounts add under the same disjointness,
+    so the map sums alongside and stays exact."""
+    words = axis.all_reduce(xp.words)
+    occ = None if xp.occ is None else axis.all_reduce(xp.occ)
+    return packing.PackedSpikes(words, xp.t, occ=occ)
+
+
+def word_reduce_scatter(xp: packing.PackedSpikes, axis) -> packing.PackedSpikes:
+    """Disjoint-support sum (see :func:`word_psum`) that leaves each shard
+    only its block of the feature axis: words (W, ..., F) -> (W, ..., F/m).
+    ``word_reduce_scatter`` then ``word_allgather`` is :func:`word_psum`."""
+    words = axis.reduce_scatter(xp.words, -1)
+    occ = None
+    if xp.occ is not None:
+        # scatter blocks align with OCC_TILE boundaries iff the local feature
+        # dim is a tile multiple; otherwise recompute from the words
+        occ = (axis.reduce_scatter(xp.occ, -1) if words.shape[-1] % packing.OCC_TILE == 0
+               else packing.occupancy_map(words))
+    return packing.PackedSpikes(words, xp.t, occ=occ)
+
+
+def spike_allgather(x, axis):
+    """Feature all-gather of one spike edge on any backend: packed trains
+    take :func:`word_allgather` (int32 words on the wire), dense trains a
+    plain f32 all-gather of the last axis.  The one entry point the executor
+    uses for a cross-rank edge, so "packed backends never move unpacked
+    spikes between ranks" is a property of this dispatch."""
+    if isinstance(x, packing.PackedSpikes):
+        return word_allgather(x, axis)
+    return axis.all_gather(x, -1)
+
+
+def spike_shard(x, axis):
+    """This shard's feature block of a replicated spike tensor: (..., F) ->
+    (..., F/m), shard i taking columns [i*F/m, (i+1)*F/m) -- the inverse of
+    :func:`spike_allgather`, moving nothing.  It lands the replicated
+    tokenizer output on the feature-sharded residual stream."""
+    if isinstance(x, packing.PackedSpikes):
+        words = axis.block(x.words, -1)
+        occ = None
+        if x.occ is not None:
+            occ = (axis.block(x.occ, -1) if words.shape[-1] % packing.OCC_TILE == 0
+                   else packing.occupancy_map(words))
+        return packing.PackedSpikes(words, x.t, occ=occ)
+    return axis.block(x, -1)
+
+
+def unit_partition_specs(u, params: dict, rules: dict) -> dict:
+    """Specs (``distributed.sharding.spec``) of one folded unit's parameter
+    dict, from the layout's logical ``w_axes`` through the plan's rules: the
+    weight is (d_in, d_out)-annotated, every other leaf (bias, RMS
+    normalizer) is a per-output-feature vector and shards with the output
+    dim."""
+    from repro_torch.distributed.sharding import spec
+
+    wspec = spec(*u.w_axes, rules=rules)
+    outspec = spec(u.w_axes[1], rules=rules)
+    return {k: (wspec if k == "w" else outspec) for k in params}
 
 
 def lif_apply(backend: Backend, drive: torch.Tensor, *, theta, lam, schedule,

@@ -18,11 +18,18 @@ The block layout records which LIFs fuse the AND-NOT residual into their
 epilogue, and the backend (plain PyTorch vs the CUDA kernels) is a plan
 property.  A plan lives on one device, the card unless the caller asks for
 the CPU.
+
+``compile_plan(mesh=)`` makes the plan mesh-aware (:class:`ShardingCfg`): run
+SPMD on every rank of a ``torch.distributed`` world, batch data-parallel over
+``data`` and the family's tensor-parallel schedule over ``model``, each rank
+keeping only its parameter slices (vision: block units cut by output column;
+LM: units replicated, the SSA heads sharded at run time).  Bit-exact against
+the ``mesh=None`` plan by construction.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -34,6 +41,119 @@ from repro_torch.engine.backend import Backend, resolve
 from repro_torch.engine.layout import (
     ProjUnit, TokStage, block_layout, lm_block_layout, tokenizer_layout,
 )
+
+
+@dataclass(frozen=True)
+class ShardingCfg:
+    """Mesh-awareness of a deploy plan: the requested mesh shape and axes,
+    plus the logical-axis rules that resolve the layout annotations
+    (``ProjUnit.w_axes``, ``SpikeEdge.axes``) into specs.
+
+    Hashable (rules stored as a sorted item tuple).  The rules come from
+    ``distributed.sharding.engine_rules(family, preset=...)``.  The host mesh
+    itself is process state and is not stored here: :meth:`build_mesh` lays
+    it over the world (the largest feasible shape, with a warning, on a
+    world smaller than ``mesh_shape``), and the plan keeps it beside its
+    parameter slices (``PlanMeta.mesh``)."""
+
+    mesh_shape: tuple[int, int] = (1, 1)
+    mesh_axes: tuple[str, str] = ("data", "model")
+    preset: str = "base"
+    rules: tuple[tuple[str, Any], ...] = field(default=(), repr=False)
+
+    @property
+    def data_axis(self) -> str:
+        return self.mesh_axes[0]
+
+    @property
+    def model_axis(self) -> str:
+        return self.mesh_axes[1]
+
+    @property
+    def data(self) -> int:
+        return self.mesh_shape[0]
+
+    @property
+    def model(self) -> int:
+        return self.mesh_shape[1]
+
+    @property
+    def rules_dict(self) -> dict[str, Any]:
+        return dict(self.rules)
+
+    def build_mesh(self):
+        """The host mesh of this cfg over the world (``launch.mesh``)."""
+        from repro_torch.launch.mesh import make_host_mesh
+
+        return make_host_mesh(self.mesh_shape, self.mesh_axes)
+
+
+def _resolve_sharding(mesh, family: str) -> ShardingCfg | None:
+    """Coerce a user-facing mesh spec -- ShardingCfg | "dxm" | (d, m) | None
+    -- into a ShardingCfg with the family's engine rules resolved."""
+    from repro_torch.distributed import sharding as shd
+
+    if mesh is None:
+        return None
+    if isinstance(mesh, ShardingCfg):
+        cfg = mesh
+    else:
+        if isinstance(mesh, str):
+            try:
+                d, m = (int(p) for p in mesh.lower().split("x"))
+            except ValueError:
+                raise ValueError(f"mesh spec must be 'dxm' (e.g. '2x1'), got {mesh!r}")
+            shape = (d, m)
+        else:
+            shape = tuple(int(s) for s in mesh)
+            if len(shape) != 2:
+                raise ValueError(f"mesh shape must be (data, model), got {shape}")
+        cfg = ShardingCfg(mesh_shape=shape)
+    if min(cfg.mesh_shape) < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {cfg.mesh_shape}")
+    if not cfg.rules:
+        rules = shd.engine_rules(family, preset=cfg.preset)
+        cfg = ShardingCfg(mesh_shape=cfg.mesh_shape, mesh_axes=cfg.mesh_axes,
+                          preset=cfg.preset, rules=tuple(sorted(rules.items())))
+    return cfg
+
+
+def _validate_sharding(scfg: ShardingCfg, cfg, family: str) -> None:
+    """Divisibility the exact sharded schedules require.  Batch divisibility
+    by the data axis is checked at call time (the batch size is not a plan
+    property)."""
+    m = scfg.model
+    if m == 1:
+        return
+    heads = cfg.num_heads
+    if heads % m:
+        raise ValueError(f"model axis {m} must divide num_heads={heads} (the SSA runs "
+                         "per-head-local on its shard)")
+    if family == "vision":
+        d = cfg.embed_dim
+        hidden = int(cfg.embed_dim * cfg.mlp_ratio)
+        if d % m or hidden % m:
+            raise ValueError(f"model axis {m} must divide embed_dim={d} and the MLP hidden "
+                             f"dim {hidden} (column-parallel unit shards)")
+
+
+def _shard_blocks(blocks, units, scfg: ShardingCfg, mesh):
+    """Each block unit's parameters cut to this rank's slices by its specs
+    (``backend.unit_partition_specs``), made contiguous (the kernels take a
+    dense layout) and copied, so the full tensors can be freed."""
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.engine.backend import unit_partition_specs
+
+    rules = scfg.rules_dict
+
+    def cut(x, sp):
+        return x[NamedSharding(mesh, sp).local_slices(x.shape)].contiguous().clone()
+
+    return tuple(
+        {u.name: {k: cut(v, unit_partition_specs(u, bp[u.name], rules)[k])
+                  for k, v in bp[u.name].items()}
+         for u in units}
+        for bp in blocks)
 
 
 @dataclass(frozen=True)
@@ -127,6 +247,8 @@ class PlanMeta:
     device: torch.device
     family: str = "vision"            # "vision" | "lm"
     bundle: Any = None                # core.bundling.BundleInfo of an applied row bundling
+    sharding: ShardingCfg | None = None   # None = single-device plan
+    mesh: Any = None                  # launch.mesh.HostMesh the parameter slices belong to
 
     @property
     def decode(self) -> DecodeEntry | None:
@@ -167,7 +289,8 @@ def resolve_device(device) -> torch.device:
 
 
 def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = None,
-                 device=None, checkpoint=None, bundle: float | None = None) -> DeployPlan:
+                 device=None, checkpoint=None, bundle: float | None = None,
+                 mesh=None) -> DeployPlan:
     """Fold a trained (params, state, cfg) into a deploy plan on ``device``.
 
     ``params``/``state``: nested dicts of tensors or numpy arrays with the
@@ -187,6 +310,16 @@ def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = N
     ``0.0`` = exact duplicate-train dedup).  Every sparse LM plan carries the
     per-row packed train table (``bundling.attach_train_table``), which its
     decode step reads in place of the encoding LIF.
+    ``mesh``: optional :class:`ShardingCfg` | ``"dxm"`` | ``(data, model)``
+    -- makes the plan mesh-aware: every rank of the ``torch.distributed``
+    world calls ``compile_plan`` with the same arguments and keeps its own
+    parameter slices; the executors then take the global batch on every
+    rank, run the batch data-parallel over ``data`` and the family's
+    tensor-parallel schedule over ``model`` (vision: column-parallel units
+    and a feature-sharded residual stream; LM: head-sharded SSA and decode
+    state), move every cross-rank spike edge as packed words under packed
+    backends, and return the global result on every rank.  Bit-exact
+    against the ``mesh=None`` plan.
     """
     dev = resolve_device(device)
     params = bridge.to_torch(params, dev)
@@ -203,7 +336,7 @@ def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = N
         from repro_torch.core import bundling
 
         plan = _compile_lm_plan(params, state, cfg, backend=backend,
-                                ordering=ordering or "quadratic", device=dev)
+                                ordering=ordering or "quadratic", device=dev, mesh=mesh)
         if bundle is not None:
             plan = bundling.bundle(plan, budget=bundle)
         if plan.meta.backend.sparse:
@@ -221,6 +354,11 @@ def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = N
         raise ValueError(
             "packed backends require residual='iand': the ADD residual sums "
             "spike trains into non-binary tensors, which cannot be bit-packed")
+    scfg = _resolve_sharding(mesh, "vision")
+    host_mesh = None
+    if scfg is not None:
+        _validate_sharding(scfg, cfg, "vision")
+        host_mesh = scfg.build_mesh()
     tok_stages = tokenizer_layout(cfg.tokenizer_config())
     units = block_layout(cfg)
 
@@ -233,15 +371,17 @@ def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = N
                                     state[f"block{i}"][u.name]["bn"])
          for u in units}
         for i in range(cfg.num_layers))
+    if scfg is not None:
+        folded_blocks = _shard_blocks(folded_blocks, units, scfg, host_mesh)
 
     meta = PlanMeta(cfg=cfg, backend=be, tok_stages=tok_stages, block_units=units,
-                    num_layers=cfg.num_layers, device=dev)
+                    num_layers=cfg.num_layers, device=dev, sharding=scfg, mesh=host_mesh)
     return DeployPlan(meta=meta, params={"tokenizer": folded_tok,
                                          "blocks": folded_blocks,
                                          "head": params["head"]})
 
 
-def _compile_lm_plan(params, state, cfg, *, backend, ordering, device) -> DeployPlan:
+def _compile_lm_plan(params, state, cfg, *, backend, ordering, device, mesh=None) -> DeployPlan:
     """Fold a spiking-LM model (``models.spiking_lm`` parameters, on
     ``device``) into a deploy plan: RMSNorm gains into the GEMM weights
     (``fold_linear_rmsnorm``), the embedding norm into the embedding table,
@@ -260,6 +400,11 @@ def _compile_lm_plan(params, state, cfg, *, backend, ordering, device) -> Deploy
     if ordering not in ("quadratic", "linear"):
         raise ValueError(f"unknown attention ordering: {ordering!r}")
     be = resolve(backend)
+    scfg = _resolve_sharding(mesh, "lm")
+    host_mesh = None
+    if scfg is not None:
+        _validate_sharding(scfg, cfg, "lm")
+        host_mesh = scfg.build_mesh()      # units stay replicated: nothing to cut
     units = lm_block_layout(cfg)
     # token rows are normalized independently, so the fold is the full
     # RMSNorm precomputed over the table
@@ -273,7 +418,7 @@ def _compile_lm_plan(params, state, cfg, *, backend, ordering, device) -> Deploy
                               for u in units})
     meta = PlanMeta(cfg=LMDeployCfg(arch=cfg, attn_ordering=ordering), backend=be,
                     tok_stages=(), block_units=units, num_layers=cfg.num_layers,
-                    device=device, family="lm")
+                    device=device, family="lm", sharding=scfg, mesh=host_mesh)
     return DeployPlan(meta=meta, params={"embed": embed, "blocks": tuple(folded_blocks),
                                          "final_norm": params["final_norm"],
                                          "head": {"w": params["lm_head"]["w"]}})

@@ -7,7 +7,10 @@ A library's file name carries a hash of its source and of the compiler flags,
 so an edited source is rebuilt at its next use and a stale library is never
 loaded.  :func:`build` compiles every stale library in parallel (one ``nvcc``
 per source, all started together); a kernel wrapper's first launch builds
-its own library if nothing has yet.
+its own library if nothing has yet.  Processes that share the build
+directory (the ranks of a mesh reaching first use together) build once: the
+build holds a file lock on the directory, and a process that waited for it
+finds the libraries built.
 
 Launch convention (every ``.cu`` file): the C function takes device pointers
 and the CUDA stream as ``void*`` and ints as ``int``, enqueues on that stream
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -84,10 +88,18 @@ def build(names=None) -> dict[str, str]:
     whose current build is missing, all ``nvcc`` processes at once.  Returns
     the compiler output (``-Xptxas -v``: registers, shared memory, spills) of
     each library built; raises with that output if any compile fails."""
-    todo = [n for n in (names or SOURCES) if not library_path(n).exists()]
-    if not todo:
+    names = list(names or SOURCES)
+    if all(library_path(n).exists() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)        # released when the file closes
+        return _build_missing([n for n in names if not library_path(n).exists()])
+
+
+def _build_missing(todo) -> dict[str, str]:
+    if not todo:
+        return {}
     nvcc = _nvcc()
     jobs = []
     for name in todo:

@@ -166,10 +166,12 @@ class ContinuousScheduler:
                 "continuous batching is an LM-plan mode (needs the incremental "
                 f"decode entry); family={meta.family!r}")
         self.plan = plan
-        self.data_par = 1                 # one device: the step batch is not split
-        if slots < 1:
-            raise ValueError(f"slots={slots} must be a positive multiple of the data "
-                             f"degree {self.data_par}")
+        # the step batch shards over the mesh's data axis (1 on one device)
+        self.data_par = (1 if meta.sharding is None
+                         else meta.mesh.axis(meta.sharding.data_axis).size)
+        if slots < 1 or slots % self.data_par:
+            raise ValueError(f"slots={slots} must be a positive multiple of the mesh data "
+                             f"degree {self.data_par} (the step batch shards over it)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1 (tokens), got {prefill_chunk}")
         self.slots = slots
@@ -258,9 +260,17 @@ class ContinuousScheduler:
         return ok
 
     def _pad_prompt_batch(self, prompt) -> torch.Tensor:
-        """(S,) prompt -> (data_par, S) prefill batch on the plan's device: at
-        data degree 1, the prompt as one row."""
-        return torch.as_tensor(np.asarray(prompt), dtype=torch.long, device=self._device)[None]
+        """(S,) prompt -> (data_par, S) prefill batch on the plan's device: the
+        prompt repeated on every data shard (rows past the first are dead
+        weight the data axis requires)."""
+        seq = torch.as_tensor(np.asarray(prompt), dtype=torch.long, device=self._device)[None]
+        return seq.expand(self.data_par, -1)
+
+    def _src_row(self, slot: int) -> int:
+        """The row of a padded prefill batch to page into ``slot``: the copy
+        on the slot's own data shard (every row holds the same prompt), so
+        no state moves between ranks."""
+        return slot // (self.slots // self.data_par)
 
     def _now(self) -> float:
         """Seconds since the current run started -- re-read at every stamp
@@ -280,7 +290,7 @@ class ContinuousScheduler:
             self.completed.append(req)
             return
         slot = self._free.popleft()
-        self.state = self._scatter(self.state, slot, st, 0)
+        self.state = self._scatter(self.state, slot, st, self._src_row(slot))
         self._tok[slot] = tok0
         self._active[slot] = req
 

@@ -51,21 +51,37 @@ a cost flat in context length.  The weights are drawn from a seeded
     PYTHONPATH=src python -m repro_torch.launch.serve --spiking-lm \
         --arch llama3.2-1b_smoke --requests 3 --prompt-len 8 --max-new 4 \
         --slots 2 --backend torch --device cpu
+
+``--mesh DxM`` serves from a mesh-sharded plan (``compile_plan(mesh=)``) on
+every rank of a ``torch.distributed`` world started by ``torchrun`` (gloo;
+on the card all ranks share it): slot batches fan out over the data axis,
+heads (vision: every unit's columns) shard over the model axis, and under a
+packed backend every cross-rank spike edge moves int32 bitplane words.  The
+shape is elastic: a world smaller than the mesh shrinks the data axis and
+the slot count proportionally (``fault_tolerance.plan_remesh``), and only
+rank 0 prints.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --spiking-lm \
+        --arch llama3.2-1b_smoke --backend torch+packed --mesh 2x2 --requests 4 \
+        --prompt-len 8 --max-new 4 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import engine
 from repro_torch.configs.spike_iand_former import get_vision_config
 from repro_torch.core import spikformer as sf
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.engine.plan import resolve_device
+from repro_torch.launch.mesh import world
 from repro_torch.launch.scheduler import ContinuousScheduler, Request
 from repro_torch.launch.scheduler import greedy as greedy_sample
 from repro_torch.models.lm import get_config
@@ -76,19 +92,75 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def parse_mesh(spec):
+    """``--mesh dxm`` -> (data, model), e.g. "2x1" -> (2, 1)."""
+    if spec is None or isinstance(spec, tuple):
+        return spec
+    d, m = (int(s) for s in spec.lower().split("x"))
+    return (d, m)
+
+
+def _elastic_mesh(shape, slots: int, *, verbose: bool = True):
+    """The serving mesh that fits the live fleet (the ranks of the world):
+    ``distributed.fault_tolerance.plan_remesh`` shrinks the data axis and
+    the slot count proportionally when the fleet is short (capacity
+    degrades, the service stays up); only a fleet too small for one model
+    group falls back to single-rank serving.  Returns (shape, slots)."""
+    from repro_torch.distributed.fault_tolerance import plan_remesh
+
+    fleet, _ = world()
+    plan = plan_remesh(tuple(shape), fleet, slots)
+    if plan.action == "continue":
+        return tuple(shape), slots
+    if plan.action == "remesh":
+        if verbose:
+            print(f"[serve] mesh {tuple(shape)} needs {shape[0] * shape[1]} ranks, have "
+                  f"{fleet}: degrading to {plan.new_shape} ({plan.new_global_batch} slots) "
+                  "-- capacity shrinks, service stays up")
+        return plan.new_shape, max(1, plan.new_global_batch)
+    if verbose:
+        print(f"[serve] mesh {tuple(shape)} infeasible on {fleet} rank(s) (the model axis "
+              "alone does not fit): falling back to single-rank serving")
+    return (1, 1), slots
+
+
+def _resolve_mesh(mesh, slots: int, verbose: bool):
+    """(mesh shape or None, slots) for a serving call's ``mesh`` argument."""
+    mesh = parse_mesh(mesh)
+    if mesh is None:
+        return None, slots
+    return _elastic_mesh(mesh, slots, verbose=verbose)
+
+
+def _data_par(plan) -> int:
+    """The data-parallel degree a plan's batches shard over (1 unsharded)."""
+    meta = plan.meta
+    return 1 if meta.sharding is None else meta.mesh.axis(meta.sharding.data_axis).size
+
+
+def _where(plan) -> str:
+    dev = plan.meta.device
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    mesh = plan.meta.mesh
+    if mesh is not None:
+        where += f", {'x'.join(str(n) for n in mesh.shape)} mesh of {world()[0]} rank(s)"
+    return where
+
+
 def seeded_model(arch: str, *, num_requests: int, backend: str = "cuda",
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, mesh=None):
     """(plan, images) for a vision config: the plan compiled from random
     weights drawn by ``sf.init`` from ``torch.Generator().manual_seed(seed)``,
     and ``num_requests`` images in [0, 1) drawn next from the same generator,
-    so one seed gives the same model and inputs whatever the backend."""
+    so one seed gives the same model and inputs whatever the backend (and
+    ``mesh``, passed to ``compile_plan``)."""
     dev = resolve_device(device)
     cfg = get_vision_config(arch)
     gen = torch.Generator().manual_seed(seed)
     params, state = sf.init(gen, cfg)
     images = torch.rand((num_requests, cfg.img_size, cfg.img_size, cfg.in_channels),
                         generator=gen)
-    plan = engine.compile_plan(params, state, cfg, backend=backend, device=dev)
+    plan = engine.compile_plan(params, state, cfg, backend=backend, device=dev, mesh=mesh)
     return plan, images.to(dev)
 
 
@@ -112,14 +184,15 @@ def _perturb_leaf(name, leaf, rng):
     return leaf if noise is None else torch.from_numpy(noise().astype(a.dtype))
 
 
-def live_model(arch: str, num_requests: int, backend: str, device=None, seed: int = 0):
+def live_model(arch: str, num_requests: int, backend: str, device=None, seed: int = 0,
+               mesh=None):
     """(plan, images) of a model whose blocks fire: the parameters of
     ``sf.init(torch.Generator().manual_seed(seed), cfg)`` with every BN leaf
     perturbed (``_perturb_bn``, drawn from ``np.random.default_rng(seed + 1)``,
     params then state), compiled with ``engine.compile_plan``; the images are
     drawn next from the same generator, as ``seeded_model`` draws them.  With
     fresh BN (mean 0, var 1, scale 1, bias 0) the seeded model's block LIFs
-    never fire."""
+    never fire.  ``mesh`` is passed to ``compile_plan``."""
     cfg = get_vision_config(arch)
     gen = torch.Generator().manual_seed(seed)
     params, state = sf.init(gen, cfg)
@@ -129,14 +202,16 @@ def live_model(arch: str, num_requests: int, backend: str, device=None, seed: in
     params = _perturb_bn(params, rng)
     state = _perturb_bn(state, rng)
     dev = resolve_device(device)
-    plan = engine.compile_plan(params, state, cfg, backend=backend, device=dev)
+    plan = engine.compile_plan(params, state, cfg, backend=backend, device=dev, mesh=mesh)
     return plan, images.to(dev)
 
 
 def serve_plan(plan, images: torch.Tensor, *, slots: int = 4, verbose: bool = True) -> dict:
     """Classify ``images`` (on the plan's device) in slot batches of
     ``slots`` through ``plan``: one warm-up forward at the slot-batch shape
-    (it also builds the kernels), then the timed loop.
+    (it also builds the kernels), then the timed loop.  On a sharded plan
+    every rank calls it alike, and each slot batch is padded to a multiple
+    of the data degree (the padded rows' logits are dropped).
 
     Returns a dict with ``classes`` (per-request argmax), ``logits`` (on the
     host), ``forwards`` (forward passes run, warm-up included), ``seconds``
@@ -146,14 +221,16 @@ def serve_plan(plan, images: torch.Tensor, *, slots: int = 4, verbose: bool = Tr
     dev = plan.meta.device
     step = engine.make_apply_fn(plan)
     num_requests = images.shape[0]
+    data_par = _data_par(plan)
 
     with torch.inference_mode():
-        step(plan.params, images[:slots])          # warm-up: builds the kernels
+        step(plan.params, _pad_batch(images[:slots], data_par)[0])   # warm-up: builds the kernels
         _sync(dev)
         forwards, logits = 1, []
         t0 = time.perf_counter()
         for start in range(0, num_requests, slots):
-            out = step(plan.params, images[start:start + slots])
+            batch, b = _pad_batch(images[start:start + slots], data_par)
+            out = step(plan.params, batch)[:b]
             forwards += 1
             logits.append(out.cpu())               # the host copy syncs the batch
             if verbose:
@@ -165,7 +242,7 @@ def serve_plan(plan, images: torch.Tensor, *, slots: int = 4, verbose: bool = Tr
              "forwards": forwards, "seconds": dt, "img_per_s": num_requests / dt}
     if verbose:
         ps = engine.plan_stats(plan)
-        where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        where = _where(plan)
         spikes = ", packed spikes" if ps["packed"] else ""
         spikes += ", sparse skipping" if ps["sparse"] else ""
         print(f"[serve] {num_requests} images in {dt:.4f}s "
@@ -178,13 +255,17 @@ def serve_plan(plan, images: torch.Tensor, *, slots: int = 4, verbose: bool = Tr
 
 
 def serve_vision(arch: str, *, num_requests: int, slots: int = 4,
-                 backend: str = "cuda", device=None, seed: int = 0,
+                 backend: str = "cuda", mesh=None, device=None, seed: int = 0,
                  verbose: bool = True) -> dict:
     """Serve ``num_requests`` random images of a vision config in slot
     batches of ``slots`` through the plan of :func:`seeded_model`
-    (:func:`serve_plan` says what the result holds)."""
+    (:func:`serve_plan` says what the result holds).  ``mesh`` ("dxm" or
+    (data, model)) compiles a mesh-sharded plan and fans the slot batches
+    over the data axis, degrading elastically (:func:`_elastic_mesh`) on a
+    world too small for it."""
+    mesh, slots = _resolve_mesh(mesh, slots, verbose)
     plan, images = seeded_model(arch, num_requests=num_requests, backend=backend,
-                                device=device, seed=seed)
+                                device=device, seed=seed, mesh=mesh)
     return serve_plan(plan, images, slots=slots, verbose=verbose)
 
 
@@ -201,10 +282,9 @@ def spiking_lm_config(arch: str):
 
 
 def _pad_batch(x: torch.Tensor, mult: int):
-    """Pad the leading (request) axis to a multiple of ``mult`` by repeating
-    the last row; returns (padded, true_size).  The JAX package pads slot
-    batches to the data-parallel degree of a mesh; the port serves on one
-    device (degree 1), and keeps it for the mesh slice."""
+    """Pad the leading (request) axis to a multiple of ``mult`` (the data
+    degree of a sharded plan) by repeating the last row; returns (padded,
+    true_size).  The padded rows are dead weight, dropped from the outputs."""
     b = x.shape[0]
     r = (-b) % mult
     if r:
@@ -221,22 +301,25 @@ def _warm_sizes(slots: int, num_requests: int) -> set[int]:
     return sizes
 
 
+def _warm_padded_sizes(slots: int, num_requests: int, data_par: int = 1) -> set[int]:
+    """The batch sizes that actually run: :func:`_warm_sizes` padded to the
+    data degree (two ragged sizes that pad alike warm once)."""
+    return {b + ((-b) % data_par) for b in _warm_sizes(slots, num_requests)}
+
+
 def _compile_lm_serving(arch: str, *, backend, ordering, mesh, seed, device):
     """The setup of spiking-LM serving: config, weights drawn from
     ``torch.Generator(device).manual_seed(seed)`` on the plan's device, and
-    the one plan compile -- returns (cfg, plan).  The weights are dropped
-    when this returns; the plan keeps its folded copies."""
+    the one plan compile (``mesh`` as resolved by :func:`_elastic_mesh`) --
+    returns (cfg, plan).  The weights are dropped when this returns; the
+    plan keeps its folded copies."""
     from repro_torch.models import spiking_lm as slm
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded LM serving is not ported yet (ROADMAP 1.6, the mesh); "
-            "serve on one device with mesh=None")
     dev = resolve_device(device)
     cfg = spiking_lm_config(arch)
     params = slm.init_spiking_lm(torch.Generator(dev).manual_seed(seed), cfg)
     plan = engine.compile_plan(params, None, cfg, backend=backend, ordering=ordering,
-                               device=dev)
+                               device=dev, mesh=mesh)
     return cfg, plan
 
 
@@ -292,7 +375,8 @@ def serve_lm_plan(plan, prompts, *, slots: int = 4, max_new: int = 16,
     slot batches of ``slots``: per batch one prefill, whose last position
     gives the first new token, then ``max_new - 1`` decode steps.  One
     warm-up prefill and step per batch size come first (they also build the
-    kernels).
+    kernels).  On a sharded plan every rank calls it alike, and each slot
+    batch is padded to a multiple of the data degree (padded rows dropped).
 
     Returns a dict: ``done`` (the JAX package's result: (request, its
     ``max_new`` tokens) pairs in order), ``tokens`` (N, max_new) and
@@ -306,10 +390,11 @@ def serve_lm_plan(plan, prompts, *, slots: int = 4, max_new: int = 16,
     step = engine.make_decode_step_fn(plan)
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long).to(dev)
     num_requests, prompt_len = prompts.shape
+    data_par = _data_par(plan)
     out = {"done": [], "prefills": 0, "steps": 0, "prefill_ms": [], "step_ms": []}
     tokens, logits_kept = [], []
     with torch.inference_mode():
-        for bp in sorted(_warm_sizes(slots, num_requests)):
+        for bp in sorted(_warm_padded_sizes(slots, num_requests, data_par)):
             _, st = prefill(plan.params, torch.zeros((bp, prompt_len), dtype=torch.long,
                                                      device=dev))
             step(plan.params, st, torch.zeros((bp,), dtype=torch.long, device=dev))
@@ -318,7 +403,7 @@ def serve_lm_plan(plan, prompts, *, slots: int = 4, max_new: int = 16,
         _sync(dev)
         t0 = time.perf_counter()
         for start in range(0, num_requests, slots):
-            seq = prompts[start:start + slots]
+            seq, b = _pad_batch(prompts[start:start + slots], data_par)
             marks = _Marks(dev)
             marks.mark()
             logits, state = prefill(plan.params, seq)
@@ -334,12 +419,12 @@ def serve_lm_plan(plan, prompts, *, slots: int = 4, max_new: int = 16,
                 outs.append(tok)
             out["prefills"] += 1
             out["steps"] += max_new - 1
-            gen = torch.stack(outs, dim=1).cpu()          # the host copy syncs the batch
+            gen = torch.stack(outs, dim=1)[:b].cpu()      # the host copy syncs the batch
             ms = marks.intervals_ms()
             out["prefill_ms"].append(ms[0])
             out["step_ms"] += ms[1:]
             tokens.append(gen)
-            logits_kept.append(torch.stack(drawn, dim=1).cpu())
+            logits_kept.append(torch.stack(drawn, dim=1)[:b].cpu())
             out["done"] += [(start + j, gen[j].numpy()) for j in range(gen.shape[0])]
             if verbose:
                 print(f"[serve] slot batch {start // slots}: generated "
@@ -349,7 +434,7 @@ def serve_lm_plan(plan, prompts, *, slots: int = 4, max_new: int = 16,
     out["tok_per_s"] = num_requests * max_new / out["seconds"]
     if verbose:
         ps = engine.plan_stats(plan)
-        where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        where = _where(plan)
         spikes = ", packed spikes" if ps["packed"] else ""
         spikes += ", sparse skipping" if ps["sparse"] else ""
         steps = out["step_ms"]
@@ -369,12 +454,14 @@ def serve_spiking_lm(arch: str, *, num_requests: int, prompt_len: int, max_new: 
                      slots: int = 4, backend: str = "cuda", ordering: str = "quadratic",
                      mesh=None, seed: int = 0, device=None, verbose: bool = True) -> dict:
     """Serve ``spiking_lm_config(arch)`` from a compiled deploy plan, greedy
-    decode: the JAX package's arguments (``mesh`` must be None), on the card
-    unless ``device="cpu"``.  The weights come from ``seed`` (see
-    :func:`_compile_lm_serving`), the ``num_requests`` prompts of
-    ``prompt_len`` tokens from ``token_batch`` at ``seed``, step 0, as in the
-    JAX package; :func:`serve_lm_plan` says what the result holds (its
-    ``done`` is the JAX function's result)."""
+    decode: the JAX package's arguments, on the card unless ``device="cpu"``.
+    The weights come from ``seed`` (see :func:`_compile_lm_serving`), the
+    ``num_requests`` prompts of ``prompt_len`` tokens from ``token_batch`` at
+    ``seed``, step 0, as in the JAX package; :func:`serve_lm_plan` says what
+    the result holds (its ``done`` is the JAX function's result).  ``mesh``
+    serves from a mesh-sharded plan on every rank of the world
+    (:func:`_elastic_mesh`)."""
+    mesh, slots = _resolve_mesh(mesh, slots, verbose)
     cfg, plan = _compile_lm_serving(arch, backend=backend, ordering=ordering, mesh=mesh,
                                     seed=seed, device=device)
     dcfg = DataConfig(seed=seed, vocab_size=cfg.vocab_size, seq_len=prompt_len,
@@ -428,7 +515,7 @@ def serve_continuous_plan(plan, requests, *, slots: int = 4, max_pending: int | 
                  stall_s=list(sched.stall_s), requests=completed)
     if verbose:
         ps = engine.plan_stats(plan)
-        where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        where = _where(plan)
         spikes = ", packed spikes" if ps["packed"] else ""
         spikes += ", sparse skipping" if ps["sparse"] else ""
         print(f"[serve] continuous: {len(completed)}/{len(requests)} requests, "
@@ -448,8 +535,9 @@ def serve_spiking_lm_continuous(arch: str, *, num_requests: int, prompt_len: int
                                 prefill_chunk: int | None = None, device=None,
                                 verbose: bool = True, return_stats: bool = False):
     """Serve ``spiking_lm_config(arch)`` with continuous batching (greedy
-    decode): the JAX package's arguments (``mesh`` must be None), on the card
-    unless ``device="cpu"``.
+    decode): the JAX package's arguments, on the card unless
+    ``device="cpu"``; ``mesh`` serves from a mesh-sharded plan on every rank
+    of the world (slots a multiple of its data degree, :func:`_elastic_mesh`).
 
     The plan, weights and sampler are :func:`serve_spiking_lm`'s; only the
     scheduling differs: a ``ContinuousScheduler`` pages each admitted
@@ -462,6 +550,7 @@ def serve_spiking_lm_continuous(arch: str, *, num_requests: int, prompt_len: int
     per-request decode lengths (ragged completion).  ``prefill_chunk``
     admits by decode-interleaved chunked prefill.  Returns the list of
     (request id, tokens), and with ``return_stats`` the stats too."""
+    mesh, slots = _resolve_mesh(mesh, slots, verbose)
     cfg, plan = _compile_lm_serving(arch, backend=backend, ordering=ordering, mesh=mesh,
                                     seed=seed, device=device)
     # the requested mixture as given: a set here would turn "32,32,64" (2:1)
@@ -518,8 +607,24 @@ def main():
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain versions on the host)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve from a mesh-sharded plan, e.g. 2x1 (data-parallel fan-out) "
+                         "or 2x2 (+ tensor-parallel heads), on the ranks of a torchrun "
+                         "world (gloo); packed backends move int32 spike words between "
+                         "ranks, and a short world degrades capacity instead of failing")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        dist.init_process_group("gloo")          # torchrun's env:// rendezvous
+    verbose = world()[1] == 0                    # rank 0 prints
+    try:
+        _main(args, verbose)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, verbose: bool) -> None:
     if args.spiking_lm and args.continuous:
         lens = [int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens else None
         serve_spiking_lm_continuous(
@@ -527,17 +632,18 @@ def main():
             prompt_len=args.prompt_len, max_new=args.max_new, slots=args.slots or 4,
             backend=args.backend, ordering=args.ordering, seed=args.seed, prompt_lens=lens,
             max_new_spread=args.max_new_spread, max_pending=args.max_pending,
-            prefill_chunk=args.prefill_chunk, device=args.device)
+            prefill_chunk=args.prefill_chunk, mesh=args.mesh, device=args.device,
+            verbose=verbose)
         return
     if args.spiking_lm:
         serve_spiking_lm(args.arch or "llama3.2-1b", num_requests=args.requests or 8,
                          prompt_len=args.prompt_len, max_new=args.max_new,
                          slots=args.slots or 4, backend=args.backend, ordering=args.ordering,
-                         seed=args.seed, device=args.device)
+                         mesh=args.mesh, seed=args.seed, device=args.device, verbose=verbose)
         return
     serve_vision(args.arch or "spike-iand-former-8-384", num_requests=args.requests or 24,
-                 slots=args.slots or 8, backend=args.backend, device=args.device,
-                 seed=args.seed)
+                 slots=args.slots or 8, backend=args.backend, mesh=args.mesh,
+                 device=args.device, seed=args.seed, verbose=verbose)
 
 
 if __name__ == "__main__":

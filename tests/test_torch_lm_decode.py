@@ -337,14 +337,80 @@ def test_serve_helpers_vs_jax(ref):
                                   np.asarray(ref.serve.greedy_sample(logits)))
 
 
+def test_mesh_serve_helpers_vs_jax(ref):
+    """``parse_mesh``, the padded warm shapes and the elastic mesh of a
+    one-process fleet, as the JAX package's on one device."""
+    for spec in ("2x1", "1X2", (2, 2), None):
+        assert tserve.parse_mesh(spec) == ref.serve.parse_mesh(spec)
+    for slots, n, d in ((4, 7, 2), (4, 3, 2), (3, 7, 2), (4, 8, 1)):
+        assert tserve._warm_padded_sizes(slots, n, d) == ref.serve._warm_padded_sizes(slots, n, d)
+    assert tserve._elastic_mesh((2, 2), 8, verbose=False) == ((1, 1), 8)
+    assert tserve._elastic_mesh((1, 1), 8, verbose=False) == ((1, 1), 8)
+
+
 def test_serve_spiking_lm_refuses_a_mesh_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A malformed mesh spec is refused (a well-formed one serves: see
+    ``test_serve_spiking_lm_on_a_mesh``), and so is a missing card."""
+    with pytest.raises(ValueError):
         tserve.serve_spiking_lm("llama3.2-1b_smoke", num_requests=1, prompt_len=2,
-                                max_new=1, mesh="2x1", device="cpu")
+                                max_new=1, mesh="2by1", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         tserve.serve_spiking_lm("llama3.2-1b_smoke", num_requests=1, prompt_len=2,
                                 max_new=1)
+
+
+def _serve_on_mesh(rank):
+    """One rank of the 2-rank world: ``serve_spiking_lm`` on meshes 2x1 (7
+    requests in slots of 4: the ragged batch padded to the data degree) and
+    1x2 beside the same call with ``mesh=None``, and the head-sharded
+    prefill + steps of a 1x2 plan against the single-device plan."""
+    kw = dict(num_requests=7, prompt_len=4, max_new=3, slots=4, backend="torch+packed",
+              ordering="linear", device="cpu", verbose=False)
+    with torch.inference_mode():
+        single = tserve.serve_spiking_lm("llama3.2-1b_smoke", **kw)
+        out = {"single": single["tokens"], "single_logits": single["logits"]}
+        for mesh in ("2x1", "1x2"):
+            got = tserve.serve_spiking_lm("llama3.2-1b_smoke", mesh=mesh, **kw)
+            out[mesh] = (got["tokens"], got["logits"], [rid for rid, _ in got["done"]])
+        seq = _tokens(2, 9, seed=5)
+        states = []
+        for mesh in (None, (1, 2)):
+            plan = engine.compile_plan(_params(), None, _cfg(get_config), backend="torch",
+                                       device="cpu", mesh=mesh)
+            logits, state = engine.prefill(plan, seq[:, :6])
+            steps = [engine.decode_step(plan, state, seq[:, i]) for i in range(6, 9)]
+            states.append((logits, [s[0] for s in steps], engine.decode_state_full(state),
+                           state.kv[0].shape))
+        out["steps"] = states
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_world():
+    from repro_torch.launch.mesh import spawn_world
+
+    return spawn_world(_serve_on_mesh, 2, timeout=240.0)
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+def test_serve_spiking_lm_on_a_mesh(mesh_world, mesh):
+    """``serve_spiking_lm(mesh=)`` on every rank of a 2-rank world gives the
+    single-device streams and logits bit for bit, every request once."""
+    for r in mesh_world:
+        tokens, logits, rids = r[mesh]
+        assert torch.equal(tokens, r["single"]) and torch.equal(logits, r["single_logits"])
+        assert rids == list(range(7))
+
+
+def test_head_sharded_prefill_and_steps(mesh_world):
+    """A 1x2 plan's prefill and steps equal the single-device plan's; each
+    rank holds half the heads of the state, which gathers to the whole."""
+    for r in mesh_world:
+        (l0, s0, full0, shape0), (l1, s1, full1, shape1) = r["steps"]
+        assert torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(s0, s1))
+        assert all(torch.equal(a, b) for a, b in zip(full0.kv, full1.kv))
+        assert shape1[2] * 2 == shape0[2]
 
 
 # -- on the card ---------------------------------------------------------------------

@@ -521,13 +521,78 @@ def test_serve_continuous_chunked_matches_oneshot():
 
 
 def test_serve_continuous_refuses_a_mesh_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A malformed mesh spec is refused (a well-formed one serves: see
+    ``test_continuous_mesh_matches_single_device``), and so is a missing
+    card."""
+    with pytest.raises(ValueError):
         tserve.serve_spiking_lm_continuous("llama3.2-1b_smoke", num_requests=1, prompt_len=2,
-                                           max_new=1, mesh="2x1", device="cpu")
+                                           max_new=1, mesh="2by1", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         tserve.serve_spiking_lm_continuous("llama3.2-1b_smoke", num_requests=1, prompt_len=2,
                                            max_new=1)
+
+
+def _continuous_on_mesh(rank):
+    """One rank of the 2-rank world: continuous serving, one-shot and
+    chunked, on a 2x1 mesh beside the single-device run; the scheduler's
+    slot check; ``serve_vision`` on 2x1 beside single device."""
+    kw = dict(num_requests=5, prompt_len=6, prompt_lens=[3, 6], max_new=3, max_new_spread=1,
+              slots=2, **_SMOKE)
+    with torch.inference_mode():
+        out = {"single": dict(tserve.serve_spiking_lm_continuous("llama3.2-1b_smoke", **kw)),
+               "mesh": dict(tserve.serve_spiking_lm_continuous("llama3.2-1b_smoke",
+                                                               mesh="2x1", **kw)),
+               "chunked": dict(tserve.serve_spiking_lm_continuous(
+                   "llama3.2-1b_smoke", mesh="2x1", prefill_chunk=2, **kw))}
+        _, plan = tserve._compile_lm_serving("llama3.2-1b_smoke", backend="torch",
+                                             ordering="linear", mesh=(2, 1), seed=0,
+                                             device="cpu")
+        try:
+            ContinuousScheduler(plan, slots=3)
+            out["slots3"] = None
+        except ValueError as e:
+            out["slots3"] = str(e)
+        vkw = dict(num_requests=6, slots=4, backend="torch+packed", device="cpu",
+                   verbose=False)
+        out["vision"] = [tserve.serve_vision("spike-iand-former_smoke", mesh=m, **vkw)["logits"]
+                         for m in (None, "2x1")]
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_world():
+    from repro_torch.launch.mesh import spawn_world
+
+    return spawn_world(_continuous_on_mesh, 2, timeout=240.0)
+
+
+def test_continuous_mesh_matches_single_device(mesh_world):
+    """Continuous serving on a 2x1 mesh: the same tokens per request as the
+    single-device continuous path, on every rank; the slot count must be a
+    multiple of the data degree."""
+    for r in mesh_world:
+        assert sorted(r["mesh"]) == sorted(r["single"]) == list(range(5))
+        for rid, toks in r["single"].items():
+            np.testing.assert_array_equal(r["mesh"][rid], toks, err_msg=f"rid={rid}")
+        assert r["slots3"] is not None and "positive multiple" in r["slots3"]
+
+
+def test_continuous_mesh_chunked_matches_single_device(mesh_world):
+    """Chunked admission composes with a 2x1 mesh: the single-device one-shot
+    streams."""
+    for r in mesh_world:
+        assert sorted(r["chunked"]) == sorted(r["single"])
+        for rid, toks in r["single"].items():
+            np.testing.assert_array_equal(r["chunked"][rid], toks, err_msg=f"rid={rid}")
+
+
+def test_serve_vision_on_a_mesh(mesh_world):
+    """``serve_vision(mesh="2x1")``: 6 images in slot batches of 4 (the ragged
+    batch padded to the data degree) give the single-device logits."""
+    for r in mesh_world:
+        single, meshed = r["vision"]
+        assert single.shape == (6, 10) and torch.equal(meshed, single)
 
 
 def test_serve_cli_continuous(monkeypatch, capsys):
@@ -648,11 +713,41 @@ def test_prefill_chunk_report():
 
 
 def test_pricers_refuse_a_mesh():
+    """A malformed mesh or a zero axis is refused; a mesh prices the
+    cross-rank bytes (``test_traffic_mesh_vs_jax``)."""
     cfg = _small_cfg(get_config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        analysis.lm_spike_traffic(cfg, seq_len=4, mesh="2x1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        analysis.lm_decode_traffic(cfg, mesh="2x1")
+    with pytest.raises(ValueError, match="dxm"):
+        analysis.lm_spike_traffic(cfg, seq_len=4, mesh="2by1")
+    with pytest.raises(ValueError, match=">= 1"):
+        analysis.lm_decode_traffic(cfg, mesh=(0, 2))
+    priced = analysis.lm_decode_traffic(cfg, mesh="2x2", backend="torch+packed")
+    assert priced["cross_device_state_bytes"] == 0
+    assert priced["cross_device_packed_bytes"] > 0
+
+
+@pytest.mark.parametrize("mesh", ["1x2", (2, 2), "4x4"])
+def test_traffic_mesh_vs_jax(ref, mesh):
+    """The ``mesh=`` pricing of both families equals the JAX package's dicts
+    (cross-rank bytes per edge, the crossing edges, the reduction)."""
+    from repro_torch.core import spikformer as tsf
+
+    from repro.core import spikformer as jsf
+
+    for backend in ("torch", "torch+packed", "cuda+packed"):
+        jbackend = _PRICED[backend](ref)
+        for arch in ("llama3.2-1b_smoke", "llama3.2-1b"):
+            jcfg, cfg = ref.serve.spiking_lm_config(arch), tserve.spiking_lm_config(arch)
+            assert analysis.lm_spike_traffic(cfg, seq_len=13, batch=2, backend=backend,
+                                             ordering="linear", mesh=mesh) == \
+                ref.analysis.lm_spike_traffic(jcfg, seq_len=13, batch=2, backend=jbackend,
+                                              ordering="linear", mesh=mesh)
+            assert analysis.lm_decode_traffic(cfg, batch=4, backend=backend, mesh=mesh) == \
+                ref.analysis.lm_decode_traffic(jcfg, batch=4, backend=jbackend, mesh=mesh)
+        vision = dict(embed_dim=384, num_layers=8, num_heads=12, t=4)
+        assert analysis.spike_traffic(tsf.SpikformerConfig(**vision), batch=8, backend=backend,
+                                      mesh=mesh) == \
+            ref.analysis.spike_traffic(jsf.SpikformerConfig(**vision), batch=8,
+                                       backend=jbackend, mesh=mesh)
 
 
 # the port's routes and the JAX backends that price alike: the closed SSA
