@@ -138,7 +138,24 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      single-device streams.  Each rank's wall and device time per case is
      printed (ranks time-sliced on one card: not a scaling figure), and a
      2-rank world reports whether gloo takes CUDA tensors and times its
-     all-gather of one dense edge on CUDA tensors against host staging.
+     all-gather of one dense edge on CUDA tensors against host staging;
+ 13. spiking-LM training at the full width of ``spiking_lm_config("llama3.2-1b")``
+     (``live_lm_params``, 4 x 64 tokens of the port's fixture corpus): K1, K7
+     and K3 at the training shapes against their plain versions
+     (``torch.equal``) and timed; one ``loss_and_grad`` on the kernel route
+     (113 K1 + 113 K7 + 16 K3, counted) against the plain route (loss
+     ``torch.equal``, each gradient leaf within GRAD_REL of its max); one
+     ``make_adamw(OptimizerConfig(state_dtype="bfloat16", master_weights=True))``
+     update of that gradient tree, timed, its lm_head leaf held against the
+     CPU; the main path, ``train_fixture_params`` for LM_TRAIN_STEPS SGD
+     steps on the kernel route with every counter set to 0 just before and
+     read just after, ms per step and tokens/s, one profiled step (K1, K7,
+     K3, cuBLAS and the rest); then ``trained_lm_fixture`` in a fresh
+     directory (60 steps at smoke width on the kernel route): it learns, a
+     second call retrains nothing, and restored at T 8 and 32 it serves
+     greedy streams ``torch.equal`` across ``cuda``, ``cuda+packed`` and
+     ``cuda+packed+sparse`` in both orderings; its ``sparsity_report``
+     beside the seeded model's.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
@@ -175,7 +192,10 @@ profiled prefill (step).  The entries after those are this slice's: the
 bf16 forms of K1, K4, K7 (per forward, K7 per training step; ``launches``
 from the bf16 path), K3/K6/K9 past 2^24 (per launch; ``launches`` from phase
 8's prefills) and K2 at the bitplane input's shape (``launches`` from phase
-9); their ``device_ms`` is not measured (null).
+9); their ``device_ms`` is not measured (null).  The last three entries,
+``*@lm-train``, are phase 13's: K1, K7 and K3 per training step of the
+full-width LM (``launches`` over its ``train_fixture_params`` run,
+``launches_per_forward`` per step, ``device_ms`` from its profiled step).
 """
 
 from __future__ import annotations
@@ -3606,6 +3626,393 @@ def phase_mesh(dev, smi, arch=ARCH, lm_arch=LM_ARCH):
     log(f"phase 12 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 13: spiking-LM training, the trained fixture, the optimizer -----------------
+
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 64, 3
+LM_TRAIN_LR = 0.05              # p - lr * g on the full-width LM (the fixture's 0.5 is for d 64)
+FIXTURE_TS = (8, 32)
+FIXTURE_PROMPT, FIXTURE_NEW = 16, 8
+FIXTURE_ROUTES = ("cuda", "cuda+packed", "cuda+packed+sparse")
+# The AdamW update on the card against the CPU: the same elementwise f32
+# arithmetic, the clip scale from a global norm summed in another order (an
+# ulp): the updated weights and master within ADAMW_TOL, the bf16 moments
+# within one bf16 ulp (2^-7 relative), the global norm within GNORM_RTOL.
+ADAMW_TOL = dict(rtol=1e-6, atol=1e-6)
+GNORM_RTOL = 1e-5
+
+
+def _lm_train_kernels(dev, gen, cfg):
+    """K1, K7 and K3 at the spiking LM's training shapes (T 4, B 4 x S 64
+    tokens; the LIFs of d_model and of d_ff drives; the causal SSA over
+    G = T*B*H folds of 64 tokens at Dh 512) against their plain versions
+    (``torch.equal``), timed per training step beside the bound and the
+    library calls.  Returns the three ``@lm-train`` reports."""
+    from repro_torch.kernels.lif_parallel import ops as lif_ops
+    from repro_torch.kernels.lif_parallel.ref import lif_parallel_ref, lif_parallel_ref_grad
+    from repro_torch.kernels.spiking_attention import ops as ssa_ops
+    from repro_torch.kernels.spiking_attention.ref import ssa_ref
+
+    t, rows, layers = cfg.spike_t, LM_TRAIN_BATCH * LM_TRAIN_SEQ, cfg.num_layers
+    d, f, h = cfg.d_model, cfg.d_ff, cfg.num_heads
+    dh = d // h
+    src = "src/repro_torch/kernels/{}/csrc/{}.cu"
+    tpu = "src/repro/kernels/{}/kernel.py:{}"
+    reports = {"K1": KernelReport("lif_parallel@lm-train", src.format("lif_parallel",
+                                                                      "lif_parallel"),
+                                  tpu.format("lif_parallel", 144)),
+               "K7": KernelReport("lif_parallel_bwd@lm-train", src.format("lif_parallel",
+                                                                          "lif_parallel"),
+                                  tpu.format("lif_parallel", 211)),
+               "K3": KernelReport("ssa@lm-train", src.format("spiking_attention", "ssa"),
+                                  tpu.format("spiking_attention", 62))}
+    # per step: the embedding LIF and six of d_model per block, one of d_ff per block
+    cases = [(rows * d, 1 + 6 * layers), (rows * f, layers)]
+    big = rows * f
+    drive = torch.randn((t, big), generator=gen).to(dev)
+    drive[:, ::3] = torch.round(drive[:, ::3] * 8) / 8   # membranes on theta and the boxcar edges
+    cot = torch.randn((t, big), generator=gen).to(dev)
+    for n, count in cases:
+        x, g = drive[:, :n].contiguous(), cot[:, :n].contiguous()
+        fwd = lambda: lif_ops.lif_parallel_fwd(x, chain_len=t, lam=0.25, theta=0.5, reset="hard")
+        bwd = lambda: lif_ops.lif_parallel_bwd(x, g, chain_len=t, lam=0.25, theta=0.5,
+                                               reset="hard")
+        plain_fwd = lambda: lif_parallel_ref(x, chain_len=t)
+        plain_bwd = lambda: lif_parallel_ref_grad(x, g, chain_len=t)
+        check(torch.equal(fwd(), plain_fwd()), f"K1@lm-train N={n}: not equal to the plain version")
+        check(torch.equal(bwd(), plain_bwd()), f"K7@lm-train N={n}: not equal to the plain version")
+        if dev.type != "cuda":
+            continue
+        reports["K1"].add(f"N={n}", count, 0.0, time_ms(fwd), time_ms(plain_fwd, reps=5),
+                          8 * t * n, 5 * t * n, peak=F32_FLOP_PER_S)
+        reports["K7"].add(f"N={n}", count, 0.0, time_ms(bwd), time_ms(plain_bwd, reps=5),
+                          12 * t * n, 20 * t * n, peak=F32_FLOP_PER_S)
+    del drive, cot
+    g_folds, s = t * LM_TRAIN_BATCH * h, LM_TRAIN_SEQ
+    q, k, v = ((torch.rand((g_folds, s, dh), generator=gen) > 0.5).float().to(dev)
+               for _ in range(3))
+    run = lambda: ssa_ops.ssa_fwd(q, k, v, scale=0.125, causal=True)
+    plain = lambda: ssa_ref(q, k, v, scale=0.125, causal=True)
+    want = plain()
+    check(torch.equal(run(), want), "K3@lm-train: not equal to the plain version")
+    if dev.type == "cuda":
+        reports["K3"].add(f"G={g_folds} N=M={s} Dh={dh} causal", layers, 0.0, time_ms(run),
+                          time_ms(plain, reps=5), 4 * 4 * g_folds * s * dh,
+                          4 * g_folds * (s * (s + 1) // 2) * dh,
+                          library_ms=time_ms(lambda: torch.bmm(torch.tril(torch.bmm(
+                              q, k.transpose(1, 2))), v) * 0.125),
+                          library_tc_ms=library_tc_ms(q, k, v, 0.125, want, "K3@lm-train",
+                                                      causal=True))
+    log(f"K1, K7 at the LM training shapes (T={t}, N = {rows} x {d} and {rows} x {f}) and K3 "
+        f"(G={g_folds}, N=M={s}, Dh={dh}, causal): torch.equal the plain versions")
+    return reports
+
+
+def _leaf_rel(grads, want):
+    """Largest |grads - want| / max |want| of each leaf, by name."""
+    from repro_torch.checkpoint.checkpoint import flatten_with_names
+
+    want = dict(flatten_with_names(want))
+    out = {}
+    for name, g in flatten_with_names(grads):
+        scale = want[name].abs().max().item()
+        out[name] = (g - want[name]).abs().max().item() / scale if scale else g.abs().max().item()
+    return out
+
+
+def _profile_lm_step(params, batch, cfg, tries=3):
+    """One kernel-route SGD step of the LM under ``torch.profiler``: device
+    busy against the profiled wall, and the device time of K1, K7, K3, the
+    cuBLAS GEMMs and the rest.  Returns the hand kernels' device ms by K
+    number.  The profiler's schedule runs a warm-up step with tracing on
+    and keeps the step after it: a profile begun right before the step
+    missed its first kernels (the embedding LIF among them) in three of
+    three attempts after phases 1-12.  The schedule's step range and the
+    ``record_function`` regions show on the device timeline as annotations,
+    not kernels: they are left out of the sums.  A profile that still lacks some of
+    the step's launches is taken again, up to ``tries`` times (empty if
+    none is complete)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.checkpoint.fixtures import sgd_step
+
+    lifs = 1 + 7 * cfg.num_layers
+    want = {"K1": lifs, "K7": lifs, "K3": cfg.num_layers}
+    kept = {}
+
+    def ready(prof):        # the kept step's kernels (the cycle's end clears them)
+        kept["kernels"] = [e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False)
+                           and not e.key.startswith("ProfilerStep")]
+
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):      # the warm-up step, then the kept one
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sgd_step(params, batch, cfg, lr=LM_TRAIN_LR, use_kernel=True)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        kernels = kept.pop("kernels", [])
+        mine, counts = {}, {}
+        for key, _, e in _hand_kernels(kernels):
+            mine[key] = mine.get(key, 0.0) + e.self_device_time_total / 1e3
+            counts[key] = counts.get(key, 0) + e.count
+        if counts == want:
+            break
+        log(f"  profile LM train step: incomplete (launches {counts}, the step makes {want}), "
+            f"attempt {attempt} of {tries}")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        log("  profile LM train step: the profiler saw no device time")
+        return {}
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(p in e.key for p in ("gemm", "Gemm", "sm90_xmma", "cutlass"))) / 1e3
+    rest = busy - gemm - sum(mine.values())
+    log(f"  profile LM train step (kernel route, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens): "
+        f"{sum(e.count for e in kernels)} CUDA kernels, device busy {busy:.3f} ms of a "
+        f"{wall:.3f} ms profiled step ({1 - busy / wall:.1%} idle); K1 {mine.get('K1', 0):.3f} ms "
+        f"x{counts.get('K1', 0)}, K7 {mine.get('K7', 0):.3f} ms x{counts.get('K7', 0)}, K3 "
+        f"{mine.get('K3', 0):.3f} ms x{counts.get('K3', 0)}, cuBLAS GEMM {gemm:.3f} ms, the rest "
+        f"{rest:.3f} ms")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log("  top: " + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                              for e in top))
+    return mine if counts == want else {}
+
+
+def _adamw_full_width(grads, params, dev, smi):
+    """One ``make_adamw(OptimizerConfig(state_dtype="bfloat16",
+    master_weights=True))`` update of the full-width tree on the card, at the
+    schedule's peak (step = warmup_steps), timed; the lm_head leaf held
+    against the same update on the CPU: the global norm summed on the CPU
+    from a host copy of every gradient, the CPU update of lm_head alone with
+    its gradient scaled by that norm's clip factor (and no clip of its own)."""
+    from repro_torch.checkpoint.checkpoint import flatten_with_names
+    from repro_torch.optim.optimizer import OptimizerConfig, global_norm, make_adamw
+
+    ocfg = OptimizerConfig(state_dtype="bfloat16", master_weights=True)
+    opt = make_adamw(ocfg)
+    state = opt.init(params)
+    step = ocfg.warmup_steps
+    _sync(dev)
+    t0 = time.perf_counter()
+    new_params, new_state = opt.update(grads, state, params, step=step)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    host_grads = {n: g.detach().cpu() for n, g in flatten_with_names(grads)}
+    gn = global_norm(host_grads)
+    scale = torch.clamp(ocfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    cpu_opt = make_adamw(dataclasses.replace(ocfg, clip_norm=float("inf")))
+    head = {"w": params["lm_head"]["w"].cpu()}
+    cpu_new, cpu_state = cpu_opt.update({"w": host_grads["['lm_head']/['w']"] * scale},
+                                        cpu_opt.init(head), head, step=step)
+    got = {"params": new_params["lm_head"]["w"], "master": new_state["master"]["lm_head"]["w"],
+           "m": new_state["m"]["lm_head"]["w"], "v": new_state["v"]["lm_head"]["w"]}
+    want = {"params": cpu_new["w"], "master": cpu_state["master"]["w"],
+            "m": cpu_state["m"]["w"], "v": cpu_state["v"]["w"]}
+    errs = {}
+    for key, w in want.items():
+        g = got[key].cpu().float()
+        tol = ADAMW_TOL if key in ("params", "master") else dict(rtol=2 ** -7, atol=0.0)
+        errs[key] = (g - w.float()).abs().max().item()
+        check(bool(torch.allclose(g, w.float(), **tol)),
+              f"AdamW lm_head {key}: card vs CPU max abs err {errs[key]:.3g} outside {tol}")
+    gn_rel = abs(new_state["grad_norm"].item() - gn.item()) / gn.item()
+    check(gn_rel <= GNORM_RTOL, f"AdamW global norm card {new_state['grad_norm'].item()!r} vs "
+          f"CPU {gn.item()!r}")
+    moved = (got["params"] - params["lm_head"]["w"]).abs().max().item()
+    n = sum(x.numel() for x in host_grads.values())
+    log(f"AdamW (bf16 moments, master weights) on the {n:,}-parameter gradient tree: "
+        f"{ms:.2f} ms for the update (host clock, synced) on {smi}; global norm "
+        f"{gn.item():.6g} (card vs CPU {gn_rel:.2g} relative), lm_head moved by up to "
+        f"{moved:.3g}; card vs CPU max abs err " + ", ".join(f"{k} {v:.3g}"
+                                                             for k, v in errs.items()))
+    return ms
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _greedy_stream(plan, prompt, steps):
+    from repro_torch import engine
+
+    with torch.inference_mode():
+        logits, state = engine.prefill(plan, prompt)
+        tok = logits[:, -1].argmax(-1)
+        toks = [tok]
+        for _ in range(steps - 1):
+            step_logits, state = engine.decode_step(plan, state, tok)
+            tok = step_logits.argmax(-1)
+            toks.append(tok)
+    return torch.stack(toks, dim=1)
+
+
+def phase_fixture(dev, smi):
+    """The trained fixture on this device: ``trained_lm_fixture`` in a fresh
+    directory (60 SGD steps of the smoke LM, kernel route on the card),
+    learned and memoised; restored at each T of FIXTURE_TS and served on the
+    three kernel routes in both orderings, greedy streams ``torch.equal``
+    across the routes; its ``sparsity_report`` beside the untrained
+    (seeded) model's."""
+    from repro_torch import engine
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.checkpoint.fixtures import (
+        fixture_config, synthetic_batches, trained_lm_fixture)
+    from repro_torch.engine import analysis
+    from repro_torch.models.spiking_lm import init_spiking_lm
+
+    fix_dir = ROOT / "build" / "chip_smoke" / "lm_fixture"
+    shutil.rmtree(fix_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt_dir, fcfg = trained_lm_fixture(fix_dir, device=dev)
+    train_s = time.perf_counter() - t0
+    step = ckpt.latest_step(ckpt_dir)
+    meta = json.loads((Path(ckpt_dir) / f"step_{step:08d}" / "manifest.json").read_text())["meta"]
+    log(f"fixture trained in {train_s:.2f} s ({step} steps of {fcfg.name}, T={fcfg.spike_t}, "
+        f"{meta['route']} route on {meta['device']}): loss {meta['loss_first']:.4f} -> "
+        f"{meta['loss_last']:.4f}; corpus: {meta['corpus']}")
+    check(meta["loss_last"] < meta["loss_first"], "the fixture did not learn")
+    mtime = (Path(ckpt_dir) / "LATEST").stat().st_mtime_ns
+    trained_lm_fixture(fix_dir, device=dev)
+    check((Path(ckpt_dir) / "LATEST").stat().st_mtime_ns == mtime,
+          "a second trained_lm_fixture call retrained")
+    prompt = synthetic_batches(fcfg, steps=1, batch=LM_TRAIN_BATCH,
+                               seq=FIXTURE_PROMPT)[0]["tokens"].long().to(dev)
+    routes = FIXTURE_ROUTES if dev.type == "cuda" else ("torch", "torch+packed",
+                                                         "torch+packed+sparse")
+    for t in FIXTURE_TS:
+        cfg_t = fixture_config(spike_t=t)
+        skel = init_spiking_lm(torch.Generator(dev).manual_seed(0), cfg_t)
+        for ordering in ("linear", "quadratic"):
+            streams = {r: _greedy_stream(engine.compile_plan(
+                skel, None, cfg_t, backend=r, ordering=ordering, device=dev,
+                checkpoint=str(ckpt_dir)), prompt, FIXTURE_NEW) for r in routes}
+            same = all(torch.equal(streams[r], streams[routes[0]]) for r in routes)
+            log(f"  fixture T={t} {ordering}: greedy streams ({LM_TRAIN_BATCH} prompts of "
+                f"{FIXTURE_PROMPT}, {FIXTURE_NEW} tokens) torch.equal across {routes}: {same}; "
+                f"first stream {streams[routes[0]][0].tolist()}")
+            check(same, f"fixture T={t} {ordering}: greedy streams differ across routes")
+        sparse = routes[-1]
+        for label, kw in (("trained", dict(checkpoint=str(ckpt_dir))), ("seeded", {})):
+            plan = engine.compile_plan(skel, None, cfg_t, backend=sparse, ordering="linear",
+                                       device=dev, **kw)
+            with torch.inference_mode():
+                rep = analysis.sparsity_report(plan, prompt)
+            log(f"  sparsity_report T={t} {label} ({sparse}, {LM_TRAIN_BATCH} x {FIXTURE_PROMPT} "
+                f"tokens): word zero rate {rep['word_zero_rate']:.4f}, tile zero rate "
+                f"{rep['occ_tile_zero_rate']:.4f}, granule zero rate "
+                f"{rep['token_granule_zero_rate']:.4f}, spike rate {rep['spike_rate']:.4f}")
+    shutil.rmtree(fix_dir, ignore_errors=True)
+    return train_s
+
+
+def phase_lm_train(dev, smi, arch=LM_ARCH):
+    """Spiking-LM training at the full width of ``spiking_lm_config(arch)``:
+    K1/K7/K3 at its training shapes against their plain versions; one
+    ``loss_and_grad`` on the kernel route against the plain route (loss
+    ``torch.equal``, each gradient leaf within GRAD_REL of its max); one
+    AdamW update of the gradient tree (lm_head against the CPU); then the
+    main path, ``train_fixture_params`` for LM_TRAIN_STEPS SGD steps at
+    LM_TRAIN_LR on the kernel route with every counter set to 0 just before
+    and read just after (113 K1 + 113 K7 + 16 K3 a step); ms per step,
+    tokens/s and one profiled step; then the trained fixture
+    (:func:`phase_fixture`).  The weights are ``live_lm_params`` (every
+    block fires), the tokens the port's fixture corpus at the arch's
+    vocabulary.  With a CPU ``dev`` and a smoke arch it rehearses the same
+    paths (no counts, times or profile).  Returns the ``@lm-train``
+    reports."""
+    from repro_torch.checkpoint.fixtures import (
+        loss_and_grad, synthetic_batches, train_fixture_params)
+    from repro_torch.launch.serve import live_lm_params, spiking_lm_config
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    cfg = spiking_lm_config(arch)
+    reports = _lm_train_kernels(dev, torch.Generator().manual_seed(13), cfg)
+    fail_if_any("phase 13 (kernels)")
+    params = live_lm_params(cfg, dev)
+    batches = [{"tokens": b["tokens"].to(dev)} for b in
+               synthetic_batches(cfg, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                                 seq=LM_TRAIN_SEQ)]
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    kern = loss_and_grad(params, batches[0], cfg, use_kernel=True)
+    _sync(dev)
+    lifs = 1 + 7 * cfg.num_layers
+    step_launches = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    if on_card:
+        want.update(K1=lifs, K7=lifs, K3=cfg.num_layers)
+    check(step_launches == want, f"kernel-route LM step launches {step_launches}, expected {want}")
+    plain = loss_and_grad(params, batches[0], cfg)
+    same = torch.equal(kern[0], plain[0])
+    log(f"LM train step {arch} ({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads "
+        f"of Dh {cfg.d_model // cfg.num_heads}, T {cfg.spike_t}, vocab {cfg.vocab_size}; "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens): loss kernel {kern[0].item()!r} plain "
+        f"{plain[0].item()!r}: torch.equal {same}")
+    check(same, "LM train step: the kernel-route loss differs from the plain route's")
+    rel = _leaf_rel(kern[1], plain[1])
+    worst = max(rel, key=rel.get)
+    group = lambda part: max(v for k, v in rel.items() if part in k)
+    log(f"  gradients, |kernel - plain| / max|plain| per leaf: largest {rel[worst]:.3g} "
+        f"({worst}; limit {GRAD_REL}); embed {group('embed'):.3g}, layers {group('layers'):.3g}, "
+        f"lm_head {group('lm_head'):.3g}")
+    for name, r in rel.items():
+        check(r <= GRAD_REL, f"LM gradient {name}: {r:.3g} of its scale > {GRAD_REL}")
+    del plain
+    adamw_ms = _adamw_full_width(kern[1], params, dev, smi)
+    del kern
+    fail_if_any("phase 13 (routes)")
+
+    _sync(dev)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    _, losses = train_fixture_params(cfg, device=dev, init=params, batches=batches,
+                                     lr=LM_TRAIN_LR)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    if on_card:
+        want.update(K1=lifs * LM_TRAIN_STEPS, K7=lifs * LM_TRAIN_STEPS,
+                    K3=cfg.num_layers * LM_TRAIN_STEPS)
+    check(launches == want, f"train_fixture_params launches {launches}, expected {want}")
+    check(all(np.isfinite(losses)), f"LM train losses {losses} not finite")
+    ms = 1e3 * wall / LM_TRAIN_STEPS
+    tok_s = LM_TRAIN_STEPS * LM_TRAIN_BATCH * LM_TRAIN_SEQ / wall
+    log(f"train_fixture_params({arch}, {LM_TRAIN_STEPS} steps, lr {LM_TRAIN_LR}, kernel route): "
+        f"losses {losses}, {ms:.2f} ms per step, {tok_s:.1f} tokens/s (host clock, synced, the "
+        f"first step included), launches {launches} (expected {want}: per step {lifs} K1 + "
+        f"{lifs} K7 + {cfg.num_layers} K3) on {smi}")
+    device = _profile_lm_step(params, batches[0], cfg) if on_card else {}
+    del params
+    for key, rep in reports.items():
+        rep.entry["launches"] = launches[key]
+        rep.entry["launches_per_forward"] = launches[key] / LM_TRAIN_STEPS
+        rep.entry["device_ms"] = device.get(key)
+    if on_card:
+        log("  @lm-train kernels per step on " + smi + ": " + ", ".join(
+            f"{k} {r.entry['ms']:.3f} ms (device {r.entry['device_ms']}), bound "
+            f"{r.entry['bound_ms']:.3f} ({r.entry['bound_by']}), plain {r.entry['plain_ms']:.3f}"
+            for k, r in reports.items()))
+    fail_if_any("phase 13 (training)")
+    if on_card:
+        torch.cuda.empty_cache()
+    fixture_s = phase_fixture(dev, smi)
+    fail_if_any("phase 13")
+    log(f"phase 13 in {time.perf_counter() - t_phase:.1f} s (the fixture {fixture_s:.1f} s, "
+        f"the AdamW update {adamw_ms:.2f} ms)")
+    return reports
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this smoke test "
@@ -3669,9 +4076,14 @@ def main() -> int:
     log(f"phase 12: the mesh, a gloo world of {MESH_RANKS} ranks on this card")
     torch.cuda.empty_cache()
     phase_mesh(dev, smi)
+    log(f"phase 13: train the spiking {LM_ARCH} at full width ({LM_TRAIN_STEPS} SGD steps of "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens), an AdamW update, the trained fixture")
+    torch.cuda.empty_cache()
+    train_reports = phase_lm_train(dev, smi)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()}}.items()
+    missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()},
+                                **{f"{k}@lm-train": r for k, r in train_reports.items()}}.items()
                if rep.entry["device_ms"] is None]
     if missing:
         fail(f"no complete profile gave the device time of {missing}")
@@ -3682,7 +4094,8 @@ def main() -> int:
     extra = [*bf16_reports.values(), *past_reports.values(), bitplane_report]
     print(json.dumps({"kernels": [reports[k].entry for k in sorted(reports)]
                       + [lm_reports[k].entry for k in sorted(lm_reports)]
-                      + [rep.entry for rep in extra]}))
+                      + [rep.entry for rep in extra]
+                      + [train_reports[k].entry for k in sorted(train_reports)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,7 +8,10 @@ in both packages, so no renaming happens here.  Training needs nothing more:
 parameter, gradient and BatchNorm-state trees are such trees, and cross in
 both directions through :func:`to_torch` and :func:`to_numpy`.  So do the
 spiking LM's parameters (``init_spiking_lm``): their ``layers`` tree stacks
-every block's leaves along a leading L axis in both packages.
+every block's leaves along a leading L axis in both packages, and so do the
+gradient trees ``jax.value_and_grad`` and the port's ``loss_and_grad``
+return.  :func:`leaves` and :func:`rebuild` take such a tree apart and put it
+back together (training steps and the optimizers map over the leaves).
 
 Packed spike words cross as bit patterns: the JAX package keeps them as
 ``uint32``, the port as ``int32`` (PyTorch on the CPU has no shifts or NOT
@@ -20,6 +23,25 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def leaves(tree) -> list:
+    """The leaves of a tree of dicts, tuples and lists, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def rebuild(tree, new_leaves):
+    """``tree``'s structure with the leaves of ``new_leaves`` (an iterator, in
+    :func:`leaves` order)."""
+    if isinstance(tree, dict):
+        return {k: rebuild(v, new_leaves) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(rebuild(v, new_leaves) for v in tree)
+    return next(new_leaves)
 
 
 def to_torch(tree, device=None, dtype=torch.float32):

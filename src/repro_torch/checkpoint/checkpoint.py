@@ -18,6 +18,8 @@ the bits go through torch's own views, so no ``ml_dtypes`` is needed.
 Atomic: a step is written to ``step_<N>.tmp.<pid>``, fsync'd, then renamed,
 and ``LATEST`` is replaced by a rename, so a crashed writer never corrupts
 it.  Keep-k GC prunes old steps after a successful save.
+:class:`AsyncSaver` writes on a background thread from a host copy taken
+when the save is asked for.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -177,3 +180,47 @@ def restore(ckpt_dir: str | os.PathLike, target, *, step: int | None = None,
         return arr.to(device=leaf.device, dtype=leaf.dtype)
 
     return _map_with_names(load, target), manifest
+
+
+def _host_copy(tree):
+    """Every tensor leaf copied to the host (the tree's structure kept), so
+    that later updates of the device tensors cannot reach a pending save."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host_copy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return np.array(tree, copy=True)
+
+
+class AsyncSaver:
+    """One in-flight asynchronous save at a time: :meth:`save_async` waits
+    for the previous one, copies the tree to the host, and writes it with
+    :func:`save` on a background thread; :meth:`wait` joins it and raises
+    the error of a failed save."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._err: BaseException | None = None
+
+    def save_async(self, ckpt_dir, step, tree, **kw):
+        self.wait()
+        host_tree = _host_copy(tree)
+
+        def _run():
+            try:
+                save(ckpt_dir, step, host_tree, **kw)
+            except BaseException as e:  # noqa: BLE001  (re-raised by wait)
+                self._err = e
+
+        self._thread = threading.Thread(target=_run, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err

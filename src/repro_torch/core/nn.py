@@ -21,15 +21,20 @@ import torch
 import torch.nn.functional as F
 
 
-def _uniform(generator, shape, scale, device):
-    return torch.empty(shape).uniform_(-scale, scale, generator=generator).to(device)
+def _uniform(generator, shape, scale, device, dtype=torch.float32):
+    """U(-scale, scale) drawn in f32 on the host from ``generator``, then cast
+    to ``dtype`` on ``device`` (the same draw for every dtype)."""
+    return torch.empty(shape).uniform_(-scale, scale, generator=generator).to(device, dtype)
 
 
 # -- Linear -----------------------------------------------------------------
 
-def linear_init(generator, d_in: int, d_out: int, *, device=None):
-    return {"w": _uniform(generator, (d_in, d_out), 1.0 / math.sqrt(d_in), device),
-            "b": torch.zeros((d_out,), device=device)}
+def linear_init(generator, d_in: int, d_out: int, *, bias: bool = True,
+                dtype=torch.float32, device=None):
+    p = {"w": _uniform(generator, (d_in, d_out), 1.0 / math.sqrt(d_in), device, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
 
 
 def linear_apply(p, x):
@@ -41,9 +46,13 @@ def linear_apply(p, x):
 
 # -- Conv2d (NHWC) ------------------------------------------------------------
 
-def conv_init(generator, c_in: int, c_out: int, ksize: int, *, device=None):
+def conv_init(generator, c_in: int, c_out: int, ksize: int, *, bias: bool = False,
+              dtype=torch.float32, device=None):
     scale = 1.0 / math.sqrt(c_in * ksize * ksize)
-    return {"w": _uniform(generator, (ksize, ksize, c_in, c_out), scale, device)}
+    p = {"w": _uniform(generator, (ksize, ksize, c_in, c_out), scale, device, dtype)}
+    if bias:
+        p["b"] = torch.zeros((c_out,), dtype=dtype, device=device)
+    return p
 
 
 def _full_f32():
@@ -53,57 +62,81 @@ def _full_f32():
 
 
 class _Conv2d(torch.autograd.Function):
-    """``F.conv2d`` (NCHW, OIHW, stride 1, SAME padding) in full f32, forward
-    and backward.  Autograd would run the backward's two convolutions later,
-    outside any flag set around the forward, under the global
+    """``F.conv2d`` (NCHW, OIHW) at ``stride`` with the symmetric zero
+    padding ``pad`` (rows, columns) in full f32, forward and backward.
+    Autograd would run the backward's two convolutions later, outside any
+    flag set around the forward, under the global
     ``torch.backends.cudnn.allow_tf32`` (True by default); here both run
-    under the same flags as the forward."""
+    under the same flags as the forward, with the forward's stride and
+    padding."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, stride, pad):
         ctx.save_for_backward(x, w)
+        ctx.stride, ctx.pad = stride, pad
         with _full_f32():
-            return F.conv2d(x, w, padding="same")
+            return F.conv2d(x, w, stride=stride, padding=pad)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        pad = [(k - 1) // 2 for k in w.shape[2:]]      # SAME, odd kernels
         with _full_f32():
             dx, dw, _ = torch.ops.aten.convolution_backward(
-                g, x, w, None, [1, 1], pad, [1, 1], False, [0, 0], 1,
+                g, x, w, None, [ctx.stride] * 2, list(ctx.pad), [1, 1], False, [0, 0], 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return dx, dw
+        return dx, dw, None, None
 
 
-def conv_apply(p, x):
-    """x: (N, H, W, C), HWIO kernel (odd size), stride 1, SAME padding.
-    Permuted around ``F.conv2d``, with cuDNN's TF32 off in the forward and in
-    the backward (:class:`_Conv2d`)."""
-    if any(k % 2 == 0 for k in p["w"].shape[:2]):
-        raise ValueError(f"conv_apply takes odd kernel sizes, got {tuple(p['w'].shape)}")
+def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: ``ceil(size / stride)``
+    outputs, ``total = max((out - 1) * stride + k - size, 0)`` zeros, the
+    low side ``total // 2`` (an even kernel pads one more on the high
+    side)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_apply(p, x, *, stride: int = 1, padding: str = "SAME"):
+    """x: (N, H, W, C), HWIO kernel of any size, ``padding`` "SAME" or
+    "VALID" with XLA's meaning (:func:`_same_pads`).  Permuted around
+    ``F.conv2d``, with cuDNN's TF32 off in the forward and in the backward
+    (:class:`_Conv2d`).  Where SAME pads one side more than the other, the
+    input is zero-padded explicitly first; symmetric padding (every odd
+    kernel) goes to the convolution itself."""
+    kh, kw = p["w"].shape[:2]
+    if padding == "VALID":
+        pads = ((0, 0), (0, 0))
+    elif padding == "SAME":
+        pads = (_same_pads(x.shape[1], kh, stride), _same_pads(x.shape[2], kw, stride))
+    else:
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    xc = x.permute(0, 3, 1, 2)
+    if any(lo != hi for lo, hi in pads):
+        (top, bottom), (left, right) = pads
+        xc = F.pad(xc, (left, right, top, bottom))
+        pads = ((0, 0), (0, 0))
     w = p["w"].permute(3, 2, 0, 1)                       # HWIO -> OIHW
-    y = _Conv2d.apply(x.permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+    y = _Conv2d.apply(xc, w, stride, (pads[0][0], pads[1][0])).permute(0, 2, 3, 1)
     if "b" in p:
         y = y + p["b"]
     return y
 
 
-def maxpool(x):
-    """2x2 max pool on NHWC, stride 2, VALID padding.  Its gradient goes to
-    the first maximum of a tied window (row-major), as the reference's
-    ``reduce_window`` max VJP sends it."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), 2)
+def maxpool(x, *, window: int = 2, stride: int | None = None):
+    """``window`` x ``window`` max pool on NHWC at ``stride`` (default
+    ``window``), VALID padding.  Its gradient goes to the first maximum of a
+    tied window (row-major), as the reference's ``reduce_window`` max VJP
+    sends it; overlapping windows add their gradients."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride or window)
     return y.permute(0, 2, 3, 1)
 
 
 # -- BatchNorm ----------------------------------------------------------------
 
-def bn_init(c: int, device=None):
-    params = {"scale": torch.ones((c,), device=device),
-              "bias": torch.zeros((c,), device=device)}
-    state = {"mean": torch.zeros((c,), device=device),
-             "var": torch.ones((c,), device=device)}
+def bn_init(c: int, dtype=torch.float32, device=None):
+    kw = dict(dtype=dtype, device=device)
+    params = {"scale": torch.ones((c,), **kw), "bias": torch.zeros((c,), **kw)}
+    state = {"mean": torch.zeros((c,), **kw), "var": torch.ones((c,), **kw)}
     return params, state
 
 

@@ -6,14 +6,18 @@ regenerate exactly its shard of any step, and a restart needs no data-loader
 state beyond the step counter.  Images are low-frequency oriented gratings
 plus noise whose orientation depends on the class, so the Spikformer
 examples have real signal to fit; tokens are a Zipf-ish unigram mixture with
-BOS-separated documents of geometric length (the spiking LM's prompts).  The
-same (config, step) gives the same arrays as the JAX package's
-:func:`make_batch`, bit for bit.  The modality stubs come with the generic LM
-substrate.
+BOS-separated documents of geometric length (the spiking LM's prompts); the
+modality stubs (``audio_stub``, ``vision_stub``) are precomputed-embedding
+frontends.  The same (config, step) gives the same arrays as the JAX
+package's :func:`make_batch`, bit for bit.  :class:`Prefetcher` makes future
+steps on a background thread, in step order.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import queue
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -71,10 +75,69 @@ def image_batch(cfg: DataConfig, step: int, *, shard: int = 0, num_shards: int =
     return {"image": img.astype(np.float32), "label": labels.astype(np.int32)}
 
 
+def modality_batch(cfg: DataConfig, step: int, *, shard: int = 0, num_shards: int = 1):
+    """audio_stub: {'embeds': (B, S, d_model) f32, 'labels': (B, S) int32};
+    vision_stub: {'image_embeds': (B, P, d_model) f32, 'tokens': (B, S - P)
+    int32}, P = ``num_prefix_tokens``."""
+    b = cfg.global_batch // num_shards
+    rng = _rng(cfg, step, shard)
+    if cfg.kind == "audio_stub":
+        return {
+            "embeds": rng.standard_normal((b, cfg.seq_len, cfg.d_model)).astype(np.float32),
+            "labels": rng.integers(0, cfg.vocab_size, size=(b, cfg.seq_len)).astype(np.int32),
+        }
+    if cfg.kind == "vision_stub":
+        p = cfg.num_prefix_tokens
+        text = dataclasses.replace(cfg, seq_len=cfg.seq_len - p)
+        return {
+            "image_embeds": rng.standard_normal((b, p, cfg.d_model)).astype(np.float32),
+            "tokens": token_batch(text, step, shard=shard, num_shards=1)["tokens"][:b],
+        }
+    raise ValueError(cfg.kind)
+
+
 def make_batch(cfg: DataConfig, step: int, *, shard: int = 0, num_shards: int = 1):
-    fn = {"tokens": token_batch, "images": image_batch}.get(cfg.kind)
-    if fn is None:
-        raise NotImplementedError(
-            f"kind={cfg.kind!r}: the modality stubs come with the generic LM "
-            "substrate; this package has kind='tokens' and kind='images'")
+    fn = {"tokens": token_batch, "images": image_batch,
+          "audio_stub": modality_batch, "vision_stub": modality_batch}[cfg.kind]
     return fn(cfg, step, shard=shard, num_shards=num_shards)
+
+
+class Prefetcher:
+    """Background-thread prefetch of future steps (host generation overlaps
+    the device's work): :meth:`next` returns ``(step, batch)`` in step order
+    from ``start_step`` on, at most ``depth`` steps ahead; :meth:`stop`
+    ends the thread."""
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0, depth: int = 2,
+                 shard: int = 0, num_shards: int = 1):
+        self.cfg = cfg
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._shard, self._num_shards = shard, num_shards
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = make_batch(self.cfg, step, shard=self._shard, num_shards=self._num_shards)
+            while not self._stop.is_set():
+                try:
+                    self.q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def next(self):
+        return self.q.get()
+
+    def stop(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2)

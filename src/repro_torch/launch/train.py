@@ -24,31 +24,13 @@ import time
 
 import torch
 
+from repro_torch.bridge import leaves, rebuild
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.spike_iand_former import get_vision_config
 from repro_torch.core import spikformer as sf
 from repro_torch.core.iand import is_binary
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.engine.plan import resolve_device
-
-
-def leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a tree of dicts, tuples and lists, in insertion order."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in leaves(v)]
-    return [tree]
-
-
-def rebuild(tree, new_leaves):
-    """``tree``'s structure with the leaves of ``new_leaves`` (an iterator, in
-    :func:`leaves` order)."""
-    if isinstance(tree, dict):
-        return {k: rebuild(v, new_leaves) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(rebuild(v, new_leaves) for v in tree)
-    return next(new_leaves)
 
 
 def loss_and_grad(params, state, image, label, cfg):

@@ -17,7 +17,17 @@ unfolded T axis.  The deploy view is an engine plan
 against this graph by the tests.  The parameters keep the JAX package's
 tree: ``layers`` stacks every block's leaves along a leading L axis (the
 JAX package scans over it), so :mod:`repro_torch.bridge` carries them across
-as they are.  ``loss_fn`` comes with LM training.
+as they are, and so do their gradients.  :func:`loss_fn` is the training
+loss (next-token cross-entropy on the rate-decoded logits).
+
+``use_kernel=True`` (on :func:`forward`, :func:`block_apply` and
+:func:`loss_fn`) routes every LIF through the LIF kernel wrappers (forward
+kernel, backward kernel: ``kernels.lif_parallel.ops._LifOp``) and the
+quadratic causal SSA through the attention kernel
+(``kernels.spiking_attention.ops._SsaOp``); on a CPU tensor those wrappers
+run their plain versions.  The linear ordering stays plain on both routes,
+as ``core/lif.py::lif(use_kernel=)`` and the vision config's ``use_kernel``
+have it.  The default is the JAX package's graph.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.iand import iand
-from repro_torch.core.lif import lif_parallel
+from repro_torch.core.lif import lif
 from repro_torch.core.spiking_attention import ssa
 from repro_torch.engine.layout import lm_block_layout
 from repro_torch.models.config import ArchConfig
@@ -44,16 +54,38 @@ def _unfold(x, t):
     return x.reshape((t, -1) + tuple(x.shape[1:]))
 
 
-def _lin_norm_lif(p, x, cfg: ArchConfig, *, iand_skip=None):
+def _lif(drive, cfg: ArchConfig, use_kernel: bool):
+    return lif(drive, chain_len=cfg.spike_chain_len, use_kernel=use_kernel)
+
+
+def _lin_init(generator: torch.Generator, d_in: int, d_out: int, dtype, *,
+              layers: int | None = None):
+    """One Linear+RMSNorm unit: weight N(0, 1/d_in), RMSNorm scale 1, on the
+    generator's device.  ``layers`` stacks that many units along a leading
+    axis in one draw (the ``layers`` tree of :func:`init_spiking_lm`)."""
+    lead = () if layers is None else (layers,)
+    dev = generator.device
+    w = torch.randn(lead + (d_in, d_out), generator=generator, dtype=dtype, device=dev)
+    return {"w": w * (d_in ** -0.5),
+            "norm": {"scale": torch.ones(lead + (d_out,), dtype=dtype, device=dev)}}
+
+
+def _lin_norm_lif(p, x, cfg: ArchConfig, *, use_kernel: bool = False):
     """Tick-batched Linear -> RMSNorm -> LIF. x: (T, B, S, Din) spikes."""
     t = x.shape[0]
     y = _fold(x) @ p["w"].to(x.dtype)
     y = rmsnorm_apply(p["norm"], y, eps=cfg.norm_eps)
-    return lif_parallel(_unfold(y, t), chain_len=cfg.spike_chain_len, iand_skip=iand_skip)
+    return _lif(_unfold(y, t), cfg, use_kernel)
 
 
-def causal_ssa(q, k, v, *, scale: float, ordering: str = "quadratic", chunk: int = 512):
-    """Softmax-free causal spiking attention. q/k/v: (T, B, H, S, Dh)."""
+def causal_ssa(q, k, v, *, scale: float, ordering: str = "quadratic", chunk: int = 512,
+               use_kernel: bool = False):
+    """Softmax-free causal spiking attention. q/k/v: (T, B, H, S, Dh).
+    ``use_kernel`` takes the attention kernel for the quadratic ordering."""
+    if use_kernel and ordering == "quadratic":
+        from repro_torch.kernels.spiking_attention.ops import ssa_op
+
+        return ssa_op(q, k, v, scale=scale, causal=True)
     return ssa(q, k, v, scale=scale, ordering=ordering, causal=True, chunk=chunk)
 
 
@@ -70,9 +102,7 @@ def init_spiking_lm(generator: torch.Generator, cfg: ArchConfig):
     JAX parameters across through numpy instead."""
     dtype, dev = _param_dtype(cfg), generator.device
     randn = lambda *shape: torch.randn(shape, generator=generator, dtype=dtype, device=dev)
-    n = cfg.num_layers
-    layers = {u.name: {"w": randn(n, u.d_in, u.d_out) * (u.d_in ** -0.5),
-                       "norm": {"scale": torch.ones((n, u.d_out), dtype=dtype, device=dev)}}
+    layers = {u.name: _lin_init(generator, u.d_in, u.d_out, dtype, layers=cfg.num_layers)
               for u in lm_block_layout(cfg)}
     return {
         "embed": {"table": randn(cfg.vocab_size, cfg.d_model) * 0.02,
@@ -83,6 +113,12 @@ def init_spiking_lm(generator: torch.Generator, cfg: ArchConfig):
     }
 
 
+def block_init(generator: torch.Generator, cfg: ArchConfig, dtype):
+    """One block's parameters (unstacked), a unit per entry of the shared
+    ``lm_block_layout``."""
+    return {u.name: _lin_init(generator, u.d_in, u.d_out, dtype) for u in lm_block_layout(cfg)}
+
+
 def layer_params(layers, i: int):
     """Block ``i``'s leaves of the stacked ``layers`` tree."""
     if isinstance(layers, dict):
@@ -90,26 +126,28 @@ def layer_params(layers, i: int):
     return layers[i]
 
 
-def block_apply(p, x, cfg: ArchConfig, *, ordering: str):
+def block_apply(p, x, cfg: ArchConfig, *, ordering: str, use_kernel: bool = False):
     """x: (T, B, S, D) spikes -> same."""
     t, b, s, d = x.shape
     h = cfg.num_heads
     dh = d // h
-    q = _lin_norm_lif(p["q"], x, cfg)
-    k = _lin_norm_lif(p["k"], x, cfg)
-    v = _lin_norm_lif(p["v"], x, cfg)
+    kw = dict(use_kernel=use_kernel)
+    q = _lin_norm_lif(p["q"], x, cfg, **kw)
+    k = _lin_norm_lif(p["k"], x, cfg, **kw)
+    v = _lin_norm_lif(p["v"], x, cfg, **kw)
     split = lambda z: z.reshape(t, b, s, h, dh).permute(0, 1, 3, 2, 4)
-    attn = causal_ssa(split(q), split(k), split(v), scale=ATTN_SCALE, ordering=ordering)
+    attn = causal_ssa(split(q), split(k), split(v), scale=ATTN_SCALE, ordering=ordering, **kw)
     attn = attn.permute(0, 1, 3, 2, 4).reshape(t, b, s, d)
-    attn = lif_parallel(attn, chain_len=cfg.spike_chain_len)     # attn spikes
-    branch = _lin_norm_lif(p["proj"], attn, cfg)
+    attn = _lif(attn, cfg, use_kernel)                           # attn spikes
+    branch = _lin_norm_lif(p["proj"], attn, cfg, **kw)
     x = iand(x, branch)                                          # AND-NOT residual
-    hdn = _lin_norm_lif(p["fc1"], x, cfg)
-    branch = _lin_norm_lif(p["fc2"], hdn, cfg)
+    hdn = _lin_norm_lif(p["fc1"], x, cfg, **kw)
+    branch = _lin_norm_lif(p["fc2"], hdn, cfg, **kw)
     return iand(x, branch)
 
 
-def forward(params, batch, cfg: ArchConfig, *, ordering: str = "quadratic"):
+def forward(params, batch, cfg: ArchConfig, *, ordering: str = "quadratic",
+            use_kernel: bool = False):
     """tokens (B, S) -> logits (B, S, V), rate-decoded over T time steps."""
     t = cfg.spike_t
     tokens = batch["tokens"] if isinstance(batch, dict) else batch
@@ -117,9 +155,24 @@ def forward(params, batch, cfg: ArchConfig, *, ordering: str = "quadratic"):
                                                    device=params["embed"]["table"].device)]
     drive = emb[None].expand((t,) + tuple(emb.shape))
     drive = rmsnorm_apply(params["embed"]["norm"], drive, eps=cfg.norm_eps)
-    x = lif_parallel(drive, chain_len=cfg.spike_chain_len)       # encoding layer
+    x = _lif(drive, cfg, use_kernel)                             # encoding layer
     for i in range(cfg.num_layers):
-        x = block_apply(layer_params(params["layers"], i), x, cfg, ordering=ordering)
+        x = block_apply(layer_params(params["layers"], i), x, cfg, ordering=ordering,
+                        use_kernel=use_kernel)
     rate = x.mean(dim=0)                                         # rate decoding
     rate = rmsnorm_apply(params["final_norm"], rate, eps=cfg.norm_eps)
     return rate @ params["lm_head"]["w"].to(rate.dtype)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, *, ordering: str = "quadratic",
+            use_kernel: bool = False):
+    """Next-token cross-entropy of :func:`forward`'s logits (the last
+    position masked out).  Returns ``(ce, {"loss": ce})``, as the JAX
+    package's ``loss_fn``; differentiate it with ``torch.autograd``."""
+    from repro_torch.models.lm import _shift_labels, cross_entropy
+
+    logits = forward(params, batch, cfg, ordering=ordering, use_kernel=use_kernel)
+    tokens = batch["tokens"] if isinstance(batch, dict) else batch
+    labels, mask = _shift_labels(torch.as_tensor(tokens, device=logits.device))
+    ce = cross_entropy(logits, labels, mask)
+    return ce, {"loss": ce}

@@ -35,7 +35,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.launch.scheduler", "repro_torch.core.bundling",
             "repro_torch.core.encoding", "repro_torch.launch.mesh",
             "repro_torch.distributed.sharding", "repro_torch.distributed.compression",
-            "repro_torch.distributed.fault_tolerance"} <= set(_modules())
+            "repro_torch.distributed.fault_tolerance", "repro_torch.checkpoint.fixtures",
+            "repro_torch.optim.optimizer"} <= set(_modules())
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"

@@ -155,8 +155,12 @@ def test_make_batch_images_bit_equal_vs_jax(ref, img_size, classes, batch):
                 assert got[key].dtype == want[key].dtype
                 np.testing.assert_array_equal(got[key], want[key])
     assert dataclasses.astuple(tdata.DataConfig()) == dataclasses.astuple(ref.data.DataConfig())
-    with pytest.raises(NotImplementedError, match="audio_stub"):
-        tdata.make_batch(tdata.DataConfig(kind="audio_stub"), 0)
+    stub = dict(kind="audio_stub", seq_len=8, d_model=4, vocab_size=50)   # served since
+    want = ref.data.make_batch(ref.data.DataConfig(**stub), 3)             # modality_batch
+    got = tdata.make_batch(tdata.DataConfig(**stub), 3)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
 
 
 def _ckpt_tree():
