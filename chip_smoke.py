@@ -75,7 +75,11 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      prefill (spikes and state ``torch.equal``), the kernel route against
      the plain route (layer by layer; end to end within E2E_SPIKE_SHARE,
      which the control builds must exceed; the first diverging token), and
-     one profiled prefill and decode step per route;
+     one profiled prefill and decode step per route; then one 2048-token
+     prompt (``LONG_PREFILL``, slot batch 1) through the live LM's prefill at
+     full depth on the three routes: launches counted, logits ``torch.equal``
+     across routes, ms per prefill and the GEMM / SSA / LIF device ms of a
+     profiled prefill;
   7. continuous serving of the same LM (``launch.scheduler.ContinuousScheduler``
      through ``serve_continuous_plan``) on the live LM: 12 ``token_batch``
      requests, prompt lengths cycled over 8, 32 and 77, ``max_new`` 16...9, 4
@@ -161,9 +165,12 @@ version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
 (N = M = 32, 512, 2048, all ones, ragged Dh=200 with N != M, M * Dh just
 below 2^24, and one key more: two key ranges), every kernel timed per
-prefill, K2 also per decode step; every kernel of phase 7's path at the
-shapes phase 7 adds (batch-1 admissions and chunk buckets, N = 8...77
-tokens, and the 4-slot step) against its plain version, each row also
+prefill, K2 also per decode step, K3, K6 and K9 also on 512- and 2048-token
+prompts in every slot (G = 64; the same spikes as T = 4 planes of 16 folds
+for K6 and K9), each beside its f16 ``torch.bmm`` pair; every kernel of
+phase 7's path at the shapes phase 7 adds (batch-1 admissions and chunk
+buckets, N = 8...77 tokens, and the 4-slot step) against its plain
+version, each row also
 against the same row at another row count; K1, K4 and K7 on bf16 drives at
 the 8-384 shapes (``torch.equal``, timed against their byte bounds, then
 the bf16 path -- ``core.lif.lif`` on bf16 drives, one forward and one
@@ -260,6 +267,7 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_EVAL = 16, 3, 2
 LM_ARCH = "llama3.2-1b"
 LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SLOTS, LM_CHUNK = 8, 32, 16, 4, 8
 LM_LAYERS, LM_D, LM_FF, LM_HEADS, LM_DH, LM_VOCAB = 16, 2048, 8192, 4, 512, 128256
+LONG_PREFILL = 2048   # tokens of phase 6's full-depth prompt (one slot)
 # The workload of phase 7, continuous serving at the same width: prompt lengths
 # cycled over CONT_LENS, max_new LM_NEW - (i % (CONT_SPREAD + 1)) (16...9), the
 # admission queue bounded at CONT_PENDING, closed loop; chunked admission in
@@ -576,10 +584,11 @@ def _lm_ssa_sets(gen, dev):
     """(label, q, k, v, causal) of the LM's attention beside the main path's
     (G = T*B*H = 64, N = M = 32, Dh = 512, causal): one sequence (G = T*H =
     16) at phase 7's admission and chunk lengths with some folds all zero
-    (dead planes for K9), longer prompts (512, 2048), all ones at Dh = 512
-    (the largest scores, 512), ragged Dh = 200 with N != M both ways, and all
-    ones with M * Dh just below 2^24 (one query tile, not causal: every
-    output is the largest exact sum)."""
+    (dead planes for K9), longer prompts (512, 2048), phase 6's LONG_PREFILL
+    prompt at slot batch 1 (G = T*H = 16), all ones at Dh = 512 (the largest
+    scores, 512), ragged Dh = 200 with N != M both ways, and all ones with
+    M * Dh just below 2^24 (one query tile, not causal: every output is the
+    largest exact sum)."""
     binary = lambda shape: (torch.rand(shape, generator=gen) > 0.5).float().to(dev)
     g, d = 4 * LM_SLOTS * LM_HEADS, LM_DH
     for n in _admission_lens():
@@ -588,6 +597,9 @@ def _lm_ssa_sets(gen, dev):
         yield f"G={4 * LM_HEADS} N=M={n} dead folds", q, k, binary((4 * LM_HEADS, n, d)), True
     for n in (512, 2048):
         yield f"N=M={n}", binary((g, n, d)), binary((g, n, d)), binary((g, n, d)), True
+    one = (4 * LM_HEADS, LONG_PREFILL, d)
+    yield (f"G={one[0]} N=M={LONG_PREFILL} (slot batch 1)", binary(one), binary(one), binary(one),
+           True)
     ones = torch.ones((g, 512, d), device=dev)
     for causal in (False, True):
         yield "all-ones N=M=512", ones, ones, ones, causal
@@ -695,44 +707,56 @@ def _lm_kernels(dev, gen):
                 library_tc_ms=library_tc_ms(qs, ks, vs, 0.125, plain(), f"K3{suffix} {label}",
                                             causal=causal))
 
+    def packed_case(rep, key, label, count, qs, ks, vs, gated):
+        """K6 (K9 where ``gated``) on the words of dense causal spikes (T * gw,
+        n, Dh): T = t planes of gw folds, against its plain version, its bound
+        (the live planes' causal triangle) and the two library calls on the
+        dense operands."""
+        gw_, n = qs.shape[0] // t, qs.shape[1]
+        words = [pack(x.reshape(t, gw_, n, dh)) for x in (qs, ks, vs)]
+        live = ssa_ops._plane_liveness(*words, t)
+        if gated:
+            run = lambda: ssa_ops.sparse_packed_ssa_fwd(*words, live, t=t, scale=0.125,
+                                                        causal=True)
+            plain = lambda: sparse_packed_ssa_ref(*words, live, t=t, scale=0.125, causal=True)
+            n_live = int((live != 0).sum())
+        else:
+            run = lambda: ssa_ops.packed_ssa_fwd(*words, t=t, scale=0.125, causal=True)
+            plain = lambda: packed_ssa_ref(*words, t=t, scale=0.125, causal=True)
+            n_live = gw_ * t
+        rep.add(label, count, 0.0, time_ms(run), time_ms(plain, reps=5),
+                4 * 3 * gw_ * n * dh + 4 * t * gw_ * n * dh, 4 * n_live * (n * (n + 1) // 2) * dh,
+                library_ms=time_ms(lambda: torch.bmm(torch.tril(torch.bmm(
+                    qs, ks.transpose(1, 2))), vs) * 0.125),
+                library_tc_ms=library_tc_ms(qs, ks, vs, 0.125, plain().reshape(t * gw_, n, dh),
+                                            f"{key}{suffix} {label}", causal=True))
+
+    gw = b * LM_HEADS
+    packed_keys = (("K6", "packed_ssa", 164, False), ("K9", "sparse_packed_ssa", 139, True))
     rep = KernelReport(f"ssa{suffix}", src.format("spiking_attention", "ssa"),
                        tpu.format("spiking_attention", 62))
     ssa_case(rep, f"G={g} N={s} Dh={dh} causal", layers, q, k, v)
     reports["K3"] = rep
-    longer = KernelReport("ssa longer prompts", rep.entry["source"], rep.entry["replaces"])
-    for n in (512, 2048):
-        ssa_case(longer, f"G={g} N={n} Dh={dh} causal (a {n}-token prompt)", 1,
-                 *(binary((g, n, dh)) for _ in range(3)))
-
-    gw = b * LM_HEADS
-    qw, kw, vw = (pack(x.reshape(t, gw, s, dh)) for x in (q, k, v))
-    dense = lambda w_: packing.unpack(packing.PackedSpikes(w_, t)).reshape(t * gw, -1, dh)
-    pairs = s * (s + 1) // 2
-    for key, name, line, gated in (("K6", "packed_ssa", 164, False),
-                                   ("K9", "sparse_packed_ssa", 139, True)):
+    for key, name, line, gated in packed_keys:
         rep = KernelReport(f"{name}{suffix}", src.format("spiking_attention", "ssa"),
                            tpu.format("spiking_attention", line))
-        live = ssa_ops._plane_liveness(qw, kw, vw, t)
-        if gated:
-            run = lambda: ssa_ops.sparse_packed_ssa_fwd(qw, kw, vw, live, t=t, scale=0.125,
-                                                        causal=True)
-            plain = lambda: sparse_packed_ssa_ref(qw, kw, vw, live, t=t, scale=0.125,
-                                                  causal=True)
-            n_live = int((live != 0).sum())
-        else:
-            run = lambda: ssa_ops.packed_ssa_fwd(qw, kw, vw, t=t, scale=0.125, causal=True)
-            plain = lambda: packed_ssa_ref(qw, kw, vw, t=t, scale=0.125, causal=True)
-            n_live = gw * t
-        qd, kd, vd = dense(qw), dense(kw), dense(vw)
-        rep.add(f"G={gw} N={s} Dh={dh} T={t} causal", layers, 0.0, time_ms(run),
-                time_ms(plain, reps=5), 4 * 3 * gw * s * dh + 4 * t * gw * s * dh,
-                4 * n_live * pairs * dh,
-                library_ms=time_ms(lambda: torch.bmm(torch.tril(torch.bmm(
-                    qd, kd.transpose(1, 2))), vd) * 0.125),
-                library_tc_ms=library_tc_ms(qd, kd, vd, 0.125, plain().reshape(t * gw, s, dh),
-                                            f"{key}{suffix}", causal=True))
+        packed_case(rep, key, f"G={gw} N={s} Dh={dh} T={t} causal", layers, q, k, v, gated)
         reports[key] = rep
-    del q, k, v, qw, kw, vw
+    del q, k, v
+    # longer prompts in every slot: the same spikes through K3 and, as T = 4 planes of
+    # the words, K6 and K9
+    longer = {"K3": KernelReport("ssa longer prompts", reports["K3"].entry["source"],
+                                 reports["K3"].entry["replaces"])}
+    for key, name, _, _ in packed_keys:
+        longer[key] = KernelReport(f"{name} longer prompts", reports[key].entry["source"],
+                                   reports[key].entry["replaces"])
+    for n in (512, 2048):
+        qs, ks, vs = (binary((g, n, dh)) for _ in range(3))
+        ssa_case(longer["K3"], f"G={g} N={n} Dh={dh} causal (a {n}-token prompt)", 1, qs, ks, vs)
+        for key, _, _, gated in packed_keys:
+            packed_case(longer[key], key, f"G={gw} N={n} Dh={dh} T={t} causal (a {n}-token "
+                        "prompt)", 1, qs, ks, vs, gated)
+        del qs, ks, vs
 
     # -- K1 and K4: the LIF and its pack epilogue ------------------------------------------
     lif_cases = [(b * s * d, False, 1 + 4 * layers), (b * s * d, True, 2 * layers),
@@ -1656,20 +1680,34 @@ def _profile(label, run, want, tries=3):
     of each of the port's kernels in that run, by K number.  The profiler at
     times drops part of a run's kernels: a profile whose count of the port's
     launches is not ``want`` is taken again, up to ``tries`` times, and is
-    logged as incomplete."""
-    from torch.profiler import ProfilerActivity, profile
+    logged as incomplete.  The profiler's schedule traces a warm-up run and
+    keeps the run after it (as :func:`_profile_lm_step` does): a profile
+    begun right before the run missed its first kernel, the embedding LIF of
+    an LM prefill or step, in every attempt; the schedule's step annotations
+    are left out of the sums."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kept = {}
+
+    def ready(prof):        # the kept run's kernels (the cycle's end clears them)
+        kept["kernels"] = [e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False)
+                           and not e.key.startswith("ProfilerStep")]
 
     for attempt in range(1, tries + 1):
         with torch.inference_mode():
-            run()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=ready) as prof:
+                for _ in range(2):      # the traced warm-up run, then the kept one
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    prof.step()
+        kernels = kept.pop("kernels", [])
         mine = _hand_kernels(kernels)
         counts = {}
         for key, _, e in mine:
@@ -2373,8 +2411,71 @@ def phase_lm(dev, smi, reports):
         n = runs[backend]["steps"] if key == "K2 decode" else runs[backend]["prefills"]
         rep.entry["launches_per_forward"] = per[key.split()[0]]
         rep.entry["launches"] = n * per[key.split()[0]]
+    del plan, pplan
+    _long_prefill(dev, smi, cfg)
     fail_if_any("phase 6")
     return runs["cuda"]
+
+
+def _long_prefill(dev, smi, cfg):
+    """One LONG_PREFILL-token prompt (slot batch 1) through the live LM's
+    prefill at full width and depth on the three kernel routes: launches
+    counted (one prefill), logits finite and ``torch.equal`` across routes,
+    ms per prefill (CUDA events, each of 3 after a warm-up) and the route's
+    GEMM, SSA and LIF device ms from one profiled prefill, so that the wide
+    SSA kernel's share of a long prompt shows.  Then the kernel route against
+    the plain route: spike mismatches layer by layer (each layer fed the
+    plain plan's input, within MISMATCH_SHARE) and end to end (within
+    E2E_SPIKE_SHARE), and the logits' difference reported."""
+    from repro_torch import engine
+    from repro_torch.launch.serve import live_lm_params
+
+    params = live_lm_params(cfg, dev)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, LONG_PREFILL))).to(dev)
+    label, ref = f"{LONG_PREFILL}-token prefill", None
+    for backend in PATHS:
+        plan = engine.compile_plan(params, None, cfg, backend=backend, device=dev)
+        prefill = engine.make_prefill_fn(plan)
+        run = lambda: prefill(plan.params, tokens)
+        (logits, _), _ = _lm_counted(label, backend, run, lambda _: _lm_launches(backend, 1, 0))
+        check(tuple(logits.shape) == (1, LONG_PREFILL, LM_VOCAB)
+              and bool(torch.isfinite(logits).all()), f"{label} {backend}: logits "
+              f"{tuple(logits.shape)} not finite or misshapen")
+        if ref is None:
+            ref = logits
+        else:
+            check(torch.equal(logits, ref), f"{label} {backend}: logits differ from cuda")
+        del logits
+        ms = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        per = {k: n for k, n in _lm_launches(backend, 1, 0).items() if n}
+        times = _profile(f"{label} {backend}", run, per)
+        lif, gemm, ssa = PATHS[backend]
+        log(f"{label} ({cfg.num_layers} layers at {LM_ARCH} width, slot batch 1, live LM) "
+            f"backend={backend}: ms per prefill {', '.join(f'{x:.3f}' for x in ms)} (median "
+            f"{sorted(ms)[1]:.3f}); device ms in one profiled prefill: GEMM {gemm} "
+            f"{times.get(gemm, float('nan')):.3f}, SSA {ssa} {times.get(ssa, float('nan')):.3f}, "
+            f"LIF {lif} {times.get(lif, float('nan')):.3f}; logits torch.equal across routes; "
+            f"on {smi}")
+        del plan, prefill, run
+    plain = engine.compile_plan(params, None, cfg, backend="torch", device=dev)
+    plan = engine.compile_plan(params, None, cfg, backend="cuda", device=dev)
+    del params
+    pair = f"{label} cuda vs torch"
+    _mismatch_rows(pair, (plain, plan), tokens)
+    _mismatch_rows(pair, (plain, plan), tokens, end_to_end=True, limit=E2E_SPIKE_SHARE)
+    with torch.inference_mode():
+        want, _ = engine.make_prefill_fn(plain)(plain.params, tokens)
+    _check_logits(f"{pair} (per token)", ref.reshape(-1, LM_VOCAB), want.reshape(-1, LM_VOCAB),
+                  atol=None)
+    del plain, plan, ref, want
 
 
 def _ms_stats(seconds):

@@ -3,15 +3,15 @@
 // Three entry points on three tensor-core kernels (the third for D > 128):
 //
 //   ssa_fwd               dense f32 spikes   ssa_tc_kernel<Dp, W>,
-//                                            ssa_wide_tc_kernel<DQ, false, false>
+//                                            ssa_wide_tc_kernel<DQ, false, false, kSplit>
 //     Replaces: src/repro/kernels/spiking_attention/kernel.py::ssa_fwd
 //               (body ssa_kernel).
 //   packed_ssa_fwd        packed words       packed_ssa_tc_kernel<Dp, P, false>,
-//                                            ssa_wide_tc_kernel<DQ, true, false>
+//                                            ssa_wide_tc_kernel<DQ, true, false, kSplit>
 //     Replaces: src/repro/kernels/spiking_attention/kernel.py::packed_ssa_fwd
 //               (body packed_ssa_kernel).
 //   sparse_packed_ssa_fwd packed words,      packed_ssa_tc_kernel<Dp, P, true>,
-//                         plane-gated        ssa_wide_tc_kernel<DQ, true, true>
+//                         plane-gated        ssa_wide_tc_kernel<DQ, true, true, kSplit>
 //     Replaces: src/repro/kernels/spiking_attention/kernel.py::sparse_packed_ssa_fwd
 //               (body sparse_packed_ssa_kernel).
 //
@@ -84,21 +84,49 @@
 // phase land on distinct banks; K fragments come from ldmatrix, V's from
 // ldmatrix.trans.
 //
-// Wide (ssa_wide_tc_kernel<DQ, kPacked, kGated>, 128 < D <= 512, DQ = 256 or
-// 512): a warp's 16 x D output tile would need 4*D/8 f32 registers and its q
-// fragments another D/4, too many past D = 128.  So the grid gets an axis over
-// 128-feature slabs of the output (and, packed, over the T planes: grid z is
-// plane * slabs + slab), and each block computes the full-width S = Q K^T of
-// its 64 query rows for every key chunk, then S V[:, slab]: S is recomputed
-// once per slab (4x the Q K^T work at D = 512).  Q (64 rows), the key tile
-// (32 keys) and the slab of the value tile go through shared memory as f16
-// rows padded by 8 halfs -- dense spikes converted from f32, packed ones built
-// from the block's plane of the words (one plane a block, 0x3C00 per set bit)
-// -- and every fragment comes from ldmatrix; 108.5 KB at DQ = 512, two blocks
-// an SM.  A gated block whose plane is dead writes its slab's zeros and
-// returns.  The arithmetic of an output element is the narrow kernels' (S in
-// f32 over 16-feature steps, rounded to f16, O in f32 over 16-key steps), so
-// the exactness argument above is unchanged.
+// Wide (ssa_wide_tc_kernel<DQ, kPacked, kGated, kSplit>, 128 < D <= 512, DQ =
+// 256 or 512).  One block of 8 warps covers 64 query rows of one fold (and,
+// packed, one plane) and every output feature: warp (rg, hf) = (warp % 4,
+// warp / 4) owns query rows 16 rg .. 16 rg + 15 and half hf of the features,
+// so its output tile is 16 x DQ/2 f32 (128 accumulators a thread at DQ = 512;
+// the block holds 64 x 512 outputs in registers, one block an SM).  The keys
+// go in tiles of 16 (kWideKeys divides kKeys, so every key range ends on a
+// tile boundary), and for each tile:
+//   1. warp (rg, hf) computes the partial scores of its rows over its half
+//      of the features (DQ/32 k16 steps, 2 n8 tiles), integers <= 256, and
+//      writes them to shared memory as f16 (exact);
+//   2. after one barrier it adds the two partials of its rows in f32 (exact:
+//      integers <= 512), masks them on absolute key positions, rounds them to
+//      f16 (exact) and multiplies them by the tile's V at its output features.
+// So S = Q K^T is computed once per (query tile, key tile) for the whole head:
+// 2,048 mma.sync per 64 x 64 tile pair at D = 512, against 5,120 in the form
+// before it, whose grid had an axis over 128-feature output slabs and whose
+// blocks each recomputed the full-width scores.  Q is staged once per block
+// as f16 (its loads issued in rounds of 16 a thread before the first store).
+// Each k and v tile is read once per block, straight into registers one tile
+// ahead (the next tile's loads are in flight while this tile's MMAs run), and
+// converted to f16 when stored: f32 spikes converted, or the block's plane of
+// the words (0x3C00 per set bit).  Every fragment comes from ldmatrix (.trans
+// for V); two barriers a tile.  Shared memory: q 66,560 B, the k and v tiles
+// 33,280, the partials 6,144: 105,984 B of the 227 KB a block may have at DQ =
+// 512 (56,832 at 256).  Packed, a block reads each word of a key tile once,
+// for its one plane (the slab form read it once per plane and slab): a
+// block's registers hold one plane's accumulators, so planes are not shared.
+// Blocks run query tile first (the heaviest causal tile first), then fold,
+// then plane; where they number at most a half (a quarter) of the SMs, two
+// (four) groups of blocks each compute the scores and a half (a quarter) of
+// the output features, so that a short prompt still fills the card.  A gated
+// block whose plane is dead writes its zeros and returns before it reads any
+// word.  The arithmetic of an output element is exact as above, so the
+// result equals the plain version's bit for bit.
+//
+// Bound of the wide form at the LM's 2048-token prefill (G = 64, D = 512,
+// causal): 275 GFLOP on the tensor cores (0.28 ms) against 1.07 GB of q, k, v
+// and out read or written once (0.32 ms).  What the design leaves: each block
+// streams its fold's keys up to its last row, so the k and v bytes read grow
+// with the query tiles (8.9 GB at N = 2048, mostly from L2), and the
+// accumulators fill the register file, so 8 warps an SM hide the latency of
+// the loads and of the ldmatrix / mma chains.
 //
 // Packed (packed_ssa_tc_kernel<Dp, P, kGated>, W = 4 warps): one kernel for both
 // packed entry points; kGated = false is packed_ssa_fwd (every plane computed),
@@ -233,25 +261,25 @@ __device__ __forceinline__ void scores_to_a(uint32_t (&a)[4], float (&s)[2][4], 
   a[3] = pack_half2(s[1][2], s[1][3]);
 }
 
-// Rows row0 .. row0 + ROWS - 1, features f0 .. f0 + DP - 1 of a (rows_total,
-// d) f32 matrix as f16 into dst[ROWS][LD], zero past the matrix, by THREADS
-// threads; vec: d % 4 == 0, f0 % 4 == 0 and src 16-byte aligned.
-template <int DP, int LD, int THREADS, int ROWS = kKeys>
+// Rows row0 .. row0 + kKeys - 1, features 0 .. DP - 1 of a (rows_total, d)
+// f32 matrix as f16 into dst[kKeys][LD], zero past the matrix, by THREADS
+// threads; vec: d % 4 == 0 and src 16-byte aligned.
+template <int DP, int LD, int THREADS>
 __device__ __forceinline__ void stage_f16(__half* dst, const float* src, int row0,
-                                          int rows_total, int d, bool vec, int f0 = 0) {
+                                          int rows_total, int d, bool vec) {
   constexpr int kChunks = DP / 4;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
+  for (int c = threadIdx.x; c < kKeys * kChunks; c += THREADS) {
     const int r = c / kChunks, f = (c % kChunks) * 4;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < rows_total && f0 + f < d) {
-      const float* p = src + static_cast<long long>(row0 + r) * d + f0 + f;
+    if (row0 + r < rows_total && f < d) {
+      const float* p = src + static_cast<long long>(row0 + r) * d + f;
       if (vec) {
         x = *reinterpret_cast<const float4*>(p);
       } else {
         x.x = p[0];
-        if (f0 + f + 1 < d) x.y = p[1];
-        if (f0 + f + 2 < d) x.z = p[2];
-        if (f0 + f + 3 < d) x.w = p[3];
+        if (f + 1 < d) x.y = p[1];
+        if (f + 2 < d) x.z = p[2];
+        if (f + 3 < d) x.w = p[3];
       }
     }
     auto* o = reinterpret_cast<__half2*>(dst + r * LD + f);
@@ -283,50 +311,23 @@ __device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, 
   }
 }
 
-// Bit plane `bit` of the words at rows row0 .. row0 + ROWS - 1, features f0 ..
-// f0 + DP - 1 of a (rows_total, d) word matrix as f16 (1.0 is 0x3C00) into
-// dst[ROWS][LD], zero past the matrix, by THREADS threads; vec as stage_f16.
-template <int DP, int LD, int THREADS, int ROWS>
-__device__ __forceinline__ void stage_plane_f16(__half* dst, const uint32_t* src, int row0,
-                                                int rows_total, int d, bool vec, int f0,
-                                                int bit) {
-  constexpr int kChunks = DP / 4;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
-    const int r = c / kChunks, f = (c % kChunks) * 4;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows_total && f0 + f < d) {
-      const uint32_t* p = src + static_cast<long long>(row0 + r) * d + f0 + f;
-      if (vec) {
-        x = *reinterpret_cast<const uint4*>(p);
-      } else {
-        x.x = p[0];
-        if (f0 + f + 1 < d) x.y = p[1];
-        if (f0 + f + 2 < d) x.z = p[2];
-        if (f0 + f + 3 < d) x.w = p[3];
-      }
-    }
-    *reinterpret_cast<uint2*>(dst + r * LD + f) =
-        make_uint2(plane_half2(merge_words(x.x, x.y, bit), 0),
-                   plane_half2(merge_words(x.z, x.w, bit), 0));
-  }
-}
-
 // One warp's 16 x Dp output tile, times scale, into og (n, d); pair: float2
-// loads and stores (d even, og 8-byte aligned).  Features from f0 on (a slab
-// of the wide kernel).  add: the tile is first added to what og holds, the
-// unscaled sum of the earlier key ranges (each thread reads back only what it
-// wrote itself).
+// loads and stores (d even, og 8-byte aligned).  Features from f0 on, below
+// f_end (a warp's share of the wide kernel's output).  add: the tile is first
+// added to what og holds, the unscaled sum of the earlier key ranges (each
+// thread reads back only what it wrote itself).
 template <int NT>
 __device__ __forceinline__ void store_tile(float* og, const float (&o)[NT][4], int row0, int n,
                                            int d, float scale, bool pair, int lane, int f0,
-                                           bool add) {
+                                           bool add, int f_end = kMaxD) {
+  const int f_stop = min(d, f_end);
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int f = f0 + 8 * j + 2 * (lane & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + (lane >> 2) + 8 * h;
-      if (row >= n || f >= d) continue;
+      if (row >= n || f >= f_stop) continue;
       float* p = og + static_cast<long long>(row) * d + f;
       float x0 = o[j][2 * h], x1 = o[j][2 * h + 1];
       if (add) {
@@ -575,116 +576,236 @@ packed_ssa_tc_kernel(const uint32_t* __restrict__ qw, const uint32_t* __restrict
 
 // ---- head dims past 128 -------------------------------------------------------
 
-constexpr int kWideWarps = 4;    // warps of 16 query rows per block of the wide kernel
-constexpr int kWideKeys = 32;    // keys per staged tile of the wide kernel
-constexpr int kSlab = 128;       // output features per block of the wide kernel
+constexpr int kWideRows = 64;   // query rows per block of the wide kernel
+constexpr int kWideKeys = 16;   // keys per tile of the wide kernel: divides kKeys, so
+                                // that every key range ends on a tile boundary
+constexpr int kWideWarps = 8;   // 4 row groups x 2 halves of the features
+constexpr int kWideThreads = 32 * kWideWarps;
 
+// q, the k and v tiles and the two score partials, as f16 rows padded by 8
+// halfs: 105,984 B at DQ = 512, 56,832 B at DQ = 256.
 template <int DQ>
 __host__ __device__ constexpr int wide_smem_bytes() {
-  return 2 * ((16 * kWideWarps + kWideKeys) * (DQ + 8) + kWideKeys * (kSlab + 8));
+  return 2 * ((kWideRows + 2 * kWideKeys) * (DQ + 8) + 2 * kWideRows * (kWideKeys + 8));
 }
 
-// Rows r0 .. r0 + R - 1, features f0 .. f0 + W - 1 of fold (or word plane and
-// fold) `base` of an (rows_total, d) operand as f16: f32 spikes, or bit `bit`
-// of words.
-template <bool kPacked, int W, int LD, int THREADS, int R>
-__device__ __forceinline__ void stage_operand(__half* dst, const void* src, long long base,
-                                              int r0, int rows_total, int d, bool vec, int f0,
-                                              int bit) {
+// Four 4-byte elements as four f16: f32 spikes converted, or bit `bit` of
+// the words (1.0 is 0x3C00).
+template <bool kPacked>
+__device__ __forceinline__ uint2 f16x4(uint4 x, int bit) {
   if constexpr (kPacked) {
-    stage_plane_f16<W, LD, THREADS, R>(
-        dst, static_cast<const uint32_t*>(src) + base * rows_total * d, r0, rows_total, d, vec,
-        f0, bit);
+    return make_uint2(plane_half2(merge_words(x.x, x.y, bit), 0),
+                      plane_half2(merge_words(x.z, x.w, bit), 0));
   } else {
-    stage_f16<W, LD, THREADS, R>(dst, static_cast<const float*>(src) + base * rows_total * d,
-                                 r0, rows_total, d, vec, f0);
+    return make_uint2(pack_half2(__uint_as_float(x.x), __uint_as_float(x.y)),
+                      pack_half2(__uint_as_float(x.z), __uint_as_float(x.w)));
   }
 }
 
-// One kernel for all three entry points at 128 < D <= DQ.  Grid (fold, tile of
-// 64 query rows, plane * slabs + slab): a block computes the full-width scores
-// S = Q K^T of its rows and then S V for one 128-feature slab of the output,
-// so S is recomputed once per slab.  kPacked: q, k and v are words, and the
-// block's plane (blockIdx.z / slabs) is staged as f16 from the bits; with
-// kGated a dead plane's slab is written as zeros.  Dense: plane 0, f32 spikes
-// staged as f16.  Q, K and V go through shared memory as f16 rows padded by 8
-// halfs, and every fragment comes from ldmatrix (.trans for V).
+// Chunk c (4 elements) of rows r0 .. of an (rows_total, d) matrix of 4-byte
+// elements with DQ / 4 chunks a row, zero past the matrix; vec: d % 4 == 0
+// and src 16-byte aligned (one 16-byte load).
+template <int DQ>
+__device__ __forceinline__ uint4 load_chunk(const uint32_t* src, int c, int r0, int rows_total,
+                                            int d, bool vec) {
+  const int r = c / (DQ / 4), f = (c % (DQ / 4)) * 4;
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  if (r0 + r < rows_total && f < d) {
+    const uint32_t* p = src + static_cast<long long>(r0 + r) * d + f;
+    if (vec) {
+      x = *reinterpret_cast<const uint4*>(p);
+    } else {
+      x.x = p[0];
+      if (f + 1 < d) x.y = p[1];
+      if (f + 2 < d) x.z = p[2];
+      if (f + 3 < d) x.w = p[3];
+    }
+  }
+  return x;
+}
+
+// A tile of kWideKeys rows into this thread's registers: the loads are
+// issued here and waited for only where store_tile_f16 reads them.
+template <int DQ, int XN>
+__device__ __forceinline__ void load_tile(uint4 (&x)[XN], const uint32_t* src, int r0,
+                                          int rows_total, int d, bool vec) {
+#pragma unroll
+  for (int i = 0; i < XN; ++i) {
+    x[i] = load_chunk<DQ>(src, threadIdx.x + i * kWideThreads, r0, rows_total, d, vec);
+  }
+}
+
+// The registers of load_tile as f16 rows dst[kWideKeys][DQ + 8].
+template <bool kPacked, int DQ, int XN>
+__device__ __forceinline__ void store_tile_f16(__half* dst, const uint4 (&x)[XN], int bit) {
+#pragma unroll
+  for (int i = 0; i < XN; ++i) {
+    const int c = threadIdx.x + i * kWideThreads;
+    *reinterpret_cast<uint2*>(dst + c / (DQ / 4) * (DQ + 8) + c % (DQ / 4) * 4) =
+        f16x4<kPacked>(x[i], bit);
+  }
+}
+
+// The block's kWideRows query rows as f16 rows dst[kWideRows][DQ + 8], in
+// rounds of 16 chunks a thread: each round's loads are all issued before its
+// first store, so that the block waits for a round trip per round, not per
+// chunk.
+template <bool kPacked, int DQ>
+__device__ __forceinline__ void stage_q_wide(__half* dst, const uint32_t* src, int q0, int n,
+                                             int d, bool vec, int bit) {
+  constexpr int kIters = kWideRows * DQ / 4 / kWideThreads, kRound = kIters < 16 ? kIters : 16;
+#pragma unroll
+  for (int i0 = 0; i0 < kIters; i0 += kRound) {
+    uint4 x[kRound];
+#pragma unroll
+    for (int i = 0; i < kRound; ++i) {
+      x[i] = load_chunk<DQ>(src, threadIdx.x + (i0 + i) * kWideThreads, q0, n, d, vec);
+    }
+#pragma unroll
+    for (int i = 0; i < kRound; ++i) {
+      const int c = threadIdx.x + (i0 + i) * kWideThreads;
+      *reinterpret_cast<uint2*>(dst + c / (DQ / 4) * (DQ + 8) + c % (DQ / 4) * 4) =
+          f16x4<kPacked>(x[i], bit);
+    }
+  }
+}
+
+// One kernel for all three entry points at 128 < D <= DQ (the header's
+// design).  A block: kWideRows query rows of one fold (and, kPacked, one
+// plane) and every output feature, or 1 / groups of them.  Warp (rg, hf) =
+// (warp % 4, warp / 4): query rows row0 = q0 + 16 rg ..; in the scores,
+// features hf * DQ / 2 ..; in S V, output features fw0 .. fw0 + fwn - 1.
+// kGated: a dead plane's block writes zeros.
 template <int DQ, bool kPacked, bool kGated, bool kSplit>
-__global__ void __launch_bounds__(32 * kWideWarps)
+__global__ void __launch_bounds__(kWideThreads, 1)
 ssa_wide_tc_kernel(const void* __restrict__ qv, const void* __restrict__ kv,
                    const void* __restrict__ vv, const int* __restrict__ live,
                    float* __restrict__ out, int g_total, int n, int m, int d, int t_total,
-                   int slabs, int range, float scale, int causal, int vec, int pair) {
-  constexpr int LDQ = DQ + 8;      // halfs, q and k rows
-  constexpr int LDV = kSlab + 8;   // halfs, v rows
-  constexpr int KS = DQ / 16;
-  constexpr int NT = kSlab / 8;
-  constexpr int ROWS = 16 * kWideWarps;
-  constexpr int THREADS = 32 * kWideWarps;
+                   int groups, int range, float scale, int causal, int vec, int pair) {
+  constexpr int HALF = DQ / 2;          // features of a warp's score partial
+  constexpr int LDQ = DQ + 8;           // halfs: q, k and v rows
+  constexpr int LDS = kWideKeys + 8;    // halfs: score partial rows
+  constexpr int NT = HALF / 8;          // n8 tiles of a warp's output, at most
+  constexpr int XN = kWideKeys * DQ / 4 / kWideThreads;  // 16-byte chunks of a tile a thread
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  __half* qs = reinterpret_cast<__half*>(tc_smem);  // [ROWS][LDQ]
-  __half* ks = qs + ROWS * LDQ;                      // [kWideKeys][LDQ]
-  __half* vs = ks + kWideKeys * LDQ;                 // [kWideKeys][LDV]
+  __half* qs = reinterpret_cast<__half*>(tc_smem);  // [kWideRows][LDQ]
+  __half* ks = qs + kWideRows * LDQ;                 // [kWideKeys][LDQ]
+  __half* vs = ks + kWideKeys * LDQ;                 // [kWideKeys][LDQ]
+  __half* sp = vs + kWideKeys * LDQ;                 // [2][kWideRows][LDS]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long g = blockIdx.x;
-  const int q0 = blockIdx.y * ROWS;
-  const int row0 = q0 + 16 * warp;
-  const int plane = blockIdx.z / slabs, f0 = (blockIdx.z % slabs) * kSlab;
+  const int rg = warp & 3, hf = warp >> 2;
+  // Block order: query tile (the heaviest causal tile first), then fold, then
+  // plane and feature group.
+  const int qtiles = (n + kWideRows - 1) / kWideRows;
+  const int inner = (kPacked ? t_total : 1) * groups;
+  const long long lin = blockIdx.x;
+  const int pz = static_cast<int>(lin % inner);
+  const long long g = lin / inner % g_total;
+  const int qt = qtiles - 1 - static_cast<int>(lin / inner / g_total);
+  const int plane = pz / groups, grp = pz % groups;
+  const int q0 = qt * kWideRows, row0 = q0 + 16 * rg;
+  const int fwn = ((d + 2 * groups - 1) / (2 * groups) + 15) / 16 * 16;
+  const int fw0 = (2 * grp + hf) * fwn;
   const long long base = kPacked ? static_cast<long long>(plane >> 5) * g_total + g : g;
   float* og = out + (static_cast<long long>(plane) * g_total + g) * n * d;
 
-  if (kGated && live[g * t_total + plane] == 0) {  // a dead plane: its slab is zero
-    const int rows = min(ROWS, n - q0), cols = min(kSlab, d - f0);
-    for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
+  if (kGated && live[g * t_total + plane] == 0) {  // a dead plane: the block's outputs are 0
+    const int f0 = 2 * grp * fwn, rows = min(kWideRows, n - q0), cols = min(2 * fwn, d - f0);
+    for (int e = threadIdx.x; e < rows * cols; e += kWideThreads) {
       og[static_cast<long long>(q0 + e / cols) * d + f0 + e % cols] = 0.0f;
     }
     return;
   }
   const int bit = plane & 31;
-  stage_operand<kPacked, DQ, LDQ, THREADS, ROWS>(qs, qv, base, q0, n, d, vec, 0, bit);
+  const uint32_t* kg = static_cast<const uint32_t*>(kv) + base * m * d;
+  const uint32_t* vg = static_cast<const uint32_t*>(vv) + base * m * d;
+  const int kv_end = causal ? min(m, q0 + kWideRows) : m;
+  const int tiles = (kv_end + kWideKeys - 1) / kWideKeys;
 
-  const int kv_end = causal ? min(m, q0 + ROWS) : m;
-  const int warp_end = row0 >= n ? 0 : causal ? min(kv_end, row0 + 16) : kv_end;
-  for (int r0 = 0;; r0 += range) {  // key ranges, ascending: exact sums in each
-    const int r1 = kSplit ? min(kv_end, r0 + range) : kv_end;
-    float o[NT][4];
+  uint4 xk[XN], xv[XN];  // the next k and v tiles, in flight
+  load_tile<DQ>(xk, kg, 0, m, d, vec);
+  load_tile<DQ>(xv, vg, 0, m, d, vec);
+  stage_q_wide<kPacked, DQ>(qs, static_cast<const uint32_t*>(qv) + base * n * d, q0, n, d, vec,
+                            bit);
+  store_tile_f16<kPacked, DQ>(ks, xk, bit);
+  store_tile_f16<kPacked, DQ>(vs, xv, bit);
+  if (tiles > 1) {
+    load_tile<DQ>(xk, kg, kWideKeys, m, d, vec);
+    load_tile<DQ>(xv, vg, kWideKeys, m, d, vec);
+  }
+  __syncthreads();
+
+  float o[NT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-    for (int kv0 = r0; kv0 < r1; kv0 += kWideKeys) {
-      __syncthreads();  // q staged; every warp is done with the previous tile
-      stage_operand<kPacked, DQ, LDQ, THREADS, kWideKeys>(ks, kv, base, kv0, m, d, vec, 0, bit);
-      stage_operand<kPacked, kSlab, LDV, THREADS, kWideKeys>(vs, vv, base, kv0, m, d, vec, f0, bit);
-      __syncthreads();
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int t = 0; t < tiles; ++t) {
+    const int kv0 = t * kWideKeys;
+    // warp-uniform: the warp's rows exist and see a key of the tile
+    const bool rows_live = row0 < n && !(causal && kv0 > row0 + 15);
+    if (rows_live && HALF * hf < d) {  // the warp's partial scores over its half of D
+      float s[2][2][4] = {};           // two sums over alternate k16 steps, for ILP
 #pragma unroll
-      for (int c = 0; c < kWideKeys / 16; ++c) {
-        const int key0 = kv0 + 16 * c;
-        if (key0 >= warp_end) break;  // warp-uniform: past the keys or the warp's last row
-        float s[2][4] = {};
-#pragma unroll 4
-        for (int st = 0; st < KS; ++st) {
-          uint32_t a[4], b[4];  // a: rows 16w + (0..15), features 16st + (0..7 | 8..15)
-          ldsm_x4(a, qs + (16 * warp + (lane & 15)) * LDQ + 16 * st + 8 * (lane >> 4));
-          ldsm_x4(b, ks + (16 * c + (lane & 7) + 8 * (lane >> 4)) * LDQ + 16 * st +
-                         8 * ((lane >> 3) & 1));
-          mma_16816(s[0], a, b[0], b[1]);
-          mma_16816(s[1], a, b[2], b[3]);
-        }
-        uint32_t a[4];
-        scores_to_a(a, s, causal, row0, key0, lane);
+      for (int st = 0; st < HALF / 16; ++st) {
+        const int f = HALF * hf + 16 * st;
+        uint32_t a[4], b[4];  // a: rows 16rg + (0..15); b: keys (0..7 | 8..15); features f + (0..7 | 8..15)
+        ldsm_x4(a, qs + (16 * rg + (lane & 15)) * LDQ + f + 8 * (lane >> 4));
+        ldsm_x4(b, ks + ((lane & 7) + 8 * (lane >> 4)) * LDQ + f + 8 * ((lane >> 3) & 1));
+        mma_16816(s[st & 1][0], a, b[0], b[1]);
+        mma_16816(s[st & 1][1], a, b[2], b[3]);
+      }
+      __half* p = sp + (hf * kWideRows + 16 * rg + (lane >> 2)) * LDS + 2 * (lane & 3);
 #pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-          uint32_t b[4];  // V rows 16c + (0..7 | 8..15), slab features 16j + (0..7 | 8..15)
-          ldsm_x4_trans(b, vs + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDV + 16 * j +
-                               8 * (lane >> 4));
-          mma_16816(o[2 * j], a, b[0], b[1]);
-          mma_16816(o[2 * j + 1], a, b[2], b[3]);
-        }
+      for (int j = 0; j < 2; ++j) {  // integers <= DQ / 2: the sums and f16 exact
+        *reinterpret_cast<uint32_t*>(p + 8 * j) =
+            pack_half2(s[0][j][0] + s[1][j][0], s[0][j][1] + s[1][j][1]);
+        *reinterpret_cast<uint32_t*>(p + 8 * LDS + 8 * j) =
+            pack_half2(s[0][j][2] + s[1][j][2], s[0][j][3] + s[1][j][3]);
       }
     }
-    const bool last = !kSplit || r1 >= kv_end;
-    store_tile<NT>(og, o, row0, n, d, last ? scale : 1.0f, pair, lane, f0, kSplit && r0 > 0);
-    if (last) break;
+    __syncthreads();  // the partials written; every warp done with k of tile t
+    if (t + 1 < tiles) {
+      store_tile_f16<kPacked, DQ>(ks, xk, bit);  // k of tile t + 1
+      if (t + 2 < tiles) load_tile<DQ>(xk, kg, kv0 + 2 * kWideKeys, m, d, vec);
+    }
+    if (rows_live && fw0 < d) {
+      float s[2][4] = {};  // the two partials of the warp's rows added in f32 (exact)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (HALF * p >= d) break;
+        uint32_t r[4];  // the A fragment of partial p: r_i = (s[i / 2][2 (i % 2)], +1)
+        ldsm_x4(r, sp + (p * kWideRows + 16 * rg + (lane & 15)) * LDS + 8 * (lane >> 4));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&r[i]));
+          s[i >> 1][2 * (i & 1)] += x.x;
+          s[i >> 1][2 * (i & 1) + 1] += x.y;
+        }
+      }
+      uint32_t a[4];
+      scores_to_a(a, s, causal, row0, kv0, lane);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        if (16 * j >= fwn) break;
+        uint32_t b[4];  // V rows (0..7 | 8..15), features fw0 + 16j + (0..7 | 8..15)
+        ldsm_x4_trans(b, vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDQ + fw0 + 16 * j +
+                             8 * (lane >> 4));
+        mma_16816(o[2 * j], a, b[0], b[1]);
+        mma_16816(o[2 * j + 1], a, b[2], b[3]);
+      }
+    }
+    const bool last = t + 1 == tiles;
+    if (last || (kSplit && (kv0 + kWideKeys) % range == 0)) {  // the end of a key range
+      store_tile<NT>(og, o, row0, n, d, last ? scale : 1.0f, pair, lane, fw0,
+                     kSplit && kv0 >= range, fw0 + fwn);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+    }
+    __syncthreads();  // every warp done with v of tile t and with the partials
+    if (t + 1 < tiles) {
+      store_tile_f16<kPacked, DQ>(vs, xv, bit);  // v of tile t + 1
+      if (t + 2 < tiles) load_tile<DQ>(xv, vg, kv0 + 2 * kWideKeys, m, d, vec);
+    }
   }
 }
 
@@ -757,23 +878,36 @@ int launch_packed_tc(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Past D = 128: ssa_wide_tc_kernel, D rounded up to 256 or 512 for the scores.
+// Past D = 128: ssa_wide_tc_kernel, D rounded up to 256 or 512 for the
+// scores.  One block per (fold, 64 query rows[, plane]); where those blocks
+// number at most a quarter (a half) of the SMs, four (two) groups of blocks
+// each compute the scores and a quarter (a half) of the output features, so
+// that a small grid still fills the card.  Above the SM count: one group.
 template <bool kPacked, bool kGated, bool kSplit>
 int launch_wide(const void* q, const void* k, const void* v, const int* live, float* out, int g,
                 int n, int m, int d, int t_total, float scale, int causal, cudaStream_t stream) {
-  const auto kernel = d <= 256 ? ssa_wide_tc_kernel<256, kPacked, kGated, kSplit>
-                               : ssa_wide_tc_kernel<512, kPacked, kGated, kSplit>;
-  const size_t smem = d <= 256 ? wide_smem_bytes<256>() : wide_smem_bytes<512>();
+  const bool half = d <= 256;
+  const auto kernel = half ? ssa_wide_tc_kernel<256, kPacked, kGated, kSplit>
+                           : ssa_wide_tc_kernel<512, kPacked, kGated, kSplit>;
+  const size_t smem = half ? wide_smem_bytes<256>() : wide_smem_bytes<512>();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  static const int sms = [] {  // the card's SM count, read once
+    int device = 0, count = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;  // unknown: one group
+    }
+    return count;
+  }();
   const int vec = d % 4 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16);
   const int pair = d % 2 == 0 && aligned(out, 8);
-  const int slabs = (d + kSlab - 1) / kSlab;
-  const dim3 grid(static_cast<unsigned>(g),
-                  static_cast<unsigned>((n + 16 * kWideWarps - 1) / (16 * kWideWarps)),
-                  static_cast<unsigned>((kPacked ? t_total : 1) * slabs));
-  kernel<<<grid, 32 * kWideWarps, smem, stream>>>(q, k, v, live, out, g, n, m, d, t_total, slabs,
-                                                  key_range(m, d), scale, causal, vec, pair);
+  const long long blocks = static_cast<long long>(g) * ((n + kWideRows - 1) / kWideRows) *
+                           (kPacked ? t_total : 1);
+  const int groups = 4 * blocks <= sms ? 4 : 2 * blocks <= sms ? 2 : 1;
+  kernel<<<static_cast<unsigned>(blocks * groups), kWideThreads, smem, stream>>>(
+      q, k, v, live, out, g, n, m, d, t_total, groups, key_range(m, d), scale, causal, vec, pair);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,8 +20,10 @@ products on the f16 tensor cores with f32 accumulation, which is exact there
 integers below 2^24 (``ref.key_range``; one range below M * Dh = 2^24), and
 the range partials are added in ascending order as the plain versions add
 them, so the kernels equal the plain f32 versions bit for bit at any key
-count.  Past Dh = 128 (the spiking LM's heads) the three share one kernel
-that splits the output into 128-feature slabs.
+count.  Past Dh = 128 (the spiking LM's heads) the three share one kernel,
+``ssa_wide_tc_kernel``, whose block covers 64 query rows and the whole head:
+it computes each key tile's scores once for all output features and keeps
+the next key tile's loads in flight while the current tile's MMAs run.
 
 :func:`ssa_op` is differentiable on both devices (:class:`_SsaOp`): the
 forward is :func:`ssa_fwd`, the backward the three bilinear contractions of
@@ -75,10 +77,15 @@ def ssa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
     196-token fold is one block; q, k, v read as f32 and converted to f16
     (k and v through shared memory), both products on
     ``mma.sync.m16n8k16`` with f32 accumulators, S handed from the C to the
-    A fragment in registers.  Past D = 128, ``ssa_wide_tc_kernel``: 64 query
-    rows a block, one 128-feature slab of the output each, the full-width
-    scores recomputed per slab, every operand staged as f16 in shared
-    memory.  Bound by device bytes (q, k, v read and out written once).
+    A fragment in registers.  Past D = 128, ``ssa_wide_tc_kernel``: one
+    block of 8 warps per 64 query rows and every output feature; per 16-key
+    tile the scores are computed once (each warp a partial over half of D,
+    the two added exactly in f32 through shared memory), then multiplied by
+    V, each warp holding 16 rows x D/2 outputs; the next k and v tiles load
+    into registers while the current tile's MMAs run, every operand is f16
+    in shared memory.  Bound by device bytes (q, k, v read and out written
+    once); at 2048 tokens it is held back by the keys each query tile
+    re-reads and by the latency 8 warps an SM can hide (``ssa.cu``).
     Exact while the operands are binary: f16 holds 0/1 and every score
     (<= 512), f32 every partial sum of a key range, and the ranges' partials
     are added in :func:`ssa_ref`'s order, so the result equals it bit for

@@ -18,11 +18,19 @@ Three measurements:
            greedy decode steps after ``--warmup``, each on the host clock
            from its call to the host copy of its tokens, as
            ``serve_lm_plan`` steps; the same statistics.
-``ssa``    the dense SSA entry point ``ssa_fwd`` on random binary operands
-           of shape (G, N, Dh): held ``torch.equal`` to its plain version,
-           then CUDA events over back-to-back calls (as ``chip_smoke.py``
-           times a kernel) and the device time per launch of the kernels
-           the call runs under ``torch.profiler``.
+``prefill`` prefills of the live spiking LM on each kernel route: ms per
+           prefill by CUDA events, and the device ms per prefill of its SSA,
+           spike GEMM and LIF kernels, each the median of ``--reps``
+           profiles that trace a warm-up prefill before the kept one (as
+           ``chip_smoke.py`` profiles).
+``ssa``    an SSA entry point on random binary operands of shape (G, N,
+           Dh), causal or not: ``ssa_fwd`` (``--route dense``), or
+           ``packed_ssa_fwd`` / ``sparse_packed_ssa_fwd`` (``packed`` /
+           ``sparse``) on the same spikes as the spiking LM's T = 4 planes
+           of G / 4 folds; held ``torch.equal`` to its plain version, then CUDA
+           events over back-to-back calls (as ``chip_smoke.py`` times a
+           kernel) and the device time per launch of the kernels the call
+           runs under ``torch.profiler``.
 
 Run it as a file, so that ``--src`` decides which checkout's
 ``repro_torch`` is imported (another checkout's ``src`` directory, or by
@@ -31,7 +39,9 @@ default the one holding this file)::
     python src/repro_torch/launch/timing.py serve --batches 20
     python src/repro_torch/launch/timing.py train --steps 20
     python src/repro_torch/launch/timing.py lm --steps 20
+    python src/repro_torch/launch/timing.py --src ../other/src prefill --slots 4 --prompt 32
     python src/repro_torch/launch/timing.py --src ../other/src ssa --g 384 --n 64 --dh 32
+    python src/repro_torch/launch/timing.py ssa --g 64 --n 32,2048 --dh 512 --causal --route dense,packed,sparse
 
 Every line printed starts with ``[timing]`` and names the ``repro_torch``
 it ran.  It runs on the card unless ``--device cpu`` asks for the host.
@@ -125,20 +135,111 @@ def time_lm(arch: str, steps: int, warmup: int, slots: int, prompt: int, device,
     return out
 
 
-def time_ssa(g: int, n: int, dh: int, reps: int, device) -> dict[str, float | None]:
-    """``ssa_fwd`` on binary (g, n, dh) operands: ``events_ms`` (CUDA events
-    over ``reps`` back-to-back calls after 3 warm-ups; host clock on the
-    CPU) and ``device_ms`` (device time per call under ``torch.profiler``,
-    None on the CPU)."""
+# kinds of the port's kernels, by a part of their names in the library
+KERNEL_KINDS = {"ssa": "ssa", "gemm": "spike_matmul", "lif": "lif_"}
+
+
+def time_prefill(arch: str, slots: int, prompt: int, reps: int, device,
+                 routes=ROUTES) -> dict[str, dict[str, float | None]]:
+    """Prefills of ``slots`` ``prompt``-token prompts through the live spiking
+    ``arch`` on each of ``routes``: ``events_ms`` (CUDA events over ``reps``
+    back-to-back prefills after a warm-up; host clock on the CPU) and, for
+    each kind of KERNEL_KINDS, ``<kind>_ms``: its kernels' device ms per
+    prefill, the median of ``reps`` profiles, each of which traces a warm-up
+    prefill and keeps the one after it (``schedule(warmup=1, active=1)``);
+    None on the CPU."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import engine
+    from repro_torch.launch.serve import live_lm_params, spiking_lm_config
+
+    cfg = spiking_lm_config(arch)
+    params = live_lm_params(cfg, device)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (slots, prompt), generator=gen).to(device)
+    on_card = device.type == "cuda"
+    out = {}
+    for backend in routes:
+        plan = engine.compile_plan(params, None, cfg, backend=backend, device=device)
+        prefill = engine.make_prefill_fn(plan)
+        run = lambda: prefill(plan.params, tokens)
+        with torch.inference_mode():
+            run()
+            if on_card:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    run()
+                end.record()
+                torch.cuda.synchronize()
+                st = {"events_ms": start.elapsed_time(end) / reps}
+            else:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    run()
+                st = {"events_ms": 1e3 * (time.perf_counter() - t0) / reps}
+            kinds = {kind: [] for kind in KERNEL_KINDS}
+            for _ in range(reps if on_card else 0):
+                kept = {}
+
+                def ready(prof):
+                    kept["events"] = [e for e in prof.key_averages()
+                                      if e.device_type == torch.autograd.DeviceType.CUDA
+                                      and "(anonymous namespace)::" in e.key]
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             schedule=schedule(wait=0, warmup=1, active=1),
+                             on_trace_ready=ready) as prof:
+                    for _ in range(2):      # the traced warm-up prefill, then the kept one
+                        run()
+                        torch.cuda.synchronize()
+                        prof.step()
+                for kind, part in KERNEL_KINDS.items():
+                    kinds[kind].append(sum(e.self_device_time_total for e in kept["events"]
+                                           if part in e.key.split("::")[1]) / 1e3)
+        for kind, xs in kinds.items():
+            st[f"{kind}_ms"] = statistics.median(xs) if xs else None
+        out[backend] = st
+        del plan, prefill, run
+    return out
+
+
+SSA_ROUTES = {"dense": "ssa_fwd", "packed": "packed_ssa_fwd", "sparse": "sparse_packed_ssa_fwd"}
+SSA_PLANES = 4   # time steps of the packed routes' words (the spiking LM's T)
+
+
+def time_ssa(g: int, n: int, dh: int, reps: int, device, *, route: str = "dense",
+             causal: bool = False) -> dict[str, float | None]:
+    """The entry point ``SSA_ROUTES[route]`` on binary (g, n, dh) operands
+    (packed and sparse: the same spikes as SSA_PLANES planes of g /
+    SSA_PLANES folds):
+    ``events_ms`` (CUDA events over ``reps`` back-to-back calls after 3
+    warm-ups; host clock on the CPU) and ``device_ms`` (device time per call
+    under ``torch.profiler``, None on the CPU)."""
+    from repro_torch.core import packing
     from repro_torch.kernels.spiking_attention import ops
     from repro_torch.kernels.spiking_attention.ref import ssa_ref
 
     gen = torch.Generator().manual_seed(0)
     q, k, v = ((torch.rand((g, n, dh), generator=gen) > 0.5).float().to(device)
                for _ in range(3))
-    run = lambda: ops.ssa_fwd(q, k, v, scale=0.125)
-    if not torch.equal(run(), ssa_ref(q, k, v, scale=0.125)):
-        raise AssertionError("ssa_fwd differs from its plain version")
+    want = ssa_ref(q, k, v, scale=0.125, causal=causal)
+    if route == "dense":
+        run = lambda: ops.ssa_fwd(q, k, v, scale=0.125, causal=causal)
+    else:
+        t = SSA_PLANES
+        if g % t:
+            raise ValueError(f"--g {g} is not a multiple of {t} planes")
+        words = [packing.pack(x.reshape(t, g // t, n, dh)).words for x in (q, k, v)]
+        live = ops._plane_liveness(*words, t)
+        run = ((lambda: ops.packed_ssa_fwd(*words, t=t, scale=0.125, causal=causal))
+               if route == "packed" else
+               (lambda: ops.sparse_packed_ssa_fwd(*words, live, t=t, scale=0.125,
+                                                  causal=causal)))
+    if not torch.equal(run().reshape(want.shape), want):
+        raise AssertionError(f"{SSA_ROUTES[route]} differs from its plain version")
     for _ in range(3):
         run()
     if q.device.type != "cuda":
@@ -193,11 +294,22 @@ def main(argv=None) -> None:
     lm.add_argument("--prompt", type=int, default=32)
     lm.add_argument("--routes", default=",".join(ROUTES),
                     help="comma-separated backends (default: the three kernel routes)")
-    ss = sub.add_parser("ssa", help="ms per ssa_fwd call")
+    pf = sub.add_parser("prefill", help="ms per prefill of the spiking LM, and its kernels' "
+                        "device ms")
+    pf.add_argument("--arch", default="llama3.2-1b")
+    pf.add_argument("--slots", type=int, default=4)
+    pf.add_argument("--prompt", type=int, default=32)
+    pf.add_argument("--reps", type=int, default=5)
+    pf.add_argument("--routes", default=",".join(ROUTES),
+                    help="comma-separated backends (default: the three kernel routes)")
+    ss = sub.add_parser("ssa", help="ms per call of an SSA entry point")
     ss.add_argument("--g", type=int, default=384)
-    ss.add_argument("--n", type=int, default=196)
+    ss.add_argument("--n", default="196", help="token count, or a comma-separated list")
     ss.add_argument("--dh", type=int, default=32)
     ss.add_argument("--reps", type=int, default=20)
+    ss.add_argument("--route", default="dense",
+                    help=f"one of {', '.join(SSA_ROUTES)}, or a comma-separated list")
+    ss.add_argument("--causal", action="store_true")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, args.src)
@@ -220,16 +332,34 @@ def main(argv=None) -> None:
             print(f"{head} lm {args.arch} backend={route} {args.slots} slots, prompt "
                   f"{args.prompt}, {args.steps} decode steps after {args.warmup} warm-up: ms "
                   "per step " + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+    elif args.what == "prefill":
+        for route, st in time_prefill(args.arch, args.slots, args.prompt, args.reps, dev,
+                                      tuple(args.routes.split(","))).items():
+            kinds = ", ".join(f"{kind} " + ("not measured" if st[f"{kind}_ms"] is None
+                                            else f"{st[f'{kind}_ms']:.5f}")
+                              for kind in KERNEL_KINDS)
+            print(f"{head} prefill {args.arch} backend={route} {args.slots} slots, prompt "
+                  f"{args.prompt}, {args.reps} reps: ms per prefill: events "
+                  f"{st['events_ms']:.5f}; device, median of {args.reps} profiles: {kinds}")
     elif args.what == "train":
         s = time_train(args.arch, args.steps, args.warmup, args.batch, dev)
         print(f"{head} train {args.arch} batch {args.batch}, {args.steps} steps after "
               f"{args.warmup} warm-up: ms per step " + ", ".join(f"{k} {v:.3f}"
                                                                  for k, v in s.items()))
     else:
-        s = time_ssa(args.g, args.n, args.dh, args.reps, dev)
-        dev_ms = "not measured" if s["device_ms"] is None else f"{s['device_ms']:.5f}"
-        print(f"{head} ssa_fwd G={args.g} N={args.n} Dh={args.dh}: torch.equal the plain "
-              f"version; ms per call: events {s['events_ms']:.5f}, device {dev_ms}")
+        routes = args.route.split(",")
+        unknown = [r for r in routes if r not in SSA_ROUTES]
+        if unknown:
+            ap.error(f"--route: {unknown} not in {tuple(SSA_ROUTES)}")
+        for n in (int(x) for x in args.n.split(",")):
+            for route in routes:
+                s = time_ssa(args.g, n, args.dh, args.reps, dev, route=route,
+                             causal=args.causal)
+                dev_ms = "not measured" if s["device_ms"] is None else f"{s['device_ms']:.5f}"
+                planes = "" if route == "dense" else f" T={SSA_PLANES}"
+                print(f"{head} {SSA_ROUTES[route]} G={args.g} N={n} Dh={args.dh}{planes}"
+                      f"{' causal' if args.causal else ''}: torch.equal the plain version; ms "
+                      f"per call: events {s['events_ms']:.5f}, device {dev_ms}")
 
 
 if __name__ == "__main__":

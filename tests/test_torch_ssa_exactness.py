@@ -17,6 +17,8 @@ package's oracle and Pallas kernel (interpret mode); the packed case builds
 its f16 operands from the word bits as the kernel does (1.0 is 0x3C00).
 Tolerance: none, bit for bit."""
 
+import re
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -33,6 +35,8 @@ torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
 
 K16 = 16                    # the depth of one mma.m16n8k16 step
 PLANES = 4                  # planes per block of the gated kernel at Dh <= 32
+WIDE_KEYS = 16              # keys per tile of the wide kernel (kWideKeys in ssa.cu)
+SSA_CU = (Path(tops.__file__).parent / "csrc" / "ssa.cu")
 
 # (G, N, M, Dh, all ones): the card tests' shapes -- ragged Dh, N = M = 1,
 # N != M both ways, and the largest scores (128) and sums (128 * 196) of the
@@ -68,11 +72,14 @@ def _causal(scores):
     return torch.where(keep, scores, 0.0)
 
 
-def _tensor_core_order(q16, k16, v16, *, scale=0.125, causal=False):
+def _tensor_core_order(q16, k16, v16, *, scale=0.125, causal=False, wide=None, q0=0):
     """f16 q, k, v (G, N, Dp), (G, M, Dp) with Dp a multiple of 16 -> the
     kernels' arithmetic: S accumulated in f32 over 16-feature steps, masked,
     rounded to f16 (asserted lossless), then O accumulated in f32 over
-    16-key steps, times scale."""
+    16-key steps, times scale.  ``wide`` (the head dim D > 128, Dp = 256 or
+    512): the wide kernel's order instead (:func:`_wide_order`)."""
+    if wide is not None:
+        return _wide_order(q16, k16, v16, d=wide, scale=scale, causal=causal, q0=q0)
     g, n, dp = q16.shape
     m = k16.shape[1]
     s = torch.zeros((g, n, m), dtype=torch.float32)
@@ -89,9 +96,54 @@ def _tensor_core_order(q16, k16, v16, *, scale=0.125, causal=False):
     return o * scale
 
 
+def _wide_order(q16, k16, v16, *, d, scale=0.125, causal=False, q0=0):
+    """The wide kernel's arithmetic (``ssa_wide_tc_kernel``, 128 < D <= 512)
+    on f16 q, k, v padded to DQ = 256 or 512 features: each half of the
+    features gives partial scores accumulated in f32 over 16-feature steps
+    and rounded to f16 (asserted lossless: integers <= DQ / 2); the two
+    partials are added in f32, masked on absolute positions (query row i is
+    position q0 + i), rounded to f16 (asserted lossless); then per tile of
+    WIDE_KEYS keys O += S V in f32, one 16-key step.  The keys are summed in
+    ranges of ``key_range(M, D)`` (a multiple of WIDE_KEYS), each range's
+    partial from zero (asserted below 2^24) and added into the output in f32,
+    ascending; times scale last."""
+    g, n, dq = q16.shape
+    m, half = k16.shape[1], dq // 2
+    parts = []
+    for h in range(2):
+        p = torch.zeros((g, n, m), dtype=torch.float32)
+        for f in range(h * half, (h + 1) * half, K16):
+            p += torch.bmm(q16[..., f:f + K16].float(),
+                           k16[..., f:f + K16].float().transpose(1, 2))
+        assert torch.equal(p.half().float(), p), "a partial score is not exact in f16"
+        parts.append(p.half().float())
+    s = parts[0] + parts[1]
+    if causal:
+        keep = torch.arange(m)[None, :] <= torch.arange(q0, q0 + n)[:, None]
+        s = torch.where(keep, s, 0.0)
+    s16 = s.half()
+    assert torch.equal(s16.float(), s), "a score is not exact in f16"
+    r = key_range(m, d)
+    assert r % WIDE_KEYS == 0 or r == m
+    out, o = None, torch.zeros((g, n, dq), dtype=torch.float32)
+    for kv0 in range(0, m, WIDE_KEYS):
+        o += torch.bmm(s16[..., kv0:kv0 + WIDE_KEYS].float(), v16[:, kv0:kv0 + WIDE_KEYS].float())
+        if kv0 + WIDE_KEYS >= m or (kv0 + WIDE_KEYS) % r == 0:   # the end of a key range
+            assert o.abs().max().item() < MAX_SUM
+            out = o if out is None else out + o
+            o = torch.zeros_like(o)
+    return out * scale
+
+
 def _pad16(x):
     d = x.shape[-1]
     return torch.nn.functional.pad(x, (0, -d % K16))
+
+
+def _pad_wide(x):
+    """Features padded to the wide kernel's DQ: 256 up to D = 256, else 512."""
+    d = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, (256 if d <= 256 else 512) - d))
 
 
 @pytest.mark.parametrize("g,n,m,d,ones", SHAPES)
@@ -117,6 +169,60 @@ def test_tensor_core_order_equals_plain_and_jax(ref, g, n, m, d, ones, causal):
     want = ssa_ref(*map(torch.from_numpy, (q, k, v)), causal=causal)
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref.ssa_ref(q, k, v, causal=causal)))
+
+
+# (G, N, M, Dh, all ones): the wide kernel's ragged edges (Dh 200 in the
+# 256-feature form, 257 in the 512 one, N != M both ways, N < 64) and the
+# spiking LM's Dh 512, all ones there (scores 512: partials 256 each)
+WIDE_SHAPES = [(2, 57, 40, 200, False), (2, 40, 57, 200, False), (2, 57, 40, 257, False),
+               (2, 40, 57, 257, False), (2, 33, 33, 512, False), (1, 70, 45, 512, False),
+               (1, 40, 40, 512, True)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("g,n,m,d,ones", WIDE_SHAPES)
+def test_wide_order_equals_plain_and_jax(ref, g, n, m, d, ones, causal):
+    """The wide kernel's order (scores once per 16-key tile: two f16 partial
+    halves added in f32, then S V per tile) ``torch.equal`` the plain
+    version and the JAX oracle."""
+    q, k, v = _operands(3 * d + n, g, n, m, d, ones)
+    got = _tensor_core_order(*(_pad_wide(torch.from_numpy(x)).half() for x in (q, k, v)),
+                             causal=causal, wide=d)[..., :d]
+    want = ssa_ref(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.ssa_ref(q, k, v, causal=causal)))
+
+
+def test_wide_order_past_the_edge_range_by_range():
+    """Past M * Dh = 2^24 at Dh 512 (M = 32,832: ranges of 32,704 and 128
+    keys), causal, on query rows at positions 32,810.. of the sequence, whose
+    keys straddle the two ranges: the wide order, each range's partial from
+    zero added into the output in f32, ``torch.equal`` the plain version.
+    The operands are near all ones (a row of q misses at most one feature, a
+    key's v a block of 128), so the outputs pass 2^24 with odd sums and the
+    addition of the two ranges rounds."""
+    d, m, q0, n = 512, 32832, 32810, 8
+    rng = np.random.default_rng(11)
+    q = np.ones((1, n, d), np.float32)
+    q[0, np.arange(n), rng.integers(0, d, n)] = rng.random(n) > 0.5
+    k = np.ones((1, m, d), np.float32)
+    v = (rng.random((1, m, 4)) > 1 / 1024).astype(np.float32).repeat(d // 4, axis=2)
+    assert key_range(m, d) == 32704
+    got = _tensor_core_order(*(torch.from_numpy(x).half() for x in (q, k, v)), causal=True,
+                             wide=d, q0=q0)
+    want = ssa_ref(*map(torch.from_numpy, (q, k, v)), causal=True, q0=q0)
+    assert torch.equal(got, want)
+    assert want.max().item() / 0.125 > MAX_SUM
+
+
+def test_wide_key_tile_divides_the_range_tile():
+    """The wide kernel's key tile (kWideKeys, read from ssa.cu's source) divides
+    the key ranges' unit ``ref.KEY_TILE`` (kKeys in ssa.cu), so that every
+    range ends on a tile boundary; the emulation above uses the same tile."""
+    src = SSA_CU.read_text()
+    consts = dict(re.findall(r"constexpr int (kKeys|kWideKeys) = (\d+);", src))
+    assert int(consts["kKeys"]) == KEY_TILE
+    assert int(consts["kWideKeys"]) == WIDE_KEYS and KEY_TILE % WIDE_KEYS == 0
 
 
 def _plane_f16(words, t, planes=PLANES):

@@ -28,6 +28,30 @@ def test_ssa_on_the_cpu(capsys):
     assert line.endswith("device not measured")
 
 
+@pytest.mark.parametrize("route,name", [("packed", "packed_ssa_fwd"),
+                                        ("sparse", "sparse_packed_ssa_fwd")])
+def test_packed_ssa_routes_on_the_cpu(capsys, route, name):
+    timing.main(["--device", "cpu", "ssa", "--g", "8", "--n", "5", "--dh", "13", "--reps", "2",
+                 "--route", route, "--causal"])
+    line = capsys.readouterr().out.strip()
+    assert f"{name} G=8 N=5 Dh=13 T=4 causal: torch.equal the plain version" in line
+    assert line.endswith("device not measured")
+
+
+def test_ssa_lists_on_the_cpu(capsys):
+    """Comma-separated token counts and routes: one line each, N outer."""
+    timing.main(["--device", "cpu", "ssa", "--g", "4", "--n", "3,6", "--dh", "9", "--reps", "1",
+                 "--route", "dense,sparse"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [x.split(": ")[1].split(" G=")[0] for x in lines] == ["ssa_fwd", "sparse_packed_ssa_fwd"] * 2
+    assert ["N=3 " in x for x in lines] == [True, True, False, False]
+
+
+def test_ssa_unknown_route_refused():
+    with pytest.raises(SystemExit):
+        timing.main(["--device", "cpu", "ssa", "--route", "dense,wide"])
+
+
 def test_train_on_the_cpu(capsys):
     timing.main(["--device", "cpu", "train", "--arch", "spike-iand-former_smoke",
                  "--steps", "2", "--warmup", "1", "--batch", "2"])
@@ -44,6 +68,19 @@ def test_lm_on_the_cpu(capsys):
                                    for x in lines)
     assert "backend=cuda " in lines[0] and "backend=torch " in lines[1]
     assert all(f"{k} " in lines[0] for k in ("median", "q1", "q3", "mean", "min", "max"))
+
+
+def test_prefill_on_the_cpu(capsys):
+    """One line per route: ms per prefill on the host clock; the kernels'
+    device ms are not measured off the card."""
+    timing.main(["--device", "cpu", "prefill", "--arch", "llama3.2-1b_smoke", "--slots", "2",
+                 "--prompt", "5", "--reps", "1", "--routes", "cuda,torch"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2 and all("2 slots, prompt 5, 1 reps: ms per prefill: events " in x
+                                   for x in lines)
+    assert "backend=cuda " in lines[0] and "backend=torch " in lines[1]
+    assert all(x.endswith("ssa not measured, gemm not measured, lif not measured")
+               for x in lines)
 
 
 def test_no_card_raises(monkeypatch):
