@@ -159,7 +159,29 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      second call retrains nothing, and restored at T 8 and 32 it serves
      greedy streams ``torch.equal`` across ``cuda``, ``cuda+packed`` and
      ``cuda+packed+sparse`` in both orderings; its ``sparsity_report``
-     beside the seeded model's.
+     beside the seeded model's;
+ 14. the generic LM families (``models/transformer.py``; no Pallas kernel is
+     on this path, and no hand kernel may launch in it, counted): ``serve``
+     of ``llama3.2-1b`` at full width (16 layers, d 2048, vocab 128,256, f32
+     parameters from a seed on the card, bf16 compute; 8 requests, prompt
+     32, 16 new tokens, 4 slots), prompt-feed and decode tok/s; its first
+     slot batch again by hand in f32 compute (the prompt fed through
+     ``make_serve_step`` against ``make_prefill_step``'s last logits, and
+     decode from ``cache_init`` against ``forward`` over the 32 tokens,
+     within GEN_DECODE_ATOL) and in bf16 (gaps printed, the tokens equal
+     ``serve``'s); one AdamW ``make_train_step`` on 4 x 512 tokens (loss
+     finite, every leaf moved) and two timed ones; the card against the CPU
+     on the same 2-layer full-width f32 weights (logits within
+     GEN_CPU_LOGITS_ATOL, every ``loss_fn`` gradient leaf within
+     GEN_CPU_GRAD_REL of its max); then ``qwen1.5-4b``, ``qwen3-8b``,
+     ``musicgen-large``, ``paligemma-3b``, ``granite-moe-3b-a800m``,
+     ``mamba2-130m`` and ``recurrentgemma-9b`` at full width in f32, one at
+     a time: parameter count, a prefill of 2 x 256 tokens of the modality
+     (paligemma: its 256-token image prefix plus 256 text tokens), 32 decode
+     steps from ``cache_init`` against ``forward`` within GEN_DECODE_ATOL
+     (granite at capacity factor E / k, where nothing drops), granite's
+     first MoE layer against its dense oracle; ``mistral-large-123b`` and
+     ``kimi-k2-1t-a32b`` counted on the meta device.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
@@ -4114,6 +4136,316 @@ def phase_lm_train(dev, smi, arch=LM_ARCH):
     return reports
 
 
+# -- phase 14: the generic LM families at full width --------------------------------
+
+# The generic decoder of ``models/transformer.py``: llama3.2-1b served as the
+# reference's CLI serves by default (LM_REQUESTS requests, prompt LM_PROMPT,
+# LM_NEW new tokens, LM_SLOTS slots; f32 parameters from a seed on the card,
+# bf16 compute), trained one AdamW step of GEN_TRAIN_BATCH x GEN_TRAIN_SEQ
+# tokens (then GEN_TRAIN_STEPS - 1 timed ones); the seven other configs that
+# fit one card prefilled on GEN_BATCH x GEN_PREFILL tokens of their modality
+# (paligemma: its 256-token image prefix plus GEN_PREFILL text tokens) and
+# decoded GEN_DECODE tokens, in f32; the two that do not fit counted on meta.
+# No Pallas kernel is on this path (the reference's attention is jnp), so no
+# hand kernel may launch in it.
+GEN_ARCH = "llama3.2-1b"
+GEN_OTHERS = ("qwen1.5-4b", "qwen3-8b", "musicgen-large", "paligemma-3b",
+              "granite-moe-3b-a800m", "mamba2-130m", "recurrentgemma-9b")
+GEN_META = ("mistral-large-123b", "kimi-k2-1t-a32b")
+GEN_TRAIN_BATCH, GEN_TRAIN_SEQ, GEN_TRAIN_STEPS = 4, 512, 3
+GEN_BATCH, GEN_PREFILL, GEN_DECODE = 2, 256, 32
+# Decode from the cache against the full forward, and the prompt fed step by
+# step against the batched prefill, in f32 with TF32 off: the reference's own
+# decode-vs-forward bound.
+GEN_DECODE_ATOL = 2e-3
+# The card against the CPU on the same weights (llama3.2-1b width, GEN_CPU_LAYERS
+# layers, f32, TF32 off, 2 x 64 tokens): f32 sums in another order (cuBLAS
+# against the CPU's BLAS), 2048- to 8192-term dots.  Logits within
+# GEN_CPU_LOGITS_ATOL, each gradient leaf within GEN_CPU_GRAD_REL of its max.
+GEN_CPU_LAYERS, GEN_CPU_TOKENS = 2, (2, 64)
+GEN_CPU_LOGITS_ATOL = 1e-4
+GEN_CPU_GRAD_REL = 1e-4
+
+
+def _zeroed(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def _no_hand_kernels(label, counters):
+    launches = {k: c.launches for k, c in counters.items()}
+    check(not any(launches.values()),
+          f"{label}: hand kernels launched {launches} on the generic path (expected none)")
+
+
+def _max_gap(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _decode_vs_forward(params, cfg, batch, steps, dev):
+    """Token-by-token decode of ``steps`` positions from ``cache_init``
+    through ``make_serve_step``, against ``forward`` over the same inputs:
+    (largest logits gap, ms per step after the first, on the device)."""
+    from repro_torch.models import lm, transformer as T
+
+    serve_step = lm.make_serve_step(cfg)
+    with torch.no_grad():
+        full, _, _ = T.forward(params, batch, cfg)
+    b = full.shape[0]
+    cache = T.cache_init(cfg, b, steps, device=dev)
+    outs, t1 = [], None
+    for t in range(steps):
+        if "embeds" in batch:
+            step_in = {"embeds": batch["embeds"][:, t:t + 1]}
+        else:
+            step_in = {"token": batch["tokens"][:, t:t + 1]}
+        logits, cache = serve_step(params, cache, step_in, t)
+        outs.append(logits)
+        if t == 0:
+            _sync(dev)
+            t1 = time.perf_counter()
+    _sync(dev)
+    ms = 1e3 * (time.perf_counter() - t1) / max(steps - 1, 1)
+    return _max_gap(torch.cat(outs, dim=1), full), ms
+
+
+def _generic_batch(cfg, dev, batch, seq, seed=0):
+    """``make_batch`` of ``cfg``'s modality on ``dev``: tokens, audio frame
+    embeddings with labels, or an image prefix plus ``seq`` text tokens."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    kind = {"text": "tokens"}.get(cfg.modality, cfg.modality)
+    p = cfg.num_prefix_tokens if cfg.modality == "vision_stub" else 0
+    dcfg = DataConfig(seed=seed, vocab_size=cfg.vocab_size, seq_len=seq + p, global_batch=batch,
+                      kind=kind, d_model=cfg.d_model, num_prefix_tokens=p)
+    return {k: torch.from_numpy(v).to(dev) for k, v in make_batch(dcfg, 0).items()}
+
+
+def _generic_serve(dev, smi, arch, counters):
+    """``serve(arch)`` through the entry point, then its first slot batch by
+    hand in f32 and bf16 compute: the prompt fed through ``make_serve_step``
+    against ``make_prefill_step``'s last logits, and decode from the cache
+    against ``forward`` over the prompt.  Returns the parameters."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.serve import serve, serve_batch
+    from repro_torch.models import lm, transformer as T
+
+    _zeroed(counters)
+    done, stats = serve(arch, num_requests=LM_REQUESTS, prompt_len=LM_PROMPT, max_new=LM_NEW,
+                        slots=LM_SLOTS, device=dev, return_stats=True)
+    _no_hand_kernels(f"serve({arch})", counters)
+    cfg = lm.get_config(arch)
+    batches = -(-LM_REQUESTS // LM_SLOTS)
+    check(len(done) == LM_REQUESTS and all(t.shape == (LM_NEW,) and 0 <= t.min()
+                                           and t.max() < cfg.vocab_size for _, t in done),
+          f"serve({arch}) returned {[(i, t.shape) for i, t in done]}")
+    log(f"serve({arch}, {LM_REQUESTS} requests, prompt {LM_PROMPT}, {LM_NEW} new, {LM_SLOTS} slots; "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_dtype} "
+        f"parameters, {cfg.compute_dtype} compute): prompt feed {stats['prefill_tokens_per_s']:.1f} "
+        f"tok/s ({1e3 * stats['prefill_s'] / (batches * LM_PROMPT):.3f} ms a step), decode "
+        f"{stats['decode_tokens_per_s']:.1f} tok/s ({1e3 * stats['decode_s'] / (batches * (LM_NEW - 1)):.3f} "
+        f"ms a step; host clock, synced) on {smi}")
+
+    params = T.init_lm(0, cfg, device=dev)          # serve()'s weights: the same seed
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=LM_PROMPT,
+                      global_batch=LM_REQUESTS)
+    prompts = torch.from_numpy(make_batch(dcfg, 0)["tokens"][:LM_SLOTS]).to(dev)
+    for cd in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=cd)
+        gen, after, _, _ = serve_batch(lm.make_serve_step(c), params, c, prompts, LM_NEW)
+        last, _ = lm.make_prefill_step(c)(params, {"tokens": prompts})
+        feed_gap = _max_gap(last[:, -1], after)
+        dec_gap, step_ms = _decode_vs_forward(params, c, {"tokens": prompts}, LM_PROMPT, dev)
+        if cd == "float32":
+            check(feed_gap <= GEN_DECODE_ATOL and dec_gap <= GEN_DECODE_ATOL,
+                  f"{arch} f32: prompt feed vs prefill {feed_gap:.3g}, decode vs forward "
+                  f"{dec_gap:.3g} (limit {GEN_DECODE_ATOL})")
+        note = f" (limit {GEN_DECODE_ATOL})" if cd == "float32" else " (reported)"
+        if cd == cfg.compute_dtype:     # serve()'s own compute: its first slot batch again
+            same = torch.equal(gen.cpu(), torch.from_numpy(np.stack([t for _, t in done[:LM_SLOTS]])))
+            check(same, f"{arch}: serve()'s first slot batch differs from serve_batch's on the "
+                        "same weights")
+            note += f"; serve()'s first slot batch equals these tokens: {same}"
+        log(f"  {arch} {cd} compute: prompt fed step by step vs make_prefill_step's last logits "
+            f"{feed_gap:.3g}, decode from the cache vs forward over {LM_PROMPT} tokens "
+            f"{dec_gap:.3g}{note}, {step_ms:.3f} ms a decode step on {smi}")
+    if dev.type == "cuda":          # where a step's time goes: device busy against the wall
+        step, prefill = lm.make_serve_step(cfg), lm.make_prefill_step(cfg)
+        cache = T.cache_init(cfg, LM_SLOTS, LM_PROMPT + LM_NEW, device=dev)
+        _profile(f"generic {arch} decode step ({cfg.compute_dtype}, {LM_SLOTS} slots; {smi})",
+                 lambda: step(params, cache, {"token": prompts[:, :1]}, LM_PROMPT), {}, tries=1)
+        _profile(f"generic {arch} prefill ({cfg.compute_dtype}, {LM_SLOTS} x {LM_PROMPT} tokens; {smi})",
+                 lambda: prefill(params, {"tokens": prompts}), {}, tries=1)
+    return params
+
+
+def _generic_train(dev, smi, cfg, params, counters, seq):
+    """One ``make_train_step`` with AdamW on GEN_TRAIN_BATCH x ``seq`` tokens:
+    loss finite, every leaf moved; then GEN_TRAIN_STEPS - 1 timed steps."""
+    from repro_torch.bridge import leaves
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+    opt = make_optimizer(OptimizerConfig(total_steps=10, warmup_steps=0))
+    tokens = make_batch(DataConfig(seed=1, vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=GEN_TRAIN_BATCH), 0)["tokens"]
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    step = lm.make_train_step(cfg, opt)
+    state = {"params": params, "opt_state": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    _zeroed(counters)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    new, metrics = step(state, batch)
+    _sync(dev)
+    loss = metrics["loss"].item()
+    still = [i for i, (a, b) in enumerate(zip(leaves(params), leaves(new["params"])))
+             if torch.equal(a, b)]
+    check(np.isfinite(loss), f"{cfg.name} train step: loss {loss}")
+    check(not still, f"{cfg.name} train step: leaves {still} did not move")
+    state = new
+    del new
+    t0 = time.perf_counter()
+    for _ in range(GEN_TRAIN_STEPS - 1):
+        state, metrics = step(state, batch)
+    _sync(dev)
+    _no_hand_kernels(f"{cfg.name} make_train_step", counters)
+    ms = 1e3 * (time.perf_counter() - t0) / max(GEN_TRAIN_STEPS - 1, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    log(f"make_train_step({cfg.name}, AdamW, remat, {GEN_TRAIN_BATCH} x {seq} tokens, "
+        f"{cfg.compute_dtype} compute): loss {loss!r} then {metrics['loss'].item()!r}, grad norm "
+        f"{metrics['grad_norm'].item():.4g}, every one of {len(leaves(params))} leaves moved: "
+        f"{not still}; {ms:.2f} ms a step ({GEN_TRAIN_BATCH * seq * 1e3 / ms:.1f} tokens/s; "
+        f"host clock, synced, mean of {GEN_TRAIN_STEPS - 1} after the first), peak "
+        f"{peak:.2f} GiB allocated, on {smi}")
+
+
+def _generic_vs_cpu(dev, smi, cfg):
+    """The same 2-layer, full-width f32 weights on the card and on the CPU:
+    forward logits and every ``loss_fn`` gradient leaf."""
+    from repro_torch import bridge
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import lm, transformer as T
+
+    c = cfg.replace(num_layers=GEN_CPU_LAYERS, compute_dtype="float32")
+    params = T.init_lm(7, c, device=dev)
+    host = bridge.to_torch(params, "cpu", None)
+    b, s = GEN_CPU_TOKENS
+    tokens = torch.from_numpy(make_batch(DataConfig(seed=2, vocab_size=c.vocab_size, seq_len=s,
+                                                    global_batch=b), 0)["tokens"])
+    with torch.no_grad():
+        on_card, _, _ = T.forward(params, {"tokens": tokens.to(dev)}, c)
+        on_cpu, _, _ = T.forward(host, {"tokens": tokens}, c)
+    gap = _max_gap(on_card.cpu(), on_cpu)
+    (loss_card, _), g_card = lm.value_and_grad(params, {"tokens": tokens.to(dev)}, c)
+    (loss_cpu, _), g_cpu = lm.value_and_grad(host, {"tokens": tokens}, c)
+    rel = _leaf_rel(bridge.to_torch(g_card, "cpu", None), g_cpu)
+    worst = max(rel, key=rel.get)
+    log(f"  {c.name} at {GEN_CPU_LAYERS} layers, f32, card vs CPU on the same weights "
+        f"({b} x {s} tokens): logits {gap:.3g} (limit {GEN_CPU_LOGITS_ATOL}; largest "
+        f"|logit| {on_cpu.abs().max().item():.3g}), loss {loss_card.item()!r} vs "
+        f"{loss_cpu.item()!r}, gradients |card - cpu| / max|cpu| largest {rel[worst]:.3g} "
+        f"({worst}; limit {GEN_CPU_GRAD_REL}); {smi} against the host's CPU")
+    check(gap <= GEN_CPU_LOGITS_ATOL, f"{c.name}: card vs CPU logits {gap:.3g}")
+    for name, r in rel.items():
+        check(r <= GEN_CPU_GRAD_REL, f"{c.name}: card vs CPU gradient {name}: {r:.3g}")
+
+
+def _generic_other(dev, smi, name, counters):
+    """One more config at full width in f32: its prefill on its modality's
+    batch, decode from the cache against the forward, granite's MoE layer
+    against the dense oracle."""
+    from repro_torch.models import lm, moe, transformer as T
+
+    cfg = lm.get_config(name).replace(compute_dtype="float32")
+    _zeroed(counters)
+    t0 = time.perf_counter()
+    params = T.init_lm(0, cfg, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n = T.num_params(params)
+    batch = _generic_batch(cfg, dev, GEN_BATCH, GEN_PREFILL)
+    prefill = lm.make_prefill_step(cfg)
+    prefill(params, batch)                        # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    last, cache = prefill(params, batch)
+    _sync(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    tokens = sum(v.shape[1] for k, v in batch.items() if k != "labels")
+    check(last.shape == (GEN_BATCH, 1, cfg.vocab_size) and bool(torch.isfinite(last).all()),
+          f"{name} prefill logits {tuple(last.shape)}, finite {bool(torch.isfinite(last).all())}")
+    del cache
+    short = {k: v[:, :GEN_DECODE] for k, v in batch.items() if k in ("tokens", "embeds")}
+    if cfg.modality == "vision_stub":             # decode feeds text; no image prefix
+        short["image_embeds"] = batch["image_embeds"][:, :0]
+    # An MoE drops tokens past its capacity, which the forward's groups of
+    # GEN_DECODE tokens reach and a decode step's one token never does: the
+    # two are compared at a capacity factor of E / k, where nothing drops.
+    ample = (cfg.replace(capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+             if cfg.family == "moe" else cfg)
+    gap, step_ms = _decode_vs_forward(params, ample, short, GEN_DECODE, dev)
+    check(gap <= GEN_DECODE_ATOL, f"{name}: decode vs forward {gap:.3g} > {GEN_DECODE_ATOL}")
+    extra = ""
+    if cfg.family == "moe":
+        p0 = T.layer_params(params["layers"], 0)["moe"]
+        x = torch.randn((GEN_BATCH, GEN_PREFILL, cfg.d_model),
+                        generator=torch.Generator(dev).manual_seed(3), device=dev)
+        with torch.no_grad():
+            y, aux = moe.moe_apply(p0, x, ample)
+            y_dense = moe.moe_apply_dense(p0, x, ample)
+        moe_gap = _max_gap(y, y_dense)
+        check(moe_gap <= GEN_CPU_LOGITS_ATOL,
+              f"{name}: moe_apply vs moe_apply_dense {moe_gap:.3g} > {GEN_CPU_LOGITS_ATOL}")
+        extra = (f"; layer 0's moe_apply (capacity factor {ample.capacity_factor:g}: no drops) vs "
+                 f"moe_apply_dense {moe_gap:.3g} (limit {GEN_CPU_LOGITS_ATOL}; |y| max "
+                 f"{y.abs().max().item():.3g}), aux {aux.item():.4g}")
+    _no_hand_kernels(name, counters)
+    log(f"  {name} ({cfg.family}, {cfg.modality}; {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{n / 1e9:.3f} B parameters made in {init_s:.2f} s): prefill of {GEN_BATCH} x {tokens} "
+        f"tokens {prefill_ms:.2f} ms, decode {GEN_DECODE} tokens from cache_init {step_ms:.3f} ms "
+        f"a step, vs forward {gap:.3g} (limit {GEN_DECODE_ATOL}"
+        f"{'; both at capacity factor E / k' if cfg.family == 'moe' else ''}){extra}; f32, "
+        f"TF32 off, on {smi}")
+    del params, batch, last
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_generic_lm(dev, smi, arch=GEN_ARCH, others=GEN_OTHERS, train_seq=GEN_TRAIN_SEQ):
+    """The generic LM families (``models/transformer.py``) at full width:
+    :func:`_generic_serve`, :func:`_generic_train` and :func:`_generic_vs_cpu`
+    on ``arch``, then :func:`_generic_other` on each of ``others``, and the
+    GEN_META configs counted on the meta device.  With a CPU ``dev`` and smoke
+    archs it rehearses the same paths."""
+    from repro_torch.models import lm, transformer as T
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    params = _generic_serve(dev, smi, arch, counters)
+    fail_if_any("phase 14 (serve)")
+    cfg = lm.get_config(arch)
+    _generic_train(dev, smi, cfg, params, counters, train_seq)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fail_if_any("phase 14 (train)")
+    _generic_vs_cpu(dev, smi, cfg)
+    fail_if_any("phase 14 (card vs CPU)")
+    log(f"phase 14 (continued): {len(others)} more configs at full width, f32, one at a time")
+    for name in others:
+        _generic_other(dev, smi, name, counters)
+    fail_if_any("phase 14 (other configs)")
+    for name in GEN_META:
+        c = lm.get_config(name)
+        n = T.num_params(T.init_lm(0, c, device="meta"))
+        log(f"  {name}: {n / 1e9:.3f} B parameters ({c.param_dtype}), counted on the meta device "
+            f"({n * torch.finfo(getattr(torch, c.param_dtype)).bits / 8 / 2**30:.1f} GiB: more "
+            "than one card holds)")
+    log(f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this smoke test "
@@ -4181,6 +4513,10 @@ def main() -> int:
         f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens), an AdamW update, the trained fixture")
     torch.cuda.empty_cache()
     train_reports = phase_lm_train(dev, smi)
+    log(f"phase 14: the generic LM families at full width: serve and train {GEN_ARCH}, "
+        f"prefill and decode {', '.join(GEN_OTHERS)}")
+    torch.cuda.empty_cache()
+    phase_generic_lm(dev, smi)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()},

@@ -35,6 +35,7 @@ from typing import Any
 import torch
 
 from repro_torch import bridge
+from repro_torch.bridge import resolve_device  # noqa: F401  (re-exported)
 from repro_torch.core import nn as cnn
 from repro_torch.core.lif import LAM_DEFAULT, THETA_DEFAULT
 from repro_torch.engine.backend import Backend, resolve
@@ -277,17 +278,6 @@ class DeployPlan:
         return self.meta.backend
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the card; a CUDA device without a card raises (a plan
-    never drops quietly to the CPU: pass ``device="cpu"`` for that)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {dev} requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plan on the CPU")
-    return dev
-
-
 def compile_plan(params, state, cfg, *, backend="cuda", ordering: str | None = None,
                  device=None, checkpoint=None, bundle: float | None = None,
                  mesh=None) -> DeployPlan:
@@ -389,7 +379,7 @@ def _compile_lm_plan(params, state, cfg, *, backend, ordering, device, mesh=None
     The head's weights and the final norm are the parameters' own tensors,
     not copies."""
     from repro_torch.models.layers import rmsnorm_apply
-    from repro_torch.models.spiking_lm import layer_params
+    from repro_torch.bridge import layer_params
 
     if not getattr(cfg, "spiking", False):
         raise ValueError(

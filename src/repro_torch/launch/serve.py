@@ -1,5 +1,15 @@
-"""Serving through the deploy engine (PyTorch port): vision slot batches, and
-the spiking LM in synchronous slots or continuously batched.
+"""Serving (PyTorch port): the generic LM's greedy server, and through the
+deploy engine vision slot batches and the spiking LM in synchronous slots or
+continuously batched.
+
+With no mode flag the CLI runs :func:`serve`, the JAX package's generic
+prompt-fed greedy server over ``models.transformer`` (any text arch of
+``repro_torch.configs``; default ``llama3.2-1b_smoke``, 8 requests, prompt
+32, 16 new tokens, 4 slots), its prompt feed and generation timed apart:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b_smoke \
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
 
 ``--vision`` compiles the Spike-(IAND-)Former into a folded/fused deploy
 plan once at startup -- BN folded into the weight reads, AND-NOT residuals
@@ -84,6 +94,7 @@ from repro_torch.engine.plan import resolve_device
 from repro_torch.launch.mesh import world
 from repro_torch.launch.scheduler import ContinuousScheduler, Request
 from repro_torch.launch.scheduler import greedy as greedy_sample
+from repro_torch.models import lm, transformer as T
 from repro_torch.models.lm import get_config
 
 
@@ -267,6 +278,92 @@ def serve_vision(arch: str, *, num_requests: int, slots: int = 4,
     plan, images = seeded_model(arch, num_requests=num_requests, backend=backend,
                                 device=device, seed=seed, mesh=mesh)
     return serve_plan(plan, images, slots=slots, verbose=verbose)
+
+
+# -- the generic LM --------------------------------------------------------------
+
+def serve_batch(serve_step, params, cfg, prompts: torch.Tensor, max_new: int):
+    """Greedy-decode one slot batch of ``prompts`` (B, S) on their device as
+    the JAX package's ``serve`` does: a decode cache of ``S + max_new``
+    slots, the prompt fed token by token through ``serve_step`` (one code
+    path for prompt and generation), then ``max_new`` greedy tokens, the
+    first drawn from the last prompt position.  The prompt feed and the
+    generation are timed apart, the device synchronised before each clock
+    read.  Returns (tokens (B, max_new), the logits after the prompt
+    (B, V), prompt seconds, generation seconds)."""
+    dev = prompts.device
+    b, prompt_len = prompts.shape
+    cache = T.cache_init(cfg, b, prompt_len + max_new, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(prompt_len):
+        logits, cache = serve_step(params, cache, {"token": prompts[:, t:t + 1]}, t)
+    _sync(dev)
+    t1 = time.perf_counter()
+    after_prompt = logits[:, -1]
+    tok = greedy_sample(after_prompt)
+    outs = [tok]
+    for i in range(max_new - 1):
+        logits, cache = serve_step(params, cache, {"token": tok[:, None]}, prompt_len + i)
+        tok = greedy_sample(logits[:, -1])
+        outs.append(tok)
+    gen = torch.stack(outs, dim=1)
+    _sync(dev)
+    return gen, after_prompt, t1 - t0, time.perf_counter() - t1
+
+
+def serve(arch: str, *, num_requests: int, prompt_len: int, max_new: int, slots: int = 4,
+          seed: int = 0, verbose: bool = True, return_stats: bool = False, device=None):
+    """The JAX package's generic prompt-fed greedy server: ``arch``'s
+    parameters from ``init_lm(seed)`` on the device (the card unless
+    ``device="cpu"``), ``num_requests`` prompts of ``prompt_len`` tokens from
+    ``token_batch`` at ``seed``, step 0, served in synchronous slot batches
+    of ``slots`` by :func:`serve_batch`, after one warm-up step per batch
+    size.  Returns ``done`` (request, its ``max_new`` tokens) pairs in order,
+    and with ``return_stats`` also the JAX package's ``stats`` (prompt feed
+    and generation timed apart)."""
+    cfg = get_config(arch)
+    assert cfg.modality == "text", "serving demo targets text archs"
+    dev = resolve_device(device)
+    params = T.init_lm(seed, cfg, device=dev)
+    serve_step = lm.make_serve_step(cfg)
+    dcfg = DataConfig(seed=seed, vocab_size=cfg.vocab_size, seq_len=prompt_len,
+                      global_batch=num_requests)
+    prompts = torch.from_numpy(make_batch(dcfg, 0)["tokens"]).to(dev)
+
+    for b in _warm_sizes(slots, num_requests):
+        serve_step(params, T.cache_init(cfg, b, prompt_len + max_new, device=dev),
+                   {"token": torch.zeros((b, 1), dtype=torch.long, device=dev)}, 0)
+    _sync(dev)
+
+    done, prefill_s, decode_s = [], 0.0, 0.0
+    for start in range(0, num_requests, slots):
+        gen, _, t_prompt, t_gen = serve_batch(serve_step, params, cfg,
+                                              prompts[start:start + slots], max_new)
+        prefill_s += t_prompt
+        decode_s += t_gen
+        gen = gen.cpu().numpy()
+        done += [(start + j, gen[j]) for j in range(gen.shape[0])]
+        if verbose:
+            print(f"[serve] slot batch {start // slots}: generated {gen.shape[0]}x{max_new} tokens")
+    tot = num_requests * max_new
+    fed = num_requests * prompt_len
+    stats = {
+        "prefill_s": prefill_s,
+        "decode_s": decode_s,
+        "prompt_tokens": fed,
+        "new_tokens": tot,
+        "prefill_tokens_per_s": fed / prefill_s if prefill_s else float("inf"),
+        "decode_tokens_per_s": tot / decode_s if decode_s else float("inf"),
+    }
+    if verbose:
+        where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        print(f"[serve] {num_requests} requests on {where}: prefill {fed} prompt tokens in "
+              f"{prefill_s:.2f}s ({stats['prefill_tokens_per_s']:.1f} tok/s), decode {tot} new "
+              f"tokens in {decode_s:.2f}s ({stats['decode_tokens_per_s']:.1f} tok/s)")
+    if return_stats:
+        return done, stats
+    return done
 
 
 # -- spiking LM -----------------------------------------------------------------
@@ -568,18 +665,18 @@ def serve_spiking_lm_continuous(arch: str, *, num_requests: int, prompt_len: int
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    mode = ap.add_mutually_exclusive_group(required=True)
+    mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--vision", action="store_true",
                       help="serve a vision Spikformer via the deploy engine")
     mode.add_argument("--spiking-lm", action="store_true",
                       help="greedy-decode a spiking LM from a compiled deploy plan")
     ap.add_argument("--arch", default=None,
-                    help="default: spike-iand-former-8-384 (--vision), llama3.2-1b "
-                         "(--spiking-lm)")
+                    help="default: llama3.2-1b_smoke (no mode flag: the generic LM), "
+                         "spike-iand-former-8-384 (--vision), llama3.2-1b (--spiking-lm)")
     ap.add_argument("--requests", type=int, default=None,
-                    help="default: 24 (--vision), 8 (--spiking-lm)")
+                    help="default: 8 (the generic LM, --spiking-lm), 24 (--vision)")
     ap.add_argument("--slots", type=int, default=None,
-                    help="default: 8 (--vision), 4 (--spiking-lm)")
+                    help="default: 4 (the generic LM, --spiking-lm), 8 (--vision)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--ordering", default="quadratic", choices=["quadratic", "linear"],
@@ -641,9 +738,14 @@ def _main(args, verbose: bool) -> None:
                          slots=args.slots or 4, backend=args.backend, ordering=args.ordering,
                          mesh=args.mesh, seed=args.seed, device=args.device, verbose=verbose)
         return
-    serve_vision(args.arch or "spike-iand-former-8-384", num_requests=args.requests or 24,
-                 slots=args.slots or 8, backend=args.backend, mesh=args.mesh,
-                 device=args.device, seed=args.seed, verbose=verbose)
+    if args.vision:
+        serve_vision(args.arch or "spike-iand-former-8-384", num_requests=args.requests or 24,
+                     slots=args.slots or 8, backend=args.backend, mesh=args.mesh,
+                     device=args.device, seed=args.seed, verbose=verbose)
+        return
+    serve(args.arch or "llama3.2-1b_smoke", num_requests=args.requests or 8,
+          prompt_len=args.prompt_len, max_new=args.max_new, slots=args.slots or 4,
+          seed=args.seed, device=args.device, verbose=verbose)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,15 @@
-"""The LM config registry (``register``, ``get_config``) and the LM loss
-(``_shift_labels``, ``cross_entropy``), as in the JAX package's
-``models/lm.py``; the generic LM entry points come with the generic LM
-substrate."""
+"""LM entry points, the port of the JAX package's ``models/lm.py``: the config
+registry, the loss, the train/prefill/serve steps and the input specs.
+
+Each step is a function of (params/state, batch) as in the JAX package,
+which jits them; here they run eagerly.  ``make_train_step`` takes the
+port's ``optim.make_optimizer`` pair and returns a new state (nothing is
+updated in place); the prefill and serve steps run without autograd.  The
+input specs (``batch_struct``, ``cache_struct``) are tensors on the ``meta``
+device where the JAX package has ``jax.ShapeDtypeStruct``; ``batch_pspecs``
+gives ``PartitionSpec`` entries as tuples (``distributed.sharding.spec``'s
+form).
+"""
 
 from __future__ import annotations
 
@@ -9,7 +17,10 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.config import ArchConfig
+from repro_torch.bridge import leaves, rebuild
+from repro_torch.distributed.sharding import _entry
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ArchConfig, ShapeCell
 
 _REGISTRY: dict[str, Callable[[], ArchConfig]] = {}
 
@@ -22,7 +33,7 @@ def register(name: str):
 
 
 def get_config(name: str) -> ArchConfig:
-    from repro_torch.configs import llama3_2_1b  # noqa: F401  (populates the registry)
+    import repro_torch.configs  # noqa: F401  (populates the registry)
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch '{name}'; have {sorted(_REGISTRY)}")
@@ -30,7 +41,7 @@ def get_config(name: str) -> ArchConfig:
 
 
 def list_archs() -> list[str]:
-    from repro_torch.configs import llama3_2_1b  # noqa: F401
+    import repro_torch.configs  # noqa: F401
 
     return sorted(_REGISTRY)
 
@@ -56,3 +67,119 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """Returns (loss, metrics dict). Handles all modalities."""
+    logits, aux, _ = T.forward(params, batch, cfg)
+    if cfg.modality == "text":
+        labels, mask = _shift_labels(batch["tokens"])
+    elif cfg.modality == "audio_stub":
+        labels = batch["labels"]
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    elif cfg.modality == "vision_stub":
+        # loss on the text region only (the image prefix has no labels)
+        prefix = batch["image_embeds"].shape[1]
+        labels_txt, mask_txt = _shift_labels(batch["tokens"])
+        pad = torch.zeros((labels_txt.shape[0], prefix), dtype=labels_txt.dtype,
+                          device=labels_txt.device)
+        labels = torch.cat([pad, labels_txt], dim=1)
+        mask = torch.cat([pad.to(torch.float32), mask_txt], dim=1)
+    else:
+        raise ValueError(cfg.modality)
+    ce = cross_entropy(logits, labels, mask)
+    loss = ce + cfg.router_aux_loss * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+def value_and_grad(params, batch, cfg: ArchConfig):
+    """((loss, metrics), grads): :func:`loss_fn` and its gradient tree, of
+    ``params``' structure (the JAX package's ``jax.value_and_grad(...,
+    has_aux=True)``).  ``params`` are not modified."""
+    live = rebuild(params, iter(p.detach().requires_grad_(True) for p in leaves(params)))
+    with torch.enable_grad():
+        loss, metrics = loss_fn(live, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves(live))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), rebuild(params, iter(grads))
+
+
+def make_train_step(cfg: ArchConfig, optimizer):
+    """train_step(state, batch) -> (state', metrics). ``optimizer`` from
+    ``repro_torch.optim.optimizer.make_optimizer`` (an init/update pair)."""
+
+    def train_step(state, batch):
+        (_, metrics), grads = value_and_grad(state["params"], batch, cfg)
+        with torch.no_grad():
+            new_params, new_opt = optimizer.update(
+                grads, state["opt_state"], state["params"], step=state["step"])
+        metrics["grad_norm"] = optimizer.last_grad_norm(new_opt)
+        return ({"params": new_params, "opt_state": new_opt, "step": state["step"] + 1},
+                metrics)
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, _, cache = T.forward(params, batch, cfg, collect_cache=True)
+        return logits[:, -1:, :], cache
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig):
+    @torch.no_grad()
+    def serve_step(params, cache, batch, pos):
+        return T.decode(params, cache, batch, pos, cfg)
+
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no memory)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_struct(cfg: ArchConfig, cell: ShapeCell) -> dict[str, torch.Tensor]:
+    """Model inputs for one shape cell (training/prefill batch or decode
+    token), as ``meta`` tensors."""
+    b, s = cell.global_batch, cell.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if cell.kind == "decode":
+        if cfg.modality == "audio_stub":
+            return {"embeds": _meta((b, 1, cfg.d_model), bf16)}
+        return {"token": _meta((b, 1), i32)}
+    if cfg.modality == "text":
+        return {"tokens": _meta((b, s), i32)}
+    if cfg.modality == "audio_stub":
+        out = {"embeds": _meta((b, s, cfg.d_model), bf16)}
+        if cell.kind == "train":
+            out["labels"] = _meta((b, s), i32)
+        return out
+    if cfg.modality == "vision_stub":
+        p = cfg.num_prefix_tokens
+        return {"image_embeds": _meta((b, p, cfg.d_model), bf16),
+                "tokens": _meta((b, s - p), i32)}
+    raise ValueError(cfg.modality)
+
+
+def batch_pspecs(cfg: ArchConfig, cell: ShapeCell, *, batch_axes) -> dict[str, tuple]:
+    """Spec entries matching :func:`batch_struct`: the batch dim over the DP
+    axes (a 1-tuple of axis names as its bare name, as ``PartitionSpec``
+    holds it)."""
+    struct = batch_struct(cfg, cell)
+    return {k: (_entry(batch_axes),) + (None,) * (v.ndim - 1) for k, v in struct.items()}
+
+
+def cache_struct(cfg: ArchConfig, cell: ShapeCell):
+    """The decode cache at this cell, as ``meta`` tensors."""
+    return T.cache_init(cfg, cell.global_batch, cell.seq_len, device="meta")

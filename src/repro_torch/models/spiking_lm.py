@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.bridge import layer_params
 from repro_torch.core.iand import iand
 from repro_torch.core.lif import lif
 from repro_torch.core.spiking_attention import ssa
@@ -117,13 +118,6 @@ def block_init(generator: torch.Generator, cfg: ArchConfig, dtype):
     """One block's parameters (unstacked), a unit per entry of the shared
     ``lm_block_layout``."""
     return {u.name: _lin_init(generator, u.d_in, u.d_out, dtype) for u in lm_block_layout(cfg)}
-
-
-def layer_params(layers, i: int):
-    """Block ``i``'s leaves of the stacked ``layers`` tree."""
-    if isinstance(layers, dict):
-        return {k: layer_params(v, i) for k, v in layers.items()}
-    return layers[i]
 
 
 def block_apply(p, x, cfg: ArchConfig, *, ordering: str, use_kernel: bool = False):

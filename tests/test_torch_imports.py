@@ -12,7 +12,7 @@ import sys
 import pytest
 import torch
 
-from repro_torch import engine
+from repro_torch import bridge, engine
 from repro_torch.configs import spike_iand_former as tconfigs
 from repro_torch.core import spikformer as tsf
 from repro_torch.engine import layout as tlayout
@@ -36,7 +36,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.core.encoding", "repro_torch.launch.mesh",
             "repro_torch.distributed.sharding", "repro_torch.distributed.compression",
             "repro_torch.distributed.fault_tolerance", "repro_torch.checkpoint.fixtures",
-            "repro_torch.optim.optimizer"} <= set(_modules())
+            "repro_torch.optim.optimizer", "repro_torch.configs", "repro_torch.models.config",
+            "repro_torch.models.layers", "repro_torch.models.lm", "repro_torch.models.moe",
+            "repro_torch.models.mamba2", "repro_torch.models.rglru",
+            "repro_torch.models.transformer", "repro_torch.models.quantization",
+            "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.launch.serve"} <= set(_modules())
+    from repro_torch.launch.serve import serve
+    assert callable(serve)
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
@@ -81,3 +88,26 @@ def test_compile_plan_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         engine.compile_plan(params, state, cfg, device="cuda:0")
     assert engine.compile_plan(params, state, cfg, device="cpu").meta.device.type == "cpu"
+
+
+def test_generic_lm_entry_points_without_a_card_raise(monkeypatch):
+    """``init_lm``, ``cache_init`` and the generic ``serve`` run on the card
+    unless ``device="cpu"`` (or ``"meta"``) is asked for."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm, transformer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = lm.get_config("llama3.2-1b_smoke")
+    for call in (lambda: transformer.init_lm(0, cfg),
+                 lambda: transformer.init_lm(0, cfg, device="cuda:0"),
+                 lambda: transformer.cache_init(cfg, 1, 4),
+                 lambda: serve("llama3.2-1b_smoke", num_requests=1, prompt_len=2, max_new=1,
+                               verbose=False)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    params = transformer.init_lm(0, cfg, device="cpu")
+    assert {t.device.type for t in bridge.leaves(params)} == {"cpu"}
+    assert {t.device.type for t in bridge.leaves(
+        transformer.init_lm(0, cfg, device="meta"))} == {"meta"}
+    assert serve("llama3.2-1b_smoke", num_requests=1, prompt_len=2, max_new=1, verbose=False,
+                 device="cpu")[0][1].shape == (1,)
