@@ -182,6 +182,23 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      (granite at capacity factor E / k, where nothing drops), granite's
      first MoE layer against its dense oracle; ``mistral-large-123b`` and
      ``kimi-k2-1t-a32b`` counted on the meta device.
+ 15. the generic trainer (``launch/train.py::train``; no hand kernel may
+     launch, counted): ``train("llama3.2-1b")`` at full width, 12 AdamW
+     steps of 4 x 512 tokens with no checkpoint directory (every loss finite,
+     the last-3 mean below the first-3 mean; ms a step, tokens/s, peak GiB and
+     the idle share of one profiled step), then 12 steps with
+     ``compress_grads=True`` under the same gates; at full width cut to 2
+     layers (f32 compute), 8 uninterrupted steps against ``stop_after=4`` and
+     a resume from a temporary directory (params within the reference's
+     rtol 1e-5 / atol 1e-6; the checkpoint's size, a save's and a restore's
+     wall time) and the first 3 losses on the card against the CPU from the
+     same weights (relative 1e-4, TF32 off); then the dry run
+     (``launch/dryrun.py``) of all 10 archs x 4 cells x 2 production meshes on
+     the meta device (OK / SKIP / FAIL counts: no FAIL, SKIP only where
+     ``cell_supported`` says so) and its one-device record of llama3.2-1b's
+     4 x 512 training step: argument bytes within 0.1% of what that state
+     and batch allocate on the card, temporaries beside the measured peak of
+     one step (reported).
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
@@ -1695,7 +1712,7 @@ def _profile_forward(label, plan, batch, tries=3):
     return _profile(label, lambda: step(plan.params, batch), want, tries)
 
 
-def _profile(label, run, want, tries=3):
+def _profile(label, run, want, tries=3, inference=True):
     """One ``run()`` under ``torch.profiler`` (after a warm-up run): the
     device time of every CUDA kernel it ran, their count, and the profiled
     wall time, so that the device's idle share shows.  Returns the device ms
@@ -1706,7 +1723,8 @@ def _profile(label, run, want, tries=3):
     keeps the run after it (as :func:`_profile_lm_step` does): a profile
     begun right before the run missed its first kernel, the embedding LIF of
     an LM prefill or step, in every attempt; the schedule's step annotations
-    are left out of the sums."""
+    are left out of the sums.  ``inference=False`` profiles a run that needs
+    autograd (a training step) outside ``torch.inference_mode``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     kept = {}
@@ -1718,7 +1736,7 @@ def _profile(label, run, want, tries=3):
                            and not e.key.startswith("ProfilerStep")]
 
     for attempt in range(1, tries + 1):
-        with torch.inference_mode():
+        with torch.inference_mode(inference):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                          schedule=schedule(wait=0, warmup=1, active=1),
                          on_trace_ready=ready) as prof:
@@ -4446,6 +4464,387 @@ def phase_generic_lm(dev, smi, arch=GEN_ARCH, others=GEN_OTHERS, train_seq=GEN_T
     log(f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# The generic trainer (``launch/train.py::train``) as its CLI runs it, on
+# GEN_ARCH at full width: GT_STEPS AdamW steps of GT_BATCH x GT_SEQ tokens with
+# no checkpoint directory, then as many with int8 error-feedback compression
+# (the same schedule and data: both runs show the same loss spike at step 3,
+# so a run of 6 steps, whose last three straddle it, cannot show a falling
+# loss); the restart (GT_RESTART_STEPS uninterrupted against
+# stop_after=GT_RESTART_STOP and a resume) and the card against the CPU (the
+# first GT_CPU_STEPS losses, GT_CPU_TOKENS) at GT_CUT_LAYERS layers of the
+# full width, f32 compute, TF32 off; then the dry run (``launch/dryrun.py``)
+# of every arch x cell x production mesh on meta, and its one-device record of
+# GT_BATCH x GT_SEQ against the card.  No Pallas kernel is on this path, so no
+# hand kernel may launch in it.
+GT_STEPS, GT_BATCH, GT_SEQ = 12, 4, 512
+GT_CUT_LAYERS, GT_RESTART_STEPS, GT_RESTART_STOP = 2, 8, 4
+GT_CPU_STEPS, GT_CPU_TOKENS = 3, (2, 64)
+GT_CUT = f"{GEN_ARCH}-{GT_CUT_LAYERS}-layers-f32"
+# The restart on the card against the uninterrupted run: the reference's own
+# bound (tests/test_train_integration.py).  The embedding gradient is an
+# indexed accumulate, whose order CUDA does not fix, so the two runs may part
+# by a few ulps.
+GT_RESTART_TOL = dict(rtol=1e-5, atol=1e-6)
+# train()'s first losses on the card against the CPU from the same weights,
+# relative: f32 sums in another order (cuBLAS against the CPU's BLAS), as
+# phase 14's GEN_CPU_* bounds, carried through two AdamW updates of lr 3e-4.
+GT_CPU_LOSS_RTOL = 1e-4
+# The dry run's argument bytes against the card's allocation for the same
+# state and batch: the caching allocator rounds each block up (512 B).
+GT_ARG_REL = 1e-3
+# The compressed run's losses against the plain run's, step by step,
+# relative.  Error feedback re-injects each step's int8 rounding into the
+# next step, so the two runs part only by that rounding, carried through
+# AdamW (the largest gap of the sound runs: 1.64e-3).  A broken compression
+# runs as a control and must part by more: one scale for a whole tensor in
+# place of one per 256-element block (read 0.248).  A second control, the
+# residual never fed back, parts by less than the sound run (read 9.39e-4):
+# the loss cannot see the residual in GT_STEPS steps, so its gap is only
+# printed.  One step's error feedback on the card is held to its two
+# invariants instead (:func:`_gt_feedback_identity`), and train()'s wiring
+# of the residual against the JAX package on the CPU
+# (tests/test_torch_generic_train.py, where a dropped residual fails).
+GT_COMPRESS_GAP = 5e-3
+
+
+def _gt_train(dev, smi, counters, *, compress):
+    """``train(GEN_ARCH)`` at full width for GT_STEPS steps: losses finite and
+    falling, no hand kernel; ms a step (median after the first), tokens/s,
+    peak GiB.  Returns (median ms, losses, state)."""
+    from repro_torch.distributed.fault_tolerance import StepWatchdog
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+
+    wd = StepWatchdog()
+    _zeroed(counters)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses = train(GEN_ARCH, steps=GT_STEPS, batch=GT_BATCH, seq_len=GT_SEQ,
+                          compress_grads=compress, device=dev, log_every=4, watchdog=wd)
+    wall = time.perf_counter() - t0
+    label = f"train({GEN_ARCH}{', compress_grads=True' if compress else ''})"
+    _no_hand_kernels(label, counters)
+    times = list(wd.times)
+    ms = 1e3 * float(np.median(times[1:]))
+    finite = all(np.isfinite(losses))
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(len(losses) == GT_STEPS and finite, f"{label}: {len(losses)} losses, finite {finite}")
+    check(last < first, f"{label}: last-3 mean {last!r} not below first-3 mean {first!r}")
+    log(f"{label}, {GT_STEPS} AdamW steps of {GT_BATCH} x {GT_SEQ} tokens (f32 parameters, "
+        f"{lm.get_config(GEN_ARCH).compute_dtype} compute): losses {[round(x, 4) for x in losses]}; "
+        f"first-3 mean {first:.4f} -> last-3 mean {last:.4f}; {ms:.2f} ms a step (median of "
+        f"{len(times) - 1} after the first; host clock, each step ending in its loss read), "
+        f"{GT_BATCH * GT_SEQ * 1e3 / ms:.1f} tokens/s, first step {1e3 * times[0]:.1f} ms, "
+        f"{wall:.1f} s in all with init; peak {_peak_gib(dev):.2f} GiB allocated; on {smi}")
+    return ms, losses, state
+
+
+def _loss_gap(losses, plain) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+
+
+def _gt_compress_controls(dev, smi, counters, plain, gap):
+    """The compressed run's loss gap to the plain run against GT_COMPRESS_GAP,
+    and the two controls (each a train() run of GT_STEPS steps with one piece
+    of ``distributed/compression.py`` replaced): the gate must fail on the
+    wrong scale; the dropped residual's gap is printed."""
+    from unittest import mock
+
+    from repro_torch.distributed import compression
+    from repro_torch.launch import train as ttrain
+
+    feedback = compression.tree_error_feedback
+
+    def no_feedback(grads, residuals):
+        return feedback(grads, compression.init_residuals(grads))
+
+    def one_scale(g):
+        flat, _ = compression._pad_to_block(g.to(torch.float32))
+        blocks = flat.reshape(-1, compression.BLOCK)
+        scale = blocks.abs().amax() / 127.0
+        q = torch.clamp(torch.round(blocks / scale.clamp_min(1e-12)), -127, 127)
+        return q.to(torch.int8), scale.expand(blocks.shape[0])
+
+    check(gap <= GT_COMPRESS_GAP, f"compress_grads: losses part from the plain run's by {gap:.3g} "
+                                  f"relative (limit {GT_COMPRESS_GAP})")
+    read = {}
+    for name, module, attr, broken in (("one scale a tensor", compression, "compress", one_scale),
+                                       ("residual not fed back", ttrain, "tree_error_feedback",
+                                        no_feedback)):
+        _zeroed(counters)
+        with mock.patch.object(module, attr, broken):
+            _, losses = ttrain.train(GEN_ARCH, steps=GT_STEPS, batch=GT_BATCH, seq_len=GT_SEQ,
+                                     compress_grads=True, device=dev, log_every=100)
+        _no_hand_kernels(f"compress_grads control ({name})", counters)
+        read[name] = _loss_gap(losses, plain)
+        _empty(dev)
+    if dev.type == "cuda":      # the readings are the full width's; a CPU rehearsal is smaller
+        check(read["one scale a tensor"] > GT_COMPRESS_GAP,
+              f"compress_grads control (one scale a tensor): its losses part from the plain run's "
+              f"by only {read['one scale a tensor']:.3g}")
+    log(f"  compress_grads loss gap to the plain run {gap:.3g} relative (limit "
+        f"{GT_COMPRESS_GAP}); the controls: one scale a tensor {read['one scale a tensor']:.3g} "
+        f"(must exceed the limit), residual not fed back {read['residual not fed back']:.3g} "
+        f"(printed); {smi}")
+
+
+def _gt_feedback_identity(dev, state):
+    """One step's int8 error feedback on the card, at the path's leaves: the
+    gradients of batch 0 at the compressed run's last parameters and that
+    run's residuals R (nonzero).  With c = g + R in blocks of 256 and s a
+    block's max |c| / 127, the estimate and the new residual must carry c
+    (g_hat + R' == c to f32 rounding: a residual not fed back misses by R)
+    and R' must stay within half a step of its own block (|R'| <= s / 2 to
+    rounding: a scale wider than the block's breaks it)."""
+    from repro_torch.bridge import leaves
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.compression import BLOCK, _pad_to_block, tree_error_feedback
+    from repro_torch.launch.train import data_config_for
+    from repro_torch.models import lm
+
+    cfg = lm.get_config(GEN_ARCH)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_batch(data_config_for(cfg, GT_BATCH, GT_SEQ, 0), 0).items()}
+    _, grads = lm.value_and_grad(state["params"], batch, cfg)
+    res = state["ef_residual"]
+    g_hat, new_res = tree_error_feedback(grads, res)
+    ulp = 2.0 ** -23
+    n = missed = wide = nonzero = 0
+    for g, r, gh, rn in zip(leaves(grads), leaves(res), leaves(g_hat), leaves(new_res)):
+        c, gh, rn = (_pad_to_block(x)[0].reshape(-1, BLOCK) for x in (g.float() + r, gh, rn))
+        step = c.abs().amax(dim=1, keepdim=True) / 127.0
+        missed += int(((gh + rn - c).abs() > ulp * (c.abs() + step)).sum())
+        wide += int((rn.abs() > 0.5 * step + 2 * ulp * c.abs()).sum())
+        nonzero += int((r != 0).sum())
+        n += g.numel()
+    check(missed == 0 and wide == 0,
+          f"compress_grads: error feedback on the card: {missed} of {n} elements not carried "
+          f"(g_hat + R' != g + R), {wide} residuals past half their block's step")
+    log(f"  compress_grads: one step's int8 error feedback on the card, {n} gradient elements, "
+        f"{nonzero} nonzero residuals carried in: {missed} not carried, {wide} residuals past half "
+        f"their block's step")
+
+
+def _peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+
+
+def _gt_profile(dev, smi, state):
+    """One step of ``train()``'s path under the profiler: the batch's copy to
+    the card, ``make_train_step`` (AdamW, the run's own schedule) and the
+    loss read; device busy against the profiled wall."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train import data_config_for
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+    cfg = lm.get_config(GEN_ARCH)
+    opt = make_optimizer(OptimizerConfig(lr=3e-4, total_steps=GT_STEPS,
+                                         warmup_steps=max(1, GT_STEPS // 20)))
+    step = lm.make_train_step(cfg, opt)
+    dcfg = data_config_for(cfg, GT_BATCH, GT_SEQ, 0)
+
+    def run():
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(dcfg, 0).items()}
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+
+    _profile(f"train({GEN_ARCH}) step, {GT_BATCH} x {GT_SEQ} tokens ({smi})", run, {}, tries=1,
+             inference=False)
+
+
+def _register_cut():
+    """GEN_ARCH at full width, cut to GT_CUT_LAYERS layers, f32 compute, in
+    the registry under GT_CUT (``train()`` takes an arch name)."""
+    from repro_torch.models import lm
+
+    cfg = lm.get_config(GEN_ARCH).replace(name=GT_CUT, num_layers=GT_CUT_LAYERS,
+                                          compute_dtype="float32")
+    lm.register(GT_CUT)(lambda: cfg)
+    return cfg
+
+
+def _gt_restart(dev, smi, counters):
+    """GT_RESTART_STEPS uninterrupted steps against stop_after=GT_RESTART_STOP
+    plus a resume, in a temporary directory; the checkpoint's size and the
+    wall time of a save and a restore of that state."""
+    import tempfile
+
+    from repro_torch.bridge import leaves
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.train import train
+
+    kw = dict(steps=GT_RESTART_STEPS, batch=GT_BATCH, seq_len=GT_SEQ, device=dev, log_every=100)
+    _zeroed(counters)
+    full, losses = train(GT_CUT, **kw)
+    with tempfile.TemporaryDirectory(prefix="gt_restart_") as d:
+        _, first = train(GT_CUT, ckpt_dir=d, stop_after=GT_RESTART_STOP, **kw)
+        resumed, rest = train(GT_CUT, ckpt_dir=d, **kw)
+        _no_hand_kernels(f"train({GT_CUT}) restart", counters)
+        gaps = [_max_gap(a, b) for a, b in zip(leaves(full["params"]), leaves(resumed["params"]))]
+        close = all(torch.allclose(b, a, **GT_RESTART_TOL)
+                    for a, b in zip(leaves(full["params"]), leaves(resumed["params"])))
+        check(close, f"{GT_CUT}: restart vs uninterrupted params beyond {GT_RESTART_TOL} "
+                     f"(largest gap {max(gaps):.3g})")
+        check(int(resumed["step"]) == GT_RESTART_STEPS, f"{GT_CUT}: resumed to step "
+                                                        f"{int(resumed['step'])}")
+        _sync(dev)
+        t0 = time.perf_counter()
+        path = ckpt.save(Path(d) / "timed", GT_RESTART_STEPS, resumed)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.perf_counter()
+        back, _ = ckpt.restore(Path(d) / "timed", resumed)
+        _sync(dev)
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(leaves(back), leaves(resumed)))
+        check(same, f"{GT_CUT}: a restored checkpoint differs from the state saved")
+    n = sum(x.numel() for x in leaves(full["params"]))
+    log(f"  restart ({GT_CUT}, {n / 1e9:.3f} B parameters, {GT_BATCH} x {GT_SEQ} tokens): "
+        f"{GT_RESTART_STEPS} uninterrupted steps vs {GT_RESTART_STOP} + stop + resume to "
+        f"{GT_RESTART_STEPS}: params within {GT_RESTART_TOL}: {close}, largest gap "
+        f"{max(gaps):.3g}; losses {[round(x, 5) for x in losses]} vs "
+        f"{[round(x, 5) for x in first + rest]}; checkpoint {size / 2**30:.2f} GiB, save "
+        f"{save_s:.2f} s, restore {restore_s:.2f} s (host clock, this machine's disk); on {smi}")
+
+
+def _gt_vs_cpu(dev, smi):
+    """The first GT_CPU_STEPS losses of ``train()`` on the card and on the CPU
+    from the same GT_CUT weights."""
+    from repro_torch import bridge
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm, transformer as T
+
+    params = T.init_lm(7, lm.get_config(GT_CUT), device=dev)
+    host = bridge.to_torch(params, "cpu", None)
+    b, s = GT_CPU_TOKENS
+    kw = dict(steps=GT_CPU_STEPS, batch=b, seq_len=s, log_every=100)
+    _, on_card = train(GT_CUT, init=params, device=dev, **kw)
+    t0 = time.perf_counter()
+    _, on_cpu = train(GT_CUT, init=host, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    rel = [abs(a - c) / abs(c) for a, c in zip(on_card, on_cpu)]
+    check(max(rel) <= GT_CPU_LOSS_RTOL, f"{GT_CUT}: card vs CPU losses {on_card} vs {on_cpu}")
+    log(f"  card vs CPU ({GT_CUT}, same weights, {b} x {s} tokens, f32, TF32 off): losses "
+        f"{[repr(x) for x in on_card]} vs {[repr(x) for x in on_cpu]}, relative gaps "
+        f"{[f'{r:.3g}' for r in rel]} (limit {GT_CPU_LOSS_RTOL}); the CPU's {GT_CPU_STEPS} "
+        f"steps {cpu_s:.1f} s; {smi} against the host's CPU")
+
+
+def _gt_dryrun(dev, smi):
+    """The whole dry-run sweep on meta (counts; SKIP only where
+    ``cell_supported`` says so, no FAIL), then the one-device record of the
+    GT_BATCH x GT_SEQ training step of GEN_ARCH against the card: its argument
+    bytes against the allocation of that state and batch, its temporaries
+    beside the measured peak of one step."""
+    from repro_torch.configs import ASSIGNED_ARCHS
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import data_config_for
+    from repro_torch.models import lm, transformer as T
+    from repro_torch.models.config import SHAPE_CELLS, ShapeCell, cell_by_name, cell_supported
+    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+    t0 = time.perf_counter()
+    records = dryrun.sweep(ASSIGNED_ARCHS, [c.name for c in SHAPE_CELLS], [False, True],
+                           verbose=False)
+    sweep_s = time.perf_counter() - t0
+    n = {st: sum(r["status"] == st for r in records) for st in ("OK", "SKIP", "FAIL")}
+    for r in records:
+        if r["status"] == "FAIL":
+            check(False, f"dry run {r['arch']} x {r['cell']} x {r['mesh']}: {r['error']}")
+        if r["status"] == "SKIP":
+            ok, _ = cell_supported(lm.get_config(r["arch"]), cell_by_name(r["cell"]))
+            check(r["cell"] == "long_500k" and not ok,
+                  f"dry run skipped {r['arch']} x {r['cell']} x {r['mesh']}")
+    slow = sorted((r for r in records if "trace_s" in r), key=lambda r: -r["trace_s"])[:3]
+    log(f"  dry run: {len(ASSIGNED_ARCHS)} archs x {len(SHAPE_CELLS)} cells x 2 meshes on meta: "
+        f"{n['OK']} OK, {n['SKIP']} SKIP, {n['FAIL']} FAIL in {sweep_s:.1f} s (host clock; the "
+        "slowest: " + ", ".join(f"{r['arch']} x {r['cell']} {r['trace_s']:.1f} s" for r in slow)
+        + ")")
+
+    cfg = lm.get_config(GEN_ARCH)
+    cell = ShapeCell("phase15_train", GT_SEQ, GT_BATCH, "train")
+    one = dryrun.AbstractMesh((1, 1), ("data", "model"))
+    rec = dryrun.dryrun_cell(GEN_ARCH, cell, mesh=one, save=False, verbose=False)
+    check(rec["status"] == "OK", f"dry run of {GEN_ARCH} x {cell}: {rec.get('error')}")
+    c, whole = dryrun.build_cell(GEN_ARCH, cell, mesh=one), dryrun.StepRecorder()
+    with whole:
+        out = c.call()
+    del out, c
+    check((rec["flops"], rec["bytes_accessed"]) == (whole.flops, whole.bytes),
+          f"dry run of {GEN_ARCH} x {cell}: FLOPs and bytes from the traced depths "
+          f"{rec['flops']}, {rec['bytes_accessed']} vs the whole step's {whole.flops}, {whole.bytes}")
+    _empty(dev)
+    base = _allocated(dev)
+    params = T.init_lm(0, cfg, device=dev)
+    opt = make_optimizer(OptimizerConfig(kind=cfg.opt_kind, b1=cfg.opt_b1,
+                                         state_dtype=cfg.opt_state_dtype,
+                                         master_weights=cfg.opt_master_weights))
+    state = {"params": params, "opt_state": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    del params
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_batch(data_config_for(cfg, GT_BATCH, GT_SEQ, 0), 0).items()}
+    _sync(dev)
+    held = _allocated(dev) - base
+    args = rec["memory"]["argument_size_in_bytes"]
+    rel = abs(held - args) / args
+    if dev.type == "cuda":
+        check(rel <= GT_ARG_REL, f"dry run arguments {args} B vs the card's {held} B ({rel:.3g})")
+        torch.cuda.reset_peak_memory_stats()
+    out = lm.make_train_step(cfg, opt)(state, batch)
+    _sync(dev)
+    peak = _peak_gib(dev) * 2**30 - base - held
+    del out, state, batch
+    temp = rec["memory"]["temp_size_in_bytes"]
+    log(f"  dry run of {GEN_ARCH} x {GT_BATCH} x {GT_SEQ} train on one device: arguments "
+        f"{args} B against {held} B allocated for that state and batch on the card (gap {rel:.3g}, "
+        f"limit {GT_ARG_REL}); temporaries {temp / 2**30:.3f} GiB (extended from traced layers "
+        f"{rec['traced_layers']}), {whole.peak / 2**30:.3f} GiB traced at all "
+        f"{cfg.num_layers} layers, beside {peak / 2**30:.3f} GiB measured above the arguments at "
+        f"the peak of one step (reported); {rec['flops'] / 1e12:.2f} TFLOP, "
+        f"{rec['bytes_accessed'] / 2**30:.1f} GiB of operation traffic; {smi}")
+    _empty(dev)
+
+
+def _allocated(dev) -> int:
+    return torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+
+
+def _empty(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_generic_train(dev, smi):
+    """Phase 15: :func:`_gt_train` plain and compressed, a profiled step,
+    :func:`_gt_restart`, :func:`_gt_vs_cpu`, :func:`_gt_dryrun`."""
+    t_phase = time.perf_counter()
+    counters = _counters()
+    ms, losses, state = _gt_train(dev, smi, counters, compress=False)
+    if dev.type == "cuda":
+        _gt_profile(dev, smi, state)
+    del state
+    _empty(dev)
+    ms_c, losses_c, state = _gt_train(dev, smi, counters, compress=True)
+    log(f"  compress_grads: {ms_c:.2f} ms a step against {ms:.2f} plain (+{ms_c - ms:.2f} ms)")
+    _gt_feedback_identity(dev, state)
+    del state
+    _empty(dev)
+    _gt_compress_controls(dev, smi, counters, losses, _loss_gap(losses_c, losses))
+    fail_if_any("phase 15 (train)")
+    _register_cut()
+    _gt_restart(dev, smi, counters)
+    _empty(dev)
+    _gt_vs_cpu(dev, smi)
+    fail_if_any("phase 15 (restart, card vs CPU)")
+    _gt_dryrun(dev, smi)
+    fail_if_any("phase 15 (dry run)")
+    log(f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this smoke test "
@@ -4517,6 +4916,11 @@ def main() -> int:
         f"prefill and decode {', '.join(GEN_OTHERS)}")
     torch.cuda.empty_cache()
     phase_generic_lm(dev, smi)
+    log(f"phase 15: the generic trainer: train({GEN_ARCH!r}) at full width ({GT_STEPS} steps of "
+        f"{GT_BATCH} x {GT_SEQ} tokens, plain and with compress_grads), the "
+        f"restart and card vs CPU at {GT_CUT_LAYERS} layers, the dry run on meta")
+    torch.cuda.empty_cache()
+    phase_generic_train(dev, smi)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()},

@@ -1,19 +1,41 @@
-"""Train the Spike-(IAND-)Former: plain SGD on the synthetic oriented
-gratings, the counterpart of the JAX package's ``examples/train_spikformer.py``.
+"""Training launchers: the generic production trainer of the LM families
+(:func:`train`, the port of the JAX package's ``launch/train.py``) and the
+Spike-(IAND-)Former's SGD trainer (:func:`train_spikformer`, the counterpart
+of the JAX package's ``examples/train_spikformer.py``).
 
-Every step runs the model's training graph (``sf.apply(train=True)``: BN on
+:func:`train` wires an arch config to the deterministic data pipeline
+(:func:`data_config_for`, the ``Prefetcher``), ``lm.make_train_step`` with
+AdamW, checkpoints in the JAX package's layout, the step watchdog, heartbeat
+files and, on request, int8 error-feedback gradient compression.  Its fault
+tolerance is the reference's: it resumes from ``LATEST`` when one exists
+(params, optimizer state, step; the data stream is a pure function of the
+step, so a resume is exact), logs straggler steps and forces a checkpoint
+after ``max_straggler_events`` of them, beats a heartbeat file per step, and
+``stop_after`` stops early with a checkpoint while the schedule stays pinned
+to ``steps``.  The steps run eagerly (the JAX package jits them), each one's
+loss read back to the host, which synchronises with the device.
+
+:func:`train_spikformer` runs plain SGD on the synthetic oriented gratings:
+every step runs the model's training graph (``sf.apply(train=True)``: BN on
 batch statistics, surrogate gradients), cross-entropy on ``log_softmax``,
-and the update ``p - lr * g``.  :func:`train_spikformer` runs the kernel
-route (``cfg.use_kernel``): each LIF runs the forward LIF kernel and, in
-the backward pass, the LIF backward kernel, and each SSA the attention
-kernel; :func:`train_step` takes the route of the config it is given.  It
-runs on the card unless the caller asks for the CPU.
+and the update ``p - lr * g``, on the kernel route (``cfg.use_kernel``):
+each LIF runs the forward LIF kernel and, in the backward pass, the LIF
+backward kernel, and each SSA the attention kernel; :func:`train_step`
+takes the route of the config it is given.
+
+Both run on the card unless the caller asks for the CPU.  The command line
+dispatches on ``--arch``: an LM arch goes to :func:`train` (the reference's
+defaults: 100 steps, batch 8, 128 tokens, lr 3e-4, a checkpoint every 50
+steps), a vision config to :func:`train_spikformer` (3 steps, batch 16, lr
+0.05; the default arch).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch spike-iand-former-8-384 --steps 3 --batch 16
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch spike-iand-former_smoke --steps 20 --batch 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b_smoke \\
+        --device cpu --steps 20 --batch 4 --seq-len 64 [--ckpt-dir DIR] [--compress-grads]
 """
 
 from __future__ import annotations
@@ -22,15 +44,126 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
-from repro_torch.bridge import leaves, rebuild
+from repro_torch.bridge import leaves, rebuild, resolve_device, to_torch
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.configs.spike_iand_former import get_vision_config
+from repro_torch.configs.spike_iand_former import get_vision_config, list_vision_configs
 from repro_torch.core import spikformer as sf
 from repro_torch.core.iand import is_binary
-from repro_torch.data.pipeline import DataConfig, make_batch
-from repro_torch.engine.plan import resolve_device
+from repro_torch.data.pipeline import DataConfig, Prefetcher, make_batch
+from repro_torch.distributed.compression import init_residuals, tree_error_feedback
+from repro_torch.distributed.fault_tolerance import HeartbeatFile, StepWatchdog, WatchdogConfig
+from repro_torch.models import lm
+from repro_torch.models import transformer as T
+from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+
+def data_config_for(cfg, batch: int, seq_len: int, seed: int) -> DataConfig:
+    kind = {"text": "tokens", "audio_stub": "audio_stub",
+            "vision_stub": "vision_stub"}[cfg.modality]
+    return DataConfig(
+        seed=seed, vocab_size=cfg.vocab_size, seq_len=seq_len,
+        global_batch=batch, kind=kind, d_model=cfg.d_model,
+        num_prefix_tokens=cfg.num_prefix_tokens)
+
+
+def train(arch: str, *, steps: int, batch: int, seq_len: int,
+          ckpt_dir: str | None = None, ckpt_every: int = 50, lr: float = 3e-4,
+          seed: int = 0, compress_grads: bool = False, log_every: int = 10,
+          host_id: int = 0, heartbeat_dir: str | None = None,
+          max_straggler_events: int = 5, stop_after: int | None = None,
+          device=None, init=None, watchdog: StepWatchdog | None = None):
+    """Train ``arch`` for ``steps`` AdamW steps of ``batch`` x ``seq_len``
+    tokens (or frames, or image prefix plus tokens) and return ``(state,
+    losses)``: the final ``{"params", "opt_state", "step"}`` (plus
+    ``"ef_residual"`` under ``compress_grads``) and the loss of every step
+    this call ran.  ``stop_after``: exit (with a checkpoint) after this step
+    -- simulates a preemption while keeping the schedule pinned to
+    ``steps``.
+
+    As in the JAX package, the optimizer is AdamW from
+    ``OptimizerConfig(lr, total_steps=steps, warmup_steps=max(1, steps //
+    20), state_dtype=cfg.opt_state_dtype)`` whatever ``cfg.opt_kind`` says,
+    and its learning rate at step 0 is 0.  ``device``: the card unless
+    ``"cpu"`` is asked for.  ``init``: a params tree to start from (e.g. the
+    JAX package's ``init_lm`` weights through ``bridge.to_torch(...,
+    dtype=None)``), else ``T.init_lm(seed, cfg)``.  ``watchdog``: the
+    ``StepWatchdog`` that clocks the steps (host clock, each step ending in
+    its loss read) and flags stragglers, else one of ``WatchdogConfig()``;
+    its ``times`` hold the step times after the call."""
+    cfg = lm.get_config(arch)
+    dev = resolve_device(device)
+    opt = make_optimizer(OptimizerConfig(
+        lr=lr, total_steps=steps, warmup_steps=max(1, steps // 20),
+        state_dtype=cfg.opt_state_dtype))
+
+    params = T.init_lm(seed, cfg, device=dev) if init is None else to_torch(init, dev, None)
+    state = {"params": params, "opt_state": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if compress_grads:
+        state["ef_residual"] = init_residuals(params)
+    del params
+
+    base_step = lm.make_train_step(cfg, opt)
+
+    def train_step(state, batch_):
+        if not compress_grads:
+            return base_step(state, batch_)
+        # error-feedback int8 compression on the (simulated cross-pod) grads
+        (_, metrics), grads = lm.value_and_grad(state["params"], batch_, cfg)
+        with torch.no_grad():
+            g_hat, new_res = tree_error_feedback(grads, state["ef_residual"])
+            del grads
+            new_params, new_opt = opt.update(
+                g_hat, state["opt_state"], state["params"], step=state["step"])
+        metrics["grad_norm"] = opt.last_grad_norm(new_opt)
+        return ({"params": new_params, "opt_state": new_opt,
+                 "step": state["step"] + 1, "ef_residual": new_res}, metrics)
+
+    start_step = 0
+    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        state, manifest = ckpt.restore(ckpt_dir, state)
+        start_step = manifest["step"]
+        print(f"[train] resumed from step {start_step}")
+
+    dcfg = data_config_for(cfg, batch, seq_len, seed)
+    pf = Prefetcher(dcfg, start_step=start_step)
+    wd = watchdog if watchdog is not None else StepWatchdog(WatchdogConfig())
+    hb = HeartbeatFile(heartbeat_dir, host_id) if heartbeat_dir else None
+    saver = ckpt.AsyncSaver()
+
+    losses = []
+    end_step = min(steps, stop_after) if stop_after is not None else steps
+    try:
+        for _ in range(start_step, end_step):
+            step_i, np_batch = pf.next()
+            batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+            wd.start_step()
+            state, metrics = train_step(state, batch_dev)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            ev = wd.end_step(step_i)
+            if ev is not None:
+                print(f"[train] STRAGGLER step {step_i}: "
+                      f"{ev['step_time_s']:.2f}s ({ev['factor']:.1f}x median)")
+                if len(wd.straggler_events) >= max_straggler_events and ckpt_dir:
+                    print("[train] repeated stragglers -> forcing checkpoint")
+                    saver.save_async(ckpt_dir, step_i + 1, state)
+            if hb:
+                hb.beat(step_i)
+            if step_i % log_every == 0:
+                print(f"[train] step {step_i:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f}")
+            if ckpt_dir and (step_i + 1) % ckpt_every == 0:
+                saver.save_async(ckpt_dir, step_i + 1, state)
+        if ckpt_dir:
+            saver.wait()
+            ckpt.save(ckpt_dir, end_step, state)
+    finally:
+        pf.stop()
+    return state, losses
 
 
 def loss_and_grad(params, state, image, label, cfg):
@@ -143,22 +276,52 @@ def train_spikformer(arch_or_cfg, *, steps: int, batch: int, lr: float = 0.05,
     return out
 
 
-def main():
+LM_DEFAULTS = {"steps": 100, "batch": 8, "seq_len": 128, "lr": 3e-4, "ckpt_every": 50}
+VISION_DEFAULTS = {"steps": 3, "batch": 16, "lr": 0.05, "eval_batches": 20}
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="spike-iand-former-8-384")
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--arch", default="spike-iand-former-8-384",
+                    help="an LM arch (the generic trainer) or a vision config")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--seq-len", type=int, default=None, help="LM archs only")
+    ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain "
                          "versions on the host)")
-    ap.add_argument("--ckpt-dir", default=None, help="save a checkpoint there at the end")
-    ap.add_argument("--eval-batches", type=int, default=20)
-    args = ap.parse_args()
-    train_spikformer(args.arch, steps=args.steps, batch=args.batch, lr=args.lr,
-                     seed=args.seed, device=args.device, ckpt_dir=args.ckpt_dir,
-                     eval_batches=args.eval_batches)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="LM: resume from and checkpoint into it; vision: save there at the end")
+    ap.add_argument("--ckpt-every", type=int, default=None, help="LM archs only")
+    ap.add_argument("--compress-grads", action="store_true", help="LM archs only")
+    ap.add_argument("--heartbeat-dir", default=None, help="LM archs only")
+    ap.add_argument("--eval-batches", type=int, default=None, help="vision configs only")
+    args = ap.parse_args(argv)
+
+    is_lm = args.arch in lm.list_archs()
+    if not is_lm and args.arch not in list_vision_configs():
+        ap.error(f"unknown arch {args.arch!r}: not an LM arch ({', '.join(lm.list_archs())}) "
+                 f"nor a vision config ({', '.join(list_vision_configs())})")
+    family = "LM archs" if is_lm else "vision configs"
+    foreign = (("eval_batches",) if is_lm
+               else ("seq_len", "ckpt_every", "compress_grads", "heartbeat_dir"))
+    for name in foreign:
+        if getattr(args, name) not in (None, False):
+            ap.error(f"--{name.replace('_', '-')} does not apply to {family}")
+    defaults = LM_DEFAULTS if is_lm else VISION_DEFAULTS
+    kw = {k: getattr(args, k) if getattr(args, k) is not None else v for k, v in defaults.items()}
+
+    if is_lm:
+        _, losses = train(args.arch, ckpt_dir=args.ckpt_dir, seed=args.seed,
+                          compress_grads=args.compress_grads, heartbeat_dir=args.heartbeat_dir,
+                          device=args.device, **kw)
+        print(f"[train] done: first-10 mean {np.mean(losses[:10]):.4f} -> "
+              f"last-10 mean {np.mean(losses[-10:]):.4f}")
+    else:
+        train_spikformer(args.arch, seed=args.seed, device=args.device, ckpt_dir=args.ckpt_dir,
+                         **kw)
 
 
 if __name__ == "__main__":

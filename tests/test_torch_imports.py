@@ -41,7 +41,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.models.mamba2", "repro_torch.models.rglru",
             "repro_torch.models.transformer", "repro_torch.models.quantization",
             "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.recurrentgemma_9b",
-            "repro_torch.launch.serve"} <= set(_modules())
+            "repro_torch.launch.serve", "repro_torch.launch.dryrun"} <= set(_modules())
     from repro_torch.launch.serve import serve
     assert callable(serve)
     code = ("import importlib, sys\n"
