@@ -4732,6 +4732,9 @@ def _gt_vs_cpu(dev, smi):
         f"steps {cpu_s:.1f} s; {smi} against the host's CPU")
 
 
+SWEEP_WORKERS = 4   # processes of the dry-run sweep, an arch to each (meta only, no card)
+
+
 def _gt_dryrun(dev, smi):
     """The whole dry-run sweep on meta (counts; SKIP only where
     ``cell_supported`` says so, no FAIL), then the one-device record of the
@@ -4748,7 +4751,7 @@ def _gt_dryrun(dev, smi):
 
     t0 = time.perf_counter()
     records = dryrun.sweep(ASSIGNED_ARCHS, [c.name for c in SHAPE_CELLS], [False, True],
-                           verbose=False)
+                           verbose=False, workers=SWEEP_WORKERS)
     sweep_s = time.perf_counter() - t0
     n = {st: sum(r["status"] == st for r in records) for st in ("OK", "SKIP", "FAIL")}
     for r in records:
@@ -4759,7 +4762,8 @@ def _gt_dryrun(dev, smi):
             check(r["cell"] == "long_500k" and not ok,
                   f"dry run skipped {r['arch']} x {r['cell']} x {r['mesh']}")
     slow = sorted((r for r in records if "trace_s" in r), key=lambda r: -r["trace_s"])[:3]
-    log(f"  dry run: {len(ASSIGNED_ARCHS)} archs x {len(SHAPE_CELLS)} cells x 2 meshes on meta: "
+    log(f"  dry run: {len(ASSIGNED_ARCHS)} archs x {len(SHAPE_CELLS)} cells x 2 meshes on meta "
+        f"in {SWEEP_WORKERS} processes: "
         f"{n['OK']} OK, {n['SKIP']} SKIP, {n['FAIL']} FAIL in {sweep_s:.1f} s (host clock; the "
         "slowest: " + ", ".join(f"{r['arch']} x {r['cell']} {r['trace_s']:.1f} s" for r in slow)
         + ")")
@@ -4845,6 +4849,338 @@ def phase_generic_train(dev, smi):
     log(f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the generic LM's SPMD steps on a gloo world
+# ---------------------------------------------------------------------------
+
+SPMD_RANKS, SPMD_MESH = 4, (2, 2)
+SPMD_TRAIN = (4, 512)           # batch x tokens of the AdamW train step
+SPMD_PREFILL = (4, 32)          # batch x prompt tokens
+SPMD_STEPS = 8                  # greedy decode steps after the prefill
+SPMD_SEED = 0
+SPMD_TIMEOUT = 600.0
+# The sharded steps against the single-device ones on the card, same weights,
+# f32 compute, TF32 off: the same sums split over 2 model and 2 data ranks
+# and met in gloo's sums.  The loss within SPMD_LOSS_RTOL, logits within
+# GEN_CPU_LOGITS_ATOL, the AdamW moments within GEN_CPU_GRAD_REL of each
+# leaf's largest magnitude, the parameters so wherever the clipped gradient
+# exceeds SPMD_WELL_POSED and elsewhere within lr * (1 + weight decay * |p|)
+# (AdamW's first step is lr * g / (|g| + eps): set by the gradient's sign,
+# so a gradient that is zero but for rounding turns on rounding noise).  A
+# greedy token may differ only where the reference's top-2 margin is at most
+# SPMD_MARGIN; the logits are compared up to the first such step.
+SPMD_LOSS_RTOL = 1e-5
+SPMD_WELL_POSED = 1e-6
+SPMD_MARGIN = 1e-4
+SPMD_OPT = dict(warmup_steps=0, total_steps=10)   # the default lr 5e-4 from step 0
+
+
+def _spmd_cfg(arch):
+    from repro_torch.models import lm
+
+    return lm.get_config(arch).replace(compute_dtype="float32")
+
+
+def _checksum(tree) -> tuple[float, float]:
+    """(sum, sum of magnitudes) over every leaf, in f64 on the CPU."""
+    from repro_torch.bridge import leaves
+
+    xs = [x.detach().to("cpu", torch.float64) for x in leaves(tree)]
+    return (sum(float(x.sum()) for x in xs), sum(float(x.abs().sum()) for x in xs))
+
+
+def _spmd_inputs(cfg, train, prefill):
+    rng = np.random.default_rng(SPMD_SEED)
+    return (rng.integers(0, cfg.vocab_size, train).astype(np.int32),
+            rng.integers(0, cfg.vocab_size, prefill).astype(np.int32))
+
+
+def _greedy_ref(cfg, params, prompts, steps, dev):
+    """Single-device prefill and ``steps`` greedy decode steps: (prefill
+    logits, [step logits], tokens (B, steps), top-2 margins (B, steps), ms
+    of the prefill, ms a decode step)."""
+    from repro_torch.models import lm, transformer as T
+
+    b, s = prompts.shape
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = lm.make_prefill_step(cfg)(params, {"tokens": prompts})
+    _sync(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    full = T.cache_init(cfg, b, s + steps, device=dev)
+    cache = {k: torch.cat([cache[k], full[k][:, :, s:]], dim=2) for k in full}
+    serve, outs, toks, margins = lm.make_serve_step(cfg), [], [], []
+    tok = logits.argmax(-1).to(torch.int32)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        toks.append(tok[:, 0])
+        lg, cache = serve(params, cache, {"token": tok}, s + i)
+        outs.append(lg)
+        top = lg[:, 0].topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        tok = lg.argmax(-1).to(torch.int32)
+    _sync(dev)
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    return logits, outs, torch.stack(toks, 1), torch.stack(margins, 1), prefill_ms, step_ms
+
+
+def _spmd_reference(cfg, dev, tokens, prompts, steps):
+    """The single-device steps on ``dev`` from the seed's weights: the
+    greedy run first, then one AdamW step; only what the ranks hold their
+    results against stays (the new state, the logits, tokens, margins)."""
+    from repro_torch.models import lm, transformer as T
+    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+    params = T.init_lm(SPMD_SEED, cfg, device="cpu")
+    checksum = _checksum(params)
+    params = _to(params, dev)
+    with torch.no_grad():
+        greedy = _greedy_ref(cfg, params, torch.from_numpy(prompts).to(dev), steps, dev)
+    opt = make_optimizer(OptimizerConfig(**SPMD_OPT))
+    state = {"params": params, "opt_state": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    del params
+    _sync(dev)
+    t0 = time.perf_counter()
+    new, metrics = lm.make_train_step(cfg, opt)(state, {"tokens": torch.from_numpy(tokens).to(dev)})
+    _sync(dev)
+    train_ms = 1e3 * (time.perf_counter() - t0)
+    peak = _peak_gib(dev)
+    del state
+    new = {"params": new["params"], "m": new["opt_state"]["m"], "v": new["opt_state"]["v"]}
+    logits, outs, toks, margins, prefill_ms, step_ms = greedy
+    return {"state": new, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "prefill": logits, "steps": outs, "tokens": toks, "margins": margins,
+            "checksum": checksum, "ms": (train_ms, prefill_ms, step_ms), "peak_gib": peak}
+
+
+def _to(tree, dev):
+    from repro_torch.bridge import leaves, rebuild
+
+    return rebuild(tree, iter(x.to(dev) for x in leaves(tree)))
+
+
+def _spmd_leaf_gaps(local, init, ref, specs, mesh, lr, wd, b1):
+    """Each leaf of this rank's new state against the same block of the
+    single-device one: the largest moment gap and well-posed parameter gap
+    over the leaf's largest magnitude, whether every other parameter element
+    is within lr * (1 + wd * |p|), and how many such elements there are."""
+    from repro_torch.bridge import leaves
+    from repro_torch.distributed.sharding import NamedSharding, map_leaves
+
+    block = lambda w, sp: w[NamedSharding(mesh, sp).local_slices(tuple(w.shape))]
+    scale = lambda w, sp: w.abs().max().clamp(min=1e-30)
+    gaps, noisy_ok, n_noisy = {}, True, 0
+    for k in ("m", "v", "params"):
+        want, top = (leaves(map_leaves(f, ref[k], specs)) for f in (block, scale))
+        got = leaves(local[k])
+        if k != "params":
+            gaps[k] = max(float((g - w).abs().max() / t) for g, w, t in zip(got, want, top))
+            continue
+        gaps[k] = 0.0
+        moment = leaves(map_leaves(block, ref["m"], specs))
+        for g, w, t, m, p0 in zip(got, want, top, moment, leaves(init)):
+            err = (g - w).abs()
+            posed = m.abs() > (1 - b1) * SPMD_WELL_POSED
+            if posed.any():
+                gaps[k] = max(gaps[k], float(err[posed].max() / t))
+            noisy_ok &= bool((err[~posed] <= lr * (1 + wd * p0[~posed].abs()) + 1e-7).all())
+            n_noisy += int((~posed).sum())
+    return gaps, noisy_ok, n_noisy
+
+
+def _spmd_rank(rank, arch, device, ref, tokens, prompts, steps, cells):
+    """One rank of phase 16's world: the seed's weights cut to this rank's
+    shards of the 2x2 mesh, the sharded train step, prefill and greedy
+    decode (each under a ``launch.dryrun.StepRecorder``, whose collective
+    operand bytes are kept), every result held
+    here against the same block of the single-device one (``ref``, the
+    parent's tensors); the hand kernels' launch counts of this rank's steps
+    in ``launches`` (the generic path launches none)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.distributed.sharding import NamedSharding, shard_tree
+    from repro_torch.launch.dryrun import StepRecorder
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, transformer as T
+    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    cfg = _spmd_cfg(arch)
+    counters = _counters()
+    _zeroed(counters)
+    mesh = make_host_mesh(SPMD_MESH)
+    spmd = T.spmd_layout(cfg, mesh)
+    model = mesh.axis("model")
+    out = {}
+    full = T.init_lm(SPMD_SEED, cfg, device="cpu")
+    out["checksum"] = _checksum(full)
+    params = _to(shard_tree(full, spmd.specs, mesh), dev)
+    del full
+    rows = lambda x: shard_tree({"x": x}, {"x": ("data",)}, mesh)["x"]
+    lb = {"tokens": rows(torch.from_numpy(tokens)).to(dev)}
+    ocfg = OptimizerConfig(**SPMD_OPT)
+    opt = make_optimizer(ocfg)
+    state = {"params": params, "opt_state": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def timed(fn):
+        rec = StepRecorder()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with rec:
+            result = fn()
+        _sync(dev)
+        return result, 1e3 * (time.perf_counter() - t0), rec.collectives
+
+    (new, metrics), out["train_ms"], out["train_bytes"] = timed(
+        lambda: lm.make_train_step(cfg, opt, mesh=mesh)(state, lb))
+    del state
+    out["loss"], out["grad_norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
+    local = {"params": new["params"], "m": new["opt_state"]["m"], "v": new["opt_state"]["v"]}
+    del new
+    out["leaves"] = _spmd_leaf_gaps(local, params, ref["state"], spmd.specs, mesh, ocfg.lr,
+                                    ocfg.weight_decay, ocfg.b1)
+    del local
+
+    vocab = NamedSharding(mesh, ("data", None, "model" if spmd.vocab_split else None))
+    lp = rows(torch.from_numpy(prompts)).to(dev)
+    b, s = prompts.shape
+    with torch.no_grad():
+        (logits, cache), out["prefill_ms"], out["prefill_bytes"] = timed(
+            lambda: lm.make_prefill_step(cfg, mesh=mesh)(params, {"tokens": lp}))
+        want = ref["prefill"]
+        out["prefill_gap"] = _max_gap(logits, want[vocab.local_slices(tuple(want.shape))])
+        # the prefill's cache, S/M positions a model rank, re-laid into a
+        # cache of S + steps slots cut the same way
+        cache = {k: model.all_gather(c, 2, kind="state") for k, c in cache.items()}
+        cache = {k: model.block(torch.cat([c, c.new_zeros(c.shape[:2] + (steps,) + c.shape[3:])],
+                                          dim=2), 2).contiguous() for k, c in cache.items()}
+        tok = model.all_gather(logits, -1, kind="output").argmax(-1).to(torch.int32)
+        serve = lm.make_serve_step(cfg, mesh=mesh)
+        lo = mesh.axis("data").rank * (b // 2)
+        toks, gaps, ms, step_bytes, diverged = [], [], [], [], None
+        for i in range(steps):
+            toks.append(tok[:, 0].cpu())
+            if diverged is None and not torch.equal(tok[:, 0].cpu(),
+                                                    ref["tokens"][lo:lo + b // 2, i].cpu()):
+                diverged = i
+            (lg, cache), t, nbytes = timed(lambda: serve(params, cache, {"token": tok}, s + i))
+            ms.append(t)
+            step_bytes.append(nbytes)
+            if diverged is None:
+                want = ref["steps"][i]
+                gaps.append(_max_gap(lg, want[vocab.local_slices(tuple(want.shape))]))
+            tok = model.all_gather(lg, -1, kind="output").argmax(-1).to(torch.int32)
+    out.update(tokens=torch.stack(toks, 1), step_gaps=gaps, step_ms=ms, step_bytes=step_bytes,
+               diverged=diverged, rows=(lo, lo + b // 2))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    return out
+
+
+def phase_generic_spmd(dev, smi, arch=GEN_ARCH, train=SPMD_TRAIN, prefill=SPMD_PREFILL,
+                       steps=SPMD_STEPS):
+    """Phase 16: ``arch`` at full width and depth, f32 compute, one AdamW
+    train step of ``train`` tokens, a prefill of ``prefill`` and ``steps``
+    greedy decode steps, on this device alone and then SPMD on a gloo world
+    of SPMD_RANKS ranks sharing it, on the SPMD_MESH (data x model) mesh
+    (``lm.make_*_step(mesh=)``); every rank's results held against the
+    single-device ones, its weights' checksum against the parent's, its
+    recorded collective operand bytes against a record-only mesh's on meta;
+    no hand kernel may launch, on the single device or on any rank.
+    With a CPU ``dev`` and a smoke arch it rehearses the same checks."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import record_only_mesh, spawn_world
+    from repro_torch.models.config import ShapeCell
+
+    t_phase = time.perf_counter()
+    cfg = _spmd_cfg(arch)
+    tokens, prompts = _spmd_inputs(cfg, train, prefill)
+    counters = _counters()
+    _zeroed(counters)
+    ref = _spmd_reference(cfg, dev, tokens, prompts, steps)
+    _no_hand_kernels(f"{arch} single-device steps", counters)
+    _empty(dev)
+    tr_ms, pf_ms, st_ms = ref["ms"]
+    log(f"  single device ({arch}, {cfg.num_layers} layers, d {cfg.d_model}, f32): loss "
+        f"{ref['loss']!r}, train step {tr_ms:.1f} ms ({train[0]} x {train[1]} tokens), prefill "
+        f"{pf_ms:.1f} ms ({prefill[0]} x {prefill[1]}), {st_ms:.2f} ms a decode step, peak "
+        f"{ref['peak_gib']:.2f} GiB; in {time.perf_counter() - t_phase:.1f} s")
+
+    cells = {"train": ShapeCell("phase16_train", train[1], train[0], "train"),
+             "prefill": ShapeCell("phase16_prefill", prefill[1], prefill[0], "prefill"),
+             "decode": ShapeCell("phase16_decode", prefill[1] + steps, prefill[0], "decode")}
+    rec_mesh = record_only_mesh(SPMD_MESH)
+    want = {k: dryrun.measure(arch, c, cfg_override=cfg, mesh=rec_mesh)["collectives"]
+            for k, c in cells.items()}
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_world(_spmd_rank, SPMD_RANKS, (arch, str(dev), ref, tokens, prompts,
+                                                      steps, cells), timeout=SPMD_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 16: the {SPMD_RANKS}-rank world failed: {e}")
+    world_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()        # the ranks' handles on the reference tensors
+    mesh_tag = "x".join(map(str, SPMD_MESH))
+    for r, got in enumerate(ranks):
+        label = f"{arch} {mesh_tag} rank {r}"
+        check(not any(got["launches"].values()),
+              f"{label}: hand kernels launched {got['launches']} on the generic path "
+              "(expected none)")
+        check(got["checksum"] == ref["checksum"],
+              f"{label}: weights' checksum {got['checksum']} vs the parent's {ref['checksum']}")
+        rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        check(rel <= SPMD_LOSS_RTOL, f"{label}: loss {got['loss']!r} vs {ref['loss']!r} ({rel:.3g})")
+        grel = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        check(grel <= GEN_CPU_GRAD_REL, f"{label}: grad_norm {got['grad_norm']!r} vs "
+                                         f"{ref['grad_norm']!r}")
+        gaps, noisy_ok, n_noisy = got["leaves"]
+        check(max(gaps.values()) <= GEN_CPU_GRAD_REL and noisy_ok,
+              f"{label}: state gaps {gaps} (limit {GEN_CPU_GRAD_REL}), ill-posed elements "
+              f"within one step: {noisy_ok}")
+        check(got["prefill_gap"] <= GEN_CPU_LOGITS_ATOL,
+              f"{label}: prefill logits gap {got['prefill_gap']:.3g}")
+        check(all(g <= GEN_CPU_LOGITS_ATOL for g in got["step_gaps"]),
+              f"{label}: decode logits gaps {got['step_gaps']}")
+        lo, hi = got["rows"]
+        d = got["diverged"]
+        if d is not None:
+            diff = got["tokens"][:, d] != ref["tokens"][lo:hi, d].cpu()
+            margin = float(ref["margins"][lo:hi, d].cpu()[diff].max())
+            check(margin <= SPMD_MARGIN, f"{label}: greedy token {d} differs at a top-2 margin "
+                                         f"{margin:.3g} (limit {SPMD_MARGIN})")
+        for k in ("train", "prefill"):
+            check(got[f"{k}_bytes"] == want[k], f"{label}: {k} collective operand bytes "
+                                                f"{got[f'{k}_bytes']} vs record-only {want[k]}")
+        check(all(b == want["decode"] for b in got["step_bytes"]),
+              f"{label}: decode collective operand bytes {got['step_bytes']} vs record-only "
+              f"{want['decode']}")
+    fail_if_any("phase 16")
+    fmt = lambda d: ", ".join(f"{k} {v}" for k, v in sorted(d.items()))
+    for r, got in enumerate(ranks):
+        log(f"  rank {r}: train step {got['train_ms']:.1f} ms, prefill {got['prefill_ms']:.1f} ms, "
+            f"decode {np.mean(got['step_ms'][1:]):.2f} ms a step (time-sliced with "
+            f"{SPMD_RANKS - 1} other ranks on one device), peak "
+            + ("not measured" if got["peak_gib"] is None else f"{got['peak_gib']:.2f} GiB")
+            + f"; loss gap {abs(got['loss'] - ref['loss']) / abs(ref['loss']):.3g}, state gaps "
+            + ", ".join(f"{k} {v:.3g}" for k, v in got["leaves"][0].items())
+            + f" ({got['leaves'][2]} ill-posed parameter elements), prefill logits gap "
+            f"{got['prefill_gap']:.3g}, decode gaps max "
+            f"{max(got['step_gaps'], default=0.0):.3g}, greedy "
+            + ("equal" if got["diverged"] is None else f"diverged at step {got['diverged']}"))
+    log(f"  collective operand bytes per rank (equal to the record-only {mesh_tag} mesh's on "
+        f"meta): train step {fmt(want['train'])}; prefill {fmt(want['prefill'])}; decode step "
+        f"{fmt(want['decode'])}")
+    log(f"  {SPMD_RANKS}-rank world ({mesh_tag} mesh, gloo, every rank on {dev}) in {world_s:.1f} s; "
+        f"phase 16 in {time.perf_counter() - t_phase:.1f} s; on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this smoke test "
@@ -4921,6 +5257,12 @@ def main() -> int:
         f"restart and card vs CPU at {GT_CUT_LAYERS} layers, the dry run on meta")
     torch.cuda.empty_cache()
     phase_generic_train(dev, smi)
+    log(f"phase 16: the generic LM's SPMD steps: {GEN_ARCH} at full width and depth on a "
+        f"{'x'.join(map(str, SPMD_MESH))} gloo world of {SPMD_RANKS} ranks on this card (a train "
+        f"step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens, a prefill of {SPMD_PREFILL[0]} x "
+        f"{SPMD_PREFILL[1]}, {SPMD_STEPS} greedy steps) against the single-device steps")
+    torch.cuda.empty_cache()
+    phase_generic_spmd(dev, smi)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()},

@@ -11,6 +11,13 @@ tuple of mesh-axis entries that JAX's ``PartitionSpec`` holds (one entry per
 tensor dim: an axis name, a tuple of names, or None for a replicated dim);
 :class:`NamedSharding` pairs such a spec with a host mesh
 (``launch.mesh.HostMesh``) and cuts a rank's block of a global array.
+
+:func:`sanitize_spec` replicates a dim that its mesh axes do not divide (as
+the JAX package's dry run does before it hands a sharding to ``jit``);
+:func:`sanitized_specs` does so for a whole tree, :func:`shard_tree` cuts a
+global tree into this rank's shards from those specs and :func:`gather_tree`
+assembles it back -- what the sharded executor of the generic LM
+(``models.lm.make_*_step(mesh=)``) takes and gives.
 """
 
 from __future__ import annotations
@@ -155,10 +162,14 @@ def spec(*logical_names: str | None, rules: dict[str, Any] | None = None) -> tup
 
 
 def constrain(x, *logical_names: str | None):
-    """The identity.  In the JAX package this is a layout hint to the GSPMD
-    partitioner (``with_sharding_constraint``); eager PyTorch has no
-    partitioner, and the port's sharded executors place every shard
-    themselves, so there is nothing to hint."""
+    """The identity, with or without a mesh.  In the JAX package this is a
+    layout hint to the GSPMD partitioner (``with_sharding_constraint``).
+    Eager PyTorch has no partitioner: the port's sharded executors place
+    every shard themselves (the deploy engine's ``compile_plan(mesh=)``, the
+    generic LM's ``make_*_step(mesh=)``, which cut the parameters, caches and
+    batch by :func:`shard_tree` and run the collectives of
+    ``launch.mesh.MeshAxis`` where the layout changes), so there is nothing
+    to hint."""
     return x
 
 
@@ -193,3 +204,101 @@ class NamedSharding:
             block = n // parts
             out.append(slice(index * block, (index + 1) * block))
         return tuple(out)
+
+
+# -- shards of whole trees ---------------------------------------------------------
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size of a host mesh (``launch.mesh.HostMesh``) or an
+    abstract one (``launch.dryrun.AbstractMesh``)."""
+    shape = mesh.shape
+    return dict(shape) if isinstance(shape, dict) else dict(zip(mesh.axis_names, shape))
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh-axis names of one spec entry (None -> none)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def axis_size(mesh, axes) -> int:
+    sizes = mesh_sizes(mesh)
+    return math.prod(sizes[a] for a in entry_axes(axes))
+
+
+def sanitize_spec(mesh, spec: tuple, shape: tuple[int, ...]) -> tuple:
+    """Drop spec axes whose size does not divide the dimension (an argument
+    sharding needs exact divisibility; dropping = replication along that
+    axis, e.g. vocab 49155 or 40 experts on a 16-wide axis)."""
+    axes = list(spec) + [None] * (len(shape) - len(spec))
+    out = [ax if ax is not None and dim % axis_size(mesh, ax) == 0 else None
+           for dim, ax in zip(shape, axes)]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def sanitized_specs(specs, like, mesh):
+    """The spec tree of ``like`` (a tree of tensors, meta ones included) with
+    every leaf's spec sanitized against its global shape on ``mesh``.  A
+    spec tuple at a tensor's place is that tensor's (the form of
+    ``transformer.param_pspecs``)."""
+    if isinstance(like, dict):
+        return {k: sanitized_specs(specs[k], like[k], mesh) for k in like}
+    if isinstance(like, (list, tuple)) and not _is_spec(specs):
+        return type(like)(sanitized_specs(s, x, mesh) for s, x in zip(specs, like))
+    return sanitize_spec(mesh, specs, tuple(like.shape))
+
+
+def map_leaves(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its spec tree, walked by the
+    tree's keys (a tree that crossed from the JAX package holds its dicts'
+    keys sorted, the spec tree in the port's order)."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, x, s) for x, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's shard of every leaf of the global ``tree`` under its
+    (sanitized) spec: a copy of its block, or the leaf itself when the spec
+    keeps it whole on this mesh."""
+    def cut(x, spec):
+        sl = NamedSharding(mesh, spec).local_slices(tuple(x.shape))
+        if all(s.stop - s.start == n for s, n in zip(sl, x.shape)):
+            return x
+        return x[sl].clone()
+
+    return map_leaves(cut, tree, specs)
+
+
+def gather_tree(tree, specs, mesh, *, kind: str = "output"):
+    """The global tree from every rank's shards (each leaf all-gathered over
+    the axes of its sanitized spec, the minor axis of a dim first); every
+    rank calls it alike and gets the whole tree."""
+    def gather(x, spec):
+        for dim, entry in enumerate(spec):
+            for a in reversed(entry_axes(entry)):
+                x = mesh.axis(a).all_gather(x, dim, kind=kind)
+        return x
+
+    return map_leaves(gather, tree, specs)
+
+
+def leaf_axes(specs, mesh):
+    """The tree of specs mapped to the tuple of mesh axes (``MeshAxis``) of
+    size above 1 that each leaf is sharded over, in mesh order."""
+    if isinstance(specs, dict):
+        return {k: leaf_axes(v, mesh) for k, v in specs.items()}
+    if not _is_spec(specs):
+        return type(specs)(leaf_axes(v, mesh) for v in specs)
+    names = {a for entry in specs for a in entry_axes(entry)}
+    return tuple(mesh.axis(a) for a in mesh.axis_names if a in names and mesh.axis(a).size > 1)

@@ -7,9 +7,21 @@ come from the compiled program.  The port has no compiler to ask, so each
 cell's step (train_4k -> ``lm.make_train_step``, prefill_32k ->
 ``make_prefill_step``, decode_* -> ``make_serve_step``) runs on
 ``torch.device("meta")`` -- shapes and dtypes, no memory, no card -- under a
-recorder of its ATen operations.  The mesh is a shape with axis names
-(:class:`AbstractMesh`); it needs no ``torch.distributed`` world.  A record
-holds:
+recorder of its ATen operations and collectives.  The mesh is a shape with
+axis names (:class:`AbstractMesh`); it needs no ``torch.distributed`` world.
+
+For the dense family (every layer ``attn_mlp``: six of the ten assigned
+archs) the recorded step is the SPMD step of one device: one rank of a
+record-only mesh of the production shape (``launch.mesh.record_only_mesh``:
+its collectives move nothing, return the right shapes and report themselves)
+runs ``lm.make_*_step(mesh=)`` on its shards, the same code a real
+``torch.distributed`` world runs.  That rank is rank 0, but for a decode
+step the ``model`` rank that owns the new token's cache slot
+(:func:`recorded_ranks`): the only rank that writes its block of the
+sequence-sharded cache, so the busiest; the other ranks' temporaries and
+bytes fall short of its record by that copy of their cache blocks.  The MoE, SSM and hybrid archs have no
+sharded walker yet (``ROADMAP.md`` §1 item 6b): their step is recorded whole
+and divided, as the record's ``collective_note`` says.  A record holds:
 
   * ``memory.argument_size_in_bytes`` -- the per-device bytes of the step's
     arguments (the train state or the params / cache, the batch, and for a
@@ -18,33 +30,37 @@ holds:
     Exact: the JAX package's shard shapes give the same bytes.
   * ``memory.temp_size_in_bytes`` -- the peak, over the recorded step, of
     the bytes held by tensors the step itself made (every storage an
-    operation creates counts from its creation until it is freed; views add
-    nothing; the step's outputs count while they are alive inside it),
-    extended from the traced depths to the config's (below: a lower bound),
-    divided by the size of the mesh's batch axes.  It is no bound of what a
-    device of the mesh would hold: the extension can fall short of the
-    whole step's peak, and the division shares the step over the batch axes
-    only, not over ``model``.  Traced at full depth, the peak is what the
-    card's allocator reads above the arguments for the same step on one
-    device (``chip_smoke.py`` phase 15 prints both).
+    operation or a collective creates counts from its creation until it is
+    freed; views add nothing; the step's outputs count while they are alive
+    inside it), extended from the traced depths to the config's (below: a
+    lower bound).  For a dense arch it is the device's own step's; for the
+    others the whole step's divided by the size of the mesh's batch axes,
+    no bound of what a device would hold.  Traced at full depth on one
+    device, the peak is what the card's allocator reads above the arguments
+    for the same step (``chip_smoke.py`` phase 15 prints both).
   * ``flops`` -- the FLOPs of the step by the formulas of
     ``torch.utils.flop_counter`` (matrix products, convolutions, attention;
-    elementwise work counts 0), divided by the number of devices.  Not held
-    against XLA's ``cost_analysis``: the two count different programs (the
-    remat recompute, fusions).
+    elementwise work counts 0): the device's own for a dense arch, else the
+    whole step's divided by the number of devices.  Not held against XLA's
+    ``cost_analysis``: the two count different programs (the remat
+    recompute, fusions).
   * ``bytes_accessed`` -- the input plus output bytes of every ATen operation
-    of the step that is not a view, divided by the number of devices.  This
-    is before any fusion, so it bounds from above what a fused program moves.
-  * ``collective_bytes_per_device`` -- null: the port's generic LM has no
-    partitioner yet (``distributed.sharding.constrain`` is the identity), so
-    no sharded step exists to record collectives from (``collective_note``).
+    of the step that is not a view, and of every collective (the device's
+    own, or divided, as ``flops``).  This is before any fusion, so it bounds
+    from above what a fused program moves.
+  * ``collective_bytes_per_device`` -- for a dense arch, the per-device
+    operand bytes of each collective kind the step issued, under the JAX
+    package's HLO names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+    ``all-to-all``): the quantity its dry run reads from the partitioned
+    HLO, here of the port's own explicit schedule (``PERF.md`` compares the
+    two).  Null for the other archs, with ``collective_note``.
 
 A step's cost grows by the same amount with every layer of a kind, so each
 cell is recorded at the few depths that give every layer kind's share (1 and 2
 layers for a uniform stack, 1-3 for its training step and for
 recurrentgemma's rec, rec, attn_local pattern) and summed to the config's
-depth (``traced_layers`` in the record; :func:`measure`): exactly for FLOPs
-and bytes, and as a lower bound for the peak, which misses a live set that
+depth (``traced_layers`` in the record; :func:`measure`): exactly for FLOPs,
+bytes and collective bytes, and as a lower bound for the peak, which misses a live set that
 only becomes the largest past the traced depths (62-100% of a whole trace's
 at depth 7 of the smoke configs; 59% at llama3.2-1b's 16-layer training step
 of 4 x 512 tokens, whose peak sits in the AdamW update of the largest leaf:
@@ -61,7 +77,7 @@ package's ``artifacts/dryrun/``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b_smoke --cell train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes] [--workers N]
 """
 
 from __future__ import annotations
@@ -75,20 +91,25 @@ import weakref
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.bridge import leaves, rebuild, resolve_device
 from repro_torch.checkpoint.checkpoint import flatten_with_names
-from repro_torch.distributed.sharding import make_rules
-from repro_torch.launch.mesh import MULTI_POD_SHAPE, PRODUCTION_SHAPE
+from repro_torch.distributed.sharding import (
+    axis_size, make_rules, sanitize_spec, sanitized_specs, shard_tree)
+from repro_torch.launch.mesh import (
+    MULTI_POD_SHAPE, PRODUCTION_SHAPE, HostMesh, record_only_mesh)
 from repro_torch.models import lm, transformer as T
 from repro_torch.models.config import SHAPE_CELLS, ShapeCell, cell_by_name, cell_supported
 from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
-COLLECTIVE_NOTE = ("not recorded: the port's generic LM has no SPMD partitioner yet "
-                   "(distributed.sharding.constrain is the identity)")
+COLLECTIVE_NOTE = ("not recorded: the port's sharded executor runs the dense attn_mlp kind "
+                   "only; the MoE, SSM and hybrid kinds are ROADMAP.md §1 item 6b, so this "
+                   "step is recorded whole and its FLOPs, bytes and temporaries divided")
 
 
 @dataclass(frozen=True)
@@ -111,6 +132,12 @@ class AbstractMesh:
     def tag(self) -> str:
         return "pod" + "x".join(map(str, self.sizes))
 
+    def record_only(self, ranks=None) -> HostMesh:
+        """This mesh as one rank sees it (rank 0, or the indices ``ranks``
+        names by axis), with no world behind it
+        (``launch.mesh.record_only_mesh``)."""
+        return record_only_mesh(self.sizes, self.axis_names, ranks)
+
 
 def production_mesh(multi_pod: bool) -> AbstractMesh:
     """(data=16, model=16), or (pod=2, data=16, model=16) across two pods:
@@ -120,33 +147,10 @@ def production_mesh(multi_pod: bool) -> AbstractMesh:
     return AbstractMesh(PRODUCTION_SHAPE, ("data", "model"))
 
 
-def _axis_size(mesh: AbstractMesh, axes) -> int:
-    if axes is None:
-        return 1
-    if isinstance(axes, str):
-        return mesh.shape[axes]
-    n = 1
-    for a in axes:
-        n *= mesh.shape[a]
-    return n
-
-
-def sanitize_spec(mesh: AbstractMesh, spec: tuple, shape: tuple[int, ...]) -> tuple:
-    """Drop spec axes whose size does not divide the dimension (an argument
-    sharding needs exact divisibility; dropping = replication along that
-    axis, e.g. vocab 49155 or 40 experts on a 16-wide axis)."""
-    axes = list(spec) + [None] * (len(shape) - len(spec))
-    out = [ax if ax is not None and dim % _axis_size(mesh, ax) == 0 else None
-           for dim, ax in zip(shape, axes)]
-    while out and out[-1] is None:
-        out.pop()
-    return tuple(out)
-
-
-def shard_shape(mesh: AbstractMesh, spec: tuple, shape: tuple[int, ...]) -> tuple[int, ...]:
+def shard_shape(mesh, spec: tuple, shape: tuple[int, ...]) -> tuple[int, ...]:
     """The per-device block of a global ``shape`` under a sanitized ``spec``."""
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
-    return tuple(dim // _axis_size(mesh, ax) for dim, ax in zip(shape, spec))
+    return tuple(dim // axis_size(mesh, ax) for dim, ax in zip(shape, spec))
 
 
 def _opt_specs(cfg, opt_state, param_specs, params):
@@ -208,27 +212,34 @@ def _leaf_specs(mesh: AbstractMesh, specs, args, path=()):
 
 @dataclass
 class Cell:
-    """One cell's step on the meta device: the config, the shape cell, the
-    mesh and rules, the step function, its arguments (meta tensors) and the
-    sanitized spec of each argument leaf by name."""
+    """One cell's step: the config, the shape cell, the mesh and rules, the
+    step function, its global arguments (meta tensors) and the sanitized
+    spec of each argument leaf by name.  On a host mesh (``mesh`` a
+    ``launch.mesh.HostMesh``: a real world's, or a record-only one) the step
+    is the SPMD step and ``local`` holds this rank's shards of the
+    arguments (real tensors on a real world, meta ones on a record-only
+    mesh); else ``local`` is None and the step is the single-device one."""
 
     cfg: object
     cell: ShapeCell
-    mesh: AbstractMesh
+    mesh: object
     rules: dict
     step: object
     args: tuple
     specs: dict
+    local: tuple | None = None
 
     def call(self):
-        """Run the step once.  A decode step runs at its last cache slot,
+        """Run the step once (on a host mesh: this rank's SPMD step on its
+        shards).  A decode step runs at its last cache slot,
         ``pos = seq_len - 1``: the port's decode takes the position as an
         int, where the JAX package traces the 0-d int32 that ``args`` holds
         (its bytes count among the arguments)."""
+        args = self.args if self.local is None else self.local
         if self.cell.kind == "decode":
-            params, cache, batch, _ = self.args
+            params, cache, batch, _ = args
             return self.step(params, cache, batch, self.cell.seq_len - 1)
-        return self.step(*self.args)
+        return self.step(*args)
 
     def shards(self) -> list[tuple[str, tuple, tuple, tuple, torch.dtype]]:
         """(leaf name, global shape, spec, per-device shape, dtype) of every
@@ -241,16 +252,54 @@ class Cell:
         return sum(math.prod(per) * dt.itemsize for _, _, _, per, dt in self.shards())
 
 
-def build_cell(arch: str, cell, *, multi_pod: bool = False, mesh: AbstractMesh | None = None,
-               cfg_override=None, preset: str = "base") -> Cell:
+def _values(c: "Cell", opt, device):
+    """Real tensors for a cell's meta arguments: the parameters from
+    ``init_lm(0)`` (the optimizer state from its ``init``), token ids and
+    embeddings from a numpy generator seeded 0, zero caches and steps."""
+    gen = np.random.default_rng(0)
+    cfg, device = c.cfg, resolve_device(device)
+    params = T.init_lm(0, cfg, device=device)
+
+    def value(x):
+        if x.ndim and not x.dtype.is_floating_point:
+            ids = gen.integers(0, cfg.vocab_size, tuple(x.shape)).astype(np.int32)
+            return torch.from_numpy(ids).to(device=device, dtype=x.dtype)
+        if x.ndim:
+            return torch.from_numpy(gen.standard_normal(tuple(x.shape)).astype(np.float32)).to(
+                device=device, dtype=x.dtype)
+        return torch.zeros((), dtype=x.dtype, device=device)
+
+    batch = {k: value(v) for k, v in sorted(c.args[-1 if c.cell.kind != "decode" else 2].items())}
+    if c.cell.kind == "train":
+        return ({"params": params, "opt_state": opt.init(params),
+                 "step": value(c.args[0]["step"])}, batch)
+    if c.cell.kind == "prefill":
+        return (params, batch)
+    cache = rebuild(c.args[1], iter(torch.zeros(tuple(x.shape), dtype=x.dtype, device=device)
+                                    for x in leaves(c.args[1])))
+    return (params, cache, batch, value(c.args[3]))
+
+
+def build_cell(arch: str, cell, *, multi_pod: bool = False, mesh=None, cfg_override=None,
+               preset: str = "base", device=None) -> Cell:
     """The step of ``cell`` (a name in ``SHAPE_CELLS`` or a ``ShapeCell``)
     for ``arch`` (or ``cfg_override``) on the production mesh (or ``mesh``)
     under the ``preset`` rules, its arguments on meta.  The ``zero2``
     preset's ``"params": "replicated"`` replicates the parameters and keeps
-    the optimizer state sharded."""
+    the optimizer state sharded.
+
+    ``mesh`` an :class:`AbstractMesh` (the default: the production one):
+    the single-device step.  ``mesh`` a ``launch.mesh.HostMesh``: the SPMD
+    step of the dense family (``lm.make_*_step(mesh=)``; another layer kind
+    or preset raises ``NotImplementedError``), and ``Cell.local`` this
+    rank's shards -- on a record-only mesh of the meta arguments, on a real
+    world of real ones on ``device`` (the card when None), from
+    :func:`_values`."""
     cfg = cfg_override if cfg_override is not None else lm.get_config(arch)
     cell = cell if isinstance(cell, ShapeCell) else cell_by_name(cell)
     mesh = mesh if mesh is not None else production_mesh(multi_pod)
+    if isinstance(mesh, HostMesh):
+        multi_pod = "pod" in mesh.axis_names
     rules = make_rules(multi_pod=multi_pod, preset=preset)
     baxes = rules["batch"]
 
@@ -261,7 +310,10 @@ def build_cell(arch: str, cell, *, multi_pod: bool = False, mesh: AbstractMesh |
     params = T.init_lm(0, cfg, device="meta")
     batch = lm.batch_struct(cfg, cell)
     batch_specs = lm.batch_pspecs(cfg, cell, batch_axes=baxes)
+    sharded = isinstance(mesh, HostMesh)
+    kw = {"mesh": mesh, "preset": preset} if sharded else {}
 
+    opt = None
     if cell.kind == "train":
         opt = make_optimizer(OptimizerConfig(
             kind=cfg.opt_kind, b1=cfg.opt_b1, state_dtype=cfg.opt_state_dtype,
@@ -271,17 +323,42 @@ def build_cell(arch: str, cell, *, multi_pod: bool = False, mesh: AbstractMesh |
         state_specs = {"params": param_specs,
                        "opt_state": _opt_specs(cfg, opt_state, opt_param_specs, params),
                        "step": ()}
-        step, args, specs = lm.make_train_step(cfg, opt), (state, batch), (state_specs, batch_specs)
+        step, args = lm.make_train_step(cfg, opt, **kw), (state, batch)
+        specs = (state_specs, batch_specs)
     elif cell.kind == "prefill":
-        step, args = lm.make_prefill_step(cfg), (params, batch)
+        step, args = lm.make_prefill_step(cfg, **kw), (params, batch)
         specs = (param_specs, batch_specs)
     elif cell.kind == "decode":
-        step = lm.make_serve_step(cfg)
+        step = lm.make_serve_step(cfg, **kw)
         args = (params, lm.cache_struct(cfg, cell), batch, _meta((), torch.int32))
         specs = (param_specs, T.cache_pspecs(cfg), batch_specs, ())
     else:
         raise ValueError(cell.kind)
-    return Cell(cfg, cell, mesh, rules, step, args, dict(_leaf_specs(mesh, specs, args)))
+    c = Cell(cfg, cell, mesh, rules, step, args, dict(_leaf_specs(mesh, specs, args)))
+    if sharded:
+        c.local = _local_args(c, opt, device)
+    return c
+
+
+def _local_args(c: Cell, opt, device):
+    """This rank's shards of a cell's arguments under the sharded executor's
+    specs (``transformer.Spmd``)."""
+    spmd = T.spmd_layout(c.cfg, c.mesh)
+    args = c.args if c.mesh.record_only else _values(c, opt, device)
+    batch = args[-1] if c.cell.kind != "decode" else args[2]
+    bspecs = sanitized_specs({k: (spmd.batch_entry,) + (None,) * (v.ndim - 1)
+                              for k, v in batch.items()}, batch, c.mesh)
+    if c.cell.kind == "train":
+        state = args[0]
+        specs = ({"params": spmd.specs,
+                  "opt_state": _opt_specs(c.cfg, state["opt_state"], spmd.specs,
+                                          state["params"]),
+                  "step": ()}, bspecs)
+    elif c.cell.kind == "prefill":
+        specs = (spmd.specs, bspecs)
+    else:
+        specs = (spmd.specs, spmd.cache_specs(args[1]), bspecs, ())
+    return shard_tree(args, specs, c.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -352,9 +429,11 @@ def _rebuild(desc):
 class StepRecorder(TorchDispatchMode):
     """Records every ATen operation below autograd while it is active:
     ``flops`` (``torch.utils.flop_counter``'s formulas), ``bytes`` (input
-    plus output bytes of each operation that is not a view) and ``peak``
-    (the most bytes held at once by the storages the operations made, each
-    counted from its creation until it is freed).
+    plus output bytes of each operation that is not a view, and of each
+    collective), ``peak`` (the most bytes held at once by the storages the
+    operations and collectives made, each counted from its creation until
+    it is freed) and ``collectives`` (the operand bytes of the collectives
+    of ``launch.mesh.MeshAxis``, summed by HLO kind).
 
     On meta an operation's outputs follow from its operands' shapes, strides
     and dtypes, so an operation seen before with the same ones is answered
@@ -371,8 +450,17 @@ class StepRecorder(TorchDispatchMode):
         self.bytes = 0
         self.live = 0
         self.peak = 0
+        self.collectives: dict[str, int] = {}
         self._kind: dict = {}
         self._memo: dict = {}
+
+    def record_collective(self, entry: dict) -> None:
+        kind = entry["hlo"]
+        self.collectives[kind] = self.collectives.get(kind, 0) + entry["operand_bytes"]
+        self.bytes += entry["operand_bytes"] + entry["result_bytes"]
+
+    def hold_collective_output(self, out: torch.Tensor) -> None:
+        self._hold(out)
 
     def _release(self, n):
         self.live -= n
@@ -416,7 +504,7 @@ class StepRecorder(TorchDispatchMode):
             formula = flop_registry.get(func._overloadpacket)
             flops = formula(*args, **kwargs, out_val=out) if formula is not None else 0
             nbytes = _nbytes(ins) + _nbytes(outs)
-            if key is not None:
+            if key is not None and all(t.device.type == "meta" for t in outs):
                 self._memo[key] = (_describe(out), flops, nbytes)
         self.flops += flops
         self.bytes += nbytes
@@ -456,14 +544,18 @@ def _extend_quadratic(values: list[int], depth: int) -> int:
     return v1 - b - q2 // 2 + b * depth + q2 * depth * depth // 2
 
 
-def measure(arch: str, cell, *, cfg_override=None) -> dict:
-    """The step of a cell recorded on meta, whole-step totals (not yet per
-    device): ``flops``, ``bytes``, ``peak`` and ``traced_layers``.
+def measure(arch: str, cell, *, cfg_override=None, mesh=None) -> dict:
+    """The step of a cell recorded on meta: ``flops``, ``bytes``, ``peak``,
+    ``collectives`` (operand bytes by HLO kind) and ``traced_layers``.
+    Without ``mesh`` the single-device step, whole-step totals (no
+    collectives); with a record-only ``mesh`` (``launch.mesh.HostMesh``)
+    its rank 0's SPMD step, that device's own figures.
 
-    FLOPs and bytes are exact: they grow by a fixed amount per layer of each
-    kind (and, in a uniform stack's training step, by a fixed amount per L^2
-    on top), so the depths 1..D of :func:`_traced_depth` (1, 2, 3 for a
-    uniform stack's training step) determine them.  The peak is the
+    FLOPs, bytes and collective bytes are exact: they grow by a fixed amount
+    per layer of each kind (and, in a uniform stack's training step, by a
+    fixed amount per L^2 on top), so the depths 1..D of
+    :func:`_traced_depth` (1, 2, 3 for a uniform stack's training step)
+    determine them.  The peak is the
     extension of its last two traced depths' difference (the last per layer
     kind): the peak at depth L is the largest of the live sets along the step,
     each growing linearly in L, a convex function of L, so the extension is a
@@ -480,31 +572,59 @@ def measure(arch: str, cell, *, cfg_override=None) -> dict:
         depths = list(range(1, depth + 1))
     runs = []
     for d in depths:
-        c = build_cell(arch, cell, cfg_override=cfg.replace(num_layers=d))
+        c = build_cell(arch, cell, cfg_override=cfg.replace(num_layers=d), mesh=mesh)
         rec = StepRecorder()
         with rec:
             out = c.call()
         del out, c
-        runs.append((rec.flops, rec.bytes, rec.peak))
-    flops, nbytes, peak = ([r[i] for r in runs] for i in range(3))
+        runs.append((rec.flops, rec.bytes, rec.peak, rec.collectives))
+    flops, nbytes, peak, coll = ([r[i] for r in runs] for i in range(4))
+    kinds_seen = sorted({k for r in coll for k in r})
+    per_kind = {k: [r.get(k, 0) for r in coll] for k in kinds_seen}
     if len(runs) == 1:
-        return {"flops": flops[0], "bytes": nbytes[0], "peak": peak[0], "traced_layers": depths}
+        return {"flops": flops[0], "bytes": nbytes[0], "peak": peak[0],
+                "collectives": coll[0], "traced_layers": depths}
     if quadratic:
         total = {"flops": _extend_quadratic(flops, len(kinds)),
                  "bytes": _extend_quadratic(nbytes, len(kinds)),
-                 "peak": peak[-1] + (len(kinds) - depths[-1]) * (peak[-1] - peak[-2])}
+                 "peak": peak[-1] + (len(kinds) - depths[-1]) * (peak[-1] - peak[-2]),
+                 "collectives": {k: _extend_quadratic(v, len(kinds))
+                                 for k, v in per_kind.items()}}
     else:
         total = {"flops": _extend(flops, kinds), "bytes": _extend(nbytes, kinds),
-                 "peak": _extend(peak, kinds)}
+                 "peak": _extend(peak, kinds),
+                 "collectives": {k: _extend(v, kinds) for k, v in per_kind.items()}}
     return {**total, "traced_layers": depths}
+
+
+def recorded_ranks(cell: ShapeCell, mesh: AbstractMesh) -> dict:
+    """The device a dense record is of: rank 0 of every axis, but for a
+    decode step the ``model`` rank whose block of the sequence-sharded cache
+    holds the new token's slot, ``pos = seq_len - 1`` (the last one, where
+    ``model`` splits the cache): the one rank that writes its cache block,
+    a copy of that block per layer that the other ranks do not make."""
+    m = mesh.shape.get("model", 1)
+    if cell.kind != "decode" or cell.seq_len % m:
+        return {}
+    return {"model": (cell.seq_len - 1) // (cell.seq_len // m)}
+
+
+def sharded(arch: str) -> bool:
+    """Whether the dry run records ``arch``'s SPMD step (the dense family:
+    every layer ``attn_mlp``)."""
+    return set(T.layer_kinds(lm.get_config(arch))) == {"attn_mlp"}
 
 
 def dryrun_cell(arch: str, cell, *, multi_pod: bool = False, mesh: AbstractMesh | None = None,
                 measured: dict | None = None, save: bool = True, verbose: bool = True) -> dict:
-    """Record one (arch, cell, mesh).  ``measured``: a dict that keeps each
-    (arch, cell)'s :func:`measure` for the next mesh's record (the step is
-    the same on every mesh; only its shardings differ).  ``trace_s``: the seconds this record took to build and
-    measure (near 0 where another mesh's record measured the step)."""
+    """Record one (arch, cell, mesh).  A dense arch's record is one device's
+    SPMD step on the record-only form of ``mesh`` (rank 0's, a decode step
+    the cache-writing rank's: :func:`recorded_ranks`); another arch's is its
+    single-device step divided.  ``measured``: a dict that keeps each
+    :func:`measure` for the next record that can use it (a single-device
+    step serves every mesh; an SPMD step its own mesh only).
+    ``trace_s``: the seconds this record took to build and measure (near 0
+    where another record measured the step)."""
     mesh = mesh if mesh is not None else production_mesh(multi_pod)
     cell = cell if isinstance(cell, ShapeCell) else cell_by_name(cell)
     ok, reason = cell_supported(lm.get_config(arch), cell)
@@ -524,20 +644,26 @@ def dryrun_cell(arch: str, cell, *, multi_pod: bool = False, mesh: AbstractMesh 
         c = build_cell(arch, cell, multi_pod=multi_pod, mesh=mesh)
         args_bytes = c.argument_bytes()
         measured = {} if measured is None else measured
-        if (arch, cell) not in measured:
-            measured[(arch, cell)] = measure(arch, cell)
-        totals = measured[(arch, cell)]
-        baxes = _axis_size(mesh, c.rules["batch"])
+        spmd = sharded(arch)
+        key = (arch, cell, mesh.tag) if spmd else (arch, cell)
+        if key not in measured:
+            measured[key] = measure(
+                arch, cell, mesh=mesh.record_only(recorded_ranks(cell, mesh)) if spmd else None)
+        totals = measured[key]
+        if spmd:
+            share, temp = 1, totals["peak"]
+            coll = {"collective_bytes_per_device": dict(sorted(totals["collectives"].items()))}
+        else:
+            share, temp = mesh.size, -(-totals["peak"] // axis_size(mesh, c.rules["batch"]))
+            coll = {"collective_bytes_per_device": None, "collective_note": COLLECTIVE_NOTE}
         record.update(
             status="OK",
             trace_s=round(time.perf_counter() - t0, 2),
             traced_layers=totals["traced_layers"],
-            flops=totals["flops"] / mesh.size,
-            bytes_accessed=totals["bytes"] / mesh.size,
-            collective_bytes_per_device=None,
-            collective_note=COLLECTIVE_NOTE,
-            memory={"argument_size_in_bytes": args_bytes,
-                    "temp_size_in_bytes": -(-totals["peak"] // baxes)},
+            flops=totals["flops"] / share,
+            bytes_accessed=totals["bytes"] / share,
+            **coll,
+            memory={"argument_size_in_bytes": args_bytes, "temp_size_in_bytes": temp},
             num_devices=mesh.size,
         )
         if verbose:
@@ -562,12 +688,34 @@ def _save(record: dict):
     (ARTIFACT_DIR / name).write_text(json.dumps(record, indent=2))
 
 
-def sweep(archs, cells, meshes, *, verbose: bool = True) -> list[dict]:
-    """Every (mesh, arch, cell) record; each (arch, cell) is measured once
-    and its totals serve every mesh."""
+def _sweep_arch(arch: str, cells, meshes, verbose: bool) -> list[dict]:
+    """One arch's records, mesh by mesh and cell by cell, unsaved."""
     measured: dict = {}
-    return [dryrun_cell(arch, cell, multi_pod=multi_pod, measured=measured, verbose=verbose)
-            for multi_pod in meshes for arch in archs for cell in cells]
+    return [dryrun_cell(arch, cell, multi_pod=multi_pod, measured=measured, save=False,
+                        verbose=verbose)
+            for multi_pod in meshes for cell in cells]
+
+
+def sweep(archs, cells, meshes, *, verbose: bool = True, workers: int = 1) -> list[dict]:
+    """Every (mesh, arch, cell) record, saved; a single-device step is
+    measured once per (arch, cell) and serves both meshes, an SPMD step once
+    per mesh.  ``workers`` > 1 records the archs in that many processes, an
+    arch to a process (the records are the same)."""
+    if workers > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        n = len(archs)
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            per_arch = list(pool.map(_sweep_arch, archs, [cells] * n, [meshes] * n,
+                                     [verbose] * n))
+    else:
+        per_arch = [_sweep_arch(arch, cells, meshes, verbose) for arch in archs]
+    records = [per_arch[i][m * len(cells) + c] for m in range(len(meshes))
+               for i in range(len(archs)) for c in range(len(cells))]
+    for record in records:
+        _save(record)
+    return records
 
 
 def main(argv=None):
@@ -577,6 +725,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--workers", type=int, default=1, help="processes, an arch to each")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import ASSIGNED_ARCHS
@@ -585,7 +734,7 @@ def main(argv=None):
     cells = [c.name for c in SHAPE_CELLS] if (args.all or not args.cell) else [args.cell]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     t0 = time.perf_counter()
-    records = sweep(archs, cells, meshes)
+    records = sweep(archs, cells, meshes, workers=args.workers)
     n = {s: sum(r["status"] == s for r in records) for s in ("OK", "SKIP", "FAIL")}
     print(f"[dryrun] done: {n['OK']} OK, {n['SKIP']} SKIP, {n['FAIL']} FAIL "
           f"in {time.perf_counter() - t0:.1f} s")

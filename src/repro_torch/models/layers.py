@@ -18,11 +18,29 @@ the tiles are already the "unrolled" form of the JAX package's probe switch
 An ``*_init`` draws from ``generator`` on its device; with ``generator=None``
 it makes uninitialised tensors on ``device`` (``"meta"``: shapes and dtypes
 only, no memory).
+
+Tensor parallelism.  With ``tp`` (a :class:`TensorParallel`: this rank's
+``data`` and ``model`` axes of a host mesh and one block's sanitized specs)
+the attention and MLP layers run on this rank's weight shards, Megatron's
+way: ``wq``/``wk``/``wv``/``up``/``gate`` column-parallel over ``model``,
+``wo``/``down`` row-parallel with a psum over ``model``, every ``data``
+(FSDP) dim of a weight all-gathered before use.  A column shard must hold
+whole heads; where the model axis does not divide the q (or kv) heads the
+layer gathers that weight over ``model`` and computes those heads on every
+rank alike.  A value every rank holds alike enters a rank-specific
+computation through ``MeshAxis.copy`` (Megatron's f), so its gradient stays
+whole on every rank.  Decode attention runs against the sequence-sharded
+cache: each model rank scores every head against its ``S/M`` positions and
+the partial softmaxes meet in a max and two psums over ``model``; the new
+token's k/v go only to the rank that owns ``pos``.  With ``tp=None`` every
+layer is the single-device code, op for op.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +56,45 @@ def _empty_or(generator, shape, dtype, device):
 
 def _device(generator, device):
     return generator.device if generator is not None else device
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """One rank's place in a dense block's SPMD: the ``data`` (FSDP) and
+    ``model`` (tensor-parallel) axes (``launch.mesh.MeshAxis``), ``specs``
+    (the block's parameter specs sanitized on the mesh, no layer dim), and
+    which parts run split over ``model``: ``q_split`` (whole q heads on each
+    rank), ``kv_split`` (whole kv heads too) and ``mlp_split`` (the d_ff
+    columns)."""
+
+    data: Any
+    model: Any
+    specs: dict
+    q_split: bool
+    kv_split: bool
+    mlp_split: bool
+
+    def weight(self, w, spec, *, full: bool = False):
+        """A weight shard ready to use: gathered over ``data`` where its spec
+        shards it (backward: a reduce-scatter of the data ranks' partial
+        gradients), and with ``full`` over ``model`` too (its use is the
+        same on every model rank, backward: this rank's block)."""
+        for dim, entry in enumerate(spec):
+            if entry == "data":
+                w = self.data.all_gather(w, dim, kind="weight")
+        if full:
+            for dim, entry in enumerate(spec):
+                if entry == "model":
+                    w = self.model.all_gather(w, dim, kind="weight", replicated=True)
+        return w
+
+    def dense(self, p, spec, *, full: bool = False):
+        return {k: self.weight(v, spec[k], full=full) for k, v in p.items()}
+
+    def shared(self, p):
+        """A replicated parameter (a norm scale) used on this rank's heads
+        only: its gradient is summed over ``model``."""
+        return {k: self.model.copy(v) for k, v in p.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +187,10 @@ def mlp_init(generator, d: int, d_ff: int, *, act: str, dtype=torch.float32,
     return p
 
 
-def mlp_apply(p, x: torch.Tensor, *, act: str, compute_dtype=None) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, *, act: str, compute_dtype=None,
+              tp: TensorParallel | None = None) -> torch.Tensor:
+    if tp is not None:
+        return _mlp_apply_tp(p, x, act=act, compute_dtype=compute_dtype, tp=tp)
     if act == "swiglu":
         h = F.silu(dense_apply(p["gate"], x, compute_dtype=compute_dtype))
         h = h * dense_apply(p["up"], x, compute_dtype=compute_dtype)
@@ -142,6 +202,17 @@ def mlp_apply(p, x: torch.Tensor, *, act: str, compute_dtype=None) -> torch.Tens
     else:
         raise ValueError(act)
     return dense_apply(p["down"], h, compute_dtype=compute_dtype)
+
+
+def _mlp_apply_tp(p, x, *, act, compute_dtype, tp: TensorParallel):
+    """Column-parallel up/gate, row-parallel down with a psum over
+    ``model``; the whole MLP on every rank where ``model`` does not divide
+    d_ff."""
+    split, sp = tp.mlp_split, tp.specs["mlp"]
+    w = {k: tp.dense(p[k], sp[k], full=not split) for k in p}
+    xs = tp.model.copy(x) if split else x
+    y = mlp_apply(w, xs, act=act, compute_dtype=compute_dtype)
+    return tp.model.all_reduce(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -333,15 +404,89 @@ def _project_qkv(p, x, cfg, positions, compute_dtype):
     return q, k, v
 
 
+def _heads_for(k, h0: int, hl: int, g: int):
+    """The kv heads of ``k`` (B, S, KV, Dh) that q heads ``h0 .. h0+hl`` read,
+    laid out so that q head ``h0 + j`` groups onto kv head ``j // g'``: a
+    slice when the q heads cover whole groups or lie in one, else one kv head
+    per q head."""
+    if h0 % g == 0 and hl % g == 0:
+        return k[:, :, h0 // g:(h0 + hl) // g]
+    if h0 // g == (h0 + hl - 1) // g:
+        return k[:, :, h0 // g:h0 // g + 1]
+    idx = torch.div(torch.arange(h0, h0 + hl, device=k.device), g, rounding_mode="floor")
+    return k[:, :, idx]
+
+
+def _project_qkv_tp(p, x, cfg, positions, compute_dtype, tp: TensorParallel):
+    """This rank's q heads and the kv heads it computes: split over
+    ``model`` where ``tp`` says, whole (weights gathered) elsewhere."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    m, sp = tp.model.size, tp.specs["attn"]
+    hl = h // m if tp.q_split else h
+    kvl = kv // m if tp.kv_split else kv
+    xs = tp.model.copy(x) if tp.q_split else x
+    q = dense_apply(tp.dense(p["wq"], sp["wq"], full=not tp.q_split), xs,
+                    compute_dtype=compute_dtype).reshape(b, s, hl, dh)
+    k = dense_apply(tp.dense(p["wk"], sp["wk"], full=not tp.kv_split),
+                    xs if tp.kv_split else x, compute_dtype=compute_dtype).reshape(b, s, kvl, dh)
+    v = dense_apply(tp.dense(p["wv"], sp["wv"], full=not tp.kv_split),
+                    xs if tp.kv_split else x, compute_dtype=compute_dtype).reshape(b, s, kvl, dh)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(tp.shared(p["q_norm"]) if tp.q_split else p["q_norm"], q,
+                          eps=cfg.norm_eps)
+        k = rmsnorm_apply(tp.shared(p["k_norm"]) if tp.kv_split else p["k_norm"], k,
+                          eps=cfg.norm_eps)
+    q = apply_rope(q, positions, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj_tp(p, o, tp: TensorParallel, compute_dtype, *, heads_local: bool):
+    """``wo`` on the attention output (B, S, H * Dh, or this rank's heads when
+    ``heads_local``): row-parallel with a psum over ``model`` where ``model``
+    divides its rows (an output of every head enters through this rank's
+    block of it)."""
+    spec = tp.specs["attn"]["wo"]
+    if spec["w"][:1] != ("model",):
+        return dense_apply(tp.dense(p["wo"], spec), o, compute_dtype=compute_dtype)
+    if not heads_local:
+        o = tp.model.block(tp.model.copy(o), -1)
+    return tp.model.all_reduce(dense_apply(tp.dense(p["wo"], spec), o,
+                                           compute_dtype=compute_dtype))
+
+
 def attention_apply(p, x, cfg, *, positions, window=None, prefix_len: int = 0,
-                    compute_dtype=None):
-    """Full-sequence (train/prefill) attention. x: (B, S, D). Returns y, (k, v)."""
+                    compute_dtype=None, tp: TensorParallel | None = None):
+    """Full-sequence (train/prefill) attention. x: (B, S, D). Returns y, (k, v):
+    under ``tp``, the kv heads this rank computed."""
+    if tp is not None:
+        return _attention_apply_tp(p, x, cfg, positions=positions, window=window,
+                                   prefix_len=prefix_len, compute_dtype=compute_dtype, tp=tp)
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
     out = chunked_attention(q, k, v, q_positions=positions, kv_positions=positions,
                             prefix_len=prefix_len, window=window,
                             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
     y = dense_apply(p["wo"], out.reshape(b, s, -1), compute_dtype=compute_dtype)
+    return y, (k, v)
+
+
+def _attention_apply_tp(p, x, cfg, *, positions, window, prefix_len, compute_dtype,
+                        tp: TensorParallel):
+    b, s, _ = x.shape
+    q, k, v = _project_qkv_tp(p, x, cfg, positions, compute_dtype, tp)
+    ka, va = k, v
+    if tp.q_split and not tp.kv_split:
+        # the kv heads are whole on every rank; this rank's q heads read some
+        g, hl = cfg.num_heads // cfg.num_kv_heads, q.shape[2]
+        h0 = tp.model.rank * hl
+        ka = _heads_for(tp.model.copy(k), h0, hl, g)
+        va = _heads_for(tp.model.copy(v), h0, hl, g)
+    out = chunked_attention(q, ka, va, q_positions=positions, kv_positions=positions,
+                            prefix_len=prefix_len, window=window,
+                            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+    y = _out_proj_tp(p, out.reshape(b, s, -1), tp, compute_dtype, heads_local=tp.q_split)
     return y, (k, v)
 
 
@@ -353,14 +498,44 @@ def _write_slot(cache, new, slot: int):
     return torch.cat([cache[:, :i], new.to(cache.dtype), cache[:, i + 1:]], dim=1)
 
 
+def decode_attention_sharded(q, k_cache, v_cache, *, cache_len, offset: int, model,
+                             scale: float | None = None):
+    """:func:`decode_attention` over a cache sharded along the sequence over
+    ``model``: this rank holds positions ``offset .. offset + S_local``.  The
+    scores of every head against those positions, their max over ``model``,
+    the softmax's sum as a psum, and the probabilities times v as another:
+    the single-device softmax, its sums in another order."""
+    b, _, h, dh = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, kv, g, dh)
+    scores = torch.einsum("bhgd,bshd->bhgs", _f32(qg), _f32(k_cache)) * scale
+    valid = torch.arange(offset, offset + s, device=q.device) < cache_len
+    scores = torch.where(valid, scores, _NEG_INF)
+    top = model.all_reduce(scores.amax(dim=-1, keepdim=True), op="max", kind="state")
+    e = torch.exp(scores - top)
+    probs = e / model.all_reduce(e.sum(dim=-1, keepdim=True), kind="state")
+    out = torch.einsum("bhgs,bshd->bhgd", _f32(probs.to(v_cache.dtype)), _f32(v_cache))
+    out = model.all_reduce(out, kind="state")
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
 def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, pos: int, compute_dtype=None,
-                           ring: bool = False):
+                           ring: bool = False, tp: TensorParallel | None = None):
     """One-token decode. x: (B, 1, D); caches (B, S, KV, Dh); pos: an int.
 
     Returns (y, k', v'): new caches with the token's K/V written at ``pos``
     (``pos % S`` when ``ring``, for sliding-window caches), the old ones
-    untouched; attention runs over the valid region.
+    untouched; attention runs over the valid region.  Under ``tp`` the
+    caches are this rank's block of the sequence (B, S/M, KV, Dh), of a
+    cache of S = M x S/M positions.
     """
+    if tp is not None:
+        if ring:
+            raise NotImplementedError("sliding-window decode under a mesh: ROADMAP.md §1 item 6b")
+        return _attention_decode_tp(p, x, cfg, cache_k=cache_k, cache_v=cache_v, pos=pos,
+                                    compute_dtype=compute_dtype, tp=tp)
     b = x.shape[0]
     s_cache = cache_k.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -371,4 +546,30 @@ def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, pos: int, compute_dty
     cache_len = min(pos + 1, s_cache) if ring else pos + 1
     out = decode_attention(q, cache_k, cache_v, cache_len=cache_len)
     y = dense_apply(p["wo"], out.reshape(b, 1, -1), compute_dtype=compute_dtype)
+    return y, cache_k, cache_v
+
+
+def _attention_decode_tp(p, x, cfg, *, cache_k, cache_v, pos, compute_dtype, tp):
+    b = x.shape[0]
+    model = tp.model
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv_tp(p, x, cfg, positions, compute_dtype, tp)
+    # every rank scores all heads against its positions: gather the heads
+    if tp.q_split:
+        q = model.all_gather(q, 2, kind="state", replicated=True)
+    if tp.kv_split:
+        k = model.all_gather(k, 2, kind="state", replicated=True)
+        v = model.all_gather(v, 2, kind="state", replicated=True)
+    s_local = cache_k.shape[1]
+    slot = min(max(pos, 0), s_local * model.size - 1)      # clamped as on one device
+    owner, offset = slot // s_local, model.rank * s_local
+    if model.rank == owner:
+        cache_k = _write_slot(cache_k, k, slot - offset)
+        cache_v = _write_slot(cache_v, v, slot - offset)
+    if model.size == 1:
+        out = decode_attention(q, cache_k, cache_v, cache_len=pos + 1)
+    else:
+        out = decode_attention_sharded(q, cache_k, cache_v, cache_len=pos + 1, offset=offset,
+                                       model=model)
+    y = _out_proj_tp(p, out.reshape(b, 1, -1), tp, compute_dtype, heads_local=False)
     return y, cache_k, cache_v

@@ -2,7 +2,13 @@
 registry, the loss, the train/prefill/serve steps and the input specs.
 
 Each step is a function of (params/state, batch) as in the JAX package,
-which jits them; here they run eagerly.  ``make_train_step`` takes the
+which jits them; here they run eagerly.  With ``mesh=`` (a
+``launch.mesh.HostMesh``) a step builder returns the SPMD step of the dense
+family (``transformer.spmd_layout``): every rank calls it alike on its shards
+(``distributed.sharding.shard_tree`` of the global trees under
+``transformer.param_pspecs`` / ``cache_pspecs`` / :func:`batch_pspecs`) and
+gets its shards back -- what the JAX package's step computes when ``jit``
+partitions it over a mesh.  ``make_train_step`` takes the
 port's ``optim.make_optimizer`` pair and returns a new state (nothing is
 updated in place); the prefill and serve steps run without autograd.  The
 input specs (``batch_struct``, ``cache_struct``) are tensors on the ``meta``
@@ -58,20 +64,40 @@ def _shift_labels(tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return labels, mask.to(torch.float32)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, *,
+                  vocab=None, batch_axes=()) -> torch.Tensor:
     """Stable masked cross-entropy: ``logsumexp`` over f32 logits, the
-    masked sum divided by ``max(mask.sum(), 1)``."""
+    masked sum divided by ``max(mask.sum(), 1)``.
+
+    Sharded: ``vocab`` (a ``MeshAxis``) holds the logits cut over the
+    vocabulary, rank i the i-th block: the row max meets over it in a max,
+    the sum of exponentials and the gold logit in psums.  ``batch_axes``:
+    the axes the rows are cut over; the masked sum and the mask's count are
+    summed over them, so the mean is the global batch's."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if vocab is None or vocab.size == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        top = vocab.all_reduce(logits.detach().amax(dim=-1), op="max")
+        logz = top + torch.log(vocab.all_reduce(torch.exp(logits - top[..., None]).sum(dim=-1)))
+        n = logits.shape[-1]
+        local = labels.long() - vocab.rank * n
+        inside = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = vocab.all_reduce(torch.where(inside, gold, torch.zeros_like(gold)))
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    total, count = nll.sum(), mask.sum()
+    for ax in batch_axes:
+        total, count = ax.all_reduce(total), ax.all_reduce(count)
+    return total / torch.clamp(count, min=1.0)
 
 
-def loss_fn(params, batch, cfg: ArchConfig):
-    """Returns (loss, metrics dict). Handles all modalities."""
-    logits, aux, _ = T.forward(params, batch, cfg)
+def loss_fn(params, batch, cfg: ArchConfig, *, spmd=None):
+    """Returns (loss, metrics dict). Handles all modalities.  Under ``spmd``
+    (``transformer.Spmd``): on this rank's shards, the loss of the global
+    batch on every rank."""
+    logits, aux, _ = T.forward(params, batch, cfg, spmd=spmd)
     if cfg.modality == "text":
         labels, mask = _shift_labels(batch["tokens"])
     elif cfg.modality == "audio_stub":
@@ -87,7 +113,11 @@ def loss_fn(params, batch, cfg: ArchConfig):
         mask = torch.cat([pad.to(torch.float32), mask_txt], dim=1)
     else:
         raise ValueError(cfg.modality)
-    ce = cross_entropy(logits, labels, mask)
+    if spmd is None:
+        ce = cross_entropy(logits, labels, mask)
+    else:
+        ce = cross_entropy(logits, labels, mask, batch_axes=spmd.batch,
+                           vocab=spmd.model if spmd.vocab_split else None)
     loss = ce + cfg.router_aux_loss * aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -96,27 +126,48 @@ def loss_fn(params, batch, cfg: ArchConfig):
 # steps
 # ---------------------------------------------------------------------------
 
-def value_and_grad(params, batch, cfg: ArchConfig):
+def value_and_grad(params, batch, cfg: ArchConfig, *, spmd=None):
     """((loss, metrics), grads): :func:`loss_fn` and its gradient tree, of
     ``params``' structure (the JAX package's ``jax.value_and_grad(...,
-    has_aux=True)``).  ``params`` are not modified."""
+    has_aux=True)``).  ``params`` are not modified.  Under ``spmd`` the
+    gradient of each shard of the global batch's loss
+    (``Spmd.reduce_grads``)."""
     live = rebuild(params, iter(p.detach().requires_grad_(True) for p in leaves(params)))
     with torch.enable_grad():
-        loss, metrics = loss_fn(live, batch, cfg)
+        loss, metrics = loss_fn(live, batch, cfg, spmd=spmd)
         grads = torch.autograd.grad(loss, leaves(live))
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), rebuild(params, iter(grads))
+    grads = rebuild(params, iter(grads))
+    if spmd is not None:
+        with torch.no_grad():
+            grads = spmd.reduce_grads(grads)
+    return (loss.detach(), metrics), grads
 
 
-def make_train_step(cfg: ArchConfig, optimizer):
+def _spmd(cfg, mesh, preset):
+    return None if mesh is None else T.spmd_layout(cfg, mesh, preset=preset)
+
+
+def make_train_step(cfg: ArchConfig, optimizer, *, mesh=None, preset: str = "base"):
     """train_step(state, batch) -> (state', metrics). ``optimizer`` from
-    ``repro_torch.optim.optimizer.make_optimizer`` (an init/update pair)."""
+    ``repro_torch.optim.optimizer.make_optimizer`` (an init/update pair).
+
+    With ``mesh``: the SPMD step on this rank's shards of the state (the
+    optimizer state sharded as the parameters) and of the batch; AdamW runs
+    on the shard, its global-norm clip summing each leaf's squares over the
+    axes that leaf is sharded over.  Adafactor (used only by an MoE arch)
+    has no sharded update yet (``ROADMAP.md`` §1 item 6b)."""
+    spmd = _spmd(cfg, mesh, preset)
+    if spmd is not None and optimizer.config.kind != "adamw":
+        raise NotImplementedError(f"a sharded {optimizer.config.kind} update is "
+                                  f"{T.SPMD_TODO}; the sharded executor runs AdamW")
+    kw = {} if spmd is None else {"shard_axes": spmd.norm_axes()}
 
     def train_step(state, batch):
-        (_, metrics), grads = value_and_grad(state["params"], batch, cfg)
+        (_, metrics), grads = value_and_grad(state["params"], batch, cfg, spmd=spmd)
         with torch.no_grad():
             new_params, new_opt = optimizer.update(
-                grads, state["opt_state"], state["params"], step=state["step"])
+                grads, state["opt_state"], state["params"], step=state["step"], **kw)
         metrics["grad_norm"] = optimizer.last_grad_norm(new_opt)
         return ({"params": new_params, "opt_state": new_opt, "step": state["step"] + 1},
                 metrics)
@@ -124,19 +175,29 @@ def make_train_step(cfg: ArchConfig, optimizer):
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, *, mesh=None, preset: str = "base"):
+    """prefill_step(params, batch) -> (last logits, cache).  With ``mesh``:
+    on this rank's shards; the logits cut over the vocabulary where
+    ``model`` divides it, the cache this rank's block of ``cache_pspecs``."""
+    spmd = _spmd(cfg, mesh, preset)
+
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _, cache = T.forward(params, batch, cfg, collect_cache=True)
+        logits, _, cache = T.forward(params, batch, cfg, collect_cache=True, spmd=spmd)
         return logits[:, -1:, :], cache
 
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, *, mesh=None, preset: str = "base"):
+    """serve_step(params, cache, batch, pos) -> (logits, cache').  With
+    ``mesh``: as :func:`make_prefill_step`, against this rank's block of the
+    sequence-sharded cache."""
+    spmd = _spmd(cfg, mesh, preset)
+
     @torch.no_grad()
     def serve_step(params, cache, batch, pos):
-        return T.decode(params, cache, batch, pos, cfg)
+        return T.decode(params, cache, batch, pos, cfg, spmd=spmd)
 
     return serve_step
 

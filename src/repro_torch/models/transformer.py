@@ -19,8 +19,20 @@ package's ``nothing_saveable`` policy).
 
 Sharding: ``param_pspecs``, ``cache_pspecs`` and ``block_pspecs`` give the
 JAX package's ``PartitionSpec`` entries as tuples (the form of
-``distributed.sharding.spec``); the logical-axis constraints on activations
-are identities in eager PyTorch (``distributed.sharding.constrain``).
+``distributed.sharding.spec``).  The JAX package hands them to GSPMD, which
+partitions the jitted step around its activation constraints; eager PyTorch
+has no partitioner (``distributed.sharding.constrain`` is the identity), so
+``forward`` and ``decode`` take an :class:`Spmd` (``spmd_layout``: this
+rank's axes of a host mesh and the specs sanitized on it) and run the dense
+``attn_mlp`` stack SPMD on this rank's shards, every collective explicit:
+vocab-parallel embedding (a masked lookup, a psum over ``model``) and
+vocab-sharded logits, tensor-parallel attention and MLP
+(``layers.TensorParallel``), FSDP gathers of each block's weights inside the
+block's remat region (the backward gathers them again, as the JAX package's
+``_remat`` body does), and a prefill cache resharded from heads to the
+sequence-sharded cache spec.  With ``spmd=None`` both run the single-device
+code, op for op.  The MoE, SSM and hybrid kinds and the presets other than
+``base`` have no sharded walker yet (``ROADMAP.md`` §1 item 6b).
 
 ``init_lm`` and ``cache_init`` run on the card unless ``device`` says
 otherwise (``bridge.resolve_device``: without a card that raises); on
@@ -32,11 +44,14 @@ from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import layer_params, leaves, rebuild, resolve_device
+from repro_torch.distributed.sharding import entry_axes, leaf_axes, map_leaves, sanitized_specs
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -188,8 +203,10 @@ def _prepend_layer_dim(specs):
 # ---------------------------------------------------------------------------
 
 def block_apply(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len: int,
-                collect_cache: bool):
-    """x: (B, S, D). Returns (x', aux_loss, cache_kv_or_None)."""
+                collect_cache: bool, tp: L.TensorParallel | None = None):
+    """x: (B, S, D). Returns (x', aux_loss, cache_kv_or_None); under ``tp``
+    (an ``attn_mlp`` block on this rank's shards) the cache holds this
+    rank's block of the sequence."""
     cd = _dtype(cfg.compute_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
@@ -197,13 +214,13 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len: int,
         window = cfg.local_window if kind == "attn_local" else None
         h = L.rmsnorm_apply(p["ln1"], x, eps=cfg.norm_eps)
         y, (k, v) = L.attention_apply(p["attn"], h, cfg, positions=positions, window=window,
-                                      prefix_len=prefix_len, compute_dtype=cd)
+                                      prefix_len=prefix_len, compute_dtype=cd, tp=tp)
         x = x + y
         h = L.rmsnorm_apply(p["ln2"], x, eps=cfg.norm_eps)
         if kind == "attn_moe":
             y, aux = MOE.moe_apply(p["moe"], h, cfg, compute_dtype=cd)
         else:
-            y = L.mlp_apply(p["mlp"], h, act=cfg.act, compute_dtype=cd)
+            y = L.mlp_apply(p["mlp"], h, act=cfg.act, compute_dtype=cd, tp=tp)
         x = x + y
         if collect_cache:
             if kind == "attn_local":
@@ -212,6 +229,8 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len: int,
                 w = min(cfg.local_window, k.shape[1])
                 k, v = k[:, -w:], v[:, -w:]
             cache = {"k": k.to(cd), "v": v.to(cd)}
+            if tp is not None:
+                cache = {n: _kv_to_seq(c, tp) for n, c in cache.items()}
     elif kind == "ssm":
         h = L.rmsnorm_apply(p["ln"], x, eps=cfg.norm_eps)
         if collect_cache:
@@ -233,24 +252,36 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len: int,
     return x, aux, cache
 
 
+def _kv_to_seq(c, tp: L.TensorParallel):
+    """A prefill's k or v (B, S, KV_local, Dh) as the sequence-sharded cache
+    block (B, S/M, KV, Dh): an all-to-all over ``model`` from heads to
+    sequence, or this rank's block where every rank computed every head."""
+    if tp.model.size == 1:
+        return c
+    if tp.kv_split:
+        return tp.model.all_to_all(c, 1, 2, kind="state")
+    return tp.model.block(c, 1)
+
+
 # ---------------------------------------------------------------------------
 # per-block decode
 # ---------------------------------------------------------------------------
 
-def block_decode(p, x, cache, cfg: ArchConfig, kind: str, *, pos):
+def block_decode(p, x, cache, cfg: ArchConfig, kind: str, *, pos,
+                 tp: L.TensorParallel | None = None):
     """x: (B, 1, D); cache: per-layer dict. Returns (x', cache')."""
     cd = _dtype(cfg.compute_dtype)
     if kind in ("attn_mlp", "attn_local", "attn_moe"):
         h = L.rmsnorm_apply(p["ln1"], x, eps=cfg.norm_eps)
         y, ck, cv = L.attention_decode_apply(p["attn"], h, cfg, cache_k=cache["k"],
                                              cache_v=cache["v"], pos=pos, compute_dtype=cd,
-                                             ring=kind == "attn_local")
+                                             ring=kind == "attn_local", tp=tp)
         x = x + y
         h = L.rmsnorm_apply(p["ln2"], x, eps=cfg.norm_eps)
         if kind == "attn_moe":
             y, _ = MOE.moe_apply(p["moe"], h, cfg, compute_dtype=cd)
         else:
-            y = L.mlp_apply(p["mlp"], h, act=cfg.act, compute_dtype=cd)
+            y = L.mlp_apply(p["mlp"], h, act=cfg.act, compute_dtype=cd, tp=tp)
         return x + y, {"k": ck, "v": cv}
     if kind == "ssm":
         h = L.rmsnorm_apply(p["ln"], x, eps=cfg.norm_eps)
@@ -363,6 +394,135 @@ def cache_pspecs(cfg: ArchConfig):
 
 
 # ---------------------------------------------------------------------------
+# the SPMD layout
+# ---------------------------------------------------------------------------
+
+SPMD_TODO = "ROADMAP.md §1 item 6b"
+
+
+@dataclass(frozen=True)
+class Spmd:
+    """The dense walker's SPMD on a host mesh as one rank runs it (the
+    ``base`` rules): ``mesh`` (``launch.mesh.HostMesh``, a real world's or
+    a record-only one), ``specs`` (``param_pspecs`` sanitized on the mesh
+    against the global shapes), ``tp`` (one block's
+    ``layers.TensorParallel``), ``vocab_split`` (the vocabulary cut over
+    ``model``: the embedding, the head and the loss run vocab-parallel) and
+    ``batch`` (the axes the batch is cut over: ``data``, and ``pod`` first
+    on the multi-pod mesh)."""
+
+    cfg: ArchConfig
+    mesh: Any
+    specs: dict
+    tp: L.TensorParallel
+    vocab_split: bool
+    batch: tuple
+
+    @property
+    def model(self):
+        return self.mesh.axis("model")
+
+    @property
+    def batch_entry(self):
+        """The spec entry of a batch dim: ``"data"``, or ``("pod", "data")``."""
+        names = tuple(a.name for a in self.batch)
+        return names[0] if len(names) == 1 else names
+
+    def cache_specs(self, cache):
+        """The specs of the cache the sharded steps take and give, sanitized
+        against a global cache tree: ``cache_pspecs`` (the sequence over
+        ``model``) with the batch dim cut like the batch.  On the multi-pod
+        mesh that differs from the reference's spec, which cuts the cache's
+        batch over ``data`` only and so holds it whole on both pods while the
+        tokens it serves are cut over ``pod``; its jitted serve step leaves
+        the cache's output layout to GSPMD."""
+        entry = self.batch_entry
+        specs = _map_spec_tuples(lambda sp: tuple(entry if e == "data" else e for e in sp),
+                                 cache_pspecs(self.cfg))
+        return sanitized_specs(specs, cache, self.mesh)
+
+    def norm_axes(self):
+        """The axes of size above 1 each parameter leaf is sharded over (the
+        axes its squares are summed over in the global norm)."""
+        return leaf_axes(self.specs, self.mesh)
+
+    def reduce_grads(self, grads):
+        """Each parameter gradient summed over the batch axes its leaf is
+        not sharded over (a leaf sharded over ``data`` was reduce-scattered
+        there by the backward of its gather already): the gradient of the
+        global batch's loss."""
+        def reduce(g, spec):
+            names = {a for entry in spec for a in entry_axes(entry)}
+            for ax in self.batch:
+                if ax.name not in names:
+                    g = ax.all_reduce(g, kind="grad")
+            return g
+
+        return map_leaves(reduce, grads, self.specs)
+
+
+def _map_spec_tuples(fn, specs):
+    if isinstance(specs, dict):
+        return {k: _map_spec_tuples(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_spec_tuples(fn, v) for v in specs]
+    return fn(specs)
+
+
+def spmd_layout(cfg: ArchConfig, mesh, *, preset: str = "base") -> Spmd:
+    """The :class:`Spmd` of ``cfg`` on ``mesh`` (axes ``data`` and ``model``,
+    and ``pod`` in front on the multi-pod mesh).  Only the ``base`` rules and
+    the dense ``attn_mlp`` kind run sharded; anything else raises
+    ``NotImplementedError`` naming the ``ROADMAP.md`` item, and is never run
+    under other rules."""
+    if preset != "base":
+        raise NotImplementedError(
+            f"the sharded executor runs the base rules only; the {preset!r} preset "
+            f"(like fsdp, sp and zero2) is {SPMD_TODO}")
+    kinds = sorted(set(layer_kinds(cfg)))
+    if kinds != ["attn_mlp"]:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kind(s) {kinds} under a mesh are {SPMD_TODO}; the sharded "
+            "executor runs the dense attn_mlp kind")
+    names = tuple(mesh.axis_names)
+    if names not in (("data", "model"), ("pod", "data", "model")):
+        raise ValueError(f"the sharded executor needs a (data, model) or (pod, data, model) "
+                         f"mesh, not {names}")
+    dtype = _dtype(cfg.param_dtype)
+    specs = sanitized_specs(param_pspecs(cfg), init_lm(0, cfg, device="meta"), mesh)
+    block = sanitized_specs(block_pspecs(cfg, "attn_mlp"),
+                            block_init(None, cfg, "attn_mlp", dtype, "meta"), mesh)
+    m = mesh.axis("model").size
+    q_split = cfg.num_heads % m == 0
+    tp = L.TensorParallel(mesh.axis("data"), mesh.axis("model"), block, q_split,
+                          q_split and cfg.num_kv_heads % m == 0, cfg.d_ff % m == 0)
+    batch = tuple(mesh.axis(a) for a in names[:-1])
+    return Spmd(cfg, mesh, specs, tp, cfg.vocab_size % m == 0, batch)
+
+
+def _embed_table(params, spmd: Spmd):
+    """The embedding table as this rank uses it: (V/M, D) vocab-parallel,
+    its ``data`` dim gathered."""
+    return spmd.tp.weight(params["embed"]["table"], spmd.specs["embed"]["table"])
+
+
+def _lookup(params, ids, spmd: Spmd | None):
+    """Embedding rows of ``ids``: a vocab-parallel table looks up the ids in
+    its block (zero rows elsewhere) and sums over ``model``."""
+    if spmd is None:
+        return params["embed"]["table"][ids.long()]
+    table = _embed_table(params, spmd)
+    model = spmd.model
+    if not spmd.vocab_split or model.size == 1:
+        return table[ids.long()]
+    n = table.shape[0]
+    local = ids.long() - model.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return model.all_reduce(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
+
+
+# ---------------------------------------------------------------------------
 # whole-model forward (train / prefill)
 # ---------------------------------------------------------------------------
 
@@ -375,17 +535,17 @@ def _scaled(x, cfg: ArchConfig, cd):
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd).item()
 
 
-def embed_inputs(params, batch, cfg: ArchConfig):
+def embed_inputs(params, batch, cfg: ArchConfig, *, spmd: Spmd | None = None):
     """Returns (x (B,S,D) in compute dtype, prefix_len)."""
     cd = _dtype(cfg.compute_dtype)
     if cfg.modality == "text":
-        x = params["embed"]["table"][batch["tokens"].long()]
+        x = _lookup(params, batch["tokens"], spmd)
         prefix_len = 0
     elif cfg.modality == "audio_stub":
         x = batch["embeds"]  # precomputed EnCodec frame embeddings (stub)
         prefix_len = 0
     elif cfg.modality == "vision_stub":
-        text = params["embed"]["table"][batch["tokens"].long()]
+        text = _lookup(params, batch["tokens"], spmd)
         x = torch.cat([batch["image_embeds"].to(text.dtype), text], dim=1)
         prefix_len = batch["image_embeds"].shape[1]
     else:
@@ -393,9 +553,19 @@ def embed_inputs(params, batch, cfg: ArchConfig):
     return _scaled(x.to(cd), cfg, cd), prefix_len
 
 
-def _logits(params, x, cfg: ArchConfig):
+def _logits(params, x, cfg: ArchConfig, spmd: Spmd | None = None):
+    """Logits of the final hidden states; under ``spmd`` this rank's block
+    of the vocabulary where it is cut over ``model``."""
     x = L.rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
-    w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    if spmd is None:
+        w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+        return x @ w.to(x.dtype)
+    if cfg.tie_embeddings:
+        w = _embed_table(params, spmd).T
+    else:
+        w = spmd.tp.weight(params["lm_head"]["w"], spmd.specs["lm_head"]["w"])
+    if spmd.vocab_split:
+        x = spmd.model.copy(x)
     return x @ w.to(x.dtype)
 
 
@@ -403,18 +573,23 @@ def _remat_on(cfg: ArchConfig, p) -> bool:
     return cfg.remat and torch.is_grad_enabled() and any(t.requires_grad for t in leaves(p))
 
 
-def forward(params, batch, cfg: ArchConfig, *, collect_cache: bool = False):
-    """Full-sequence forward. Returns (logits, aux_loss, cache_or_None)."""
+def forward(params, batch, cfg: ArchConfig, *, collect_cache: bool = False,
+            spmd: Spmd | None = None):
+    """Full-sequence forward. Returns (logits, aux_loss, cache_or_None).
+    Under ``spmd``: on this rank's shards of the parameters and the batch,
+    logits cut over the vocabulary as ``Spmd.vocab_split`` says, the cache
+    sequence-sharded."""
     kinds = layer_kinds(cfg)
-    x, prefix_len = embed_inputs(params, batch, cfg)
+    x, prefix_len = embed_inputs(params, batch, cfg, spmd=spmd)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     uniform = _uniform(cfg)
+    tp = None if spmd is None else spmd.tp
     caches = []
     for i, kind in enumerate(kinds):
         p_l = layer_params(params["layers"], i) if uniform else params["layers"][i]
         fn = functools.partial(block_apply, cfg=cfg, kind=kind, positions=positions,
-                               prefix_len=prefix_len, collect_cache=collect_cache)
+                               prefix_len=prefix_len, collect_cache=collect_cache, tp=tp)
         if _remat_on(cfg, p_l):
             x, a, c = checkpoint(fn, p_l, x, use_reentrant=False)
         else:
@@ -424,38 +599,41 @@ def forward(params, batch, cfg: ArchConfig, *, collect_cache: bool = False):
     cache = None
     if collect_cache:
         cache = _stack(caches) if uniform else caches
-    return _logits(params, x, cfg), aux, cache
+    return _logits(params, x, cfg, spmd), aux, cache
 
 
 # ---------------------------------------------------------------------------
 # whole-model decode
 # ---------------------------------------------------------------------------
 
-def decode(params, cache, batch, pos, cfg: ArchConfig):
+def decode(params, cache, batch, pos, cfg: ArchConfig, *, spmd: Spmd | None = None):
     """One-token decode. batch: {'token': (B,1)} (text) or {'embeds': (B,1,D)};
     ``pos`` an int.  Returns (logits (B,1,V), cache'), the
-    given cache untouched."""
+    given cache untouched.  Under ``spmd``: this rank's shards, the cache
+    this rank's block of the sequence, logits as :func:`forward` gives
+    them."""
     cd = _dtype(cfg.compute_dtype)
     kinds = layer_kinds(cfg)
     if cfg.modality == "audio_stub":
         x = batch["embeds"].to(cd)
     else:
-        x = params["embed"]["table"][batch["token"].long()].to(cd)
+        x = _lookup(params, batch["token"], spmd).to(cd)
     x = _scaled(x, cfg, cd)
+    tp = None if spmd is None else spmd.tp
 
     if _uniform(cfg):
         new = []
         for i in range(cfg.num_layers):
             x, c_new = block_decode(layer_params(params["layers"], i), x,
-                                    layer_params(cache, i), cfg, kinds[0], pos=pos)
+                                    layer_params(cache, i), cfg, kinds[0], pos=pos, tp=tp)
             new.append(c_new)
         new_cache = _stack(new)
     else:
         new_cache = []
         for i, kind in enumerate(kinds):
-            x, c_new = block_decode(params["layers"][i], x, cache[i], cfg, kind, pos=pos)
+            x, c_new = block_decode(params["layers"][i], x, cache[i], cfg, kind, pos=pos, tp=tp)
             new_cache.append(c_new)
-    return _logits(params, x, cfg), new_cache
+    return _logits(params, x, cfg, spmd), new_cache
 
 
 def num_params(params) -> int:

@@ -10,6 +10,13 @@ clips the gradients to ``clip_norm`` by their global norm and records the
 pre-clip norm; weight decay is decoupled and applies to matrices only; the
 learning rate is a linear warm-up and a cosine decay.  The arithmetic is
 f32, step by step as the JAX package writes it.
+
+On shards (a sharded train step, ``models.lm.make_train_step(mesh=)``) the
+AdamW update runs on each leaf's local block as it is, and ``shard_axes``
+(a tree of the mesh axes each leaf is sharded over,
+``distributed.sharding.leaf_axes``) turns the clip's global norm into the
+whole tree's: each leaf's squares are summed over the axes that leaf is cut
+over, so a replicated leaf counts once.
 """
 
 from __future__ import annotations
@@ -78,8 +85,29 @@ class Optimizer:
         return opt_state["grad_norm"]
 
 
-def _clip(grads, clip_norm):
-    gn = global_norm(grads)
+def sharded_global_norm(grads, shard_axes) -> torch.Tensor:
+    """:func:`global_norm` of the whole tree from this rank's shards: the
+    leaves' squares summed by the tuple of axes they are sharded over, each
+    sum over its axes, in a fixed order of the tuples (every rank alike)."""
+    sums: dict = {}
+    for g, axes in zip(leaves(grads), _leaves_as(shard_axes, grads)):
+        part = torch.sum(torch.square(g.to(torch.float32)))
+        key = tuple(a.name for a in axes)
+        sums[key] = (axes, sums[key][1] + part) if key in sums else (axes, part)
+    total = None
+    for key in sorted(sums):
+        axes, part = sums[key]
+        for ax in axes:
+            part = ax.all_reduce(part, kind="grad")
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def _clip(grads, clip_norm, shard_axes=None):
+    if shard_axes is None or not any(_leaves_as(shard_axes, grads)):
+        gn = global_norm(grads)
+    else:
+        gn = sharded_global_norm(grads, shard_axes)
     scale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return _tree_map(lambda g: g * scale, grads), gn
 
@@ -105,9 +133,10 @@ def make_adamw(cfg: OptimizerConfig) -> Optimizer:
             state["master"] = _tree_map(lambda p: p.to(torch.float32).clone(), params)
         return state
 
-    def update(grads, opt_state, params, *, step):
-        """(new params, new state); ``step`` an int or a 0-d tensor."""
-        grads, gn = _clip(grads, cfg.clip_norm)
+    def update(grads, opt_state, params, *, step, shard_axes=None):
+        """(new params, new state); ``step`` an int or a 0-d tensor;
+        ``shard_axes``: on shards, the axes each leaf is sharded over."""
+        grads, gn = _clip(grads, cfg.clip_norm, shard_axes)
         step = _f32(step, gn)
         t = step + 1
         lr = cosine_schedule(cfg, step)

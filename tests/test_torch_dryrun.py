@@ -34,6 +34,10 @@ torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ShapeCell("tiny_train", 64, 4, "train")
 PRESETS = ("base", "zero2", "fsdp", "sp")
+# the collective kinds the JAX package's dry run counts (``collective_bytes``)
+JAX_KINDS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute"}
+DENSE = ("musicgen-large", "qwen1.5-4b", "qwen3-8b", "llama3.2-1b", "mistral-large-123b",
+         "paligemma-3b")
 
 
 @pytest.fixture(scope="module")
@@ -264,7 +268,7 @@ def test_skips_match_reference_and_production_record(tmp_path, monkeypatch):
     assert skip["status"] == "SKIP" and "sub-quadratic" in skip["reason"]
     rec = D.dryrun_cell("llama3.2-1b", "decode_32k", multi_pod=True, verbose=False)
     assert rec["status"] == "OK" and rec["mesh"] == "pod2x16x16" and rec["num_devices"] == 512
-    assert rec["collective_bytes_per_device"] is None and rec["collective_note"]
+    assert set(rec["collective_bytes_per_device"]) <= JAX_KINDS and "collective_note" not in rec
     assert rec["flops"] > 0 and rec["bytes_accessed"] > 0 and "trace_s" in rec
     saved = json.loads((tmp_path / "llama3.2-1b__decode_32k__pod2x16x16.json").read_text())
     assert saved == rec
@@ -312,3 +316,132 @@ def test_mesh_factory_shapes():
     assert batch_axes(True) == ("pod", "data")
     assert D.production_mesh(False).shape == {"data": 16, "model": 16}
     assert D.production_mesh(True).size == 512
+
+
+# -- the sharded step's records (the dense family) -------------------------------------
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_collective_bytes_of_dense_records(arch):
+    """A dense arch's decode_32k record on both production meshes carries
+    its rank 0's collective operand bytes under the JAX package's kind
+    names, and the shard's own FLOPs; the MoE, SSM and hybrid archs keep
+    null with a note naming the ROADMAP item."""
+    for multi_pod in (False, True):
+        rec = D.dryrun_cell(arch, "decode_32k", multi_pod=multi_pod, save=False, verbose=False)
+        assert rec["status"] == "OK", rec.get("error")
+        coll = rec["collective_bytes_per_device"]
+        if arch in DENSE:
+            assert D.sharded(arch)
+            assert coll and set(coll) <= JAX_KINDS and all(v > 0 for v in coll.values())
+            assert "all-reduce" in coll and "collective_note" not in rec
+        else:
+            assert not D.sharded(arch)
+            assert coll is None and "ROADMAP.md §1 item 6b" in rec["collective_note"]
+
+
+def test_train_record_of_llama_on_both_meshes():
+    """llama3.2-1b's train_4k: the gathers, the psums and the gradients'
+    reduce-scatter all appear, and the multi-pod record adds the pod
+    all-reduce of every gradient."""
+    single = D.dryrun_cell("llama3.2-1b", "train_4k", save=False, verbose=False)
+    multi = D.dryrun_cell("llama3.2-1b", "train_4k", multi_pod=True, save=False, verbose=False)
+    for rec in (single, multi):
+        assert set(rec["collective_bytes_per_device"]) == {"all-gather", "all-reduce",
+                                                           "reduce-scatter"}
+    assert (multi["collective_bytes_per_device"]["reduce-scatter"]
+            == single["collective_bytes_per_device"]["reduce-scatter"])
+    assert multi["flops"] < single["flops"]
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 1, 2)])
+def test_collective_extension_is_exact(shape):
+    """The collective bytes (and FLOPs and bytes) of the sharded step
+    summed from the traced depths equal a trace of every layer (5 here) on
+    a record-only mesh."""
+    from repro_torch.launch.mesh import record_only_mesh
+
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    mesh = record_only_mesh(shape, axes)
+    arch = "llama3.2-1b_smoke"
+    cfg = tlm.get_config(arch).replace(num_layers=5, attn_block_q=32, attn_block_k=32)
+    for cell in (ShapeCell("t", 64, 4, "train"), ShapeCell("p", 128, 4, "prefill"),
+                 ShapeCell("d", 64, 4, "decode")):
+        got = D.measure(arch, cell, cfg_override=cfg, mesh=mesh)
+        assert len(got["traced_layers"]) < 5
+        c, rec = D.build_cell(arch, cell, cfg_override=cfg, mesh=mesh), D.StepRecorder()
+        with rec:
+            out = c.call()
+        del out
+        assert got["collectives"] == rec.collectives and rec.collectives, cell.name
+        assert (got["flops"], got["bytes"]) == (rec.flops, rec.bytes), cell.name
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b_smoke", "paligemma-3b_smoke",
+                                  "musicgen-large_smoke"])
+def test_one_device_shard_equals_the_whole_step(arch):
+    """On a 1x1 record-only mesh the sharded step's FLOPs, bytes and peak
+    equal the single-device step's exactly, and it records no collective."""
+    from repro_torch.launch.mesh import record_only_mesh
+
+    one = record_only_mesh((1, 1))
+    for cell in (TINY, ShapeCell("tiny_prefill", 64, 2, "prefill"),
+                 ShapeCell("tiny_decode", 64, 2, "decode")):
+        whole, shard = D.measure(arch, cell), D.measure(arch, cell, mesh=one)
+        assert shard == {**whole, "collectives": {}}, (arch, cell.name)
+
+
+def test_sweep_statuses(monkeypatch, tmp_path):
+    """Every (arch, cell, mesh) builds its step -- the SPMD step of rank 0 of
+    the record-only production mesh for a dense arch, a single-device step
+    else -- and the statuses are 64 OK, 16 SKIP, 0 FAIL.  The traces
+    themselves are stubbed here (the whole sweep takes minutes; the records
+    above trace the cells whole); ``chip_smoke.py`` phase 15 runs it
+    unstubbed."""
+    monkeypatch.setattr(D, "ARTIFACT_DIR", tmp_path)
+    built = []
+
+    def stub(arch, cell, *, cfg_override=None, mesh=None):
+        cfg = tlm.get_config(arch).replace(num_layers=1)
+        c = D.build_cell(arch, cell, cfg_override=cfg, mesh=mesh)
+        built.append((arch, cell.name, None if mesh is None else mesh.shape, c.local is not None))
+        return {"flops": 1, "bytes": 1, "peak": 1, "collectives": {}, "traced_layers": [1]}
+
+    monkeypatch.setattr(D, "measure", stub)
+    recs = D.sweep(ASSIGNED_ARCHS, [c.name for c in SHAPE_CELLS], [False, True], verbose=False)
+    n = {s: sum(r["status"] == s for r in recs) for s in ("OK", "SKIP", "FAIL")}
+    assert n == {"OK": 64, "SKIP": 16, "FAIL": 0}, [r.get("error") for r in recs]
+    assert sum(local for *_, local in built) == 36        # 6 dense archs x 3 cells x 2 meshes
+    assert {shape for _, _, shape, local in built if local} == {(16, 16), (2, 16, 16)}
+
+
+def test_decode_record_is_the_cache_writing_rank():
+    """A dense decode record is of the ``model`` rank that owns the new
+    token's slot, ``pos = seq_len - 1`` (the last, where ``model`` splits
+    the cache): its bytes and peak exceed rank 0's by the copy of its cache
+    block, its collectives equal rank 0's; the other steps are rank 0's."""
+    arch, cell = "llama3.2-1b_smoke", ShapeCell("d", 64, 4, "decode")
+    mesh = D.AbstractMesh((1, 2), ("data", "model"))
+    assert D.recorded_ranks(cell, mesh) == {"model": 1}
+    assert D.recorded_ranks(TINY, mesh) == {}
+    assert D.recorded_ranks(ShapeCell("d", 63, 4, "decode"), mesh) == {}   # cache not split
+    writer = D.measure(arch, cell, mesh=mesh.record_only({"model": 1}))
+    other = D.measure(arch, cell, mesh=mesh.record_only())
+    assert writer["collectives"] == other["collectives"] and writer["flops"] == other["flops"]
+    assert writer["bytes"] > other["bytes"] and writer["peak"] > other["peak"]
+    rec = D.dryrun_cell(arch, cell, mesh=mesh, save=False, verbose=False)
+    assert rec["bytes_accessed"] == writer["bytes"]
+    assert rec["memory"]["temp_size_in_bytes"] == writer["peak"]
+
+
+def test_sweep_in_worker_processes_equals_one_process(tmp_path, monkeypatch):
+    """``sweep(workers=2)``, an arch to each spawned process, gives the
+    records of one process (but for ``trace_s``) in the same order, and the
+    caller saves them."""
+    monkeypatch.setattr(D, "ARTIFACT_DIR", tmp_path)
+    args = (["llama3.2-1b_smoke", "mamba2-130m_smoke"], ["decode_32k", "long_500k"],
+            [False, True])
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "trace_s"} for r in recs]
+    one = D.sweep(*args, verbose=False)
+    assert [r["status"] for r in one].count("OK") == 6 and len(one) == 8
+    assert strip(D.sweep(*args, verbose=False, workers=2)) == strip(one)
+    assert len(list(tmp_path.glob("*.json"))) == 8

@@ -1,0 +1,479 @@
+"""The generic LM's sharded steps (``models.lm.make_*_step(mesh=)``) of the
+dense family on one gloo world of 4 CPU ranks, held against the port's own
+single-device steps and, on the 2x2 and the multi-pod mesh, against the JAX
+package's single-device ``make_train_step``, ``make_prefill_step`` and
+``make_serve_step``.  Every case starts from the JAX package's weights of its
+config (``init_lm(PRNGKey(0))``, through ``bridge``).
+
+Configs: the smoke configs of the six dense archs -- GQA (llama3.2-1b),
+qkv bias (qwen1.5-4b, here with ``num_heads = num_kv_heads = 3``, ``head_dim
+16``: q and kv heads the model axis does not divide, so the weights are
+gathered over ``model`` and those heads run on every rank), qk-norm
+(qwen3-8b), one kv head with the image prefix and a tied table
+(paligemma-3b), the audio stub (musicgen-large), mistral-large-123b -- and
+qwen3-8b with 6 q heads on 3 kv heads (``qwen3-gqa3``): on ``model`` = 2 a
+rank's 3 q heads span two kv groups, so each reads its own kv head.
+Meshes: 1x1, 2x1, 1x2, 2x2 (``data`` x ``model``) and the multi-pod
+2x1x2 (``pod`` x ``data`` x ``model``); a world of 4 holds replicas of the
+smaller ones.  Steps: one AdamW train step (the loss, ``grad_norm``, the
+gathered new parameters and moments), the prefill (the last logits and the
+gathered cache) and two serve steps against a cache of 40 slots.
+
+Held: ``torch.equal`` to the single-device port on 1x1.  Elsewhere, within
+(measured gaps in parentheses, largest over the cases):
+* the loss within ``LOSS_RTOL`` 1e-6 relative (1.0e-7);
+* ``grad_norm`` within ``GNORM_RTOL`` 1e-6 relative (1.7e-7);
+* logits within ``ATOL`` 1e-5 (2.6e-6), caches too (2.3e-6);
+* the AdamW moments within ``LEAF_REL`` 1e-5 of each leaf's largest
+  magnitude (2.6e-6);
+* the parameters within ``LEAF_REL`` of each leaf's largest magnitude
+  (4.4e-6) wherever the clipped gradient exceeds ``ADAM_WELL_POSED`` 1e-6 (AdamW's
+  first step is lr * g / (|g| + eps), set by the gradient's sign: where the
+  gradient is zero but for rounding, such as the k-projection bias's, it
+  turns on rounding noise), and elsewhere within lr * (1 + weight decay *
+  |p|), the most one step moves them apart.
+Against JAX, on 2x2 and 2x1x2, every config, with the bounds of
+``tests/test_torch_lm_models.py``: the loss within ``JAX_LOSS_RTOL`` 1e-5
+relative (2.1e-7), ``grad_norm`` within ``JAX_GNORM_RTOL`` 1e-4
+(1.8e-7), the parameters within ``JAX_STEP_ATOL`` 1e-5 (3.0e-8) where the
+clipped gradient exceeds ``ADAM_WELL_POSED`` and elsewhere within lr * (1 +
+weight decay * |p|) + 1e-5, the prefill's and both serve steps' logits and
+caches within ``JAX_ATOL`` 1e-4 (4.4e-6, caches 3.7e-6).
+
+The recorded collectives: rank 0's operand bytes of every collective kind
+in the real world equal, kind by kind, what a record-only mesh of the same
+shape records on meta (``launch.mesh.record_only_mesh``).  Presets other than
+``base`` and non-dense layer kinds raise, naming the ROADMAP item.
+"""
+
+import traceback
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import bridge
+from repro_torch.distributed.sharding import gather_tree, sanitized_specs, shard_tree
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as tmesh
+from repro_torch.models import lm as tlm
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ShapeCell
+from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
+
+B, S, CACHE = 4, 32, 40
+LOSS_RTOL, GNORM_RTOL, ATOL, LEAF_REL = 1e-6, 1e-6, 1e-5, 1e-5
+ADAM_WELL_POSED = 1e-6
+JAX_LOSS_RTOL, JAX_GNORM_RTOL, JAX_STEP_ATOL, JAX_ATOL = 1e-5, 1e-4, 1e-5, 1e-4
+JAX_MESHES = ("2x2", "pod2x1x2")
+WORLD_TIMEOUT = 300.0
+OPT = dict(warmup_steps=0, total_steps=10)
+CONFIGS = {
+    "llama3.2-1b": {},
+    "qwen1.5-4b": dict(num_heads=3, num_kv_heads=3, head_dim=16),
+    "qwen3-8b": {},
+    "mistral-large-123b": {},
+    "musicgen-large": {},
+    "paligemma-3b": {},
+    "qwen3-gqa3": dict(num_heads=6, num_kv_heads=3, head_dim=16),
+}
+MESHES = {"1x1": (1, 1), "2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2), "pod2x1x2": (2, 1, 2)}
+RECORD_CELLS = (ShapeCell("t", 32, 4, "train"), ShapeCell("p", 32, 4, "prefill"),
+                ShapeCell("d", 32, 4, "decode"))
+
+
+def _cfg(name):
+    arch = "qwen3-8b" if name == "qwen3-gqa3" else name
+    return tlm.get_config(arch + "_smoke").replace(**CONFIGS[name])
+
+
+def _batch(cfg, rng, n=B, s=S):
+    if cfg.modality == "text":
+        return {"tokens": rng.integers(0, cfg.vocab_size, (n, s)).astype(np.int32)}
+    if cfg.modality == "audio_stub":
+        return {"embeds": rng.standard_normal((n, s, cfg.d_model)).astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab_size, (n, s)).astype(np.int32)}
+    p = cfg.num_prefix_tokens
+    return {"image_embeds": rng.standard_normal((n, p, cfg.d_model)).astype(np.float32),
+            "tokens": rng.integers(0, cfg.vocab_size, (n, s - p)).astype(np.int32)}
+
+
+def _token(cfg, rng):
+    if cfg.modality == "audio_stub":
+        return {"embeds": rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)}
+    return {"token": rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)}
+
+
+def _t(tree):
+    return {k: torch.from_numpy(v) for k, v in tree.items()}
+
+
+def _mesh(shape):
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return tmesh.make_host_mesh(shape, axes)
+
+
+def _bspecs(spmd, tree, mesh):
+    return sanitized_specs({k: (spmd.batch_entry,) + (None,) * (v.ndim - 1)
+                            for k, v in tree.items()}, tree, mesh)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over b's largest magnitude."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+# -- one config's single-device references --------------------------------------------
+
+def _reference(cfg, params, data):
+    """The single-device train step, prefill and two serve steps."""
+    opt = make_optimizer(OptimizerConfig(**OPT))
+    state = {"params": params, "opt_state": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    batch = _t(data["batch"])
+    (_, _), grads = tlm.value_and_grad(params, batch, cfg)
+    new, metrics = tlm.make_train_step(cfg, opt)(state, batch)
+    logits, cache = tlm.make_prefill_step(cfg)(params, batch)
+    full = T.cache_init(cfg, B, CACHE, device="cpu")
+    full = {k: torch.cat([cache[k], full[k][:, :, S:]], dim=2) for k in full}
+    serve, steps = tlm.make_serve_step(cfg), []
+    c = full
+    for i, tok in enumerate(data["tokens"]):
+        lg, c = serve(params, c, _t(tok), S + i)
+        steps.append((lg, c))
+    return {"grads": grads, "state": new, "metrics": metrics, "prefill": (logits, cache),
+            "decode_cache": full, "steps": steps}
+
+
+def _leaf_gaps(got, want, grads, before, lr, wd):
+    """(largest moment gap over the leaf's max, largest well-posed parameter
+    gap over the leaf's max, whether every other element moved within
+    lr * (1 + wd * |p|) of the reference)."""
+    moments = max(_rel(a, b) for key in ("m", "v") for a, b in
+                  zip(bridge.leaves(got["opt_state"][key]), bridge.leaves(want["opt_state"][key])))
+    posed_gap, noisy_ok = 0.0, True
+    for a, b, g, p in zip(*(bridge.leaves(t) for t in (got["params"], want["params"], grads,
+                                                       before))):
+        err = (a - b).abs()
+        posed = g.abs() * float(_clip_of(want)) > ADAM_WELL_POSED
+        if posed.any():
+            posed_gap = max(posed_gap, float(err[posed].max() / b.abs().max().clamp(min=1e-30)))
+        noisy_ok &= bool((err[~posed] <= lr * (1 + wd * p[~posed].abs()) + 1e-7).all())
+    return moments, posed_gap, noisy_ok
+
+
+def _clip_of(state):
+    return min(1.0, OptimizerConfig().clip_norm / float(state["opt_state"]["grad_norm"]))
+
+
+def _equal_trees(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(bridge.leaves(a), bridge.leaves(b)))
+
+
+def _spmd_case(cfg, params, data, ref, shape, jref=None):
+    """Every sharded step of one config on one mesh, held against ``ref``
+    (and against ``jref``, the JAX package's steps, where given)."""
+    mesh = _mesh(shape)
+    spmd = T.spmd_layout(cfg, mesh)
+    opt = make_optimizer(OptimizerConfig(**OPT))
+    batch = _t(data["batch"])
+    lp = shard_tree(params, spmd.specs, mesh)
+    lb = shard_tree(batch, _bspecs(spmd, batch, mesh), mesh)
+    state = {"params": lp, "opt_state": opt.init(lp), "step": torch.zeros((), dtype=torch.int32)}
+    new, metrics = tlm.make_train_step(cfg, opt, mesh=mesh)(state, lb)
+    got = {"params": gather_tree(new["params"], spmd.specs, mesh),
+           "opt_state": {k: gather_tree(new["opt_state"][k], spmd.specs, mesh)
+                         for k in ("m", "v")}}
+    got["opt_state"]["grad_norm"] = new["opt_state"]["grad_norm"]
+    want = ref["state"]
+    out = {"loss": (float(metrics["loss"]), float(ref["metrics"]["loss"])),
+           "grad_norm": (float(metrics["grad_norm"]), float(ref["metrics"]["grad_norm"])),
+           "train_equal": (_equal_trees(got["params"], want["params"])
+                           and all(_equal_trees(got["opt_state"][k], want["opt_state"][k])
+                                   for k in ("m", "v"))
+                           and torch.equal(metrics["loss"], ref["metrics"]["loss"])
+                           and torch.equal(metrics["grad_norm"], ref["metrics"]["grad_norm"]))}
+    cfg_opt = OptimizerConfig(**OPT)
+    out["leaves"] = _leaf_gaps(got, want, ref["grads"], params, cfg_opt.lr,
+                               cfg_opt.weight_decay)
+
+    logits, cache = tlm.make_prefill_step(cfg, mesh=mesh)(lp, lb)
+    want_logits, want_cache = ref["prefill"]
+    lspec = sanitized_specs((spmd.batch_entry, None, "model" if spmd.vocab_split else None),
+                            want_logits, mesh)
+    logits = gather_tree(logits, lspec, mesh)
+    cache = gather_tree(cache, spmd.cache_specs(want_cache), mesh)
+    gathered = [(logits, cache)]
+    out["prefill"] = (float((logits - want_logits).abs().max()),
+                      max(float((a - b).abs().max()) for a, b in
+                          zip(bridge.leaves(cache), bridge.leaves(want_cache))),
+                      torch.equal(logits, want_logits) and _equal_trees(cache, want_cache))
+
+    full = ref["decode_cache"]
+    cspecs = spmd.cache_specs(full)
+    c = shard_tree(full, cspecs, mesh)
+    serve, steps = tlm.make_serve_step(cfg, mesh=mesh), []
+    for i, (tok, (want_lg, want_c)) in enumerate(zip(data["tokens"], ref["steps"])):
+        tok = _t(tok)
+        lg, c = serve(lp, c, shard_tree(tok, _bspecs(spmd, tok, mesh), mesh), S + i)
+        lg, gc = gather_tree(lg, lspec, mesh), gather_tree(c, cspecs, mesh)
+        gathered.append((lg, gc))
+        steps.append((float((lg - want_lg).abs().max()),
+                      max(float((a - b).abs().max()) for a, b in
+                          zip(bridge.leaves(gc), bridge.leaves(want_c))),
+                      torch.equal(lg, want_lg) and _equal_trees(gc, want_c)))
+    out["serve"] = steps
+    if jref is not None:
+        out["jax"] = _against_jax(jref, metrics, got["params"], gathered)
+    return out
+
+
+def _against_jax(jref, metrics, params, gathered):
+    """One mesh's gathered results against the JAX package's single-device
+    steps: the loss's and ``grad_norm``'s relative gaps, the largest
+    well-posed parameter gap, whether every other parameter element moved
+    within lr * (1 + wd * |p|) + JAX_STEP_ATOL of JAX's, and the largest
+    logits and cache gaps over the prefill and the serve steps."""
+    named = lambda tree: _named(bridge.to_torch(tree, "cpu", None))
+    want, grads, before = named(jref["new"]), named(jref["grads"]), named(jref["params"])
+    got = _named(params)
+    assert got.keys() == want.keys()
+    clip = min(1.0, OptimizerConfig().clip_norm / jref["grad_norm"])
+    lr, wd = OptimizerConfig(**OPT).lr, OptimizerConfig().weight_decay
+    posed_gap, noisy_ok = 0.0, True
+    for k, w in want.items():
+        err = (got[k] - w).abs()
+        posed = grads[k].abs() * clip > ADAM_WELL_POSED
+        if posed.any():
+            posed_gap = max(posed_gap, float(err[posed].max()))
+        noisy_ok &= bool((err[~posed] <= lr * (1 + wd * before[k][~posed].abs())
+                          + JAX_STEP_ATOL).all())
+    logits_gap = cache_gap = 0.0
+    for (lg, c), (want_lg, want_c) in zip(gathered, [jref["prefill"], *jref["steps"]]):
+        logits_gap = max(logits_gap, float((lg - torch.from_numpy(want_lg)).abs().max()))
+        wc = named(want_c)
+        cache_gap = max(cache_gap, max(float((v - wc[k]).abs().max())
+                                       for k, v in _named(c).items()))
+    return {"loss": abs(float(metrics["loss"]) - jref["loss"]) / abs(jref["loss"]),
+            "grad_norm": abs(float(metrics["grad_norm"]) - jref["grad_norm"]) / jref["grad_norm"],
+            "posed": posed_gap, "noisy_ok": noisy_ok, "logits": logits_gap, "cache": cache_gap}
+
+
+def _record_case():
+    """Rank 0's collective operand bytes of the three steps of llama3.2-1b's
+    smoke config at 2x2 in this world (every rank returns its own)."""
+    mesh = _mesh((2, 2))
+    out = {}
+    for cell in RECORD_CELLS:
+        c = D.build_cell("llama3.2-1b_smoke", cell, mesh=mesh, device="cpu")
+        rec = D.StepRecorder()
+        with rec:
+            c.call()
+        out[cell.name] = rec.collectives
+    return out
+
+
+def _named(tree):
+    from repro_torch.checkpoint.checkpoint import flatten_with_names
+
+    return dict(flatten_with_names(tree))
+
+
+def _run(out, key, fn):
+    try:
+        out[key] = fn()
+    except Exception:
+        out[key] = ("error", traceback.format_exc())
+
+
+def _world(rank, datas, jax_refs):
+    out = {}
+    for name in CONFIGS:
+        cfg, jref = _cfg(name), jax_refs[name]
+        params = bridge.to_torch(jref["params"], "cpu", None)
+        ref = _reference(cfg, params, datas[name])
+        for mesh_id, shape in MESHES.items():
+            _run(out, (name, mesh_id),
+                 lambda: _spmd_case(cfg, params, datas[name], ref, shape,
+                                    jref if mesh_id in JAX_MESHES else None))
+    _run(out, ("record",), _record_case)
+    return out
+
+
+# -- the world and the JAX reference ---------------------------------------------------
+
+def _datas():
+    out = {}
+    for i, name in enumerate(CONFIGS):
+        cfg, rng = _cfg(name), np.random.default_rng(10 + i)
+        out[name] = {"batch": _batch(cfg, rng), "tokens": [_token(cfg, rng) for _ in range(2)]}
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """Each config's JAX weights and the JAX package's single-device steps on
+    its data: one AdamW step (loss, ``grad_norm``, the gradients, the new
+    parameters), the prefill (last logits, cache) and two serve steps from
+    the prefill's cache laid into CACHE slots, all as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import lm as jlm
+    from repro.models import transformer as JT
+    from repro.optim.optimizer import OptimizerConfig as JOptConfig
+    from repro.optim.optimizer import make_optimizer as j_make_optimizer
+
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    on_jax = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
+    out = {}
+    for name, data in _datas().items():
+        arch = "qwen3-8b" if name == "qwen3-gqa3" else name
+        cfg = jlm.get_config(arch + "_smoke").replace(**CONFIGS[name])
+        params = JT.init_lm(jax.random.PRNGKey(0), cfg)
+        opt = j_make_optimizer(JOptConfig(**OPT))
+        state = {"params": params, "opt_state": opt.init(params), "step": jnp.zeros((), jnp.int32)}
+        grad_fn = jax.value_and_grad(lambda p, b: jlm.loss_fn(p, b, cfg), has_aux=True)
+        train = jax.jit(lambda st, b: (jlm.make_train_step(cfg, opt)(st, b),
+                                       grad_fn(st["params"], b)[1]))
+        batch = on_jax(data["batch"])
+        (new, metrics), grads = train(state, batch)
+        logits, cache = jax.jit(jlm.make_prefill_step(cfg))(params, batch)
+        prefill = to_np((logits, cache))
+        cache = jax.tree_util.tree_map(lambda c, f: jnp.concatenate([c, f[:, :, S:]], axis=2),
+                                       cache, JT.cache_init(cfg, B, CACHE))
+        serve, steps = jax.jit(jlm.make_serve_step(cfg)), []
+        for i, tok in enumerate(data["tokens"]):
+            lg, cache = serve(params, cache, on_jax(tok), jnp.asarray(S + i, jnp.int32))
+            steps.append(to_np((lg, cache)))
+        out[name] = {"params": to_np(params), "new": to_np(new["params"]), "grads": to_np(grads),
+                     "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                     "prefill": prefill, "steps": steps}
+    return out
+
+
+_CACHE: dict = {}
+
+
+@pytest.fixture(scope="module")
+def world(jax_ref):
+    if "world" not in _CACHE:
+        _CACHE["world"] = tmesh.spawn_world(_world, 4, (_datas(), jax_ref),
+                                            timeout=WORLD_TIMEOUT)
+    return _CACHE["world"]
+
+
+def _case(world, key):
+    values = [r.get(key, ("error", f"case {key} did not run")) for r in world]
+    for v in values:
+        if isinstance(v, tuple) and v and v[0] == "error":
+            pytest.fail(f"case {key} raised on a rank:\n{v[1]}")
+    return values
+
+
+CASES = [(name, mesh_id) for name in CONFIGS for mesh_id in MESHES]
+
+
+@pytest.mark.parametrize("name,mesh_id", CASES)
+def test_train_step(world, name, mesh_id):
+    for r in _case(world, (name, mesh_id)):
+        if mesh_id == "1x1":
+            assert r["train_equal"], (name, r)
+            continue
+        (loss, want), (gn, want_gn) = r["loss"], r["grad_norm"]
+        assert abs(loss - want) <= LOSS_RTOL * abs(want), (name, mesh_id, loss, want)
+        assert abs(gn - want_gn) <= GNORM_RTOL * abs(want_gn), (name, mesh_id, gn, want_gn)
+        moments, posed, noisy_ok = r["leaves"]
+        assert moments <= LEAF_REL and posed <= LEAF_REL and noisy_ok, (name, mesh_id, r["leaves"])
+
+
+@pytest.mark.parametrize("name,mesh_id", CASES)
+def test_prefill_and_serve_steps(world, name, mesh_id):
+    for r in _case(world, (name, mesh_id)):
+        for logits_gap, cache_gap, equal in [r["prefill"], *r["serve"]]:
+            if mesh_id == "1x1":
+                assert equal, (name, r)
+            else:
+                assert logits_gap <= ATOL and cache_gap <= ATOL, (name, mesh_id, r)
+
+
+def test_ranks_agree(world):
+    """Every rank of a mesh gets the same loss, grad_norm and gathered gaps."""
+    for key in [(n, m) for n, m in CASES]:
+        values = _case(world, key)
+        assert all(v["loss"] == values[0]["loss"] and v["grad_norm"] == values[0]["grad_norm"]
+                   for v in values), key
+
+
+JAX_CASES = [(name, mesh_id) for name in CONFIGS for mesh_id in JAX_MESHES]
+
+
+@pytest.mark.parametrize("name,mesh_id", JAX_CASES)
+def test_train_step_against_jax(world, name, mesh_id):
+    """The sharded train step from the JAX package's weights against the JAX
+    package's own single-device step."""
+    for r in _case(world, (name, mesh_id)):
+        j = r["jax"]
+        assert j["loss"] <= JAX_LOSS_RTOL and j["grad_norm"] <= JAX_GNORM_RTOL, (name, mesh_id, j)
+        assert j["posed"] <= JAX_STEP_ATOL and j["noisy_ok"], (name, mesh_id, j)
+
+
+@pytest.mark.parametrize("name,mesh_id", JAX_CASES)
+def test_prefill_and_serve_steps_against_jax(world, name, mesh_id):
+    """The sharded prefill and two serve steps, gathered, against the JAX
+    package's single-device ones on the same weights and inputs."""
+    for r in _case(world, (name, mesh_id)):
+        j = r["jax"]
+        assert j["logits"] <= JAX_ATOL and j["cache"] <= JAX_ATOL, (name, mesh_id, j)
+
+
+def test_recorded_bytes_equal_record_only_mesh(world):
+    """Each rank's collective operand bytes, kind by kind, equal rank 0's of
+    a record-only 2x2 mesh on meta, for the train, prefill and decode
+    steps."""
+    want = {}
+    for cell in RECORD_CELLS:
+        c = D.build_cell("llama3.2-1b_smoke", cell, mesh=tmesh.record_only_mesh((2, 2)))
+        rec = D.StepRecorder()
+        with rec:
+            c.call()
+        want[cell.name] = rec.collectives
+    assert set(want["t"]) == {"all-gather", "all-reduce", "reduce-scatter"}
+    assert "all-to-all" in want["p"]
+    for got in _case(world, ("record",)):
+        assert got == want
+
+
+@pytest.mark.parametrize("preset", ["fsdp", "sp", "zero2"])
+def test_other_presets_raise(preset):
+    cfg = _cfg("llama3.2-1b")
+    mesh = tmesh.record_only_mesh((2, 2))
+    for make in (lambda: tlm.make_prefill_step(cfg, mesh=mesh, preset=preset),
+                 lambda: tlm.make_serve_step(cfg, mesh=mesh, preset=preset),
+                 lambda: tlm.make_train_step(cfg, make_optimizer(OptimizerConfig()), mesh=mesh,
+                                             preset=preset)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6b"):
+            make()
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-130m", "recurrentgemma-9b",
+                                  "kimi-k2-1t-a32b"])
+def test_other_kinds_raise(arch):
+    cfg = tlm.get_config(arch + "_smoke")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6b"):
+        tlm.make_prefill_step(cfg, mesh=tmesh.record_only_mesh((2, 2)))
+
+
+def test_shard_and_gather_round_trip():
+    """``shard_tree`` on a record-only mesh cuts rank 0's block; a dim the
+    axis does not divide stays whole (sanitized), as in the reference."""
+    mesh = tmesh.record_only_mesh((2, 2))
+    tree = {"a": torch.arange(24.0).reshape(4, 6), "b": torch.arange(5.0)}
+    specs = sanitized_specs({"a": ("data", "model"), "b": ("model",)}, tree, mesh)
+    assert specs == {"a": ("data", "model"), "b": ()}
+    local = shard_tree(tree, specs, mesh)
+    assert torch.equal(local["a"], tree["a"][:2, :3]) and local["b"] is tree["b"]
+    one = tmesh.make_host_mesh((1, 1))
+    assert gather_tree(tree, specs, one)["a"] is tree["a"]
