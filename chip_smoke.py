@@ -198,7 +198,26 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      ``cell_supported`` says so) and its one-device record of llama3.2-1b's
      4 x 512 training step: argument bytes within 0.1% of what that state
      and batch allocate on the card, temporaries beside the measured peak of
-     one step (reported).
+     one step (reported); every OK record carries collective bytes.
+ 16. the generic LM's SPMD steps of the dense kind (``lm.make_*_step(mesh=)``;
+     no hand kernel may launch): ``llama3.2-1b`` at full width cut to
+     SPMD_DEPTH (2) layers, in f32 (TF32 off), an AdamW step of 4 x 512
+     tokens, a 4 x 32 prefill and 8 greedy steps on one device, then the
+     same state handed by IPC to a 2x2 gloo world of 4 ranks on this card,
+     each rank's loss, grad_norm, block of the new state, logits and tokens
+     held against the single device's, its collective operand bytes
+     against a record-only 2x2 mesh's on meta;
+ 17. the same for the MoE, SSM and hybrid kinds, one config at a time
+     (``SPMD17``): ``granite-moe-3b-a800m`` at full width cut to 8 layers
+     (40 experts split 20/20 over ``data``: the all-to-all runs), also one
+     train step under kimi's Adafactor settings; ``mamba2-130m`` whole;
+     ``recurrentgemma-9b`` at full width cut to one rec, rec, attn_local
+     period, its 2 x 2048-token prompt as long as its window so that the 8
+     decode steps wrap the ring; caches held too.  Every rank compares the
+     experts it picked with the single device's: an MoE step in which none
+     flipped is held in full (else SPMD_FLIP_SHARE); Adafactor's elements
+     where the single device's row x col underflows are counted, not held.
+     Phases 16 and 17 share one runner, ``phase_spmd``.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
@@ -247,7 +266,9 @@ full-width LM (``launches`` over its ``train_fixture_params`` run,
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -256,6 +277,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "spike-iand-former-8-384"
@@ -4732,7 +4754,7 @@ def _gt_vs_cpu(dev, smi):
         f"steps {cpu_s:.1f} s; {smi} against the host's CPU")
 
 
-SWEEP_WORKERS = 4   # processes of the dry-run sweep, an arch to each (meta only, no card)
+SWEEP_WORKERS = 8   # processes of the dry-run sweep, an (arch, mesh) pair to each (meta only; 8 cores)
 
 
 def _gt_dryrun(dev, smi):
@@ -4761,6 +4783,9 @@ def _gt_dryrun(dev, smi):
             ok, _ = cell_supported(lm.get_config(r["arch"]), cell_by_name(r["cell"]))
             check(r["cell"] == "long_500k" and not ok,
                   f"dry run skipped {r['arch']} x {r['cell']} x {r['mesh']}")
+        if r["status"] == "OK":
+            check(bool(r["collective_bytes_per_device"]) and "collective_note" not in r,
+                  f"dry run {r['arch']} x {r['cell']} x {r['mesh']}: no collective bytes")
     slow = sorted((r for r in records if "trace_s" in r), key=lambda r: -r["trace_s"])[:3]
     log(f"  dry run: {len(ASSIGNED_ARCHS)} archs x {len(SHAPE_CELLS)} cells x 2 meshes on meta "
         f"in {SWEEP_WORKERS} processes: "
@@ -4850,43 +4875,86 @@ def phase_generic_train(dev, smi):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the generic LM's SPMD steps on a gloo world
+# phases 16 and 17: the generic LM's SPMD steps on a gloo world
 # ---------------------------------------------------------------------------
 
 SPMD_RANKS, SPMD_MESH = 4, (2, 2)
-SPMD_TRAIN = (4, 512)           # batch x tokens of the AdamW train step
+SPMD_DEPTH = 2                  # llama3.2-1b's 16 layers cut to 2 (phase 17 shares the time limit)
+SPMD_TRAIN = (4, 512)           # batch x tokens of the train steps
 SPMD_PREFILL = (4, 32)          # batch x prompt tokens
 SPMD_STEPS = 8                  # greedy decode steps after the prefill
 SPMD_SEED = 0
 SPMD_TIMEOUT = 600.0
 # The sharded steps against the single-device ones on the card, same weights,
 # f32 compute, TF32 off: the same sums split over 2 model and 2 data ranks
-# and met in gloo's sums.  The loss within SPMD_LOSS_RTOL, logits within
-# GEN_CPU_LOGITS_ATOL, the AdamW moments within GEN_CPU_GRAD_REL of each
-# leaf's largest magnitude, the parameters so wherever the clipped gradient
-# exceeds SPMD_WELL_POSED and elsewhere within lr * (1 + weight decay * |p|)
-# (AdamW's first step is lr * g / (|g| + eps): set by the gradient's sign,
-# so a gradient that is zero but for rounding turns on rounding noise).  A
-# greedy token may differ only where the reference's top-2 margin is at most
-# SPMD_MARGIN; the logits are compared up to the first such step.
+# and met in gloo's sums.  The loss within SPMD_LOSS_RTOL, grad_norm within
+# GEN_CPU_GRAD_REL, logits within GEN_CPU_LOGITS_ATOL, the optimizer states
+# and caches within GEN_CPU_GRAD_REL of each leaf's largest magnitude, the
+# parameters so wherever the single-device step is well posed (``_posed``,
+# from that step's own state) and, elsewhere, AdamW's within
+# lr * (1 + weight decay * |p|) of it (its first step is lr * g / (|g| + eps):
+# set by the gradient's sign, so a gradient that is zero but for rounding
+# turns on rounding noise); Adafactor's ill-posed elements, where the
+# factored row x col underflows f32 and the step divides by its clamp, are
+# counted and reported.  A greedy token may differ only where the
+# single-device top-2 margin of the logits that chose it is at most
+# SPMD_MARGIN; a row's logits are compared up to that step.
 SPMD_LOSS_RTOL = 1e-5
 SPMD_WELL_POSED = 1e-6
 SPMD_MARGIN = 1e-4
 SPMD_OPT = dict(warmup_steps=0, total_steps=10)   # the default lr 5e-4 from step 0
+# (arch, depth kept or None for the whole config, prefill batch x tokens).
+# Phase 16 the dense kind; phase 17 the MoE, SSM and hybrid kinds,
+# recurrentgemma first, whose single-device step needs most of the card.
+# granite at 8 of its 32 layers (its AdamW state at full depth is ~53 GB on
+# one device), recurrentgemma at one rec, rec, attn_local period with a
+# prompt as long as its window, so that the decode steps wrap the ring.  An
+# MoE also takes one train step under kimi's Adafactor settings (factored
+# second moment, no first moment).
+SPMD16 = ((GEN_ARCH, SPMD_DEPTH, SPMD_PREFILL),)
+SPMD17 = (("recurrentgemma-9b", 3, (2, 2048)), ("granite-moe-3b-a800m", 8, (4, 32)),
+          ("mamba2-130m", None, (4, 32)))
+SPMD_ADAFACTOR = dict(kind="adafactor", b1=0.0)
+# The mesh's psums move an MoE block's input by ulps, so a token whose k-th
+# and (k+1)-th router probabilities nearly tie may pick another expert there:
+# every rank compares the experts it picked with the single device's.  A step
+# in which none flipped is held in full.  Where some did, a train step's loss
+# and grad_norm are held within SPMD_FLIP_SHARE token shares a flipped token
+# (SPMD_FLIP_SHARE * flipped tokens / tokens; a CPU rehearsal that forced
+# flips of 4 tokens of 256 at smoke width moved them by 0.001 and 0.84
+# shares) and its
+# state is reported: the flip reaches every token of its row through
+# attention (that rehearsal moved an expert no flipped token visited by 6% of
+# its leaf's scale), and a row of 512 tokens visits every expert.  A prefill
+# or decode step holds the rows with no flip.  The smallest top-k gap and
+# the count within ROUTER_MARGIN are reported.
+SPMD_FLIP_SHARE = 10
+ROUTER_MARGIN = 1e-6
 
 
-def _spmd_cfg(arch):
+def _spmd_cfg(arch, depth=None):
+    """``arch`` in f32 compute, cut to ``depth`` layers (None: all)."""
     from repro_torch.models import lm
 
-    return lm.get_config(arch).replace(compute_dtype="float32")
+    cfg = lm.get_config(arch).replace(compute_dtype="float32")
+    return cfg if depth is None else cfg.replace(num_layers=depth)
 
 
-def _checksum(tree) -> tuple[float, float]:
-    """(sum, sum of magnitudes) over every leaf, in f64 on the CPU."""
-    from repro_torch.bridge import leaves
+class _CollectiveTally(TorchDispatchMode):
+    """The operand bytes of each collective kind a step issues, by HLO name
+    (what ``launch.dryrun.StepRecorder`` keeps as ``collectives``), and
+    nothing else: every operation passes straight through, so the timed step
+    pays one Python call an operation and no bookkeeping."""
 
-    xs = [x.detach().to("cpu", torch.float64) for x in leaves(tree)]
-    return (sum(float(x.sum()) for x in xs), sum(float(x.abs().sum()) for x in xs))
+    def __init__(self):
+        super().__init__()
+        self.collectives: dict[str, int] = {}
+
+    def record_collective(self, entry: dict) -> None:
+        self.collectives[entry["hlo"]] = self.collectives.get(entry["hlo"], 0) + entry["operand_bytes"]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
 
 
 def _spmd_inputs(cfg, train, prefill):
@@ -4895,290 +4963,589 @@ def _spmd_inputs(cfg, train, prefill):
             rng.integers(0, cfg.vocab_size, prefill).astype(np.int32))
 
 
-def _greedy_ref(cfg, params, prompts, steps, dev):
-    """Single-device prefill and ``steps`` greedy decode steps: (prefill
-    logits, [step logits], tokens (B, steps), top-2 margins (B, steps), ms
-    of the prefill, ms a decode step)."""
-    from repro_torch.models import lm, transformer as T
-
-    b, s = prompts.shape
-    _sync(dev)
-    t0 = time.perf_counter()
-    logits, cache = lm.make_prefill_step(cfg)(params, {"tokens": prompts})
-    _sync(dev)
-    prefill_ms = 1e3 * (time.perf_counter() - t0)
-    full = T.cache_init(cfg, b, s + steps, device=dev)
-    cache = {k: torch.cat([cache[k], full[k][:, :, s:]], dim=2) for k in full}
-    serve, outs, toks, margins = lm.make_serve_step(cfg), [], [], []
-    tok = logits.argmax(-1).to(torch.int32)
-    t0 = time.perf_counter()
-    for i in range(steps):
-        toks.append(tok[:, 0])
-        lg, cache = serve(params, cache, {"token": tok}, s + i)
-        outs.append(lg)
-        top = lg[:, 0].topk(2, dim=-1).values
-        margins.append(top[:, 0] - top[:, 1])
-        tok = lg.argmax(-1).to(torch.int32)
-    _sync(dev)
-    step_ms = 1e3 * (time.perf_counter() - t0) / steps
-    return logits, outs, torch.stack(toks, 1), torch.stack(margins, 1), prefill_ms, step_ms
-
-
-def _spmd_reference(cfg, dev, tokens, prompts, steps):
-    """The single-device steps on ``dev`` from the seed's weights: the
-    greedy run first, then one AdamW step; only what the ranks hold their
-    results against stays (the new state, the logits, tokens, margins)."""
-    from repro_torch.models import lm, transformer as T
-    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
-
-    params = T.init_lm(SPMD_SEED, cfg, device="cpu")
-    checksum = _checksum(params)
-    params = _to(params, dev)
-    with torch.no_grad():
-        greedy = _greedy_ref(cfg, params, torch.from_numpy(prompts).to(dev), steps, dev)
-    opt = make_optimizer(OptimizerConfig(**SPMD_OPT))
-    state = {"params": params, "opt_state": opt.init(params),
-             "step": torch.zeros((), dtype=torch.int32, device=dev)}
-    del params
-    _sync(dev)
-    t0 = time.perf_counter()
-    new, metrics = lm.make_train_step(cfg, opt)(state, {"tokens": torch.from_numpy(tokens).to(dev)})
-    _sync(dev)
-    train_ms = 1e3 * (time.perf_counter() - t0)
-    peak = _peak_gib(dev)
-    del state
-    new = {"params": new["params"], "m": new["opt_state"]["m"], "v": new["opt_state"]["v"]}
-    logits, outs, toks, margins, prefill_ms, step_ms = greedy
-    return {"state": new, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-            "prefill": logits, "steps": outs, "tokens": toks, "margins": margins,
-            "checksum": checksum, "ms": (train_ms, prefill_ms, step_ms), "peak_gib": peak}
-
-
 def _to(tree, dev):
     from repro_torch.bridge import leaves, rebuild
 
     return rebuild(tree, iter(x.to(dev) for x in leaves(tree)))
 
 
-def _spmd_leaf_gaps(local, init, ref, specs, mesh, lr, wd, b1):
-    """Each leaf of this rank's new state against the same block of the
-    single-device one: the largest moment gap and well-posed parameter gap
-    over the leaf's largest magnitude, whether every other parameter element
-    is within lr * (1 + wd * |p|), and how many such elements there are."""
+def _device_of(tree):
+    from repro_torch.bridge import leaves
+
+    return leaves(tree)[0].device
+
+
+def _release(ref: dict) -> None:
+    """Drop a rank's references to the parent's tensors before it exits: a
+    tensor received by CUDA IPC that a rank still holds at exit is never
+    released, and the parent could not free it for the phases after."""
+    ref.clear()
+    gc.collect()
+
+
+def _leaf_scale(w):
+    """A leaf's largest magnitude (the scale its gaps are taken over)."""
+    return w.abs().max().clamp(min=1e-30)
+
+
+def _top2(lg):
+    """Each row's gap between its two largest logits, (B,)."""
+    top = lg[:, 0].topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def _lay_cache(cache, full):
+    """A prefill's cache laid into a decode cache ``full``: each leaf along
+    the first dim where the two differ (the sequence), ``full``'s later
+    slots kept; a leaf with no such dim (a state, a ring as long) as it is."""
+    from repro_torch.bridge import leaves, rebuild
+
+    def lay(c, f):
+        diff = [i for i, (a, b) in enumerate(zip(c.shape, f.shape)) if a != b]
+        if not diff:
+            return c
+        d = diff[0]
+        return torch.cat([c, f.narrow(d, c.shape[d], f.shape[d] - c.shape[d])], dim=d)
+
+    return rebuild(full, iter(lay(c, f) for c, f in zip(leaves(cache), leaves(full))))
+
+
+def _margins(routes):
+    """(smallest router top-k margin, routings within ROUTER_MARGIN) of one
+    step's routings (``moe.routings()``'s pairs), or None for a model
+    without a router."""
+    if not routes:
+        return None
+    every = torch.cat([m.float().flatten() for m, _ in routes])
+    return float(every.min()), int((every <= ROUTER_MARGIN).sum())
+
+
+def _posed(ocfg, v, m):
+    """Where the single-device step of one parameter is well posed, from
+    that step's own new state (``v``, ``m``: the parameter's second and
+    first moments, or their blocks): AdamW's where its first moment says the
+    clipped gradient exceeds SPMD_WELL_POSED; Adafactor's factored leaves
+    where row x col is a normal f32 (below it the product underflows and
+    the step divides by the clamp 1e-30), its unfactored ones where the
+    second moment says the gradient exceeds SPMD_WELL_POSED."""
+    if ocfg.kind == "adamw":
+        return m.abs() > (1 - ocfg.b1) * SPMD_WELL_POSED
+    if "row" in v:
+        return v["row"][..., None] * v["col"][..., None, :] >= torch.finfo(torch.float32).tiny
+    return v["full"] > (1 - ocfg.b2) * SPMD_WELL_POSED ** 2
+
+
+def _state_scales(ocfg, new):
+    """Each state tree's leaf scales of the single-device step's ``new``
+    state, the parameters' over their well-posed elements."""
+    from repro_torch.bridge import leaves, rebuild
+    from repro_torch.optim.optimizer import _leaves_as
+
+    scales = {k: rebuild(v, iter(_leaf_scale(x) for x in leaves(v)))
+              for k, v in new.items() if k != "params"}
+    params = new["params"]
+    moms = _leaves_as(new["m"], params) if "m" in new else [None] * len(leaves(params))
+    scales["params"] = rebuild(params, iter(
+        _leaf_scale(p.abs().masked_fill_(~_posed(ocfg, v, m), 0.0))
+        for p, v, m in zip(leaves(params), _leaves_as(new["v"], params), moms)))
+    return scales
+
+
+def _state_gaps(local, init, ref, specs, mesh, ocfg):
+    """This rank's new state (``local``: its parameters and optimizer state
+    trees, ``specs`` each tree's specs) against the same blocks of the
+    single-device one (``ref``, its ``scales`` from :func:`_state_scales`):
+    each tree's largest gap over the leaf's scale, the parameters' where
+    :func:`_posed` says the step is well posed (``gaps``); of the other
+    parameter elements whether every one is within AdamW's one-step reach
+    lr * (1 + wd * |p|) of the reference (``reach_ok``; Adafactor has none),
+    their count (``ill_posed``, of ``elements``), how many lie off the
+    reference by more than GEN_CPU_GRAD_REL of the leaf's scale
+    (``ill_posed_off``) and their largest gap."""
+    from repro_torch.bridge import leaves
+    from repro_torch.distributed.sharding import NamedSharding, map_leaves
+    from repro_torch.optim.optimizer import _leaves_as
+
+    dev = _device_of(local)
+    cut = lambda w, sp: w[NamedSharding(mesh, sp).local_slices(tuple(w.shape))]
+    blocks = {k: map_leaves(cut, ref[k], specs[k]) for k in local}
+    gaps = {}
+
+    def note(k, err, scale):
+        gaps[k] = max(gaps.get(k, 0.0), float(err.max() / scale))
+
+    for k in local:
+        if k != "params":
+            for g, w, t in zip(leaves(local[k]), leaves(blocks[k]), leaves(ref["scales"][k])):
+                note(k, (g - w.to(dev)).abs(), float(t))
+            continue
+        params = blocks["params"]
+        moms = (_leaves_as(blocks["m"], params) if "m" in blocks
+                else [None] * len(leaves(params)))
+        reach, n_noisy, n_off, n_all, noisy_gap = True, 0, 0, 0, 0.0
+        for g, w, t, p0, v, m in zip(leaves(local[k]), leaves(params), leaves(ref["scales"][k]),
+                                     leaves(init), _leaves_as(blocks["v"], params), moms):
+            err = (g - w.to(dev)).abs()
+            posed = (_posed(ocfg, None, m.to(dev)) if ocfg.kind == "adamw"
+                     else _posed(ocfg, _to(v, dev), None))
+            note(k, torch.where(posed, err, 0.0), float(t))
+            if (~posed).any():
+                noisy_gap = max(noisy_gap, float(err[~posed].max()))
+                n_off += int((err[~posed] > GEN_CPU_GRAD_REL * float(t)).sum())
+                if ocfg.kind == "adamw":
+                    reach &= bool((err[~posed] <= ocfg.lr * (1 + ocfg.weight_decay
+                                                             * p0[~posed].abs()) + 1e-7).all())
+            n_noisy, n_all = n_noisy + int((~posed).sum()), n_all + err.numel()
+    return dict(gaps=gaps, reach_ok=reach, ill_posed=n_noisy, ill_posed_off=n_off,
+                ill_posed_gap=noisy_gap, elements=n_all)
+
+
+def _flips(mine, want, lo, hi, b, rows_ok=None):
+    """This rank's routings (``mine``, the experts of each, (T_local, k),
+    in order) against the single device's (``want``, (T, k) over its ``b``
+    rows) at this rank's rows lo:hi (only ``rows_ok``, where given): the
+    number of token routings whose set of experts differs, and which tokens
+    ((hi - lo, T / b) bool) had one; None if the two ran different numbers
+    of routings."""
+    if len(mine) != len(want):
+        return None
+    n, toks = 0, torch.zeros((hi - lo, 1), dtype=torch.bool)
+    for got, ref in zip(mine, want):
+        s = ref.shape[0] // b
+        ref = ref[lo * s:hi * s].to(got.device)
+        tok = (got.sort(-1).values != ref.sort(-1).values).any(-1).view(hi - lo, s).cpu()
+        if rows_ok is not None:
+            tok &= rows_ok[:, None]
+        n, toks = n + int(tok.sum()), toks | tok
+    return n, toks
+
+
+def _spmd_reference(cfg, dev, tokens, prompts, steps):
+    """The single-device steps of one config on ``dev``: a prefill and
+    ``steps`` greedy decode steps, an AdamW train step and, for an MoE, an
+    Adafactor one from the same weights; each step's routings (experts and
+    margins); the initial weights (``init``) that the ranks cut their
+    shards from."""
+    from repro_torch.models import lm, moe, transformer as T
+    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+    params = T.init_lm(SPMD_SEED, cfg, device=dev)     # the ranks cut their shards from these
+    b, s = prompts.shape
+    prompts = torch.from_numpy(prompts).to(dev)
+    ref = {"init": params, "margins": {}, "experts": {}, "ms": {}}
+    with torch.no_grad():
+        with moe.routings() as routes:
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = lm.make_prefill_step(cfg)(params, {"tokens": prompts})
+            _sync(dev)
+            ref["ms"]["prefill"] = 1e3 * (time.perf_counter() - t0)
+        ref["margins"]["prefill"] = _margins(routes)
+        ref["experts"]["prefill"] = [e for _, e in routes]
+        ref["prefill"], ref["prefill_cache"] = logits, cache
+        c = _lay_cache(cache, T.cache_init(cfg, b, s + steps, device=dev))
+        serve, outs, toks, tops, step_routes = lm.make_serve_step(cfg), [], [], [_top2(logits)], []
+        tok = logits.argmax(-1).to(torch.int32)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            toks.append(tok[:, 0])
+            with moe.routings() as routes:
+                lg, c = serve(params, c, {"token": tok}, s + i)
+            step_routes.append(routes)
+            outs.append(lg)
+            tops.append(_top2(lg))
+            tok = lg.argmax(-1).to(torch.int32)
+        _sync(dev)
+        ref["ms"]["step"] = 1e3 * (time.perf_counter() - t0) / steps
+        ref["margins"]["decode"] = _margins([r for rs in step_routes for r in rs])
+        ref["experts"]["decode"] = [[e for _, e in rs] for rs in step_routes]
+    # top2[:, i]: the margin of the logits that chose tokens[:, i]
+    ref.update(steps=outs, tokens=torch.stack(toks, 1), top2=torch.stack(tops[:steps], 1), cache=c)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    kinds = [("adamw", {})] + ([("adafactor", SPMD_ADAFACTOR)] if cfg.family == "moe" else [])
+    for name, kw in kinds:
+        ocfg = OptimizerConfig(**SPMD_OPT, **kw)
+        opt = make_optimizer(ocfg)
+        state = {"params": params, "opt_state": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        with moe.routings() as routes:
+            _sync(dev)
+            t0 = time.perf_counter()
+            new, metrics = lm.make_train_step(cfg, opt)(state, batch)
+            _sync(dev)
+            ref["ms"][name] = 1e3 * (time.perf_counter() - t0)
+        ref["margins"][name] = _margins(routes)
+        ref["experts"][name] = [e for _, e in routes]
+        del state, routes
+        ref[name] = {"params": new["params"], "loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     **{k: v for k, v in new["opt_state"].items() if k != "grad_norm"}}
+        ref[name]["scales"] = _state_scales(
+            ocfg, {k: v for k, v in ref[name].items() if isinstance(v, dict)})
+        del new
+    ref["peak_gib"] = _peak_gib(dev)
+    return ref
+
+
+def _to_shared_host(tree):
+    """Every tensor of a tree of dicts, lists and tuples copied once into
+    shared host memory (what a spawned rank maps rather than copies)."""
+    if isinstance(tree, dict):
+        return {k: _to_shared_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_shared_host(v) for v in tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return torch.empty(tree.shape, dtype=tree.dtype).share_memory_().copy_(tree)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def _block_gaps(local, ref, specs, mesh) -> float:
+    """The largest gap of this rank's leaves to the same blocks of the
+    single-device tree, over each leaf's largest magnitude."""
     from repro_torch.bridge import leaves
     from repro_torch.distributed.sharding import NamedSharding, map_leaves
 
-    block = lambda w, sp: w[NamedSharding(mesh, sp).local_slices(tuple(w.shape))]
-    scale = lambda w, sp: w.abs().max().clamp(min=1e-30)
-    gaps, noisy_ok, n_noisy = {}, True, 0
-    for k in ("m", "v", "params"):
-        want, top = (leaves(map_leaves(f, ref[k], specs)) for f in (block, scale))
-        got = leaves(local[k])
-        if k != "params":
-            gaps[k] = max(float((g - w).abs().max() / t) for g, w, t in zip(got, want, top))
-            continue
-        gaps[k] = 0.0
-        moment = leaves(map_leaves(block, ref["m"], specs))
-        for g, w, t, m, p0 in zip(got, want, top, moment, leaves(init)):
-            err = (g - w).abs()
-            posed = m.abs() > (1 - b1) * SPMD_WELL_POSED
-            if posed.any():
-                gaps[k] = max(gaps[k], float(err[posed].max() / t))
-            noisy_ok &= bool((err[~posed] <= lr * (1 + wd * p0[~posed].abs()) + 1e-7).all())
-            n_noisy += int((~posed).sum())
-    return gaps, noisy_ok, n_noisy
+    block = lambda w, sp: w[NamedSharding(mesh, sp).local_slices(tuple(w.shape))].to(
+        leaves(local)[0].device)
+    return max((float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp(min=1e-30))
+                for g, w in zip(leaves(local), leaves(map_leaves(block, ref, specs)))),
+               default=0.0)
 
 
-def _spmd_rank(rank, arch, device, ref, tokens, prompts, steps, cells):
-    """One rank of phase 16's world: the seed's weights cut to this rank's
-    shards of the 2x2 mesh, the sharded train step, prefill and greedy
-    decode (each under a ``launch.dryrun.StepRecorder``, whose collective
-    operand bytes are kept), every result held
-    here against the same block of the single-device one (``ref``, the
-    parent's tensors); the hand kernels' launch counts of this rank's steps
-    in ``launches`` (the generic path launches none)."""
+def _row_gaps(a, b):
+    """Each row's largest gap, (B,) on the CPU."""
+    return (a.float() - b.float()).abs().flatten(1).amax(1).cpu()
+
+
+def _spmd_train(cfg, mesh, spmd, params, batch, ref, ocfg, timed, rows):
+    """One sharded train step under ``ocfg`` from this rank's shards, held
+    against the single-device step ``ref`` (:func:`_state_gaps`): loss,
+    grad_norm, the state's gaps, the routings that flipped, the step's ms
+    and collective operand bytes."""
+    from repro_torch.launch.dryrun import _opt_specs
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import make_optimizer
+
+    opt = make_optimizer(ocfg)
+    state = {"params": params, "opt_state": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=_device_of(params))}
+    (new, metrics), ms, nbytes, mine = timed(
+        lambda: lm.make_train_step(cfg, opt, mesh=mesh)(state, batch))
+    del state
+    _empty(_device_of(params))   # the step's pool back to the card, shared by four ranks
+    out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+           "ms": ms, "bytes": nbytes}
+    t0 = time.perf_counter()
+    local = {"params": new["params"],
+             **{k: v for k, v in new["opt_state"].items() if k != "grad_norm"}}
+    specs = {"params": spmd.specs, **_opt_specs(cfg.replace(opt_kind=ocfg.kind), new["opt_state"],
+                                                spmd.specs, new["params"])}
+    out["leaves"] = _state_gaps(local, params, ref, specs, mesh, ocfg)
+    del local, new
+    _empty(_device_of(params))
+    lo, hi, b = rows
+    flips = _flips(mine, ref["experts"], lo, hi, b)
+    out["flips"] = None if flips is None else (flips[0], int(flips[1].sum()))
+    out["compare_s"] = time.perf_counter() - t0
+    return out
+
+
+def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps):
+    """One rank of a phase 16 or 17 world for one config: the parent's
+    initial weights (``ref["init"]``, on the card or in shared host memory)
+    cut to this rank's shards of the 2x2 mesh, the sharded train step(s),
+    prefill and greedy decode, each under a :class:`_CollectiveTally` (its
+    collective operand bytes kept) and ``moe.routings()``, and held here
+    against the same block of the single-device results ``ref``; the hand
+    kernels' launches of this rank's steps."""
+    t_rank = time.perf_counter()
+    torch.set_num_threads(2)      # 8 cores, 4 ranks: host-side slicing of the reference
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.distributed.sharding import NamedSharding, shard_tree
-    from repro_torch.launch.dryrun import StepRecorder
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    from repro_torch.distributed.sharding import NamedSharding, gather_tree, shard_tree
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import lm, transformer as T
-    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.models import lm, moe, transformer as T
+    from repro_torch.optim.optimizer import OptimizerConfig
 
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.set_device(dev)
-    cfg = _spmd_cfg(arch)
+    cfg = _spmd_cfg(arch, depth)
     counters = _counters()
     _zeroed(counters)
     mesh = make_host_mesh(SPMD_MESH)
     spmd = T.spmd_layout(cfg, mesh)
     model = mesh.axis("model")
-    out = {}
-    full = T.init_lm(SPMD_SEED, cfg, device="cpu")
-    out["checksum"] = _checksum(full)
-    params = _to(shard_tree(full, spmd.specs, mesh), dev)
-    del full
+    t0 = time.perf_counter()
+    params = _to(shard_tree(ref["init"], spmd.specs, mesh), dev)
+    out = {"setup_s": time.perf_counter() - t0}
     rows = lambda x: shard_tree({"x": x}, {"x": ("data",)}, mesh)["x"]
-    lb = {"tokens": rows(torch.from_numpy(tokens)).to(dev)}
-    ocfg = OptimizerConfig(**SPMD_OPT)
-    opt = make_optimizer(ocfg)
-    state = {"params": params, "opt_state": opt.init(params),
-             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    batch = {"tokens": rows(torch.from_numpy(tokens)).to(dev)}
 
     def timed(fn):
-        rec = StepRecorder()
+        rec = _CollectiveTally()
         _sync(dev)
         t0 = time.perf_counter()
-        with rec:
+        with rec, moe.routings() as routes:
             result = fn()
         _sync(dev)
-        return result, 1e3 * (time.perf_counter() - t0), rec.collectives
+        return result, 1e3 * (time.perf_counter() - t0), rec.collectives, [e for _, e in routes]
 
-    (new, metrics), out["train_ms"], out["train_bytes"] = timed(
-        lambda: lm.make_train_step(cfg, opt, mesh=mesh)(state, lb))
-    del state
-    out["loss"], out["grad_norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
-    local = {"params": new["params"], "m": new["opt_state"]["m"], "v": new["opt_state"]["v"]}
-    del new
-    out["leaves"] = _spmd_leaf_gaps(local, params, ref["state"], spmd.specs, mesh, ocfg.lr,
-                                    ocfg.weight_decay, ocfg.b1)
-    del local
+    tb = tokens.shape[0]
+    span = (mesh.axis("data").rank * (tb // 2), (mesh.axis("data").rank + 1) * (tb // 2), tb)
+    for name, kw in [("adamw", {})] + ([("adafactor", SPMD_ADAFACTOR)] if "adafactor" in ref
+                                       else []):
+        out[name] = _spmd_train(cfg, mesh, spmd, params, batch,
+                                {**ref[name], "experts": ref["experts"][name]},
+                                OptimizerConfig(**SPMD_OPT, **kw), timed, span)
 
     vocab = NamedSharding(mesh, ("data", None, "model" if spmd.vocab_split else None))
-    lp = rows(torch.from_numpy(prompts)).to(dev)
+    cut = lambda want: want[vocab.local_slices(tuple(want.shape))].to(dev)
     b, s = prompts.shape
+    lo, hi = mesh.axis("data").rank * (b // 2), (mesh.axis("data").rank + 1) * (b // 2)
+    lp = rows(torch.from_numpy(prompts)).to(dev)
     with torch.no_grad():
-        (logits, cache), out["prefill_ms"], out["prefill_bytes"] = timed(
+        (logits, cache), out["prefill_ms"], out["prefill_bytes"], mine = timed(
             lambda: lm.make_prefill_step(cfg, mesh=mesh)(params, {"tokens": lp}))
-        want = ref["prefill"]
-        out["prefill_gap"] = _max_gap(logits, want[vocab.local_slices(tuple(want.shape))])
-        # the prefill's cache, S/M positions a model rank, re-laid into a
-        # cache of S + steps slots cut the same way
-        cache = {k: model.all_gather(c, 2, kind="state") for k, c in cache.items()}
-        cache = {k: model.block(torch.cat([c, c.new_zeros(c.shape[:2] + (steps,) + c.shape[3:])],
-                                          dim=2), 2).contiguous() for k, c in cache.items()}
+        f = _flips(mine, ref["experts"]["prefill"], lo, hi, b)
+        out["prefill_flips"] = None if f is None else (f[0], f[1].any(-1))
+        out["prefill_gaps"] = _row_gaps(logits, cut(ref["prefill"]))
+        pspecs = spmd.cache_specs(ref["prefill_cache"])
+        out["prefill_cache_gap"] = _block_gaps(cache, ref["prefill_cache"], pspecs, mesh)
+        # the prefill's cache laid into a cache of s + steps slots, cut as
+        # the serve step takes it
+        whole = _lay_cache(gather_tree(cache, pspecs, mesh, kind="state"),
+                           T.cache_init(cfg, b, s + steps, device=dev))
+        cspecs = spmd.cache_specs(whole)
+        cache = shard_tree(whole, cspecs, mesh)
+        del whole
         tok = model.all_gather(logits, -1, kind="output").argmax(-1).to(torch.int32)
         serve = lm.make_serve_step(cfg, mesh=mesh)
-        lo = mesh.axis("data").rank * (b // 2)
-        toks, gaps, ms, step_bytes, diverged = [], [], [], [], None
+        # a row's first step whose input token differs from the single device's
+        div = torch.full((hi - lo,), steps)
+        toks, gaps, ms, step_bytes, flips = [], [], [], [], (0, torch.zeros(hi - lo, dtype=bool))
         for i in range(steps):
             toks.append(tok[:, 0].cpu())
-            if diverged is None and not torch.equal(tok[:, 0].cpu(),
-                                                    ref["tokens"][lo:lo + b // 2, i].cpu()):
-                diverged = i
-            (lg, cache), t, nbytes = timed(lambda: serve(params, cache, {"token": tok}, s + i))
+            differs = toks[-1] != ref["tokens"][lo:hi, i].cpu()
+            div = torch.where(differs & (div == steps), torch.full_like(div, i), div)
+            (lg, cache), t, nbytes, mine = timed(lambda: serve(params, cache, {"token": tok}, s + i))
+            f = _flips(mine, ref["experts"]["decode"][i], lo, hi, b, rows_ok=div > i)
+            flips = (None if f is None or flips is None
+                     else (flips[0] + f[0], flips[1] | f[1].any(-1)))
             ms.append(t)
             step_bytes.append(nbytes)
-            if diverged is None:
-                want = ref["steps"][i]
-                gaps.append(_max_gap(lg, want[vocab.local_slices(tuple(want.shape))]))
+            gaps.append(_row_gaps(lg, cut(ref["steps"][i])))
             tok = model.all_gather(lg, -1, kind="output").argmax(-1).to(torch.int32)
-    out.update(tokens=torch.stack(toks, 1), step_gaps=gaps, step_ms=ms, step_bytes=step_bytes,
-               diverged=diverged, rows=(lo, lo + b // 2))
+        out["cache_gap"] = (None if bool((div < steps).any())
+                            else _block_gaps(cache, ref["cache"], cspecs, mesh))
+    out.update(tokens=torch.stack(toks, 1), step_gaps=torch.stack(gaps, 1), step_ms=ms,
+               step_bytes=step_bytes, decode_flips=flips, div=div, rows=(lo, hi),
+               model_rank=model.rank)
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
     out["launches"] = {k: c.launches for k, c in counters.items()}
+    _release(ref)
+    out["rank_s"] = time.perf_counter() - t_rank
     return out
 
 
-def phase_generic_spmd(dev, smi, arch=GEN_ARCH, train=SPMD_TRAIN, prefill=SPMD_PREFILL,
-                       steps=SPMD_STEPS):
-    """Phase 16: ``arch`` at full width and depth, f32 compute, one AdamW
-    train step of ``train`` tokens, a prefill of ``prefill`` and ``steps``
-    greedy decode steps, on this device alone and then SPMD on a gloo world
-    of SPMD_RANKS ranks sharing it, on the SPMD_MESH (data x model) mesh
-    (``lm.make_*_step(mesh=)``); every rank's results held against the
-    single-device ones, its weights' checksum against the parent's, its
-    recorded collective operand bytes against a record-only mesh's on meta;
-    no hand kernel may launch, on the single device or on any rank.
-    With a CPU ``dev`` and a smoke arch it rehearses the same checks."""
+def _spmd_checks(label, ranks, ref, want, train_tokens):
+    """The checks of every rank's results for one config; returns each
+    step's word for the log: held, or what a flipped routing left held."""
+    tag = "x".join(map(str, SPMD_MESH))
+    held = {}
+    for name in ("adamw", "adafactor"):
+        if name not in ref:
+            continue
+        r = ref[name]
+        flips = [got[name]["flips"] for got in ranks]
+        if any(f is None for f in flips):
+            fail(f"{label} {name}: the ranks ran another number of routings than the single device")
+        n = sum(f[0] for f in flips)
+        # the flipped tokens, counted once: the model ranks of a data rank route alike
+        n_tok = sum(got[name]["flips"][1] for got in ranks if got["model_rank"] == 0)
+        bound = SPMD_FLIP_SHARE * n_tok / train_tokens
+        held[name] = ("held" if n == 0 else
+                      f"{n} token routings flipped over the ranks, {n_tok} tokens of "
+                      f"{train_tokens}: loss and grad_norm held within {bound:.3g}, the state "
+                      "reported")
+        for rank, got in enumerate(ranks):
+            g, where = got[name], f"{label} {tag} rank {rank} {name}"
+            gaps, reach_ok = g["leaves"]["gaps"], g["leaves"]["reach_ok"]
+            rel = abs(g["loss"] - r["loss"]) / abs(r["loss"])
+            grel = abs(g["grad_norm"] - r["grad_norm"]) / abs(r["grad_norm"])
+            if n == 0:
+                check(rel <= SPMD_LOSS_RTOL, f"{where}: loss {g['loss']!r} vs {r['loss']!r}")
+                check(grel <= GEN_CPU_GRAD_REL,
+                      f"{where}: grad_norm {g['grad_norm']!r} vs {r['grad_norm']!r}")
+                check(max(gaps.values()) <= GEN_CPU_GRAD_REL and reach_ok,
+                      f"{where}: state gaps {gaps} (limit {GEN_CPU_GRAD_REL}), ill-posed "
+                      f"elements within one step: {reach_ok}")
+            else:
+                check(rel <= bound and grel <= bound,
+                      f"{where}: loss {rel:.3g}, grad_norm {grel:.3g} off with {n_tok} flipped "
+                      f"tokens (limit {bound:.3g})")
+            check(g["bytes"] == want[name], f"{where}: collective operand bytes "
+                                            f"{g['bytes']} vs record-only {want[name]}")
+    n_pre = n_dec = 0
+    for rank, got in enumerate(ranks):
+        where = f"{label} {tag} rank {rank}"
+        check(not any(got["launches"].values()),
+              f"{where}: hand kernels launched {got['launches']} on the generic path "
+              "(expected none)")
+        if got["prefill_flips"] is None or got["decode_flips"] is None:
+            fail(f"{where}: the rank ran another number of routings than the single device")
+        pre, dec = got["prefill_flips"][1], got["prefill_flips"][1] | got["decode_flips"][1]
+        n_pre, n_dec = n_pre + got["prefill_flips"][0], n_dec + got["decode_flips"][0]
+        check(bool((got["prefill_gaps"][~pre] <= GEN_CPU_LOGITS_ATOL).all()),
+              f"{where}: prefill logits gaps {got['prefill_gaps'].tolist()} (rows with a "
+              f"flipped routing: {pre.tolist()})")
+        if not pre.any():
+            check(got["prefill_cache_gap"] <= GEN_CPU_GRAD_REL,
+                  f"{where}: prefill cache gap {got['prefill_cache_gap']:.3g} (relative)")
+        lo = got["rows"][0]
+        for r in (~dec).nonzero().flatten().tolist():
+            d = int(got["div"][r])
+            check(bool((got["step_gaps"][r, :d] <= GEN_CPU_LOGITS_ATOL).all()),
+                  f"{where}: row {lo + r} decode logits gaps {got['step_gaps'][r, :d].tolist()}")
+            if d < got["step_gaps"].shape[1]:
+                margin = float(ref["top2"][lo + r, d])
+                check(margin <= SPMD_MARGIN, f"{where}: row {lo + r} greedy token {d} differs "
+                                             f"at a top-2 margin {margin:.3g} (limit {SPMD_MARGIN})")
+        if not dec.any() and got["cache_gap"] is not None:
+            check(got["cache_gap"] <= GEN_CPU_GRAD_REL, f"{where}: decode cache gap "
+                                                        f"{got['cache_gap']:.3g}")
+        check(got["prefill_bytes"] == want["prefill"],
+              f"{where}: prefill collective operand bytes {got['prefill_bytes']} vs record-only "
+              f"{want['prefill']}")
+        check(all(x == want["decode"] for x in got["step_bytes"]),
+              f"{where}: decode collective operand bytes {got['step_bytes']} vs record-only "
+              f"{want['decode']}")
+    held["prefill"] = "held" if n_pre == 0 else f"{n_pre} flipped routings: their rows reported"
+    held["decode"] = "held" if n_dec == 0 else f"{n_dec} flipped routings: their rows reported"
+    return held
+
+
+def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS):
+    """Phases 16 and 17: the generic LM's sharded steps (``lm.make_*_step(
+    mesh=)``), one config at a time (``configs``: arch, depth, prefill
+    shape), f32 compute: the single-device steps on this device, then SPMD
+    on the 2x2 gloo world of SPMD_RANKS ranks sharing it, which cut their
+    shards from this process's initial weights (on the card, or in shared
+    host memory where the ranks need the card: four ranks re-drawing a
+    1.7 B tree would not fit the host's 96 GiB), every rank's results held
+    against the single-device ones (an MoE step in which a routing flipped
+    as ``SPMD_FLIP_SHARE`` says), its collective operand bytes against a
+    record-only mesh's on meta; no hand kernel may launch.  With a CPU
+    ``dev`` and smoke archs it rehearses the checks."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import record_only_mesh, spawn_world
     from repro_torch.models.config import ShapeCell
 
     t_phase = time.perf_counter()
-    cfg = _spmd_cfg(arch)
-    tokens, prompts = _spmd_inputs(cfg, train, prefill)
-    counters = _counters()
-    _zeroed(counters)
-    ref = _spmd_reference(cfg, dev, tokens, prompts, steps)
-    _no_hand_kernels(f"{arch} single-device steps", counters)
-    _empty(dev)
-    tr_ms, pf_ms, st_ms = ref["ms"]
-    log(f"  single device ({arch}, {cfg.num_layers} layers, d {cfg.d_model}, f32): loss "
-        f"{ref['loss']!r}, train step {tr_ms:.1f} ms ({train[0]} x {train[1]} tokens), prefill "
-        f"{pf_ms:.1f} ms ({prefill[0]} x {prefill[1]}), {st_ms:.2f} ms a decode step, peak "
-        f"{ref['peak_gib']:.2f} GiB; in {time.perf_counter() - t_phase:.1f} s")
-
-    cells = {"train": ShapeCell("phase16_train", train[1], train[0], "train"),
-             "prefill": ShapeCell("phase16_prefill", prefill[1], prefill[0], "prefill"),
-             "decode": ShapeCell("phase16_decode", prefill[1] + steps, prefill[0], "decode")}
     rec_mesh = record_only_mesh(SPMD_MESH)
-    want = {k: dryrun.measure(arch, c, cfg_override=cfg, mesh=rec_mesh)["collectives"]
-            for k, c in cells.items()}
-    t0 = time.perf_counter()
-    try:
-        ranks = spawn_world(_spmd_rank, SPMD_RANKS, (arch, str(dev), ref, tokens, prompts,
-                                                      steps, cells), timeout=SPMD_TIMEOUT)
-    except (RuntimeError, TimeoutError) as e:
-        fail(f"phase 16: the {SPMD_RANKS}-rank world failed: {e}")
-    world_s = time.perf_counter() - t0
-    if dev.type == "cuda":
-        torch.cuda.ipc_collect()        # the ranks' handles on the reference tensors
-    mesh_tag = "x".join(map(str, SPMD_MESH))
-    for r, got in enumerate(ranks):
-        label = f"{arch} {mesh_tag} rank {r}"
-        check(not any(got["launches"].values()),
-              f"{label}: hand kernels launched {got['launches']} on the generic path "
-              "(expected none)")
-        check(got["checksum"] == ref["checksum"],
-              f"{label}: weights' checksum {got['checksum']} vs the parent's {ref['checksum']}")
-        rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
-        check(rel <= SPMD_LOSS_RTOL, f"{label}: loss {got['loss']!r} vs {ref['loss']!r} ({rel:.3g})")
-        grel = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
-        check(grel <= GEN_CPU_GRAD_REL, f"{label}: grad_norm {got['grad_norm']!r} vs "
-                                         f"{ref['grad_norm']!r}")
-        gaps, noisy_ok, n_noisy = got["leaves"]
-        check(max(gaps.values()) <= GEN_CPU_GRAD_REL and noisy_ok,
-              f"{label}: state gaps {gaps} (limit {GEN_CPU_GRAD_REL}), ill-posed elements "
-              f"within one step: {noisy_ok}")
-        check(got["prefill_gap"] <= GEN_CPU_LOGITS_ATOL,
-              f"{label}: prefill logits gap {got['prefill_gap']:.3g}")
-        check(all(g <= GEN_CPU_LOGITS_ATOL for g in got["step_gaps"]),
-              f"{label}: decode logits gaps {got['step_gaps']}")
-        lo, hi = got["rows"]
-        d = got["diverged"]
-        if d is not None:
-            diff = got["tokens"][:, d] != ref["tokens"][lo:hi, d].cpu()
-            margin = float(ref["margins"][lo:hi, d].cpu()[diff].max())
-            check(margin <= SPMD_MARGIN, f"{label}: greedy token {d} differs at a top-2 margin "
-                                         f"{margin:.3g} (limit {SPMD_MARGIN})")
-        for k in ("train", "prefill"):
-            check(got[f"{k}_bytes"] == want[k], f"{label}: {k} collective operand bytes "
-                                                f"{got[f'{k}_bytes']} vs record-only {want[k]}")
-        check(all(b == want["decode"] for b in got["step_bytes"]),
-              f"{label}: decode collective operand bytes {got['step_bytes']} vs record-only "
-              f"{want['decode']}")
-    fail_if_any("phase 16")
+    tag = "x".join(map(str, SPMD_MESH))
     fmt = lambda d: ", ".join(f"{k} {v}" for k, v in sorted(d.items()))
-    for r, got in enumerate(ranks):
-        log(f"  rank {r}: train step {got['train_ms']:.1f} ms, prefill {got['prefill_ms']:.1f} ms, "
-            f"decode {np.mean(got['step_ms'][1:]):.2f} ms a step (time-sliced with "
-            f"{SPMD_RANKS - 1} other ranks on one device), peak "
-            + ("not measured" if got["peak_gib"] is None else f"{got['peak_gib']:.2f} GiB")
-            + f"; loss gap {abs(got['loss'] - ref['loss']) / abs(ref['loss']):.3g}, state gaps "
-            + ", ".join(f"{k} {v:.3g}" for k, v in got["leaves"][0].items())
-            + f" ({got['leaves'][2]} ill-posed parameter elements), prefill logits gap "
-            f"{got['prefill_gap']:.3g}, decode gaps max "
-            f"{max(got['step_gaps'], default=0.0):.3g}, greedy "
-            + ("equal" if got["diverged"] is None else f"diverged at step {got['diverged']}"))
-    log(f"  collective operand bytes per rank (equal to the record-only {mesh_tag} mesh's on "
-        f"meta): train step {fmt(want['train'])}; prefill {fmt(want['prefill'])}; decode step "
-        f"{fmt(want['decode'])}")
-    log(f"  {SPMD_RANKS}-rank world ({mesh_tag} mesh, gloo, every rank on {dev}) in {world_s:.1f} s; "
-        f"phase 16 in {time.perf_counter() - t_phase:.1f} s; on {smi}")
+    for arch, depth, prefill in configs:
+        t_cfg = time.perf_counter()
+        cfg = _spmd_cfg(arch, depth)
+        tokens, prompts = _spmd_inputs(cfg, train, prefill)
+        counters = _counters()
+        _zeroed(counters)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            log(f"  {arch}: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated on the "
+                "card before its steps")
+        ref = _spmd_reference(cfg, dev, tokens, prompts, steps)
+        _no_hand_kernels(f"{arch} single-device steps", counters)
+        _empty(dev)
+        margins = ", ".join(f"{k} {'none' if m is None else f'{m[0]:.3g} ({m[1]} within)'}"
+                            for k, m in ref["margins"].items())
+        log(f"  {arch} on one device ({cfg.num_layers} layers, d {cfg.d_model}, f32): AdamW loss "
+            f"{ref['adamw']['loss']!r}, " + ", ".join(f"{k} {v:.1f} ms" for k, v in ref["ms"].items())
+            + f" (train {train[0]} x {train[1]}, prefill {prefill[0]} x {prefill[1]}, a decode "
+            f"step), peak {ref['peak_gib']:.2f} GiB; router top-k margins: {margins}")
+
+        cells = {"adamw": (ShapeCell(f"{phase}_train", train[1], train[0], "train"), cfg),
+                 "prefill": (ShapeCell(f"{phase}_prefill", prefill[1], prefill[0], "prefill"), cfg),
+                 "decode": (ShapeCell(f"{phase}_decode", prefill[1] + steps, prefill[0], "decode"),
+                            cfg)}
+        if "adafactor" in ref:
+            cells["adafactor"] = (cells["adamw"][0],
+                                  cfg.replace(opt_kind="adafactor", opt_b1=0.0))
+        measured = {k: dryrun.measure(arch, c, cfg_override=o, mesh=rec_mesh)
+                    for k, (c, o) in cells.items()}
+        want = {k: m["collectives"] for k, m in measured.items()}
+        # the reference stays on the card, shared with the ranks by IPC, where
+        # the ranks' train steps (the recorder's temporaries and arguments of
+        # a rank, a quarter more for the allocator, 4 GiB for five contexts)
+        # fit beside it; else the ranks map it from shared host memory
+        need = SPMD_RANKS * 1.25 * max(
+            measured[k]["peak"] + dryrun.build_cell(arch, cells[k][0], cfg_override=cells[k][1],
+                                                    mesh=rec_mesh).argument_bytes()
+            for k in ("adamw", "adafactor") if k in cells) + 4 * 2**30
+        on_card = dev.type == "cuda" and need <= torch.cuda.mem_get_info()[0]
+        if not on_card:
+            ref = _to_shared_host(ref)
+            _empty(dev)
+        log(f"  {arch}: the reference ({_tree_bytes(ref) / 2**30:.1f} GiB) "
+            + ("stays on the card" if on_card else "in shared host memory")
+            + f"; the ranks' estimate {need / 2**30:.1f} GiB")
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_world(_spmd_rank, SPMD_RANKS, (arch, depth, str(dev), ref, tokens,
+                                                          prompts, steps), timeout=SPMD_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"{phase}: the {SPMD_RANKS}-rank world of {arch} failed: {e}")
+        world_s = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.ipc_collect()
+        held = _spmd_checks(arch, ranks, ref, want, train[0] * train[1])
+        fail_if_any(f"{phase} ({arch})")
+        log(f"  {arch} steps: " + ", ".join(f"{k} {v}" for k, v in held.items()))
+        for r, got in enumerate(ranks):
+            log(f"  rank {r}: " + ", ".join(
+                f"{k} step {got[k]['ms']:.1f} ms (loss gap "
+                f"{abs(got[k]['loss'] - ref[k]['loss']) / abs(ref[k]['loss']):.3g}, grad_norm gap "
+                f"{abs(got[k]['grad_norm'] - ref[k]['grad_norm']) / abs(ref[k]['grad_norm']):.3g}, "
+                "state gaps " + ", ".join(f"{n} {v:.3g}" for n, v in got[k]["leaves"]["gaps"].items())
+                + f"; {got[k]['leaves']['ill_posed']} of {got[k]['leaves']['elements']} parameter "
+                f"elements ill-posed, {got[k]['leaves']['ill_posed_off']} of them off by more than "
+                f"{GEN_CPU_GRAD_REL} of the leaf's scale, largest gap "
+                f"{got[k]['leaves']['ill_posed_gap']:.3g}; {got[k]['flips'][1]} tokens' routings "
+                "flipped)"
+                for k in ("adamw", "adafactor") if k in got)
+                + f", prefill {got['prefill_ms']:.1f} ms (logits gap "
+                f"{float(got['prefill_gaps'].max()):.3g}, cache {got['prefill_cache_gap']:.3g}), "
+                f"decode {np.mean(got['step_ms'][1:]):.2f} ms a step (logits gaps max "
+                f"{float(got['step_gaps'].max()):.3g}, cache "
+                + ("not compared" if got["cache_gap"] is None else f"{got['cache_gap']:.3g}")
+                + ", greedy " + ("equal" if bool((got["div"] == steps).all())
+                                 else f"diverged at steps {got['div'].tolist()}")
+                + "), peak " + ("not measured" if got["peak_gib"] is None
+                                else f"{got['peak_gib']:.2f} GiB"))
+        log(f"  {arch} rank 0: {ranks[0]['rank_s']:.1f} s in its function; besides its steps "
+            f"{ranks[0]['setup_s']:.1f} s cutting and moving its "
+            "shards, " + ", ".join(f"{ranks[0][k]['compare_s']:.1f} s comparing its {k} state"
+                                   for k in ("adamw", "adafactor") if k in ranks[0]))
+        log(f"  {arch} collective operand bytes per rank (equal to the record-only {tag} "
+            f"mesh's on meta): " + "; ".join(f"{k} {fmt(v)}" for k, v in want.items()))
+        log(f"  {arch}: {SPMD_RANKS}-rank world ({tag} mesh, gloo, every rank on {dev}) in "
+            f"{world_s:.1f} s; {arch} in {time.perf_counter() - t_cfg:.1f} s")
+        del ref, ranks
+        _empty(dev)
+    log(f"  {phase} in {time.perf_counter() - t_phase:.1f} s; on {smi}")
 
 
 def main() -> int:
@@ -5257,12 +5624,20 @@ def main() -> int:
         f"restart and card vs CPU at {GT_CUT_LAYERS} layers, the dry run on meta")
     torch.cuda.empty_cache()
     phase_generic_train(dev, smi)
-    log(f"phase 16: the generic LM's SPMD steps: {GEN_ARCH} at full width and depth on a "
+    log(f"phase 16: the generic LM's SPMD steps: {GEN_ARCH} at full width, {SPMD_DEPTH} layers, on a "
         f"{'x'.join(map(str, SPMD_MESH))} gloo world of {SPMD_RANKS} ranks on this card (a train "
         f"step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens, a prefill of {SPMD_PREFILL[0]} x "
         f"{SPMD_PREFILL[1]}, {SPMD_STEPS} greedy steps) against the single-device steps")
     torch.cuda.empty_cache()
-    phase_generic_spmd(dev, smi)
+    phase_spmd(dev, smi, SPMD16, "phase 16")
+    log("phase 17: the generic LM's SPMD steps of the MoE, SSM and hybrid kinds on the "
+        f"{'x'.join(map(str, SPMD_MESH))} gloo world: "
+        + ", ".join(f"{a} ({'all' if d is None else d} layers, prefill {p[0]} x {p[1]})"
+                    for a, d, p in SPMD17)
+        + f", each a train step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens (granite also under "
+        f"Adafactor) and {SPMD_STEPS} greedy steps, against the single-device steps")
+    torch.cuda.empty_cache()
+    phase_spmd(dev, smi, SPMD17, "phase 17")
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()},

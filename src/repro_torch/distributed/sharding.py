@@ -293,12 +293,13 @@ def gather_tree(tree, specs, mesh, *, kind: str = "output"):
     return map_leaves(gather, tree, specs)
 
 
-def leaf_axes(specs, mesh):
-    """The tree of specs mapped to the tuple of mesh axes (``MeshAxis``) of
-    size above 1 that each leaf is sharded over, in mesh order."""
+def dim_axes(specs, mesh):
+    """The tree of specs mapped, leaf by leaf, to a tuple over the spec's
+    entries of the mesh axes (``MeshAxis``) of size above 1 each entry cuts
+    its dim over (a trimmed spec's missing trailing dims are uncut)."""
     if isinstance(specs, dict):
-        return {k: leaf_axes(v, mesh) for k, v in specs.items()}
+        return {k: dim_axes(v, mesh) for k, v in specs.items()}
     if not _is_spec(specs):
-        return type(specs)(leaf_axes(v, mesh) for v in specs)
-    names = {a for entry in specs for a in entry_axes(entry)}
-    return tuple(mesh.axis(a) for a in mesh.axis_names if a in names and mesh.axis(a).size > 1)
+        return type(specs)(dim_axes(v, mesh) for v in specs)
+    return tuple(tuple(mesh.axis(a) for a in entry_axes(entry) if mesh.axis(a).size > 1)
+                 for entry in specs)

@@ -10,18 +10,16 @@ cell's step (train_4k -> ``lm.make_train_step``, prefill_32k ->
 recorder of its ATen operations and collectives.  The mesh is a shape with
 axis names (:class:`AbstractMesh`); it needs no ``torch.distributed`` world.
 
-For the dense family (every layer ``attn_mlp``: six of the ten assigned
-archs) the recorded step is the SPMD step of one device: one rank of a
+The recorded step is the SPMD step of one device: one rank of a
 record-only mesh of the production shape (``launch.mesh.record_only_mesh``:
 its collectives move nothing, return the right shapes and report themselves)
 runs ``lm.make_*_step(mesh=)`` on its shards, the same code a real
 ``torch.distributed`` world runs.  That rank is rank 0, but for a decode
 step the ``model`` rank that owns the new token's cache slot
-(:func:`recorded_ranks`): the only rank that writes its block of the
-sequence-sharded cache, so the busiest; the other ranks' temporaries and
-bytes fall short of its record by that copy of their cache blocks.  The MoE, SSM and hybrid archs have no
-sharded walker yet (``ROADMAP.md`` §1 item 6b): their step is recorded whole
-and divided, as the record's ``collective_note`` says.  A record holds:
+(:func:`recorded_ranks`; a sliding window's ring slot ``pos % W``): the only
+rank that writes its block of the sequence-sharded cache, so the busiest;
+the other ranks' temporaries and bytes fall short of its record by that
+copy of their cache blocks.  A record holds:
 
   * ``memory.argument_size_in_bytes`` -- the per-device bytes of the step's
     arguments (the train state or the params / cache, the batch, and for a
@@ -33,27 +31,22 @@ and divided, as the record's ``collective_note`` says.  A record holds:
     operation or a collective creates counts from its creation until it is
     freed; views add nothing; the step's outputs count while they are alive
     inside it), extended from the traced depths to the config's (below: a
-    lower bound).  For a dense arch it is the device's own step's; for the
-    others the whole step's divided by the size of the mesh's batch axes,
-    no bound of what a device would hold.  Traced at full depth on one
+    lower bound): the device's own step's.  Traced at full depth on one
     device, the peak is what the card's allocator reads above the arguments
     for the same step (``chip_smoke.py`` phase 15 prints both).
-  * ``flops`` -- the FLOPs of the step by the formulas of
+  * ``flops`` -- the device's FLOPs of the step by the formulas of
     ``torch.utils.flop_counter`` (matrix products, convolutions, attention;
-    elementwise work counts 0): the device's own for a dense arch, else the
-    whole step's divided by the number of devices.  Not held against XLA's
-    ``cost_analysis``: the two count different programs (the remat
-    recompute, fusions).
+    elementwise work counts 0).  Not held against XLA's ``cost_analysis``:
+    the two count different programs (the remat recompute, fusions).
   * ``bytes_accessed`` -- the input plus output bytes of every ATen operation
-    of the step that is not a view, and of every collective (the device's
-    own, or divided, as ``flops``).  This is before any fusion, so it bounds
-    from above what a fused program moves.
-  * ``collective_bytes_per_device`` -- for a dense arch, the per-device
-    operand bytes of each collective kind the step issued, under the JAX
-    package's HLO names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
-    ``all-to-all``): the quantity its dry run reads from the partitioned
-    HLO, here of the port's own explicit schedule (``PERF.md`` compares the
-    two).  Null for the other archs, with ``collective_note``.
+    of the device's step that is not a view, and of every collective.  This
+    is before any fusion, so it bounds from above what a fused program
+    moves.
+  * ``collective_bytes_per_device`` -- the per-device operand bytes of each
+    collective kind the step issued, under the JAX package's HLO names
+    (``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``):
+    the quantity its dry run reads from the partitioned HLO, here of the
+    port's own explicit schedule (``PERF.md`` compares the two).
 
 A step's cost grows by the same amount with every layer of a kind, so each
 cell is recorded at the few depths that give every layer kind's share (1 and 2
@@ -107,9 +100,6 @@ from repro_torch.models.config import SHAPE_CELLS, ShapeCell, cell_by_name, cell
 from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
-COLLECTIVE_NOTE = ("not recorded: the port's sharded executor runs the dense attn_mlp kind "
-                   "only; the MoE, SSM and hybrid kinds are ROADMAP.md §1 item 6b, so this "
-                   "step is recorded whole and its FLOPs, bytes and temporaries divided")
 
 
 @dataclass(frozen=True)
@@ -290,11 +280,10 @@ def build_cell(arch: str, cell, *, multi_pod: bool = False, mesh=None, cfg_overr
 
     ``mesh`` an :class:`AbstractMesh` (the default: the production one):
     the single-device step.  ``mesh`` a ``launch.mesh.HostMesh``: the SPMD
-    step of the dense family (``lm.make_*_step(mesh=)``; another layer kind
-    or preset raises ``NotImplementedError``), and ``Cell.local`` this
-    rank's shards -- on a record-only mesh of the meta arguments, on a real
-    world of real ones on ``device`` (the card when None), from
-    :func:`_values`."""
+    step (``lm.make_*_step(mesh=)``; a preset other than ``base`` raises
+    ``NotImplementedError``), and ``Cell.local`` this rank's shards -- on a
+    record-only mesh of the meta arguments, on a real world of real ones on
+    ``device`` (the card when None), from :func:`_values`."""
     cfg = cfg_override if cfg_override is not None else lm.get_config(arch)
     cell = cell if isinstance(cell, ShapeCell) else cell_by_name(cell)
     mesh = mesh if mesh is not None else production_mesh(multi_pod)
@@ -597,37 +586,38 @@ def measure(arch: str, cell, *, cfg_override=None, mesh=None) -> dict:
     return {**total, "traced_layers": depths}
 
 
-def recorded_ranks(cell: ShapeCell, mesh: AbstractMesh) -> dict:
-    """The device a dense record is of: rank 0 of every axis, but for a
-    decode step the ``model`` rank whose block of the sequence-sharded cache
-    holds the new token's slot, ``pos = seq_len - 1`` (the last one, where
-    ``model`` splits the cache): the one rank that writes its cache block,
-    a copy of that block per layer that the other ranks do not make."""
-    m = mesh.shape.get("model", 1)
-    if cell.kind != "decode" or cell.seq_len % m:
+def recorded_ranks(cfg, cell: ShapeCell, mesh: AbstractMesh) -> dict:
+    """The device a record is of: rank 0 of every axis, but for a decode step
+    the ``model`` rank whose block of the sequence-sharded cache holds the
+    new token's slot: ``pos = seq_len - 1`` (the last one), or, for a
+    sliding window's ring of W = min(seq_len, window) slots, ``pos % W``.
+    That rank alone writes its cache block, a copy of it per layer that the
+    other ranks do not make.  A model with no sequence cache (Mamba-2's
+    states), or a cache ``model`` does not cut, records rank 0."""
+    kinds = set(T.layer_kinds(cfg))
+    if cell.kind != "decode" or not kinds & {"attn_mlp", "attn_moe", "attn_local"}:
         return {}
-    return {"model": (cell.seq_len - 1) // (cell.seq_len // m)}
-
-
-def sharded(arch: str) -> bool:
-    """Whether the dry run records ``arch``'s SPMD step (the dense family:
-    every layer ``attn_mlp``)."""
-    return set(T.layer_kinds(lm.get_config(arch))) == {"attn_mlp"}
+    m, pos = mesh.shape.get("model", 1), cell.seq_len - 1
+    slots = cell.seq_len
+    if "attn_local" in kinds:
+        slots = min(cell.seq_len, cfg.local_window)
+        pos %= slots
+    if slots % m:
+        return {}
+    return {"model": pos // (slots // m)}
 
 
 def dryrun_cell(arch: str, cell, *, multi_pod: bool = False, mesh: AbstractMesh | None = None,
                 measured: dict | None = None, save: bool = True, verbose: bool = True) -> dict:
-    """Record one (arch, cell, mesh).  A dense arch's record is one device's
-    SPMD step on the record-only form of ``mesh`` (rank 0's, a decode step
-    the cache-writing rank's: :func:`recorded_ranks`); another arch's is its
-    single-device step divided.  ``measured``: a dict that keeps each
-    :func:`measure` for the next record that can use it (a single-device
-    step serves every mesh; an SPMD step its own mesh only).
-    ``trace_s``: the seconds this record took to build and measure (near 0
-    where another record measured the step)."""
+    """Record one (arch, cell, mesh): one device's SPMD step on the
+    record-only form of ``mesh`` (rank 0's, a decode step the cache-writing
+    rank's: :func:`recorded_ranks`).  ``measured``: a dict that keeps each
+    :func:`measure` for the next record of the same mesh.  ``trace_s``: the
+    seconds this record took to build and measure."""
     mesh = mesh if mesh is not None else production_mesh(multi_pod)
     cell = cell if isinstance(cell, ShapeCell) else cell_by_name(cell)
-    ok, reason = cell_supported(lm.get_config(arch), cell)
+    cfg = lm.get_config(arch)
+    ok, reason = cell_supported(cfg, cell)
     record: dict = {"arch": arch, "cell": cell.name, "mesh": mesh.tag, "kind": cell.kind,
                     "seq_len": cell.seq_len, "global_batch": cell.global_batch,
                     "device": "meta"}
@@ -644,26 +634,19 @@ def dryrun_cell(arch: str, cell, *, multi_pod: bool = False, mesh: AbstractMesh 
         c = build_cell(arch, cell, multi_pod=multi_pod, mesh=mesh)
         args_bytes = c.argument_bytes()
         measured = {} if measured is None else measured
-        spmd = sharded(arch)
-        key = (arch, cell, mesh.tag) if spmd else (arch, cell)
+        key = (arch, cell, mesh.tag)
         if key not in measured:
-            measured[key] = measure(
-                arch, cell, mesh=mesh.record_only(recorded_ranks(cell, mesh)) if spmd else None)
+            measured[key] = measure(arch, cell,
+                                    mesh=mesh.record_only(recorded_ranks(cfg, cell, mesh)))
         totals = measured[key]
-        if spmd:
-            share, temp = 1, totals["peak"]
-            coll = {"collective_bytes_per_device": dict(sorted(totals["collectives"].items()))}
-        else:
-            share, temp = mesh.size, -(-totals["peak"] // axis_size(mesh, c.rules["batch"]))
-            coll = {"collective_bytes_per_device": None, "collective_note": COLLECTIVE_NOTE}
         record.update(
             status="OK",
             trace_s=round(time.perf_counter() - t0, 2),
             traced_layers=totals["traced_layers"],
-            flops=totals["flops"] / share,
-            bytes_accessed=totals["bytes"] / share,
-            **coll,
-            memory={"argument_size_in_bytes": args_bytes, "temp_size_in_bytes": temp},
+            flops=totals["flops"],
+            bytes_accessed=totals["bytes"],
+            collective_bytes_per_device=dict(sorted(totals["collectives"].items())),
+            memory={"argument_size_in_bytes": args_bytes, "temp_size_in_bytes": totals["peak"]},
             num_devices=mesh.size,
         )
         if verbose:
@@ -697,22 +680,22 @@ def _sweep_arch(arch: str, cells, meshes, verbose: bool) -> list[dict]:
 
 
 def sweep(archs, cells, meshes, *, verbose: bool = True, workers: int = 1) -> list[dict]:
-    """Every (mesh, arch, cell) record, saved; a single-device step is
-    measured once per (arch, cell) and serves both meshes, an SPMD step once
-    per mesh.  ``workers`` > 1 records the archs in that many processes, an
-    arch to a process (the records are the same)."""
+    """Every (mesh, arch, cell) record, saved, each step measured once (a
+    step is one mesh's, so an (arch, mesh) pair shares nothing with
+    another).  ``workers`` > 1 records the (arch, mesh) pairs in that many
+    processes, a pair to a process (the records are the same)."""
+    pairs = [(arch, multi_pod) for multi_pod in meshes for arch in archs]
+    args = ([a for a, _ in pairs], [cells] * len(pairs), [[m] for _, m in pairs],
+            [verbose] * len(pairs))
     if workers > 1:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
 
-        n = len(archs)
         with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-            per_arch = list(pool.map(_sweep_arch, archs, [cells] * n, [meshes] * n,
-                                     [verbose] * n))
+            per_pair = list(pool.map(_sweep_arch, *args))
     else:
-        per_arch = [_sweep_arch(arch, cells, meshes, verbose) for arch in archs]
-    records = [per_arch[i][m * len(cells) + c] for m in range(len(meshes))
-               for i in range(len(archs)) for c in range(len(cells))]
+        per_pair = [_sweep_arch(*a) for a in zip(*args)]
+    records = [r for recs in per_pair for r in recs]
     for record in records:
         _save(record)
     return records
@@ -725,7 +708,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
-    ap.add_argument("--workers", type=int, default=1, help="processes, an arch to each")
+    ap.add_argument("--workers", type=int, default=1, help="processes, an (arch, mesh) pair to each")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import ASSIGNED_ARCHS

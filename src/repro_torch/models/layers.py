@@ -32,8 +32,11 @@ computation through ``MeshAxis.copy`` (Megatron's f), so its gradient stays
 whole on every rank.  Decode attention runs against the sequence-sharded
 cache: each model rank scores every head against its ``S/M`` positions and
 the partial softmaxes meet in a max and two psums over ``model``; the new
-token's k/v go only to the rank that owns ``pos``.  With ``tp=None`` every
-layer is the single-device code, op for op.
+token's k/v go only to the rank that owns ``pos`` (``pos % W`` for a
+sliding window's W-slot ring, whose slots are cut over ``model`` the same
+way).  The MoE, Mamba-2 and RG-LRU layers take the same ``tp`` (their
+modules say how each is cut).  With ``tp=None`` every layer is the
+single-device code, op for op.
 """
 
 from __future__ import annotations
@@ -60,12 +63,14 @@ def _device(generator, device):
 
 @dataclass(frozen=True)
 class TensorParallel:
-    """One rank's place in a dense block's SPMD: the ``data`` (FSDP) and
+    """One rank's place in a block's SPMD: the ``data`` (FSDP) and
     ``model`` (tensor-parallel) axes (``launch.mesh.MeshAxis``), ``specs``
-    (the block's parameter specs sanitized on the mesh, no layer dim), and
+    (the block's parameter specs sanitized on the mesh, no layer dim),
     which parts run split over ``model``: ``q_split`` (whole q heads on each
     rank), ``kv_split`` (whole kv heads too) and ``mlp_split`` (the d_ff
-    columns)."""
+    columns), and ``batch``, the axes the batch is cut over (``data``, and
+    ``pod`` first on the multi-pod mesh: the MoE's load statistics are
+    summed over them)."""
 
     data: Any
     model: Any
@@ -73,6 +78,13 @@ class TensorParallel:
     q_split: bool
     kv_split: bool
     mlp_split: bool
+    batch: tuple = ()
+
+    def split(self, spec, dim: int, axis: str = "model") -> bool:
+        """Whether a sanitized ``spec`` cuts ``dim`` over ``axis`` (of size
+        above 1): whether the leaf holds a block of that dim."""
+        ax = self.model if axis == "model" else self.data
+        return ax.size > 1 and dim < len(spec) and spec[dim] == axis
 
     def weight(self, w, spec, *, full: bool = False):
         """A weight shard ready to use: gathered over ``data`` where its spec
@@ -89,7 +101,10 @@ class TensorParallel:
         return w
 
     def dense(self, p, spec, *, full: bool = False):
-        return {k: self.weight(v, spec[k], full=full) for k, v in p.items()}
+        """:meth:`weight` over a tree of parameters and its specs."""
+        if isinstance(p, dict):
+            return {k: self.dense(v, spec[k], full=full) for k, v in p.items()}
+        return self.weight(p, spec, full=full)
 
     def shared(self, p):
         """A replicated parameter (a norm scale) used on this rank's heads
@@ -529,13 +544,11 @@ def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, pos: int, compute_dty
     (``pos % S`` when ``ring``, for sliding-window caches), the old ones
     untouched; attention runs over the valid region.  Under ``tp`` the
     caches are this rank's block of the sequence (B, S/M, KV, Dh), of a
-    cache of S = M x S/M positions.
+    cache (or ring) of S = M x S/M positions.
     """
     if tp is not None:
-        if ring:
-            raise NotImplementedError("sliding-window decode under a mesh: ROADMAP.md §1 item 6b")
         return _attention_decode_tp(p, x, cfg, cache_k=cache_k, cache_v=cache_v, pos=pos,
-                                    compute_dtype=compute_dtype, tp=tp)
+                                    compute_dtype=compute_dtype, ring=ring, tp=tp)
     b = x.shape[0]
     s_cache = cache_k.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -549,7 +562,7 @@ def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, pos: int, compute_dty
     return y, cache_k, cache_v
 
 
-def _attention_decode_tp(p, x, cfg, *, cache_k, cache_v, pos, compute_dtype, tp):
+def _attention_decode_tp(p, x, cfg, *, cache_k, cache_v, pos, compute_dtype, ring, tp):
     b = x.shape[0]
     model = tp.model
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -561,15 +574,19 @@ def _attention_decode_tp(p, x, cfg, *, cache_k, cache_v, pos, compute_dtype, tp)
         k = model.all_gather(k, 2, kind="state", replicated=True)
         v = model.all_gather(v, 2, kind="state", replicated=True)
     s_local = cache_k.shape[1]
-    slot = min(max(pos, 0), s_local * model.size - 1)      # clamped as on one device
+    s_cache = s_local * model.size
+    if ring:    # the ring's slot; once it is full every slot is valid
+        slot, cache_len = pos % s_cache, min(pos + 1, s_cache)
+    else:       # clamped as on one device
+        slot, cache_len = min(max(pos, 0), s_cache - 1), pos + 1
     owner, offset = slot // s_local, model.rank * s_local
     if model.rank == owner:
         cache_k = _write_slot(cache_k, k, slot - offset)
         cache_v = _write_slot(cache_v, v, slot - offset)
     if model.size == 1:
-        out = decode_attention(q, cache_k, cache_v, cache_len=pos + 1)
+        out = decode_attention(q, cache_k, cache_v, cache_len=cache_len)
     else:
-        out = decode_attention_sharded(q, cache_k, cache_v, cache_len=pos + 1, offset=offset,
+        out = decode_attention_sharded(q, cache_k, cache_v, cache_len=cache_len, offset=offset,
                                        model=model)
     y = _out_proj_tp(p, out.reshape(b, 1, -1), tp, compute_dtype, heads_local=False)
     return y, cache_k, cache_v

@@ -3,8 +3,8 @@ registry, the loss, the train/prefill/serve steps and the input specs.
 
 Each step is a function of (params/state, batch) as in the JAX package,
 which jits them; here they run eagerly.  With ``mesh=`` (a
-``launch.mesh.HostMesh``) a step builder returns the SPMD step of the dense
-family (``transformer.spmd_layout``): every rank calls it alike on its shards
+``launch.mesh.HostMesh``) a step builder returns the SPMD step
+(``transformer.spmd_layout``): every rank calls it alike on its shards
 (``distributed.sharding.shard_tree`` of the global trees under
 ``transformer.param_pspecs`` / ``cache_pspecs`` / :func:`batch_pspecs`) and
 gets its shards back -- what the JAX package's step computes when ``jit``
@@ -153,15 +153,13 @@ def make_train_step(cfg: ArchConfig, optimizer, *, mesh=None, preset: str = "bas
     ``repro_torch.optim.optimizer.make_optimizer`` (an init/update pair).
 
     With ``mesh``: the SPMD step on this rank's shards of the state (the
-    optimizer state sharded as the parameters) and of the batch; AdamW runs
-    on the shard, its global-norm clip summing each leaf's squares over the
-    axes that leaf is sharded over.  Adafactor (used only by an MoE arch)
-    has no sharded update yet (``ROADMAP.md`` §1 item 6b)."""
+    optimizer state sharded as the parameters, Adafactor's factored ``row``
+    and ``col`` moments as their parameter's rows and columns) and of the
+    batch; the update runs on the shard, its global-norm clip summing each
+    leaf's squares over the axes that leaf is sharded over
+    (``Spmd.shard_axes``)."""
     spmd = _spmd(cfg, mesh, preset)
-    if spmd is not None and optimizer.config.kind != "adamw":
-        raise NotImplementedError(f"a sharded {optimizer.config.kind} update is "
-                                  f"{T.SPMD_TODO}; the sharded executor runs AdamW")
-    kw = {} if spmd is None else {"shard_axes": spmd.norm_axes()}
+    kw = {} if spmd is None else {"shard_axes": spmd.shard_axes()}
 
     def train_step(state, batch):
         (_, metrics), grads = value_and_grad(state["params"], batch, cfg, spmd=spmd)

@@ -16,9 +16,32 @@ first k.  The JAX package's custom-VJP gathers exist only to keep XLA from
 turning a gather's transpose into a one-hot product; PyTorch's gather and
 index backward already scatter-add, so the port indexes plainly.
 ``moe_apply_dense`` is the oracle for tests.
+
+Under a mesh (``tp``, a ``layers.TensorParallel``) the block runs on this
+rank's tokens, the JAX package's ``expert_group`` / ``moe_dispatch`` /
+``expert`` constraints made explicit.  Routing stays group-local: the groups
+are the batch rows, so a rank holding B/D rows holds B/D whole groups and
+sharding changes no routing decision (every ``model`` rank routes its
+tokens alike).  Where ``data`` divides the experts (``w_gate`` cut over
+``data``) the (G_local, E, C, D) buffer goes through an all-to-all over
+``data`` -- E split, G concatenated -- to (G, E/D, C, D), the slots of this
+rank's experts, and back after the experts (expert parallelism); where it
+does not, the experts are whole on every rank and the block stays
+data-local.  The experts' F dim cut over ``model`` runs column- then
+row-parallel (a copy in, a psum out).  The load-balancing loss is the global
+batch's: the expert counts and the mean router probabilities are summed
+over the batch axes before their product is formed.
+
+:func:`routings` collects each routing's experts and each token's gap
+between its k-th and (k+1)-th router probability: a token whose gap lies
+within the rounding of the block input (a psum over ``model`` moves it by
+ulps) may pick another expert on a mesh than on one device, which the
+experts picked on each show.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -43,12 +66,30 @@ def moe_init(generator, cfg, dtype=torch.float32, device=None, lead: tuple = ())
     }
 
 
+_ROUTINGS: list | None = None
+
+
+@contextlib.contextmanager
+def routings():
+    """Within the block, every routing appends to the list this yields a
+    pair: each token's k-th minus its (k+1)-th router probability, f32 (T,),
+    and the k experts it picked, (T, k) in descending probability."""
+    global _ROUTINGS
+    prev, _ROUTINGS = _ROUTINGS, []
+    try:
+        yield _ROUTINGS
+    finally:
+        _ROUTINGS = prev
+
+
 def _route(p, x2d, cfg):
     """x2d: (T, D) -> (weights (T, k), idx (T, k), probs (T, E)). f32 router."""
     logits = x2d.to(torch.float32) @ p["router"]["w"]
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.num_experts_per_tok
+    if _ROUTINGS is not None and k < cfg.num_experts:
+        _ROUTINGS.append(((topw[:, k - 1] - topw[:, k]).detach(), topi[:, :k]))
     topw, topi = topw[:, :k], topi[:, :k]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     return topw, topi, probs
@@ -80,11 +121,50 @@ def _expert_ffn(p, xe, cfg, compute_dtype):
     return torch.einsum("enf,efd->end", h, wd)
 
 
-def moe_apply(p, x, cfg, *, num_groups: int | None = None, compute_dtype=None):
+def _experts(p, buf, cfg, compute_dtype, tp):
+    """The experts on the dispatch buffer (G, E, C, D), expert-major.  Under
+    ``tp`` on this rank's buffer: its experts' slots of every group of the
+    ``data`` axis fetched by an all-to-all where ``data`` cuts the experts,
+    the F dim column- then row-parallel where ``model`` cuts it, the outputs
+    sent back."""
+    ep = f_split = False
+    if tp is not None:
+        sp = tp.specs["moe"]
+        ep, f_split = tp.split(sp["w_gate"], 0, "data"), tp.split(sp["w_gate"], 2)
+    if ep:
+        buf = tp.data.all_to_all(buf, 1, 0)                       # (G, E/D, C, D)
+    g, e, c, d = buf.shape
+    xe = buf.permute(1, 0, 2, 3).reshape(e, g * c, d)
+    if f_split:
+        xe = tp.model.copy(xe)
+    ye = _expert_ffn(p, xe, cfg, compute_dtype)
+    if f_split:
+        ye = tp.model.all_reduce(ye)
+    out = ye.reshape(e, g, c, d).permute(1, 0, 2, 3)
+    return tp.data.all_to_all(out, 0, 1) if ep else out            # (G_local, E, C, D)
+
+
+def _load(probs, counts, t, k, tp):
+    """(f_e, p_e) of the load-balancing loss: the share of the k * T
+    assignments each expert got and its mean router probability, over the
+    global batch under ``tp`` (a psum over each batch axis; the ranks hold
+    equal numbers of tokens, so the global mean is the mean of theirs)."""
+    me = probs.mean(dim=(0, 1))
+    cnt, n = counts.sum(dim=0), t * k
+    for ax in () if tp is None else [a for a in tp.batch if a.size > 1]:
+        me = ax.all_reduce(me) / ax.size
+        cnt, n = ax.all_reduce(cnt), n * ax.size
+    return cnt.to(torch.float32) / n, me
+
+
+def moe_apply(p, x, cfg, *, num_groups: int | None = None, compute_dtype=None,
+              tp=None, aux_loss: bool = True):
     """x: (B, S, D) -> (y (B, S, D), aux_loss scalar).
 
     ``num_groups`` defaults to the batch dim; it must divide B * S.  The
-    load-balancing aux loss is Switch's E * sum_e f_e * p_e.
+    load-balancing aux loss is Switch's E * sum_e f_e * p_e (zero without
+    ``aux_loss``: a decode step's).  Under ``tp`` on this rank's tokens and
+    expert shards, the aux loss the global batch's.
     """
     b, s, d = x.shape
     t = b * s
@@ -104,9 +184,10 @@ def moe_apply(p, x, cfg, *, num_groups: int | None = None, compute_dtype=None):
 
     counts = torch.zeros((g, e), dtype=torch.long, device=dev).scatter_add_(
         1, flat_e, torch.ones_like(flat_e))                        # (G, E)
-    me = probs.reshape(g, tg, e).mean(dim=(0, 1))
-    fe = counts.sum(dim=0).to(torch.float32) / (t * k)
-    aux = e * torch.sum(fe * me)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if aux_loss:
+        fe, me = _load(probs.reshape(g, tg, e), counts, t, k, tp)
+        aux = e * torch.sum(fe * me)
 
     # rank of each pair within its (group, expert), from the sorted order
     sort_idx = torch.argsort(flat_e, dim=1, stable=True)           # (G, Tk)
@@ -124,9 +205,7 @@ def moe_apply(p, x, cfg, *, num_groups: int | None = None, compute_dtype=None):
     buf = x_sorted.new_zeros((g, e, c + 1, d)).index_put(
         (gi, sorted_e, slot_sorted), x_sorted)[:, :, :c]           # (G, E, C, D)
 
-    xe = buf.permute(1, 0, 2, 3).reshape(e, g * c, d)
-    ye = _expert_ffn(p, xe, cfg, compute_dtype)
-    out_buf = ye.reshape(e, g, c, d).permute(1, 0, 2, 3)           # (G, E, C, D)
+    out_buf = _experts(p, buf, cfg, compute_dtype, tp)              # (G, E, C, D)
 
     # each pair's expert output (dropped -> the zero spare slot), unsorted
     out_buf = F.pad(out_buf, (0, 0, 0, 1))

@@ -14,6 +14,15 @@ of the linear recurrence, where the JAX package calls
 taken in another order than XLA's, so the two agree within f32 rounding, not
 bit for bit.  Decode carries the O(lru_width) hidden state.  The gate
 projections are block-diagonal with num_heads blocks.
+
+Under a mesh (``tp``, a ``layers.TensorParallel``; the JAX package's specs)
+the block is cut by head over ``model``: ``w_x`` and ``w_y`` column-parallel,
+the conv on this rank's channels, the block-diagonal gates and ``lam`` on
+its heads -- so the RG-LRU scan and its state ``h`` ("data", "model") stay
+on the rank -- and ``w_out`` row-parallel with a psum over ``model``.  Where
+``model`` does not divide the heads (or the width), the weights are gathered
+whole, every rank computes the block, and the caches enter gathered and
+leave as this rank's block where their specs cut them.
 """
 
 from __future__ import annotations
@@ -106,8 +115,45 @@ def _rg_lru_scan(xi, p, h0=None):
     return h.to(xi.dtype), h[:, -1, :]
 
 
-def rglru_block_apply(p, x, cfg, *, compute_dtype=None, h0=None, return_cache: bool = False):
-    """Recurrent temporal block. x: (B, S, D) -> (y, h_last | decode cache)."""
+def _heads_split(tp) -> bool:
+    """Whether ``model`` cuts the block by head: the gates' heads and the
+    projections' lru columns both."""
+    sp = tp.specs["rec"]
+    return tp.split(sp["gate_a"]["w"], 0) and tp.split(sp["w_x"]["w"], 1)
+
+
+def _cache_cut(c, cfg, tp, gather: bool):
+    """A cache of the block, whose specs cut its lru dim (the last) over
+    ``model`` where ``model`` divides it: gathered whole, or this rank's
+    block of it."""
+    model = tp.model
+    if model.size == 1 or (cfg.lru_width or cfg.d_model) % model.size:
+        return c
+    if gather:
+        return {k: model.all_gather(v, -1, kind="state") for k, v in c.items()}
+    return {k: model.block(v, -1) for k, v in c.items()}
+
+
+def _on_mesh(fn, p, x, cfg, tp, cache=None, **kw):
+    """``fn`` (the block or its decode step) on this rank's shards: the
+    weights gathered over ``data`` (and whole over ``model`` unless it cuts
+    the block by head), a psum over ``model`` of a head-cut block's output."""
+    split = _heads_split(tp)
+    w = tp.dense(p, tp.specs["rec"], full=not split)
+    args = () if cache is None else (cache if split else _cache_cut(cache, cfg, tp, True),)
+    y, out = fn(w, tp.model.copy(x) if split else x, *args, cfg, **kw)
+    if split:
+        return tp.model.all_reduce(y), out
+    return y, out if not isinstance(out, dict) else _cache_cut(out, cfg, tp, False)
+
+
+def rglru_block_apply(p, x, cfg, *, compute_dtype=None, h0=None, return_cache: bool = False,
+                      tp=None):
+    """Recurrent temporal block. x: (B, S, D) -> (y, h_last | decode cache).
+    Under ``tp``: this rank's shards, the cache its blocks."""
+    if tp is not None:
+        return _on_mesh(rglru_block_apply, p, x, cfg, tp, compute_dtype=compute_dtype, h0=h0,
+                        return_cache=return_cache)
     cd = compute_dtype or x.dtype
     x = x.to(cd)
     gate = F.gelu(x @ p["w_y"]["w"].to(cd), approximate="tanh")
@@ -129,8 +175,11 @@ def rglru_cache_init(cfg, batch: int, dtype=torch.float32, device=None):
     }
 
 
-def rglru_decode_step(p, x, cache, cfg, *, compute_dtype=None):
-    """One-token decode. x: (B, 1, D) -> (y (B, 1, D), cache')."""
+def rglru_decode_step(p, x, cache, cfg, *, compute_dtype=None, tp=None):
+    """One-token decode. x: (B, 1, D) -> (y (B, 1, D), cache').  Under
+    ``tp``: this rank's shards and cache blocks."""
+    if tp is not None:
+        return _on_mesh(rglru_decode_step, p, x, cfg, tp, cache, compute_dtype=compute_dtype)
     cd = compute_dtype or x.dtype
     x = x.to(cd)
     gate = F.gelu(x @ p["w_y"]["w"].to(cd), approximate="tanh")

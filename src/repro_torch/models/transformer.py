@@ -23,16 +23,20 @@ JAX package's ``PartitionSpec`` entries as tuples (the form of
 partitions the jitted step around its activation constraints; eager PyTorch
 has no partitioner (``distributed.sharding.constrain`` is the identity), so
 ``forward`` and ``decode`` take an :class:`Spmd` (``spmd_layout``: this
-rank's axes of a host mesh and the specs sanitized on it) and run the dense
-``attn_mlp`` stack SPMD on this rank's shards, every collective explicit:
+rank's axes of a host mesh and the specs sanitized on it) and run every
+layer kind SPMD on this rank's shards, every collective explicit:
 vocab-parallel embedding (a masked lookup, a psum over ``model``) and
 vocab-sharded logits, tensor-parallel attention and MLP
-(``layers.TensorParallel``), FSDP gathers of each block's weights inside the
-block's remat region (the backward gathers them again, as the JAX package's
-``_remat`` body does), and a prefill cache resharded from heads to the
-sequence-sharded cache spec.  With ``spmd=None`` both run the single-device
-code, op for op.  The MoE, SSM and hybrid kinds and the presets other than
-``base`` have no sharded walker yet (``ROADMAP.md`` §1 item 6b).
+(``layers.TensorParallel``, one per layer kind), the MoE's expert-parallel
+dispatch (``moe``), Mamba-2 (``mamba2``) and the RG-LRU (``rglru``) cut over
+``model``, FSDP gathers of each block's weights inside the block's remat
+region (the backward gathers them again, as the JAX package's ``_remat``
+body does), and a prefill cache resharded from heads to the
+sequence-sharded cache spec (a sliding window's ring likewise).  A batch the
+batch axes do not divide (``long_500k``'s one row) stays whole on every
+rank, as ``sanitize_spec`` leaves it.  With ``spmd=None`` both run the
+single-device code, op for op.  The presets other than ``base`` have no
+sharded walker yet (``ROADMAP.md`` §1 item 6b part 3).
 
 ``init_lm`` and ``cache_init`` run on the card unless ``device`` says
 otherwise (``bridge.resolve_device``: without a card that raises); on
@@ -51,7 +55,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import layer_params, leaves, rebuild, resolve_device
-from repro_torch.distributed.sharding import entry_axes, leaf_axes, map_leaves, sanitized_specs
+from repro_torch.distributed.sharding import dim_axes, entry_axes, map_leaves, sanitized_specs
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -205,8 +209,8 @@ def _prepend_layer_dim(specs):
 def block_apply(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len: int,
                 collect_cache: bool, tp: L.TensorParallel | None = None):
     """x: (B, S, D). Returns (x', aux_loss, cache_kv_or_None); under ``tp``
-    (an ``attn_mlp`` block on this rank's shards) the cache holds this
-    rank's block of the sequence."""
+    (the block on this rank's shards) the cache is this rank's block of
+    ``cache_pspecs``."""
     cd = _dtype(cfg.compute_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
@@ -218,7 +222,7 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len: int,
         x = x + y
         h = L.rmsnorm_apply(p["ln2"], x, eps=cfg.norm_eps)
         if kind == "attn_moe":
-            y, aux = MOE.moe_apply(p["moe"], h, cfg, compute_dtype=cd)
+            y, aux = MOE.moe_apply(p["moe"], h, cfg, compute_dtype=cd, tp=tp)
         else:
             y = L.mlp_apply(p["mlp"], h, act=cfg.act, compute_dtype=cd, tp=tp)
         x = x + y
@@ -234,17 +238,18 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len: int,
     elif kind == "ssm":
         h = L.rmsnorm_apply(p["ln"], x, eps=cfg.norm_eps)
         if collect_cache:
-            y, cache = M2.mamba2_apply(p["mixer"], h, cfg, compute_dtype=cd, return_cache=True)
+            y, cache = M2.mamba2_apply(p["mixer"], h, cfg, compute_dtype=cd, return_cache=True,
+                                       tp=tp)
         else:
-            y = M2.mamba2_apply(p["mixer"], h, cfg, compute_dtype=cd)
+            y = M2.mamba2_apply(p["mixer"], h, cfg, compute_dtype=cd, tp=tp)
         x = x + y
     elif kind == "rec":
         h = L.rmsnorm_apply(p["ln1"], x, eps=cfg.norm_eps)
         y, rec_out = RG.rglru_block_apply(p["rec"], h, cfg, compute_dtype=cd,
-                                          return_cache=collect_cache)
+                                          return_cache=collect_cache, tp=tp)
         x = x + y
         h2 = L.rmsnorm_apply(p["ln2"], x, eps=cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h2, act=cfg.act, compute_dtype=cd)
+        x = x + L.mlp_apply(p["mlp"], h2, act=cfg.act, compute_dtype=cd, tp=tp)
         if collect_cache:
             cache = rec_out
     else:
@@ -279,20 +284,20 @@ def block_decode(p, x, cache, cfg: ArchConfig, kind: str, *, pos,
         x = x + y
         h = L.rmsnorm_apply(p["ln2"], x, eps=cfg.norm_eps)
         if kind == "attn_moe":
-            y, _ = MOE.moe_apply(p["moe"], h, cfg, compute_dtype=cd)
+            y, _ = MOE.moe_apply(p["moe"], h, cfg, compute_dtype=cd, tp=tp, aux_loss=False)
         else:
             y = L.mlp_apply(p["mlp"], h, act=cfg.act, compute_dtype=cd, tp=tp)
         return x + y, {"k": ck, "v": cv}
     if kind == "ssm":
         h = L.rmsnorm_apply(p["ln"], x, eps=cfg.norm_eps)
-        y, new_cache = M2.mamba2_decode_step(p["mixer"], h, cache, cfg, compute_dtype=cd)
+        y, new_cache = M2.mamba2_decode_step(p["mixer"], h, cache, cfg, compute_dtype=cd, tp=tp)
         return x + y, new_cache
     if kind == "rec":
         h = L.rmsnorm_apply(p["ln1"], x, eps=cfg.norm_eps)
-        y, new_cache = RG.rglru_decode_step(p["rec"], h, cache, cfg, compute_dtype=cd)
+        y, new_cache = RG.rglru_decode_step(p["rec"], h, cache, cfg, compute_dtype=cd, tp=tp)
         x = x + y
         h2 = L.rmsnorm_apply(p["ln2"], x, eps=cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h2, act=cfg.act, compute_dtype=cd)
+        x = x + L.mlp_apply(p["mlp"], h2, act=cfg.act, compute_dtype=cd, tp=tp)
         return x, new_cache
     raise ValueError(kind)
 
@@ -397,24 +402,24 @@ def cache_pspecs(cfg: ArchConfig):
 # the SPMD layout
 # ---------------------------------------------------------------------------
 
-SPMD_TODO = "ROADMAP.md §1 item 6b"
+SPMD_TODO = "ROADMAP.md §1 item 6b part 3"
 
 
 @dataclass(frozen=True)
 class Spmd:
-    """The dense walker's SPMD on a host mesh as one rank runs it (the
-    ``base`` rules): ``mesh`` (``launch.mesh.HostMesh``, a real world's or
-    a record-only one), ``specs`` (``param_pspecs`` sanitized on the mesh
-    against the global shapes), ``tp`` (one block's
-    ``layers.TensorParallel``), ``vocab_split`` (the vocabulary cut over
-    ``model``: the embedding, the head and the loss run vocab-parallel) and
-    ``batch`` (the axes the batch is cut over: ``data``, and ``pod`` first
-    on the multi-pod mesh)."""
+    """A model's SPMD on a host mesh as one rank runs it (the ``base``
+    rules): ``mesh`` (``launch.mesh.HostMesh``, a real world's or a
+    record-only one), ``specs`` (``param_pspecs`` sanitized on the mesh
+    against the global shapes; a hybrid model's layers a list, by position),
+    ``tps`` (each layer kind's ``layers.TensorParallel``), ``vocab_split``
+    (the vocabulary cut over ``model``: the embedding, the head and the loss
+    run vocab-parallel) and ``batch`` (the axes the batch is cut over:
+    ``data``, and ``pod`` first on the multi-pod mesh)."""
 
     cfg: ArchConfig
     mesh: Any
     specs: dict
-    tp: L.TensorParallel
+    tps: dict
     vocab_split: bool
     batch: tuple
 
@@ -427,6 +432,11 @@ class Spmd:
         """The spec entry of a batch dim: ``"data"``, or ``("pod", "data")``."""
         names = tuple(a.name for a in self.batch)
         return names[0] if len(names) == 1 else names
+
+    def weight(self, w, spec):
+        """A weight outside the blocks (the embedding, the head) gathered
+        over ``data`` where its spec cuts it."""
+        return next(iter(self.tps.values())).weight(w, spec)
 
     def cache_specs(self, cache):
         """The specs of the cache the sharded steps take and give, sanitized
@@ -441,16 +451,19 @@ class Spmd:
                                  cache_pspecs(self.cfg))
         return sanitized_specs(specs, cache, self.mesh)
 
-    def norm_axes(self):
-        """The axes of size above 1 each parameter leaf is sharded over (the
-        axes its squares are summed over in the global norm)."""
-        return leaf_axes(self.specs, self.mesh)
+    def shard_axes(self):
+        """For each parameter leaf, per dim, the axes of size above 1 its
+        spec cuts that dim over (the optimizers' ``shard_axes``: the global
+        norm sums each leaf's squares over them, Adafactor's factored means
+        its row and column sums)."""
+        return dim_axes(self.specs, self.mesh)
 
     def reduce_grads(self, grads):
         """Each parameter gradient summed over the batch axes its leaf is
         not sharded over (a leaf sharded over ``data`` was reduce-scattered
-        there by the backward of its gather already): the gradient of the
-        global batch's loss."""
+        there by the backward of its gather already, or, an expert's, took
+        the gradient of every token sent to it): the gradient of the global
+        batch's loss."""
         def reduce(g, spec):
             names = {a for entry in spec for a in entry_axes(entry)}
             for ax in self.batch:
@@ -471,47 +484,54 @@ def _map_spec_tuples(fn, specs):
 
 def spmd_layout(cfg: ArchConfig, mesh, *, preset: str = "base") -> Spmd:
     """The :class:`Spmd` of ``cfg`` on ``mesh`` (axes ``data`` and ``model``,
-    and ``pod`` in front on the multi-pod mesh).  Only the ``base`` rules and
-    the dense ``attn_mlp`` kind run sharded; anything else raises
-    ``NotImplementedError`` naming the ``ROADMAP.md`` item, and is never run
-    under other rules."""
+    and ``pod`` in front on the multi-pod mesh), every layer kind.  Only the
+    ``base`` rules run sharded; another preset raises
+    ``NotImplementedError`` naming the ``ROADMAP.md`` item."""
     if preset != "base":
         raise NotImplementedError(
             f"the sharded executor runs the base rules only; the {preset!r} preset "
             f"(like fsdp, sp and zero2) is {SPMD_TODO}")
-    kinds = sorted(set(layer_kinds(cfg)))
-    if kinds != ["attn_mlp"]:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind(s) {kinds} under a mesh are {SPMD_TODO}; the sharded "
-            "executor runs the dense attn_mlp kind")
     names = tuple(mesh.axis_names)
     if names not in (("data", "model"), ("pod", "data", "model")):
         raise ValueError(f"the sharded executor needs a (data, model) or (pod, data, model) "
                          f"mesh, not {names}")
     dtype = _dtype(cfg.param_dtype)
     specs = sanitized_specs(param_pspecs(cfg), init_lm(0, cfg, device="meta"), mesh)
-    block = sanitized_specs(block_pspecs(cfg, "attn_mlp"),
-                            block_init(None, cfg, "attn_mlp", dtype, "meta"), mesh)
     m = mesh.axis("model").size
     q_split = cfg.num_heads % m == 0
-    tp = L.TensorParallel(mesh.axis("data"), mesh.axis("model"), block, q_split,
-                          q_split and cfg.num_kv_heads % m == 0, cfg.d_ff % m == 0)
     batch = tuple(mesh.axis(a) for a in names[:-1])
-    return Spmd(cfg, mesh, specs, tp, cfg.vocab_size % m == 0, batch)
+    tps = {kind: L.TensorParallel(
+               mesh.axis("data"), mesh.axis("model"),
+               sanitized_specs(block_pspecs(cfg, kind),
+                               block_init(None, cfg, kind, dtype, "meta"), mesh),
+               q_split, q_split and cfg.num_kv_heads % m == 0, cfg.d_ff % m == 0, batch)
+           for kind in sorted(set(layer_kinds(cfg)))}
+    return Spmd(cfg, mesh, specs, tps, cfg.vocab_size % m == 0, batch)
 
 
 def _embed_table(params, spmd: Spmd):
     """The embedding table as this rank uses it: (V/M, D) vocab-parallel,
     its ``data`` dim gathered."""
-    return spmd.tp.weight(params["embed"]["table"], spmd.specs["embed"]["table"])
+    return spmd.weight(params["embed"]["table"], spmd.specs["embed"]["table"])
 
 
-def _lookup(params, ids, spmd: Spmd | None):
+def _tied_table(params, cfg: ArchConfig, spmd: Spmd | None):
+    """Under ``spmd``, a tied embedding table gathered once for a step's
+    lookup and logits (one gather, and one reduce-scatter of their summed
+    gradients); None otherwise."""
+    if spmd is None or not cfg.tie_embeddings or cfg.modality == "audio_stub":
+        return None
+    return _embed_table(params, spmd)
+
+
+def _lookup(params, ids, spmd: Spmd | None, table=None):
     """Embedding rows of ``ids``: a vocab-parallel table looks up the ids in
-    its block (zero rows elsewhere) and sums over ``model``."""
+    its block (zero rows elsewhere) and sums over ``model``.  ``table``: this
+    rank's table already gathered (``_tied_table``)."""
     if spmd is None:
         return params["embed"]["table"][ids.long()]
-    table = _embed_table(params, spmd)
+    if table is None:
+        table = _embed_table(params, spmd)
     model = spmd.model
     if not spmd.vocab_split or model.size == 1:
         return table[ids.long()]
@@ -535,17 +555,17 @@ def _scaled(x, cfg: ArchConfig, cd):
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd).item()
 
 
-def embed_inputs(params, batch, cfg: ArchConfig, *, spmd: Spmd | None = None):
+def embed_inputs(params, batch, cfg: ArchConfig, *, spmd: Spmd | None = None, table=None):
     """Returns (x (B,S,D) in compute dtype, prefix_len)."""
     cd = _dtype(cfg.compute_dtype)
     if cfg.modality == "text":
-        x = _lookup(params, batch["tokens"], spmd)
+        x = _lookup(params, batch["tokens"], spmd, table)
         prefix_len = 0
     elif cfg.modality == "audio_stub":
         x = batch["embeds"]  # precomputed EnCodec frame embeddings (stub)
         prefix_len = 0
     elif cfg.modality == "vision_stub":
-        text = _lookup(params, batch["tokens"], spmd)
+        text = _lookup(params, batch["tokens"], spmd, table)
         x = torch.cat([batch["image_embeds"].to(text.dtype), text], dim=1)
         prefix_len = batch["image_embeds"].shape[1]
     else:
@@ -553,17 +573,18 @@ def embed_inputs(params, batch, cfg: ArchConfig, *, spmd: Spmd | None = None):
     return _scaled(x.to(cd), cfg, cd), prefix_len
 
 
-def _logits(params, x, cfg: ArchConfig, spmd: Spmd | None = None):
+def _logits(params, x, cfg: ArchConfig, spmd: Spmd | None = None, table=None):
     """Logits of the final hidden states; under ``spmd`` this rank's block
-    of the vocabulary where it is cut over ``model``."""
+    of the vocabulary where it is cut over ``model`` (``table``: a tied
+    table already gathered)."""
     x = L.rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
     if spmd is None:
         w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
         return x @ w.to(x.dtype)
     if cfg.tie_embeddings:
-        w = _embed_table(params, spmd).T
+        w = (_embed_table(params, spmd) if table is None else table).T
     else:
-        w = spmd.tp.weight(params["lm_head"]["w"], spmd.specs["lm_head"]["w"])
+        w = spmd.weight(params["lm_head"]["w"], spmd.specs["lm_head"]["w"])
     if spmd.vocab_split:
         x = spmd.model.copy(x)
     return x @ w.to(x.dtype)
@@ -580,16 +601,17 @@ def forward(params, batch, cfg: ArchConfig, *, collect_cache: bool = False,
     logits cut over the vocabulary as ``Spmd.vocab_split`` says, the cache
     sequence-sharded."""
     kinds = layer_kinds(cfg)
-    x, prefix_len = embed_inputs(params, batch, cfg, spmd=spmd)
+    table = _tied_table(params, cfg, spmd)
+    x, prefix_len = embed_inputs(params, batch, cfg, spmd=spmd, table=table)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     uniform = _uniform(cfg)
-    tp = None if spmd is None else spmd.tp
     caches = []
     for i, kind in enumerate(kinds):
         p_l = layer_params(params["layers"], i) if uniform else params["layers"][i]
         fn = functools.partial(block_apply, cfg=cfg, kind=kind, positions=positions,
-                               prefix_len=prefix_len, collect_cache=collect_cache, tp=tp)
+                               prefix_len=prefix_len, collect_cache=collect_cache,
+                               tp=None if spmd is None else spmd.tps[kind])
         if _remat_on(cfg, p_l):
             x, a, c = checkpoint(fn, p_l, x, use_reentrant=False)
         else:
@@ -599,7 +621,7 @@ def forward(params, batch, cfg: ArchConfig, *, collect_cache: bool = False,
     cache = None
     if collect_cache:
         cache = _stack(caches) if uniform else caches
-    return _logits(params, x, cfg, spmd), aux, cache
+    return _logits(params, x, cfg, spmd, table), aux, cache
 
 
 # ---------------------------------------------------------------------------
@@ -614,26 +636,29 @@ def decode(params, cache, batch, pos, cfg: ArchConfig, *, spmd: Spmd | None = No
     them."""
     cd = _dtype(cfg.compute_dtype)
     kinds = layer_kinds(cfg)
+    table = _tied_table(params, cfg, spmd)
     if cfg.modality == "audio_stub":
         x = batch["embeds"].to(cd)
     else:
-        x = _lookup(params, batch["token"], spmd).to(cd)
+        x = _lookup(params, batch["token"], spmd, table).to(cd)
     x = _scaled(x, cfg, cd)
-    tp = None if spmd is None else spmd.tp
+    tp = (lambda kind: None) if spmd is None else spmd.tps.get
 
     if _uniform(cfg):
         new = []
         for i in range(cfg.num_layers):
             x, c_new = block_decode(layer_params(params["layers"], i), x,
-                                    layer_params(cache, i), cfg, kinds[0], pos=pos, tp=tp)
+                                    layer_params(cache, i), cfg, kinds[0], pos=pos,
+                                    tp=tp(kinds[0]))
             new.append(c_new)
         new_cache = _stack(new)
     else:
         new_cache = []
         for i, kind in enumerate(kinds):
-            x, c_new = block_decode(params["layers"][i], x, cache[i], cfg, kind, pos=pos, tp=tp)
+            x, c_new = block_decode(params["layers"][i], x, cache[i], cfg, kind, pos=pos,
+                                    tp=tp(kind))
             new_cache.append(c_new)
-    return _logits(params, x, cfg, spmd), new_cache
+    return _logits(params, x, cfg, spmd, table), new_cache
 
 
 def num_params(params) -> int:

@@ -11,12 +11,15 @@ pre-clip norm; weight decay is decoupled and applies to matrices only; the
 learning rate is a linear warm-up and a cosine decay.  The arithmetic is
 f32, step by step as the JAX package writes it.
 
-On shards (a sharded train step, ``models.lm.make_train_step(mesh=)``) the
-AdamW update runs on each leaf's local block as it is, and ``shard_axes``
-(a tree of the mesh axes each leaf is sharded over,
-``distributed.sharding.leaf_axes``) turns the clip's global norm into the
+On shards (a sharded train step, ``models.lm.make_train_step(mesh=)``) an
+update runs on each leaf's local block, and ``shard_axes`` (a tree giving,
+for each leaf and each of its dims, the mesh axes that dim is cut over,
+``distributed.sharding.dim_axes``) turns the clip's global norm into the
 whole tree's: each leaf's squares are summed over the axes that leaf is cut
-over, so a replicated leaf counts once.
+over, so a replicated leaf counts once.  AdamW is elementwise past the clip;
+Adafactor's factored means over a cut dim (the row mean over the last dim,
+the column mean and the normaliser over the one before) are psums of the
+block's sums over that dim's axes, divided by the whole dim.
 """
 
 from __future__ import annotations
@@ -85,12 +88,20 @@ class Optimizer:
         return opt_state["grad_norm"]
 
 
+def _cut_axes(dims) -> tuple:
+    """The axes a leaf is cut over (its ``shard_axes`` entry's, each once),
+    ordered by name."""
+    return tuple(sorted({a.name: a for axes in dims for a in axes}.values(),
+                        key=lambda a: a.name))
+
+
 def sharded_global_norm(grads, shard_axes) -> torch.Tensor:
     """:func:`global_norm` of the whole tree from this rank's shards: the
     leaves' squares summed by the tuple of axes they are sharded over, each
     sum over its axes, in a fixed order of the tuples (every rank alike)."""
     sums: dict = {}
-    for g, axes in zip(leaves(grads), _leaves_as(shard_axes, grads)):
+    for g, dims in zip(leaves(grads), _leaves_as(shard_axes, grads)):
+        axes = _cut_axes(dims)
         part = torch.sum(torch.square(g.to(torch.float32)))
         key = tuple(a.name for a in axes)
         sums[key] = (axes, sums[key][1] + part) if key in sums else (axes, part)
@@ -104,7 +115,7 @@ def sharded_global_norm(grads, shard_axes) -> torch.Tensor:
 
 
 def _clip(grads, clip_norm, shard_axes=None):
-    if shard_axes is None or not any(_leaves_as(shard_axes, grads)):
+    if shard_axes is None or not any(map(_cut_axes, _leaves_as(shard_axes, grads))):
         gn = global_norm(grads)
     else:
         gn = sharded_global_norm(grads, shard_axes)
@@ -170,6 +181,18 @@ def make_adamw(cfg: OptimizerConfig) -> Optimizer:
     return Optimizer(cfg, init, update)
 
 
+def _mean(x, dim: int, axes) -> torch.Tensor:
+    """``x.mean(dim)`` of the whole tensor from this rank's block of it: the
+    block's sum over ``dim`` summed over ``axes`` (the axes that cut ``dim``),
+    divided by the whole dim; the plain mean where no axis cuts it."""
+    if not axes:
+        return x.mean(dim=dim)
+    total, n = x.sum(dim=dim), x.shape[dim]
+    for ax in axes:
+        total, n = ax.all_reduce(total, kind="grad"), n * ax.size
+    return total / n
+
+
 def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
     """Factored second moment (row and column means) for parameters of two
     or more axes, O(rows + cols) state each.  ``b1 == 0`` drops the first
@@ -193,18 +216,22 @@ def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
                                    params)
         return state
 
-    def update(grads, opt_state, params, *, step):
-        grads, gn = _clip(grads, cfg.clip_norm)
+    def update(grads, opt_state, params, *, step, shard_axes=None):
+        """(new params, new state); ``step`` an int or a 0-d tensor;
+        ``shard_axes``: on shards, the axes each dim of each leaf is cut
+        over."""
+        grads, gn = _clip(grads, cfg.clip_norm, shard_axes)
         lr = cosine_schedule(cfg, _f32(step, gn))
 
-        def upd(g, m, v, p):
+        def upd(g, m, v, p, dims):
             g32 = g.to(torch.float32)
             g2 = torch.square(g32) + 1e-30
             if p.ndim >= 2:
-                row = cfg.b2 * v["row"] + (1 - cfg.b2) * g2.mean(dim=-1)
-                col = cfg.b2 * v["col"] + (1 - cfg.b2) * g2.mean(dim=-2)
+                dims = tuple(dims) + ((),) * (p.ndim - len(dims))
+                row = cfg.b2 * v["row"] + (1 - cfg.b2) * _mean(g2, -1, dims[-1])
+                col = cfg.b2 * v["col"] + (1 - cfg.b2) * _mean(g2, -2, dims[-2])
                 vhat = (row[..., None] * col[..., None, :]) / torch.clamp(
-                    row.mean(dim=-1)[..., None, None], min=1e-30)
+                    _mean(row, -1, dims[-2])[..., None, None], min=1e-30)
                 v_new = {"row": row, "col": col}
             else:
                 full = cfg.b2 * v["full"] + (1 - cfg.b2) * g2
@@ -224,7 +251,9 @@ def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
         v_leaves = _leaves_as(opt_state["v"], params)
         m_leaves = (_leaves_as(opt_state["m"], params) if use_momentum
                     else [None] * len(g_leaves))
-        outs = [upd(*args) for args in zip(g_leaves, m_leaves, v_leaves, p_leaves)]
+        d_leaves = (_leaves_as(shard_axes, params) if shard_axes is not None
+                    else [()] * len(g_leaves))
+        outs = [upd(*args) for args in zip(g_leaves, m_leaves, v_leaves, p_leaves, d_leaves)]
         pick = lambda i: rebuild(params, iter(o[i] for o in outs))
         new_state = {"v": pick(2), "grad_norm": gn}
         if use_momentum:

@@ -27,7 +27,7 @@ from repro_torch.configs import ASSIGNED_ARCHS
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import lm as tlm
-from repro_torch.models.config import SHAPE_CELLS, ShapeCell, cell_supported
+from repro_torch.models.config import SHAPE_CELLS, ShapeCell, cell_by_name, cell_supported
 
 torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
 
@@ -36,8 +36,6 @@ TINY = ShapeCell("tiny_train", 64, 4, "train")
 PRESETS = ("base", "zero2", "fsdp", "sp")
 # the collective kinds the JAX package's dry run counts (``collective_bytes``)
 JAX_KINDS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute"}
-DENSE = ("musicgen-large", "qwen1.5-4b", "qwen3-8b", "llama3.2-1b", "mistral-large-123b",
-         "paligemma-3b")
 
 
 @pytest.fixture(scope="module")
@@ -318,25 +316,35 @@ def test_mesh_factory_shapes():
     assert D.production_mesh(True).size == 512
 
 
-# -- the sharded step's records (the dense family) -------------------------------------
+# -- the sharded step's records ---------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_collective_bytes_of_dense_records(arch):
-    """A dense arch's decode_32k record on both production meshes carries
-    its rank 0's collective operand bytes under the JAX package's kind
-    names, and the shard's own FLOPs; the MoE, SSM and hybrid archs keep
-    null with a note naming the ROADMAP item."""
-    for multi_pod in (False, True):
-        rec = D.dryrun_cell(arch, "decode_32k", multi_pod=multi_pod, save=False, verbose=False)
-        assert rec["status"] == "OK", rec.get("error")
-        coll = rec["collective_bytes_per_device"]
-        if arch in DENSE:
-            assert D.sharded(arch)
+    """Every arch's decode_32k record (and long_500k's, where the arch runs
+    it) on both production meshes carries its recorded rank's collective
+    operand bytes under the JAX package's kind names, and no
+    ``collective_note``: kimi's carry the MoE's all-to-all (384 experts on
+    ``data`` = 16), granite's none (its 40 experts stay whole); a
+    recurrentgemma long_500k record is of ``model`` rank 15, the writer of
+    ring slot 2047 of 2048."""
+    cfg = tlm.get_config(arch)
+    for cell in ("decode_32k", "long_500k"):
+        for multi_pod in (False, True):
+            rec = D.dryrun_cell(arch, cell, multi_pod=multi_pod, save=False, verbose=False)
+            if rec["status"] == "SKIP":
+                assert cell == "long_500k" and not cfg.supports_long_context
+                continue
+            assert rec["status"] == "OK", rec.get("error")
+            coll = rec["collective_bytes_per_device"]
             assert coll and set(coll) <= JAX_KINDS and all(v > 0 for v in coll.values())
             assert "all-reduce" in coll and "collective_note" not in rec
-        else:
-            assert not D.sharded(arch)
-            assert coll is None and "ROADMAP.md §1 item 6b" in rec["collective_note"]
+            assert ("all-to-all" in coll) == (arch == "kimi-k2-1t-a32b"), (arch, cell, coll)
+    if arch == "recurrentgemma-9b":
+        mesh = D.production_mesh(False)
+        assert D.recorded_ranks(cfg, cell_by_name("long_500k"), mesh) == {"model": 15}
+        assert D.recorded_ranks(cfg, cell_by_name("decode_32k"), mesh) == {"model": 15}
+    if arch == "mamba2-130m":
+        assert D.recorded_ranks(cfg, cell_by_name("long_500k"), D.production_mesh(True)) == {}
 
 
 def test_train_record_of_llama_on_both_meshes():
@@ -377,7 +385,8 @@ def test_collective_extension_is_exact(shape):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b_smoke", "paligemma-3b_smoke",
-                                  "musicgen-large_smoke"])
+                                  "musicgen-large_smoke", "granite-moe-3b-a800m_smoke",
+                                  "mamba2-130m_smoke", "recurrentgemma-9b_smoke"])
 def test_one_device_shard_equals_the_whole_step(arch):
     """On a 1x1 record-only mesh the sharded step's FLOPs, bytes and peak
     equal the single-device step's exactly, and it records no collective."""
@@ -391,9 +400,9 @@ def test_one_device_shard_equals_the_whole_step(arch):
 
 
 def test_sweep_statuses(monkeypatch, tmp_path):
-    """Every (arch, cell, mesh) builds its step -- the SPMD step of rank 0 of
-    the record-only production mesh for a dense arch, a single-device step
-    else -- and the statuses are 64 OK, 16 SKIP, 0 FAIL.  The traces
+    """Every (arch, cell, mesh) builds its step -- the SPMD step of a rank of
+    the record-only production mesh -- and the statuses are 64 OK, 16 SKIP,
+    0 FAIL.  The traces
     themselves are stubbed here (the whole sweep takes minutes; the records
     above trace the cells whole); ``chip_smoke.py`` phase 15 runs it
     unstubbed."""
@@ -410,7 +419,7 @@ def test_sweep_statuses(monkeypatch, tmp_path):
     recs = D.sweep(ASSIGNED_ARCHS, [c.name for c in SHAPE_CELLS], [False, True], verbose=False)
     n = {s: sum(r["status"] == s for r in recs) for s in ("OK", "SKIP", "FAIL")}
     assert n == {"OK": 64, "SKIP": 16, "FAIL": 0}, [r.get("error") for r in recs]
-    assert sum(local for *_, local in built) == 36        # 6 dense archs x 3 cells x 2 meshes
+    assert sum(local for *_, local in built) == 64        # every OK record: a rank's SPMD step
     assert {shape for _, _, shape, local in built if local} == {(16, 16), (2, 16, 16)}
 
 
@@ -421,9 +430,13 @@ def test_decode_record_is_the_cache_writing_rank():
     block, its collectives equal rank 0's; the other steps are rank 0's."""
     arch, cell = "llama3.2-1b_smoke", ShapeCell("d", 64, 4, "decode")
     mesh = D.AbstractMesh((1, 2), ("data", "model"))
-    assert D.recorded_ranks(cell, mesh) == {"model": 1}
-    assert D.recorded_ranks(TINY, mesh) == {}
-    assert D.recorded_ranks(ShapeCell("d", 63, 4, "decode"), mesh) == {}   # cache not split
+    cfg = tlm.get_config(arch)
+    assert D.recorded_ranks(cfg, cell, mesh) == {"model": 1}
+    assert D.recorded_ranks(cfg, TINY, mesh) == {}
+    assert D.recorded_ranks(cfg, ShapeCell("d", 63, 4, "decode"), mesh) == {}   # cache not split
+    ring = tlm.get_config("recurrentgemma-9b_smoke")                          # window 16
+    assert D.recorded_ranks(ring, ShapeCell("d", 64, 4, "decode"), mesh) == {"model": 1}
+    assert D.recorded_ranks(ring, ShapeCell("d", 40, 4, "decode"), mesh) == {"model": 0}
     writer = D.measure(arch, cell, mesh=mesh.record_only({"model": 1}))
     other = D.measure(arch, cell, mesh=mesh.record_only())
     assert writer["collectives"] == other["collectives"] and writer["flops"] == other["flops"]

@@ -195,6 +195,37 @@ def test_ssd_chunked_against_jax_and_serial(jx):
                                **TOL)
 
 
+def test_ssd_gradient_finite_where_the_masked_exponent_overflows(jx):
+    """At mamba2-130m's chunk of 128 with dt near 1, cum_i - cum_j of the
+    masked triangle exceeds f32's exp range.  The JAX package's where after
+    the exp has a NaN gradient there; the port masks the exponent, so its
+    forward equals the JAX package's and its gradients equal the serial
+    recurrence's."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import mamba2 as jm2
+
+    b, s, h, hd, n = 1, 128, 2, 4, 4
+    rng = np.random.default_rng(1)
+    xh = rng.standard_normal((b, s, h, hd)).astype(np.float32)
+    dt = (1.0 + 0.1 * rng.standard_normal((b, s, h))).astype(np.float32)
+    a_neg = -np.ones((h,), np.float32)
+    bm = rng.standard_normal((b, s, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, n)).astype(np.float32)
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (xh, dt, a_neg, bm, cm)]
+    y, _ = tm2.ssd_chunked(*args, chunk=s)
+    want_y, _ = jm2.ssd_chunked(xh, dt, a_neg, bm, cm, chunk=s)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), **TOL)
+    jgrad = jax.grad(lambda d: jnp.sum(jm2.ssd_chunked(xh, d, a_neg, bm, cm, chunk=s)[0]))(dt)
+    assert np.isnan(np.asarray(jgrad)).any()            # the reference's trap, reproduced
+    grads = torch.autograd.grad(y.sum(), args)
+    serial = torch.autograd.grad(tm2.ssd_serial_ref(*args).sum(), args)
+    for g, want in zip(grads, serial):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
 def test_mamba2_block_and_decode_against_jax(jx):
     from repro.models import mamba2 as jm2
 

@@ -1,5 +1,5 @@
-"""The generic LM's sharded steps (``models.lm.make_*_step(mesh=)``) of the
-dense family on one gloo world of 4 CPU ranks, held against the port's own
+"""The generic LM's sharded steps (``models.lm.make_*_step(mesh=)``) of every
+layer kind on one gloo world of 4 CPU ranks, held against the port's own
 single-device steps and, on the 2x2 and the multi-pod mesh, against the JAX
 package's single-device ``make_train_step``, ``make_prefill_step`` and
 ``make_serve_step``.  Every case starts from the JAX package's weights of its
@@ -12,38 +12,65 @@ gathered over ``model`` and those heads run on every rank), qk-norm
 (qwen3-8b), one kv head with the image prefix and a tied table
 (paligemma-3b), the audio stub (musicgen-large), mistral-large-123b -- and
 qwen3-8b with 6 q heads on 3 kv heads (``qwen3-gqa3``): on ``model`` = 2 a
-rank's 3 q heads span two kv groups, so each reads its own kv head.
-Meshes: 1x1, 2x1, 1x2, 2x2 (``data`` x ``model``) and the multi-pod
-2x1x2 (``pod`` x ``data`` x ``model``); a world of 4 holds replicas of the
-smaller ones.  Steps: one AdamW train step (the loss, ``grad_norm``, the
-gathered new parameters and moments), the prefill (the last logits and the
-gathered cache) and two serve steps against a cache of 40 slots.
+rank's 3 q heads span two kv groups, so each reads its own kv head.  Then
+the other kinds: granite-moe-3b-a800m and kimi-k2-1t-a32b (8 experts, top-2:
+expert parallel over ``data`` = 2, an all-to-all each way; kimi trains with
+its momentum-free Adafactor), granite with 3 experts (``moe-3experts``: the
+experts whole on every rank, no all-to-all), mamba2-130m (4 SSD heads, split
+over ``model``) and with ``d_model`` 48 (``mamba2-3heads``: 3 heads the
+model axis does not divide, scanned on every rank), recurrentgemma-9b (rec,
+rec, attn_local; window 16, so the 32-token prompt fills the ring and the
+serve steps at positions 32 and 33 wrap it) and with 3 heads over an
+lru width of 48 (``rglru-3heads``: the RG-LRU block whole on every rank, its
+caches cut).  Meshes: 1x1, 2x1, 1x2, 2x2 (``data`` x ``model``) and the
+multi-pod 2x1x2 (``pod`` x ``data`` x ``model``); a world of 4 holds
+replicas of the smaller ones.  Steps: one train step under the config's own
+optimizer (the loss, ``grad_norm``, the gathered new parameters and
+moments), the prefill (the last logits and the gathered cache) and two serve
+steps against a cache of 40 slots; for the SSM and hybrid configs also a
+serve step at batch 1, which the data axes do not divide (every data rank
+decodes the same row, as the dry run's ``long_500k`` records do).
 
 Held: ``torch.equal`` to the single-device port on 1x1.  Elsewhere, within
 (measured gaps in parentheses, largest over the cases):
 * the loss within ``LOSS_RTOL`` 1e-6 relative (1.0e-7);
-* ``grad_norm`` within ``GNORM_RTOL`` 1e-6 relative (1.7e-7);
-* logits within ``ATOL`` 1e-5 (2.6e-6), caches too (2.3e-6);
-* the AdamW moments within ``LEAF_REL`` 1e-5 of each leaf's largest
-  magnitude (2.6e-6);
+* ``grad_norm`` within ``GNORM_RTOL`` 1e-6 relative (2.3e-7);
+* logits within ``ATOL`` 1e-5 (2.6e-6), caches too (2.3e-6), the batch-1
+  serve step's too (1.4e-6);
+* the moments within ``LEAF_REL`` 1e-5 of each leaf's largest magnitude
+  (6.4e-6, rglru-3heads' AdamW ``v``);
 * the parameters within ``LEAF_REL`` of each leaf's largest magnitude
   (4.4e-6) wherever the clipped gradient exceeds ``ADAM_WELL_POSED`` 1e-6 (AdamW's
   first step is lr * g / (|g| + eps), set by the gradient's sign: where the
   gradient is zero but for rounding, such as the k-projection bias's, it
-  turns on rounding noise), and elsewhere within lr * (1 + weight decay *
-  |p|), the most one step moves them apart.
+  turns on rounding noise), and elsewhere within lr * (bound + weight decay *
+  |p|), the most one step moves them apart (bound 1 for AdamW,
+  1 / sqrt(1 - b2) for Adafactor's 1-D leaves).
+The MoE steps are held so because no routing is near a tie: the smallest gap
+between a token's k-th and (k+1)-th router probability over the
+single-device steps exceeds ``ROUTER_MARGIN`` 1e-5 (granite 1.9e-5, kimi
+1.6e-4, moe-3experts 8.8e-4; none under it), and a mesh moves the router's
+input by ulps.
 Against JAX, on 2x2 and 2x1x2, every config, with the bounds of
 ``tests/test_torch_lm_models.py``: the loss within ``JAX_LOSS_RTOL`` 1e-5
 relative (2.1e-7), ``grad_norm`` within ``JAX_GNORM_RTOL`` 1e-4
-(1.8e-7), the parameters within ``JAX_STEP_ATOL`` 1e-5 (3.0e-8) where the
-clipped gradient exceeds ``ADAM_WELL_POSED`` and elsewhere within lr * (1 +
-weight decay * |p|) + 1e-5, the prefill's and both serve steps' logits and
-caches within ``JAX_ATOL`` 1e-4 (4.4e-6, caches 3.7e-6).
+(4.6e-7), the parameters within ``JAX_STEP_ATOL`` 1e-5 (4.8e-7) where the
+clipped gradient exceeds ``ADAM_WELL_POSED`` and elsewhere within one step's
+reach + 1e-5, the prefill's and both serve steps' logits and caches within
+``JAX_ATOL`` 1e-4 (4.4e-6, caches 3.9e-6).
 
-The recorded collectives: rank 0's operand bytes of every collective kind
+The sharded Adafactor alone: two factored updates (kimi's settings, the
+clip active) of leaves cut over ``data``, ``model``, both, a stacked leaf
+and a vector on the 2x2 mesh: ``row``/``col`` and the parameters within
+``ADAFACTOR_RTOL`` 1e-6 of the single-device update relative to each leaf's
+largest magnitude (1.7e-7), the clip's norm within it of ``global_norm``'s
+(equal).
+
+The recorded collectives: each rank's operand bytes of every collective kind
 in the real world equal, kind by kind, what a record-only mesh of the same
-shape records on meta (``launch.mesh.record_only_mesh``).  Presets other than
-``base`` and non-dense layer kinds raise, naming the ROADMAP item.
+shape records on meta (``launch.mesh.record_only_mesh``), for a dense, an
+expert-parallel MoE, kimi's Adafactor, Mamba-2 and recurrentgemma step.
+Presets other than ``base`` raise, naming the ROADMAP item.
 """
 
 import traceback
@@ -53,40 +80,81 @@ import pytest
 import torch
 
 from repro_torch import bridge
-from repro_torch.distributed.sharding import gather_tree, sanitized_specs, shard_tree
+from repro_torch.distributed.sharding import dim_axes, gather_tree, sanitized_specs, shard_tree
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import lm as tlm
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ShapeCell
-from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+from repro_torch.optim.optimizer import OptimizerConfig, global_norm, make_optimizer
 
 torch.set_num_threads(1)   # the suite runs six xdist workers on a few cores
 
 B, S, CACHE = 4, 32, 40
 LOSS_RTOL, GNORM_RTOL, ATOL, LEAF_REL = 1e-6, 1e-6, 1e-5, 1e-5
 ADAM_WELL_POSED = 1e-6
+ROUTER_MARGIN = 1e-5
+ADAFACTOR_RTOL = 1e-6
 JAX_LOSS_RTOL, JAX_GNORM_RTOL, JAX_STEP_ATOL, JAX_ATOL = 1e-5, 1e-4, 1e-5, 1e-4
 JAX_MESHES = ("2x2", "pod2x1x2")
-WORLD_TIMEOUT = 300.0
+WORLD_TIMEOUT = 400.0
 OPT = dict(warmup_steps=0, total_steps=10)
+# name -> (arch, overrides of its smoke config)
 CONFIGS = {
-    "llama3.2-1b": {},
-    "qwen1.5-4b": dict(num_heads=3, num_kv_heads=3, head_dim=16),
-    "qwen3-8b": {},
-    "mistral-large-123b": {},
-    "musicgen-large": {},
-    "paligemma-3b": {},
-    "qwen3-gqa3": dict(num_heads=6, num_kv_heads=3, head_dim=16),
+    "llama3.2-1b": ("llama3.2-1b", {}),
+    "qwen1.5-4b": ("qwen1.5-4b", dict(num_heads=3, num_kv_heads=3, head_dim=16)),
+    "qwen3-8b": ("qwen3-8b", {}),
+    "mistral-large-123b": ("mistral-large-123b", {}),
+    "musicgen-large": ("musicgen-large", {}),
+    "paligemma-3b": ("paligemma-3b", {}),
+    "qwen3-gqa3": ("qwen3-8b", dict(num_heads=6, num_kv_heads=3, head_dim=16)),
+    "granite-moe-3b-a800m": ("granite-moe-3b-a800m", {}),
+    "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", {}),
+    "moe-3experts": ("granite-moe-3b-a800m", dict(num_experts=3)),
+    "mamba2-130m": ("mamba2-130m", {}),
+    "mamba2-3heads": ("mamba2-130m", dict(d_model=48)),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}),
+    "rglru-3heads": ("recurrentgemma-9b", dict(num_heads=3, head_dim=16, lru_width=48)),
 }
+MOE_NAMES = ("granite-moe-3b-a800m", "kimi-k2-1t-a32b", "moe-3experts")
+ONE_ROW = ("mamba2-130m", "recurrentgemma-9b", "rglru-3heads")   # a decode step at batch 1 too
 MESHES = {"1x1": (1, 1), "2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2), "pod2x1x2": (2, 1, 2)}
 RECORD_CELLS = (ShapeCell("t", 32, 4, "train"), ShapeCell("p", 32, 4, "prefill"),
                 ShapeCell("d", 32, 4, "decode"))
+RECORD_ARCHS = {"llama3.2-1b": RECORD_CELLS, "granite-moe-3b-a800m": RECORD_CELLS,
+                "kimi-k2-1t-a32b": RECORD_CELLS[:1],
+                "mamba2-130m": RECORD_CELLS + (ShapeCell("d1", 32, 1, "decode"),),
+                "recurrentgemma-9b": RECORD_CELLS + (ShapeCell("d1", 32, 1, "decode"),)}
 
 
 def _cfg(name):
-    arch = "qwen3-8b" if name == "qwen3-gqa3" else name
-    return tlm.get_config(arch + "_smoke").replace(**CONFIGS[name])
+    arch, overrides = CONFIGS[name]
+    return tlm.get_config(arch + "_smoke").replace(**overrides)
+
+
+def _opt_cfg(cfg):
+    """The config's own optimizer (kimi's momentum-free Adafactor) from lr
+    5e-4 at step 0."""
+    return OptimizerConfig(kind=cfg.opt_kind, b1=cfg.opt_b1, **OPT)
+
+
+def _step_bound(ocfg):
+    """The most one step moves a parameter element per unit lr, weight decay
+    aside: AdamW's |m / sqrt(v)| is at most 1 at its first step, Adafactor's
+    1-D |g| / sqrt((1 - b2) g^2) at most 1 / sqrt(1 - b2)."""
+    return 1.0 if ocfg.kind == "adamw" else (1 - ocfg.b2) ** -0.5
+
+
+def _lay(c, f, cat):
+    """A prefill cache's leaf laid into the decode cache's: along the first
+    dim where the two differ (the sequence), the decode cache's later slots
+    kept; a leaf with no such dim (a state, a ring as long) as it is."""
+    diff = [i for i, (a, b) in enumerate(zip(c.shape, f.shape)) if a != b]
+    if not diff:
+        return c
+    d = diff[0]
+    return cat([c, f[(slice(None),) * d + (slice(c.shape[d], None),)]], d)
 
 
 def _batch(cfg, rng, n=B, s=S):
@@ -128,30 +196,43 @@ def _rel(a, b) -> float:
 # -- one config's single-device references --------------------------------------------
 
 def _reference(cfg, params, data):
-    """The single-device train step, prefill and two serve steps."""
-    opt = make_optimizer(OptimizerConfig(**OPT))
+    """The single-device train step, prefill and two serve steps, and the
+    smallest router top-k margin over them with the count of routings under
+    ``ROUTER_MARGIN`` (None for a model without a router)."""
+    opt = make_optimizer(_opt_cfg(cfg))
     state = {"params": params, "opt_state": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32)}
     batch = _t(data["batch"])
-    (_, _), grads = tlm.value_and_grad(params, batch, cfg)
-    new, metrics = tlm.make_train_step(cfg, opt)(state, batch)
-    logits, cache = tlm.make_prefill_step(cfg)(params, batch)
-    full = T.cache_init(cfg, B, CACHE, device="cpu")
-    full = {k: torch.cat([cache[k], full[k][:, :, S:]], dim=2) for k in full}
-    serve, steps = tlm.make_serve_step(cfg), []
-    c = full
-    for i, tok in enumerate(data["tokens"]):
-        lg, c = serve(params, c, _t(tok), S + i)
-        steps.append((lg, c))
+    with MOE.routings() as routes:
+        (_, _), grads = tlm.value_and_grad(params, batch, cfg)
+        new, metrics = tlm.make_train_step(cfg, opt)(state, batch)
+        logits, cache = tlm.make_prefill_step(cfg)(params, batch)
+        full = T.cache_init(cfg, B, CACHE, device="cpu")
+        full = bridge.rebuild(full, iter(_lay(c, f, lambda xs, d: torch.cat(xs, dim=d))
+                                         for c, f in zip(bridge.leaves(cache),
+                                                         bridge.leaves(full))))
+        serve, steps = tlm.make_serve_step(cfg), []
+        c = full
+        for i, tok in enumerate(data["tokens"]):
+            lg, c = serve(params, c, _t(tok), S + i)
+            steps.append((lg, c))
+    margin = None
+    if routes:
+        every = torch.cat([m for m, _ in routes])
+        margin = (float(every.min()), int((every <= ROUTER_MARGIN).sum()))
     return {"grads": grads, "state": new, "metrics": metrics, "prefill": (logits, cache),
-            "decode_cache": full, "steps": steps}
+            "decode_cache": full, "steps": steps, "margin": margin}
 
 
-def _leaf_gaps(got, want, grads, before, lr, wd):
+def _moments(opt_state):
+    return sorted(k for k in opt_state if k != "grad_norm")
+
+
+def _leaf_gaps(got, want, grads, before, lr, wd, bound):
     """(largest moment gap over the leaf's max, largest well-posed parameter
     gap over the leaf's max, whether every other element moved within
-    lr * (1 + wd * |p|) of the reference)."""
-    moments = max(_rel(a, b) for key in ("m", "v") for a, b in
+    lr * (bound + wd * |p|) of the reference)."""
+    moments = max(_rel(a, b) for key in _moments(want["opt_state"]) for a, b in
                   zip(bridge.leaves(got["opt_state"][key]), bridge.leaves(want["opt_state"][key])))
     posed_gap, noisy_ok = 0.0, True
     for a, b, g, p in zip(*(bridge.leaves(t) for t in (got["params"], want["params"], grads,
@@ -160,7 +241,7 @@ def _leaf_gaps(got, want, grads, before, lr, wd):
         posed = g.abs() * float(_clip_of(want)) > ADAM_WELL_POSED
         if posed.any():
             posed_gap = max(posed_gap, float(err[posed].max() / b.abs().max().clamp(min=1e-30)))
-        noisy_ok &= bool((err[~posed] <= lr * (1 + wd * p[~posed].abs()) + 1e-7).all())
+        noisy_ok &= bool((err[~posed] <= lr * (bound + wd * p[~posed].abs()) + 1e-7).all())
     return moments, posed_gap, noisy_ok
 
 
@@ -172,32 +253,33 @@ def _equal_trees(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(bridge.leaves(a), bridge.leaves(b)))
 
 
-def _spmd_case(cfg, params, data, ref, shape, jref=None):
+def _spmd_case(name, cfg, params, data, ref, shape, jref=None):
     """Every sharded step of one config on one mesh, held against ``ref``
     (and against ``jref``, the JAX package's steps, where given)."""
     mesh = _mesh(shape)
     spmd = T.spmd_layout(cfg, mesh)
-    opt = make_optimizer(OptimizerConfig(**OPT))
+    ocfg = _opt_cfg(cfg)
+    opt = make_optimizer(ocfg)
     batch = _t(data["batch"])
     lp = shard_tree(params, spmd.specs, mesh)
     lb = shard_tree(batch, _bspecs(spmd, batch, mesh), mesh)
     state = {"params": lp, "opt_state": opt.init(lp), "step": torch.zeros((), dtype=torch.int32)}
     new, metrics = tlm.make_train_step(cfg, opt, mesh=mesh)(state, lb)
+    ospecs = D._opt_specs(cfg, new["opt_state"], spmd.specs, params)
+    moments = _moments(new["opt_state"])
     got = {"params": gather_tree(new["params"], spmd.specs, mesh),
-           "opt_state": {k: gather_tree(new["opt_state"][k], spmd.specs, mesh)
-                         for k in ("m", "v")}}
+           "opt_state": {k: gather_tree(new["opt_state"][k], ospecs[k], mesh) for k in moments}}
     got["opt_state"]["grad_norm"] = new["opt_state"]["grad_norm"]
     want = ref["state"]
     out = {"loss": (float(metrics["loss"]), float(ref["metrics"]["loss"])),
            "grad_norm": (float(metrics["grad_norm"]), float(ref["metrics"]["grad_norm"])),
            "train_equal": (_equal_trees(got["params"], want["params"])
                            and all(_equal_trees(got["opt_state"][k], want["opt_state"][k])
-                                   for k in ("m", "v"))
+                                   for k in moments)
                            and torch.equal(metrics["loss"], ref["metrics"]["loss"])
                            and torch.equal(metrics["grad_norm"], ref["metrics"]["grad_norm"]))}
-    cfg_opt = OptimizerConfig(**OPT)
-    out["leaves"] = _leaf_gaps(got, want, ref["grads"], params, cfg_opt.lr,
-                               cfg_opt.weight_decay)
+    out["leaves"] = _leaf_gaps(got, want, ref["grads"], params, ocfg.lr, ocfg.weight_decay,
+                               _step_bound(ocfg))
 
     logits, cache = tlm.make_prefill_step(cfg, mesh=mesh)(lp, lb)
     want_logits, want_cache = ref["prefill"]
@@ -225,30 +307,55 @@ def _spmd_case(cfg, params, data, ref, shape, jref=None):
                           zip(bridge.leaves(gc), bridge.leaves(want_c))),
                       torch.equal(lg, want_lg) and _equal_trees(gc, want_c)))
     out["serve"] = steps
+    if name in ONE_ROW:
+        out["one_row"] = _one_row(cfg, spmd, mesh, lp, ref, data)
     if jref is not None:
-        out["jax"] = _against_jax(jref, metrics, got["params"], gathered)
+        out["jax"] = _against_jax(jref, metrics, got["params"], gathered, ocfg)
     return out
 
 
-def _against_jax(jref, metrics, params, gathered):
+def _one_row(cfg, spmd, mesh, lp, ref, data):
+    """The first serve step at batch 1 (a batch the data axis does not
+    divide: every data rank decodes the same row, as ``long_500k`` does):
+    its gathered logits' and cache's largest gaps to row 0 of the batch-4
+    single-device step."""
+    row = lambda tree: bridge.rebuild(tree, iter(x[:1] if x.ndim > 1 else x
+                                                 for x in bridge.leaves(tree)))
+    full, (want_lg, want_c) = ref["decode_cache"], ref["steps"][0]
+    if T._uniform(cfg):     # a stacked cache: its batch is dim 1
+        row = lambda tree: bridge.rebuild(tree, iter(x[:, :1] for x in bridge.leaves(tree)))
+    one, tok = row(full), _t({k: v[:1] for k, v in data["tokens"][0].items()})
+    cspecs = spmd.cache_specs(one)
+    lg, c = tlm.make_serve_step(cfg, mesh=mesh)(lp, shard_tree(one, cspecs, mesh),
+                                                shard_tree(tok, _bspecs(spmd, tok, mesh), mesh), S)
+    lspec = sanitized_specs((spmd.batch_entry, None, "model" if spmd.vocab_split else None),
+                            want_lg[:1], mesh)
+    lg, c = gather_tree(lg, lspec, mesh), gather_tree(c, cspecs, mesh)
+    return (float((lg - want_lg[:1]).abs().max()),
+            max(float((a - b).abs().max()) for a, b in zip(bridge.leaves(c),
+                                                           bridge.leaves(row(want_c)))))
+
+
+def _against_jax(jref, metrics, params, gathered, ocfg):
     """One mesh's gathered results against the JAX package's single-device
     steps: the loss's and ``grad_norm``'s relative gaps, the largest
     well-posed parameter gap, whether every other parameter element moved
-    within lr * (1 + wd * |p|) + JAX_STEP_ATOL of JAX's, and the largest
-    logits and cache gaps over the prefill and the serve steps."""
+    within lr * (bound + wd * |p|) + JAX_STEP_ATOL of JAX's (``_step_bound``),
+    and the largest logits and cache gaps over the prefill and the serve
+    steps."""
     named = lambda tree: _named(bridge.to_torch(tree, "cpu", None))
     want, grads, before = named(jref["new"]), named(jref["grads"]), named(jref["params"])
     got = _named(params)
     assert got.keys() == want.keys()
-    clip = min(1.0, OptimizerConfig().clip_norm / jref["grad_norm"])
-    lr, wd = OptimizerConfig(**OPT).lr, OptimizerConfig().weight_decay
+    clip = min(1.0, ocfg.clip_norm / jref["grad_norm"])
+    lr, wd, bound = ocfg.lr, ocfg.weight_decay, _step_bound(ocfg)
     posed_gap, noisy_ok = 0.0, True
     for k, w in want.items():
         err = (got[k] - w).abs()
         posed = grads[k].abs() * clip > ADAM_WELL_POSED
         if posed.any():
             posed_gap = max(posed_gap, float(err[posed].max()))
-        noisy_ok &= bool((err[~posed] <= lr * (1 + wd * before[k][~posed].abs())
+        noisy_ok &= bool((err[~posed] <= lr * (bound + wd * before[k][~posed].abs())
                           + JAX_STEP_ATOL).all())
     logits_gap = cache_gap = 0.0
     for (lg, c), (want_lg, want_c) in zip(gathered, [jref["prefill"], *jref["steps"]]):
@@ -262,17 +369,55 @@ def _against_jax(jref, metrics, params, gathered):
 
 
 def _record_case():
-    """Rank 0's collective operand bytes of the three steps of llama3.2-1b's
-    smoke config at 2x2 in this world (every rank returns its own)."""
+    """This rank's collective operand bytes of each ``RECORD_ARCHS`` smoke
+    config's steps at 2x2 in this world (every rank returns its own)."""
     mesh = _mesh((2, 2))
     out = {}
-    for cell in RECORD_CELLS:
-        c = D.build_cell("llama3.2-1b_smoke", cell, mesh=mesh, device="cpu")
-        rec = D.StepRecorder()
-        with rec:
-            c.call()
-        out[cell.name] = rec.collectives
+    for arch, cells in RECORD_ARCHS.items():
+        for cell in cells:
+            c = D.build_cell(arch + "_smoke", cell, mesh=mesh, device="cpu")
+            rec = D.StepRecorder()
+            with rec:
+                c.call()
+            out[arch, cell.name] = rec.collectives
     return out
+
+
+def _adafactor_case():
+    """Two factored Adafactor updates (kimi's settings, the clip active) of
+    leaves cut over ``data``, ``model`` and both on this rank's blocks, on
+    the 2x2 mesh, and on one device: the largest gaps of the gathered
+    ``row``/``col`` state and parameters over each leaf's largest magnitude,
+    and the clip's norms on both."""
+    mesh = _mesh((2, 2))
+    gen = torch.Generator().manual_seed(3)
+    shapes = {"data": ((8, 6), ("data",)), "model": ((8, 6), (None, "model")),
+              "both": ((8, 6), ("data", "model")), "stacked": ((3, 8, 6), (None, "model", "data")),
+              "vector": ((6,), ("model",))}
+    params = {k: torch.randn(sh, generator=gen) for k, (sh, _) in shapes.items()}
+    grads = [{k: 3.0 * torch.randn(sh, generator=gen) for k, (sh, _) in shapes.items()}
+             for _ in range(2)]
+    specs = sanitized_specs({k: sp for k, (_, sp) in shapes.items()}, params, mesh)
+    opt = make_optimizer(OptimizerConfig(kind="adafactor", b1=0.0, **OPT))
+    axes = dim_axes(specs, mesh)
+    one, shard = (params, opt.init(params)), None
+    lp = shard_tree(params, specs, mesh)
+    shard = (lp, opt.init(lp))
+    norms = []
+    for step, g in enumerate(grads):
+        one = opt.update(g, one[1], one[0], step=step)
+        shard = opt.update(shard_tree(g, specs, mesh), shard[1], shard[0], step=step,
+                           shard_axes=axes)
+        norms.append((float(one[1]["grad_norm"]), float(shard[1]["grad_norm"]),
+                      float(global_norm(g))))
+    full = {k: sp + (None,) * (len(shapes[k][0]) - len(sp)) for k, sp in specs.items()}
+    vspecs = {k: {"row": sp[:-1], "col": sp[:-2] + sp[-1:]} if len(sp) > 1 else {"full": sp}
+              for k, sp in full.items()}
+    got_p, got_v = gather_tree(shard[0], specs, mesh), gather_tree(shard[1]["v"], vspecs, mesh)
+    gaps = {k: max(_rel(got_p[k], one[0][k]),
+                   *(_rel(got_v[k][n], one[1]["v"][k][n]) for n in one[1]["v"][k]))
+            for k in shapes}
+    return {"gaps": gaps, "norms": norms}
 
 
 def _named(tree):
@@ -294,11 +439,13 @@ def _world(rank, datas, jax_refs):
         cfg, jref = _cfg(name), jax_refs[name]
         params = bridge.to_torch(jref["params"], "cpu", None)
         ref = _reference(cfg, params, datas[name])
+        out[name, "margin"] = ref["margin"]
         for mesh_id, shape in MESHES.items():
             _run(out, (name, mesh_id),
-                 lambda: _spmd_case(cfg, params, datas[name], ref, shape,
+                 lambda: _spmd_case(name, cfg, params, datas[name], ref, shape,
                                     jref if mesh_id in JAX_MESHES else None))
     _run(out, ("record",), _record_case)
+    _run(out, ("adafactor",), _adafactor_case)
     return out
 
 
@@ -330,10 +477,10 @@ def jax_ref():
     on_jax = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
     out = {}
     for name, data in _datas().items():
-        arch = "qwen3-8b" if name == "qwen3-gqa3" else name
-        cfg = jlm.get_config(arch + "_smoke").replace(**CONFIGS[name])
+        arch, overrides = CONFIGS[name]
+        cfg = jlm.get_config(arch + "_smoke").replace(**overrides)
         params = JT.init_lm(jax.random.PRNGKey(0), cfg)
-        opt = j_make_optimizer(JOptConfig(**OPT))
+        opt = j_make_optimizer(JOptConfig(kind=cfg.opt_kind, b1=cfg.opt_b1, **OPT))
         state = {"params": params, "opt_state": opt.init(params), "step": jnp.zeros((), jnp.int32)}
         grad_fn = jax.value_and_grad(lambda p, b: jlm.loss_fn(p, b, cfg), has_aux=True)
         train = jax.jit(lambda st, b: (jlm.make_train_step(cfg, opt)(st, b),
@@ -342,8 +489,9 @@ def jax_ref():
         (new, metrics), grads = train(state, batch)
         logits, cache = jax.jit(jlm.make_prefill_step(cfg))(params, batch)
         prefill = to_np((logits, cache))
-        cache = jax.tree_util.tree_map(lambda c, f: jnp.concatenate([c, f[:, :, S:]], axis=2),
-                                       cache, JT.cache_init(cfg, B, CACHE))
+        cache = jax.tree_util.tree_map(
+            lambda c, f: _lay(c, f, lambda xs, d: jnp.concatenate(xs, axis=d)), cache,
+            JT.cache_init(cfg, B, CACHE))
         serve, steps = jax.jit(jlm.make_serve_step(cfg)), []
         for i, tok in enumerate(data["tokens"]):
             lg, cache = serve(params, cache, on_jax(tok), jnp.asarray(S + i, jnp.int32))
@@ -431,17 +579,21 @@ def test_prefill_and_serve_steps_against_jax(world, name, mesh_id):
 
 def test_recorded_bytes_equal_record_only_mesh(world):
     """Each rank's collective operand bytes, kind by kind, equal rank 0's of
-    a record-only 2x2 mesh on meta, for the train, prefill and decode
-    steps."""
+    a record-only 2x2 mesh on meta, for the train, prefill and decode steps
+    of a dense, an expert-parallel MoE (its all-to-all), kimi's Adafactor
+    train step, Mamba-2 and recurrentgemma (and their decode at batch 1)."""
     want = {}
-    for cell in RECORD_CELLS:
-        c = D.build_cell("llama3.2-1b_smoke", cell, mesh=tmesh.record_only_mesh((2, 2)))
-        rec = D.StepRecorder()
-        with rec:
-            c.call()
-        want[cell.name] = rec.collectives
-    assert set(want["t"]) == {"all-gather", "all-reduce", "reduce-scatter"}
-    assert "all-to-all" in want["p"]
+    for arch, cells in RECORD_ARCHS.items():
+        for cell in cells:
+            c = D.build_cell(arch + "_smoke", cell, mesh=tmesh.record_only_mesh((2, 2)))
+            rec = D.StepRecorder()
+            with rec:
+                c.call()
+            want[arch, cell.name] = rec.collectives
+    assert set(want["llama3.2-1b", "t"]) == {"all-gather", "all-reduce", "reduce-scatter"}
+    assert "all-to-all" in want["llama3.2-1b", "p"]
+    for arch in ("granite-moe-3b-a800m", "kimi-k2-1t-a32b"):   # 8 experts on data = 2
+        assert want[arch, "t"]["all-to-all"] > 0, want[arch, "t"]
     for got in _case(world, ("record",)):
         assert got == want
 
@@ -454,16 +606,41 @@ def test_other_presets_raise(preset):
                  lambda: tlm.make_serve_step(cfg, mesh=mesh, preset=preset),
                  lambda: tlm.make_train_step(cfg, make_optimizer(OptimizerConfig()), mesh=mesh,
                                              preset=preset)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6b part 3"):
             make()
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-130m", "recurrentgemma-9b",
-                                  "kimi-k2-1t-a32b"])
-def test_other_kinds_raise(arch):
-    cfg = tlm.get_config(arch + "_smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6b"):
-        tlm.make_prefill_step(cfg, mesh=tmesh.record_only_mesh((2, 2)))
+@pytest.mark.parametrize("name", MOE_NAMES)
+def test_router_margin(world, name):
+    """The smallest gap between a token's k-th and (k+1)-th router
+    probability over the single-device steps exceeds ``ROUTER_MARGIN``, so
+    the mesh's rounding moves no routing decision and the MoE steps above
+    are held in full (the margin and the count under it, 0, are reported)."""
+    for margin, under in _case(world, (name, "margin")):
+        assert margin > ROUTER_MARGIN and under == 0, (name, margin, under)
+
+
+@pytest.mark.parametrize("name,mesh_id", [(n, m) for n in ONE_ROW for m in ("2x2", "pod2x1x2")])
+def test_serve_step_at_one_row(world, name, mesh_id):
+    """A decode step at batch 1, which the data axes do not divide (every
+    data rank decodes the same row, as ``long_500k``'s records do), gives
+    row 0 of the batch-4 single-device step."""
+    for r in _case(world, (name, mesh_id)):
+        logits_gap, cache_gap = r["one_row"]
+        assert logits_gap <= ATOL and cache_gap <= ATOL, (name, mesh_id, r["one_row"])
+
+
+@pytest.mark.parametrize("leaf", ["data", "model", "both", "stacked", "vector"])
+def test_sharded_adafactor(world, leaf):
+    """Two factored Adafactor updates (kimi's settings) of leaves cut over
+    ``data``, ``model``, both, a stacked leaf and a vector: the gathered
+    ``row``/``col`` state and parameters within ``ADAFACTOR_RTOL`` of the
+    single-device update, relative to each leaf's largest magnitude, and the
+    clip's norm that of ``global_norm``."""
+    for r in _case(world, ("adafactor",)):
+        assert r["gaps"][leaf] <= ADAFACTOR_RTOL, (leaf, r["gaps"])
+        for one, shard, whole in r["norms"]:
+            assert abs(shard - whole) <= ADAFACTOR_RTOL * whole and one == pytest.approx(whole)
 
 
 def test_shard_and_gather_round_trip():
