@@ -216,8 +216,18 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      decode steps wrap the ring; caches held too.  Every rank compares the
      experts it picked with the single device's: an MoE step in which none
      flipped is held in full (else SPMD_FLIP_SHARE); Adafactor's elements
-     where the single device's row x col underflows are counted, not held.
-     Phases 16 and 17 share one runner, ``phase_spmd``.
+     where the single device's row x col underflows are counted, not held;
+ 18. the same under the ``fsdp`` and ``zero2`` presets (``SPMD18``:
+     ``llama3.2-1b`` at SPMD_DEPTH layers and ``granite-moe-3b-a800m`` at 4,
+     its MoE device-local with the experts gathered whole, also under
+     Adafactor), both presets in turn in one world per config, each held
+     against the single-device steps and the record-only mesh's bytes under
+     that preset; the three step builders under ``sp`` must raise
+     ``ValueError`` naming ``model``, as the reference's ``NamedSharding``
+     refuses the spec; meanwhile a process of its own records a rank's
+     collective operand bytes of ``llama3.2-1b``'s train_4k cell on the
+     production 16x16 mesh under ``base``, ``fsdp`` and ``zero2`` (meta).
+     Phases 16, 17 and 18 share one runner, ``phase_spmd``.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
@@ -268,11 +278,13 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -4875,7 +4887,7 @@ def phase_generic_train(dev, smi):
 
 
 # ---------------------------------------------------------------------------
-# phases 16 and 17: the generic LM's SPMD steps on a gloo world
+# phases 16, 17 and 18: the generic LM's SPMD steps on a gloo world
 # ---------------------------------------------------------------------------
 
 SPMD_RANKS, SPMD_MESH = 4, (2, 2)
@@ -4915,6 +4927,17 @@ SPMD16 = ((GEN_ARCH, SPMD_DEPTH, SPMD_PREFILL),)
 SPMD17 = (("recurrentgemma-9b", 3, (2, 2048)), ("granite-moe-3b-a800m", 8, (4, 32)),
           ("mamba2-130m", None, (4, 32)))
 SPMD_ADAFACTOR = dict(kind="adafactor", b1=0.0)
+# Phase 18: the same runner under the fsdp and zero2 presets, one world per
+# config running both in turn: llama3.2-1b at SPMD_DEPTH, granite at 4 of its
+# 32 layers (under both presets its MoE is device-local, each rank's experts
+# gathered whole).  The sp preset is refused before any step: its logits'
+# spec ("batch", "seq", "vocab") names ``model`` twice, as the reference's
+# NamedSharding refuses it.  Beside the world, a process of its own records
+# on meta the collective operand bytes of a rank of GEN_ARCH's train_4k cell
+# on the production mesh (PRESET_BYTES_MESH) under base and both presets.
+SPMD18 = ((GEN_ARCH, SPMD_DEPTH, SPMD_PREFILL), ("granite-moe-3b-a800m", 4, (4, 32)))
+SPMD18_PRESETS = ("fsdp", "zero2")
+PRESET_BYTES_MESH = (16, 16)
 # The mesh's psums move an MoE block's input by ulps, so a token whose k-th
 # and (k+1)-th router probabilities nearly tie may pick another expert there:
 # every rank compares the experts it picked with the single device's.  A step
@@ -5051,10 +5074,12 @@ def _state_scales(ocfg, new):
     return scales
 
 
-def _state_gaps(local, init, ref, specs, mesh, ocfg):
+def _state_gaps(local, init, ref, specs, mesh, ocfg, posed_specs):
     """This rank's new state (``local``: its parameters and optimizer state
-    trees, ``specs`` each tree's specs) against the same blocks of the
-    single-device one (``ref``, its ``scales`` from :func:`_state_scales`):
+    trees, ``specs`` each tree's specs; ``posed_specs``: the moments' specs
+    in the parameters' layout, which :func:`_posed` reads at the parameters'
+    blocks) against the same blocks of the single-device one (``ref``, its
+    ``scales`` from :func:`_state_scales`):
     each tree's largest gap over the leaf's scale, the parameters' where
     :func:`_posed` says the step is well posed (``gaps``); of the other
     parameter elements whether every one is within AdamW's one-step reach
@@ -5069,6 +5094,7 @@ def _state_gaps(local, init, ref, specs, mesh, ocfg):
     dev = _device_of(local)
     cut = lambda w, sp: w[NamedSharding(mesh, sp).local_slices(tuple(w.shape))]
     blocks = {k: map_leaves(cut, ref[k], specs[k]) for k in local}
+    at_params = {k: map_leaves(cut, ref[k], posed_specs[k]) for k in ("m", "v") if k in ref}
     gaps = {}
 
     def note(k, err, scale):
@@ -5080,11 +5106,11 @@ def _state_gaps(local, init, ref, specs, mesh, ocfg):
                 note(k, (g - w.to(dev)).abs(), float(t))
             continue
         params = blocks["params"]
-        moms = (_leaves_as(blocks["m"], params) if "m" in blocks
+        moms = (_leaves_as(at_params["m"], params) if "m" in at_params
                 else [None] * len(leaves(params)))
         reach, n_noisy, n_off, n_all, noisy_gap = True, 0, 0, 0, 0.0
         for g, w, t, p0, v, m in zip(leaves(local[k]), leaves(params), leaves(ref["scales"][k]),
-                                     leaves(init), _leaves_as(blocks["v"], params), moms):
+                                     leaves(init), _leaves_as(at_params["v"], params), moms):
             err = (g - w.to(dev)).abs()
             posed = (_posed(ocfg, None, m.to(dev)) if ocfg.kind == "adamw"
                      else _posed(ocfg, _to(v, dev), None))
@@ -5226,20 +5252,20 @@ def _row_gaps(a, b):
     return (a.float() - b.float()).abs().flatten(1).amax(1).cpu()
 
 
-def _spmd_train(cfg, mesh, spmd, params, batch, ref, ocfg, timed, rows):
-    """One sharded train step under ``ocfg`` from this rank's shards, held
-    against the single-device step ``ref`` (:func:`_state_gaps`): loss,
-    grad_norm, the state's gaps, the routings that flipped, the step's ms
-    and collective operand bytes."""
+def _spmd_train(cfg, mesh, spmd, params, batch, ref, ocfg, timed, rows, preset):
+    """One sharded train step under ``ocfg`` and the ``preset`` rules from
+    this rank's shards, held against the single-device step ``ref``
+    (:func:`_state_gaps`): loss, grad_norm, the state's gaps, the routings
+    that flipped, the step's ms and collective operand bytes."""
     from repro_torch.launch.dryrun import _opt_specs
     from repro_torch.models import lm
     from repro_torch.optim.optimizer import make_optimizer
 
     opt = make_optimizer(ocfg)
-    state = {"params": params, "opt_state": opt.init(params),
+    state = {"params": params, "opt_state": spmd.opt_init(opt, params),
              "step": torch.zeros((), dtype=torch.int32, device=_device_of(params))}
     (new, metrics), ms, nbytes, mine = timed(
-        lambda: lm.make_train_step(cfg, opt, mesh=mesh)(state, batch))
+        lambda: lm.make_train_step(cfg, opt, mesh=mesh, preset=preset)(state, batch))
     del state
     _empty(_device_of(params))   # the step's pool back to the card, shared by four ranks
     out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
@@ -5247,9 +5273,11 @@ def _spmd_train(cfg, mesh, spmd, params, batch, ref, ocfg, timed, rows):
     t0 = time.perf_counter()
     local = {"params": new["params"],
              **{k: v for k, v in new["opt_state"].items() if k != "grad_norm"}}
-    specs = {"params": spmd.specs, **_opt_specs(cfg.replace(opt_kind=ocfg.kind), new["opt_state"],
-                                                spmd.specs, new["params"])}
-    out["leaves"] = _state_gaps(local, params, ref, specs, mesh, ocfg)
+    ocfg_kind = cfg.replace(opt_kind=ocfg.kind)
+    specs = {"params": spmd.specs, **_opt_specs(ocfg_kind, new["opt_state"], spmd.opt_specs,
+                                                new["params"])}
+    posed_specs = _opt_specs(ocfg_kind, new["opt_state"], spmd.specs, new["params"])
+    out["leaves"] = _state_gaps(local, params, ref, specs, mesh, ocfg, posed_specs)
     del local, new
     _empty(_device_of(params))
     lo, hi, b = rows
@@ -5259,40 +5287,59 @@ def _spmd_train(cfg, mesh, spmd, params, batch, ref, ocfg, timed, rows):
     return out
 
 
-def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps):
-    """One rank of a phase 16 or 17 world for one config: the parent's
-    initial weights (``ref["init"]``, on the card or in shared host memory)
-    cut to this rank's shards of the 2x2 mesh, the sharded train step(s),
-    prefill and greedy decode, each under a :class:`_CollectiveTally` (its
-    collective operand bytes kept) and ``moe.routings()``, and held here
-    against the same block of the single-device results ``ref``; the hand
-    kernels' launches of this rank's steps."""
+def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps, presets):
+    """One rank of a phase 16, 17 or 18 world for one config: under each of
+    ``presets`` the parent's initial weights (``ref["init"]``, on the card or
+    in shared host memory) cut to this rank's shards of the 2x2 mesh, the
+    sharded train step(s), prefill and greedy decode, each under a
+    :class:`_CollectiveTally` (its collective operand bytes kept) and
+    ``moe.routings()``, and held here against the same block of the
+    single-device results ``ref``; the hand kernels' launches of this rank's
+    steps.  Returns a dict of each preset's results."""
     t_rank = time.perf_counter()
     torch.set_num_threads(2)      # 8 cores, 4 ranks: host-side slicing of the reference
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-    from repro_torch.distributed.sharding import NamedSharding, gather_tree, shard_tree
     from repro_torch.launch.mesh import make_host_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = _spmd_cfg(arch, depth)
+    mesh = make_host_mesh(SPMD_MESH)
+    out = {p: _spmd_preset(cfg, mesh, p, dev, ref, tokens, prompts, steps) for p in presets}
+    _release(ref)
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def _spmd_preset(cfg, mesh, preset, dev, ref, tokens, prompts, steps):
+    """One preset's steps on one rank (:func:`_spmd_rank`)."""
+    from repro_torch.distributed.sharding import (NamedSharding, gather_tree, sanitized_specs,
+                                                  shard_tree)
     from repro_torch.models import lm, moe, transformer as T
     from repro_torch.optim.optimizer import OptimizerConfig
 
-    dev = torch.device(device)
-    on_card = dev.type == "cuda"
-    if on_card:
-        torch.cuda.set_device(dev)
-    cfg = _spmd_cfg(arch, depth)
     counters = _counters()
     _zeroed(counters)
-    mesh = make_host_mesh(SPMD_MESH)
-    spmd = T.spmd_layout(cfg, mesh)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    spmd = T.spmd_layout(cfg, mesh, preset=preset)
     model = mesh.axis("model")
     t0 = time.perf_counter()
     params = _to(shard_tree(ref["init"], spmd.specs, mesh), dev)
     out = {"setup_s": time.perf_counter() - t0}
-    rows = lambda x: shard_tree({"x": x}, {"x": ("data",)}, mesh)["x"]
-    batch = {"tokens": rows(torch.from_numpy(tokens)).to(dev)}
+    def rows_spec(n):    # a batch dim of n rows, cut like the batch where the axes divide it
+        return sanitized_specs((spmd.batch_entry,), torch.empty(n, device="meta"), mesh)
+
+    def span(n):         # this rank's rows of n: (first, last + 1, n)
+        sl = NamedSharding(mesh, rows_spec(n)).local_slices((n,))[0]
+        return sl.start, sl.stop, n
+
+    cut_rows = lambda x: shard_tree(x, rows_spec(x.shape[0]), mesh)
+    batch = {"tokens": cut_rows(torch.from_numpy(tokens)).to(dev)}
 
     def timed(fn):
         rec = _CollectiveTally()
@@ -5303,22 +5350,25 @@ def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps):
         _sync(dev)
         return result, 1e3 * (time.perf_counter() - t0), rec.collectives, [e for _, e in routes]
 
-    tb = tokens.shape[0]
-    span = (mesh.axis("data").rank * (tb // 2), (mesh.axis("data").rank + 1) * (tb // 2), tb)
+    out["train_rows"] = span(tokens.shape[0])
     for name, kw in [("adamw", {})] + ([("adafactor", SPMD_ADAFACTOR)] if "adafactor" in ref
                                        else []):
         out[name] = _spmd_train(cfg, mesh, spmd, params, batch,
                                 {**ref[name], "experts": ref["experts"][name]},
-                                OptimizerConfig(**SPMD_OPT, **kw), timed, span)
+                                OptimizerConfig(**SPMD_OPT, **kw), timed, out["train_rows"],
+                                preset)
 
-    vocab = NamedSharding(mesh, ("data", None, "model" if spmd.vocab_split else None))
-    cut = lambda want: want[vocab.local_slices(tuple(want.shape))].to(dev)
     b, s = prompts.shape
-    lo, hi = mesh.axis("data").rank * (b // 2), (mesh.axis("data").rank + 1) * (b // 2)
-    lp = rows(torch.from_numpy(prompts)).to(dev)
+    vocab = NamedSharding(mesh, sanitized_specs(
+        (spmd.batch_entry, None, "model" if spmd.vocab_split else None),
+        torch.empty((b, 1, cfg.vocab_size), device="meta"), mesh))
+    cut = lambda want: want[vocab.local_slices(tuple(want.shape))].to(dev)
+    lo, hi, _ = span(b)
+    whole_vocab = lambda lg: model.all_gather(lg, -1, kind="output") if spmd.vocab_split else lg
+    lp = cut_rows(torch.from_numpy(prompts)).to(dev)
     with torch.no_grad():
         (logits, cache), out["prefill_ms"], out["prefill_bytes"], mine = timed(
-            lambda: lm.make_prefill_step(cfg, mesh=mesh)(params, {"tokens": lp}))
+            lambda: lm.make_prefill_step(cfg, mesh=mesh, preset=preset)(params, {"tokens": lp}))
         f = _flips(mine, ref["experts"]["prefill"], lo, hi, b)
         out["prefill_flips"] = None if f is None else (f[0], f[1].any(-1))
         out["prefill_gaps"] = _row_gaps(logits, cut(ref["prefill"]))
@@ -5331,8 +5381,8 @@ def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps):
         cspecs = spmd.cache_specs(whole)
         cache = shard_tree(whole, cspecs, mesh)
         del whole
-        tok = model.all_gather(logits, -1, kind="output").argmax(-1).to(torch.int32)
-        serve = lm.make_serve_step(cfg, mesh=mesh)
+        tok = whole_vocab(logits).argmax(-1).to(torch.int32)
+        serve = lm.make_serve_step(cfg, mesh=mesh, preset=preset)
         # a row's first step whose input token differs from the single device's
         div = torch.full((hi - lo,), steps)
         toks, gaps, ms, step_bytes, flips = [], [], [], [], (0, torch.zeros(hi - lo, dtype=bool))
@@ -5347,16 +5397,15 @@ def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps):
             ms.append(t)
             step_bytes.append(nbytes)
             gaps.append(_row_gaps(lg, cut(ref["steps"][i])))
-            tok = model.all_gather(lg, -1, kind="output").argmax(-1).to(torch.int32)
+            tok = whole_vocab(lg).argmax(-1).to(torch.int32)
         out["cache_gap"] = (None if bool((div < steps).any())
                             else _block_gaps(cache, ref["cache"], cspecs, mesh))
     out.update(tokens=torch.stack(toks, 1), step_gaps=torch.stack(gaps, 1), step_ms=ms,
-               step_bytes=step_bytes, decode_flips=flips, div=div, rows=(lo, hi),
-               model_rank=model.rank)
-    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+               step_bytes=step_bytes, decode_flips=flips, div=div, rows=(lo, hi))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
     out["launches"] = {k: c.launches for k, c in counters.items()}
-    _release(ref)
-    out["rank_s"] = time.perf_counter() - t_rank
+    del params, batch, lp, cache
+    _empty(dev)
     return out
 
 
@@ -5373,8 +5422,8 @@ def _spmd_checks(label, ranks, ref, want, train_tokens):
         if any(f is None for f in flips):
             fail(f"{label} {name}: the ranks ran another number of routings than the single device")
         n = sum(f[0] for f in flips)
-        # the flipped tokens, counted once: the model ranks of a data rank route alike
-        n_tok = sum(got[name]["flips"][1] for got in ranks if got["model_rank"] == 0)
+        # the flipped tokens, counted once: ranks that hold the same rows route alike
+        n_tok = sum({got["train_rows"]: got[name]["flips"][1] for got in ranks}.values())
         bound = SPMD_FLIP_SHARE * n_tok / train_tokens
         held[name] = ("held" if n == 0 else
                       f"{n} token routings flipped over the ranks, {n_tok} tokens of "
@@ -5437,11 +5486,84 @@ def _spmd_checks(label, ranks, ref, want, train_tokens):
     return held
 
 
-def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS):
-    """Phases 16 and 17: the generic LM's sharded steps (``lm.make_*_step(
-    mesh=)``), one config at a time (``configs``: arch, depth, prefill
+def _preset_collectives(preset):
+    """Rank 0's collective operand bytes by kind of GEN_ARCH's train_4k cell
+    on a record-only PRESET_BYTES_MESH under ``preset`` (``dryrun.measure``
+    on meta)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import record_only_mesh
+
+    return dryrun.measure(GEN_ARCH, "train_4k", mesh=record_only_mesh(PRESET_BYTES_MESH),
+                          preset=preset)["collectives"]
+
+
+def _spmd_sp_refused(arch):
+    """The three step builders of ``arch`` under the ``sp`` preset on a
+    record-only 2x2 mesh: each must raise ``ValueError`` naming ``model``,
+    before any step runs."""
+    from repro_torch.launch.mesh import record_only_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
+
+    cfg, mesh = _spmd_cfg(arch), record_only_mesh(SPMD_MESH)
+    builders = {
+        "train": lambda: lm.make_train_step(cfg, make_optimizer(OptimizerConfig()), mesh=mesh,
+                                            preset="sp"),
+        "prefill": lambda: lm.make_prefill_step(cfg, mesh=mesh, preset="sp"),
+        "serve": lambda: lm.make_serve_step(cfg, mesh=mesh, preset="sp")}
+    for name, make in builders.items():
+        try:
+            make()
+        except ValueError as e:
+            check("duplicate entries for `model`" in str(e),
+                  f"{arch} sp {name} step: ValueError without the duplicated axis: {e}")
+            log(f"  {arch} sp {name} step refused: {e}")
+            continue
+        check(False, f"{arch}: the {name} step builder took the sp preset (expected ValueError)")
+
+
+def _spmd_log(label, ranks, ref, want, train_tokens, steps, tag, phase):
+    """One preset's checks of one config (:func:`_spmd_checks`) and its log
+    lines: each rank's steps, gaps and times, the collective operand
+    bytes."""
+    fmt = lambda d: ", ".join(f"{k} {v}" for k, v in sorted(d.items()))
+    held = _spmd_checks(label, ranks, ref, want, train_tokens)
+    fail_if_any(f"{phase} ({label})")
+    log(f"  {label} steps: " + ", ".join(f"{k} {v}" for k, v in held.items()))
+    for r, got in enumerate(ranks):
+        log(f"  rank {r}: " + ", ".join(
+            f"{k} step {got[k]['ms']:.1f} ms (loss gap "
+            f"{abs(got[k]['loss'] - ref[k]['loss']) / abs(ref[k]['loss']):.3g}, grad_norm gap "
+            f"{abs(got[k]['grad_norm'] - ref[k]['grad_norm']) / abs(ref[k]['grad_norm']):.3g}, "
+            "state gaps " + ", ".join(f"{n} {v:.3g}" for n, v in got[k]["leaves"]["gaps"].items())
+            + f"; {got[k]['leaves']['ill_posed']} of {got[k]['leaves']['elements']} parameter "
+            f"elements ill-posed, {got[k]['leaves']['ill_posed_off']} of them off by more than "
+            f"{GEN_CPU_GRAD_REL} of the leaf's scale, largest gap "
+            f"{got[k]['leaves']['ill_posed_gap']:.3g}; {got[k]['flips'][1]} tokens' routings "
+            "flipped)"
+            for k in ("adamw", "adafactor") if k in got)
+            + f", prefill {got['prefill_ms']:.1f} ms (logits gap "
+            f"{float(got['prefill_gaps'].max()):.3g}, cache {got['prefill_cache_gap']:.3g}), "
+            f"decode {np.mean(got['step_ms'][1:]):.2f} ms a step (logits gaps max "
+            f"{float(got['step_gaps'].max()):.3g}, cache "
+            + ("not compared" if got["cache_gap"] is None else f"{got['cache_gap']:.3g}")
+            + ", greedy " + ("equal" if bool((got["div"] == steps).all())
+                             else f"diverged at steps {got['div'].tolist()}")
+            + "), peak " + ("not measured" if got["peak_gib"] is None
+                            else f"{got['peak_gib']:.2f} GiB"))
+    log(f"  {label} rank 0: {ranks[0]['setup_s']:.1f} s cutting and moving its shards, "
+        + ", ".join(f"{ranks[0][k]['compare_s']:.1f} s comparing its {k} state"
+                    for k in ("adamw", "adafactor") if k in ranks[0]))
+    log(f"  {label} collective operand bytes per rank (equal to the record-only {tag} "
+        f"mesh's on meta): " + "; ".join(f"{k} {fmt(v)}" for k, v in want.items()))
+
+
+def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS, presets=("base",)):
+    """Phases 16, 17 and 18: the generic LM's sharded steps (``lm.make_*_step(
+    mesh=, preset=)``), one config at a time (``configs``: arch, depth, prefill
     shape), f32 compute: the single-device steps on this device, then SPMD
-    on the 2x2 gloo world of SPMD_RANKS ranks sharing it, which cut their
+    under each of ``presets`` in turn on one 2x2 gloo world of SPMD_RANKS
+    ranks sharing it, which cut their
     shards from this process's initial weights (on the card, or in shared
     host memory where the ranks need the card: four ranks re-drawing a
     1.7 B tree would not fit the host's 96 GiB), every rank's results held
@@ -5456,7 +5578,6 @@ def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS):
     t_phase = time.perf_counter()
     rec_mesh = record_only_mesh(SPMD_MESH)
     tag = "x".join(map(str, SPMD_MESH))
-    fmt = lambda d: ", ".join(f"{k} {v}" for k, v in sorted(d.items()))
     for arch, depth, prefill in configs:
         t_cfg = time.perf_counter()
         cfg = _spmd_cfg(arch, depth)
@@ -5484,17 +5605,17 @@ def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS):
         if "adafactor" in ref:
             cells["adafactor"] = (cells["adamw"][0],
                                   cfg.replace(opt_kind="adafactor", opt_b1=0.0))
-        measured = {k: dryrun.measure(arch, c, cfg_override=o, mesh=rec_mesh)
-                    for k, (c, o) in cells.items()}
-        want = {k: m["collectives"] for k, m in measured.items()}
+        measured = {(p, k): dryrun.measure(arch, c, cfg_override=o, mesh=rec_mesh, preset=p)
+                    for p in presets for k, (c, o) in cells.items()}
+        want = {p: {k: measured[p, k]["collectives"] for k in cells} for p in presets}
         # the reference stays on the card, shared with the ranks by IPC, where
         # the ranks' train steps (the recorder's temporaries and arguments of
         # a rank, a quarter more for the allocator, 4 GiB for five contexts)
         # fit beside it; else the ranks map it from shared host memory
         need = SPMD_RANKS * 1.25 * max(
-            measured[k]["peak"] + dryrun.build_cell(arch, cells[k][0], cfg_override=cells[k][1],
-                                                    mesh=rec_mesh).argument_bytes()
-            for k in ("adamw", "adafactor") if k in cells) + 4 * 2**30
+            measured[p, k]["peak"] + dryrun.build_cell(arch, cells[k][0], cfg_override=cells[k][1],
+                                                       mesh=rec_mesh, preset=p).argument_bytes()
+            for p in presets for k in ("adamw", "adafactor") if k in cells) + 4 * 2**30
         on_card = dev.type == "cuda" and need <= torch.cuda.mem_get_info()[0]
         if not on_card:
             ref = _to_shared_host(ref)
@@ -5505,42 +5626,19 @@ def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS):
         t0 = time.perf_counter()
         try:
             ranks = spawn_world(_spmd_rank, SPMD_RANKS, (arch, depth, str(dev), ref, tokens,
-                                                          prompts, steps), timeout=SPMD_TIMEOUT)
+                                                          prompts, steps, presets),
+                                timeout=SPMD_TIMEOUT)
         except (RuntimeError, TimeoutError) as e:
             fail(f"{phase}: the {SPMD_RANKS}-rank world of {arch} failed: {e}")
         world_s = time.perf_counter() - t0
         if dev.type == "cuda":
             torch.cuda.ipc_collect()
-        held = _spmd_checks(arch, ranks, ref, want, train[0] * train[1])
-        fail_if_any(f"{phase} ({arch})")
-        log(f"  {arch} steps: " + ", ".join(f"{k} {v}" for k, v in held.items()))
-        for r, got in enumerate(ranks):
-            log(f"  rank {r}: " + ", ".join(
-                f"{k} step {got[k]['ms']:.1f} ms (loss gap "
-                f"{abs(got[k]['loss'] - ref[k]['loss']) / abs(ref[k]['loss']):.3g}, grad_norm gap "
-                f"{abs(got[k]['grad_norm'] - ref[k]['grad_norm']) / abs(ref[k]['grad_norm']):.3g}, "
-                "state gaps " + ", ".join(f"{n} {v:.3g}" for n, v in got[k]["leaves"]["gaps"].items())
-                + f"; {got[k]['leaves']['ill_posed']} of {got[k]['leaves']['elements']} parameter "
-                f"elements ill-posed, {got[k]['leaves']['ill_posed_off']} of them off by more than "
-                f"{GEN_CPU_GRAD_REL} of the leaf's scale, largest gap "
-                f"{got[k]['leaves']['ill_posed_gap']:.3g}; {got[k]['flips'][1]} tokens' routings "
-                "flipped)"
-                for k in ("adamw", "adafactor") if k in got)
-                + f", prefill {got['prefill_ms']:.1f} ms (logits gap "
-                f"{float(got['prefill_gaps'].max()):.3g}, cache {got['prefill_cache_gap']:.3g}), "
-                f"decode {np.mean(got['step_ms'][1:]):.2f} ms a step (logits gaps max "
-                f"{float(got['step_gaps'].max()):.3g}, cache "
-                + ("not compared" if got["cache_gap"] is None else f"{got['cache_gap']:.3g}")
-                + ", greedy " + ("equal" if bool((got["div"] == steps).all())
-                                 else f"diverged at steps {got['div'].tolist()}")
-                + "), peak " + ("not measured" if got["peak_gib"] is None
-                                else f"{got['peak_gib']:.2f} GiB"))
-        log(f"  {arch} rank 0: {ranks[0]['rank_s']:.1f} s in its function; besides its steps "
-            f"{ranks[0]['setup_s']:.1f} s cutting and moving its "
-            "shards, " + ", ".join(f"{ranks[0][k]['compare_s']:.1f} s comparing its {k} state"
-                                   for k in ("adamw", "adafactor") if k in ranks[0]))
-        log(f"  {arch} collective operand bytes per rank (equal to the record-only {tag} "
-            f"mesh's on meta): " + "; ".join(f"{k} {fmt(v)}" for k, v in want.items()))
+        for preset in presets:
+            label = arch if preset == "base" else f"{arch} ({preset})"
+            per_rank = [got[preset] for got in ranks]
+            _spmd_log(label, per_rank, ref, want[preset], train[0] * train[1], steps, tag,
+                      phase)
+        log(f"  {arch} rank 0: {ranks[0]['rank_s']:.1f} s in its function")
         log(f"  {arch}: {SPMD_RANKS}-rank world ({tag} mesh, gloo, every rank on {dev}) in "
             f"{world_s:.1f} s; {arch} in {time.perf_counter() - t_cfg:.1f} s")
         del ref, ranks
@@ -5638,6 +5736,22 @@ def main() -> int:
         f"Adafactor) and {SPMD_STEPS} greedy steps, against the single-device steps")
     torch.cuda.empty_cache()
     phase_spmd(dev, smi, SPMD17, "phase 17")
+    log("phase 18: the generic LM's SPMD steps under the "
+        + " and ".join(SPMD18_PRESETS) + f" presets on the {'x'.join(map(str, SPMD_MESH))} gloo "
+        "world: " + ", ".join(f"{a} ({d} layers, prefill {p[0]} x {p[1]})" for a, d, p in SPMD18)
+        + f", each a train step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens (granite also under "
+        f"Adafactor) and {SPMD_STEPS} greedy steps, against the single-device steps; the sp "
+        "preset refused")
+    torch.cuda.empty_cache()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        pod = {p: pool.submit(_preset_collectives, p) for p in ("base",) + SPMD18_PRESETS}
+        _spmd_sp_refused(GEN_ARCH)
+        fail_if_any("phase 18 (sp)")
+        phase_spmd(dev, smi, SPMD18, "phase 18", presets=SPMD18_PRESETS)
+        mesh_tag = "x".join(map(str, PRESET_BYTES_MESH))
+        for p, f in pod.items():
+            log(f"  {GEN_ARCH} train_4k on the record-only {mesh_tag} mesh ({p}): collective "
+                f"operand bytes a rank {f.result()}")
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()},

@@ -161,6 +161,22 @@ def spec(*logical_names: str | None, rules: dict[str, Any] | None = None) -> tup
     return tuple(None if name is None else _entry(r.get(name)) for name in logical_names)
 
 
+def check_spec(*logical_names: str | None, rules: dict[str, Any] | None = None) -> tuple:
+    """:func:`spec` of ``logical_names``, raising ``ValueError`` where it maps
+    one mesh axis to two dims: the ``PartitionSpec`` that JAX's
+    ``NamedSharding`` refuses with ``DuplicateSpecError``, whose message this
+    one follows."""
+    entries = spec(*logical_names, rules=rules)
+    seen = [a for e in entries for a in entry_axes(e)]
+    dups = sorted({a for a in seen if seen.count(a) > 1})
+    if dups:
+        raise ValueError(
+            "a spec can map every mesh axis to at most one positional dimension, but "
+            f"PartitionSpec({', '.join(map(repr, entries))}) of the logical axes "
+            f"{logical_names} has duplicate entries for " + ", ".join(f"`{a}`" for a in dups))
+    return entries
+
+
 def constrain(x, *logical_names: str | None):
     """The identity, with or without a mesh.  In the JAX package this is a
     layout hint to the GSPMD partitioner (``with_sharding_constraint``).

@@ -218,6 +218,7 @@ class Cell:
     args: tuple
     specs: dict
     local: tuple | None = None
+    preset: str = "base"
 
     def call(self):
         """Run the step once (on a host mesh: this rank's SPMD step on its
@@ -280,10 +281,11 @@ def build_cell(arch: str, cell, *, multi_pod: bool = False, mesh=None, cfg_overr
 
     ``mesh`` an :class:`AbstractMesh` (the default: the production one):
     the single-device step.  ``mesh`` a ``launch.mesh.HostMesh``: the SPMD
-    step (``lm.make_*_step(mesh=)``; a preset other than ``base`` raises
-    ``NotImplementedError``), and ``Cell.local`` this rank's shards -- on a
-    record-only mesh of the meta arguments, on a real world of real ones on
-    ``device`` (the card when None), from :func:`_values`."""
+    step under the preset (``lm.make_*_step(mesh=, preset=)``; ``sp``
+    raises ``ValueError``), and ``Cell.local`` this rank's shards as that
+    preset lays them out (``transformer.Spmd``) -- on a record-only mesh of
+    the meta arguments, on a real world of real ones on ``device`` (the card
+    when None), from :func:`_values`."""
     cfg = cfg_override if cfg_override is not None else lm.get_config(arch)
     cell = cell if isinstance(cell, ShapeCell) else cell_by_name(cell)
     mesh = mesh if mesh is not None else production_mesh(multi_pod)
@@ -323,7 +325,8 @@ def build_cell(arch: str, cell, *, multi_pod: bool = False, mesh=None, cfg_overr
         specs = (param_specs, T.cache_pspecs(cfg), batch_specs, ())
     else:
         raise ValueError(cell.kind)
-    c = Cell(cfg, cell, mesh, rules, step, args, dict(_leaf_specs(mesh, specs, args)))
+    c = Cell(cfg, cell, mesh, rules, step, args, dict(_leaf_specs(mesh, specs, args)),
+             preset=preset)
     if sharded:
         c.local = _local_args(c, opt, device)
     return c
@@ -331,8 +334,9 @@ def build_cell(arch: str, cell, *, multi_pod: bool = False, mesh=None, cfg_overr
 
 def _local_args(c: Cell, opt, device):
     """This rank's shards of a cell's arguments under the sharded executor's
-    specs (``transformer.Spmd``)."""
-    spmd = T.spmd_layout(c.cfg, c.mesh)
+    specs of the cell's preset (``transformer.Spmd``: under ``zero2`` the
+    parameters whole, the optimizer state cut)."""
+    spmd = T.spmd_layout(c.cfg, c.mesh, preset=c.preset)
     args = c.args if c.mesh.record_only else _values(c, opt, device)
     batch = args[-1] if c.cell.kind != "decode" else args[2]
     bspecs = sanitized_specs({k: (spmd.batch_entry,) + (None,) * (v.ndim - 1)
@@ -340,7 +344,7 @@ def _local_args(c: Cell, opt, device):
     if c.cell.kind == "train":
         state = args[0]
         specs = ({"params": spmd.specs,
-                  "opt_state": _opt_specs(c.cfg, state["opt_state"], spmd.specs,
+                  "opt_state": _opt_specs(c.cfg, state["opt_state"], spmd.opt_specs,
                                           state["params"]),
                   "step": ()}, bspecs)
     elif c.cell.kind == "prefill":
@@ -533,12 +537,13 @@ def _extend_quadratic(values: list[int], depth: int) -> int:
     return v1 - b - q2 // 2 + b * depth + q2 * depth * depth // 2
 
 
-def measure(arch: str, cell, *, cfg_override=None, mesh=None) -> dict:
+def measure(arch: str, cell, *, cfg_override=None, mesh=None, preset: str = "base") -> dict:
     """The step of a cell recorded on meta: ``flops``, ``bytes``, ``peak``,
     ``collectives`` (operand bytes by HLO kind) and ``traced_layers``.
     Without ``mesh`` the single-device step, whole-step totals (no
     collectives); with a record-only ``mesh`` (``launch.mesh.HostMesh``)
-    its rank 0's SPMD step, that device's own figures.
+    its rank 0's SPMD step under the ``preset`` rules, that device's own
+    figures.
 
     FLOPs, bytes and collective bytes are exact: they grow by a fixed amount
     per layer of each kind (and, in a uniform stack's training step, by a
@@ -561,7 +566,8 @@ def measure(arch: str, cell, *, cfg_override=None, mesh=None) -> dict:
         depths = list(range(1, depth + 1))
     runs = []
     for d in depths:
-        c = build_cell(arch, cell, cfg_override=cfg.replace(num_layers=d), mesh=mesh)
+        c = build_cell(arch, cell, cfg_override=cfg.replace(num_layers=d), mesh=mesh,
+                       preset=preset)
         rec = StepRecorder()
         with rec:
             out = c.call()

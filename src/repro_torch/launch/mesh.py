@@ -414,6 +414,12 @@ class HostMesh:
     def axis(self, name: str) -> MeshAxis:
         return self.axes[name]
 
+    def unit(self, name: str) -> MeshAxis:
+        """An axis ``name`` of size 1: what a layout runs over where it cuts
+        nothing over the mesh's axis of that name (its collectives the
+        identity)."""
+        return MeshAxis(name, 1, 0)
+
     def __repr__(self) -> str:
         return f"HostMesh({dict(zip(self.axis_names, self.shape))})"
 

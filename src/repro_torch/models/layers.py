@@ -30,13 +30,16 @@ layer gathers that weight over ``model`` and computes those heads on every
 rank alike.  A value every rank holds alike enters a rank-specific
 computation through ``MeshAxis.copy`` (Megatron's f), so its gradient stays
 whole on every rank.  Decode attention runs against the sequence-sharded
-cache: each model rank scores every head against its ``S/M`` positions and
-the partial softmaxes meet in a max and two psums over ``model``; the new
-token's k/v go only to the rank that owns ``pos`` (``pos % W`` for a
-sliding window's W-slot ring, whose slots are cut over ``model`` the same
-way).  The MoE, Mamba-2 and RG-LRU layers take the same ``tp`` (their
-modules say how each is cut).  With ``tp=None`` every layer is the
-single-device code, op for op.
+cache (``tp.seq``): each model rank scores every head against its ``S/M``
+positions and the partial softmaxes meet in a max and two psums over
+``model``; the new token's k/v go only to the rank that owns ``pos``
+(``pos % W`` for a sliding window's W-slot ring, whose slots are cut over
+``model`` the same way).  The MoE, Mamba-2 and RG-LRU layers take the same
+``tp`` (their modules say how each is cut).  Under rules that cut no heads
+or ffn over ``model`` (``fsdp``, ``zero2``) ``tp.model`` is an axis of size
+1, so every layer runs whole on the rank's own rows, its weights gathered
+whole (``TensorParallel.weight``) and the cache's sequence whole.  With
+``tp=None`` every layer is the single-device code, op for op.
 """
 
 from __future__ import annotations
@@ -64,13 +67,19 @@ def _device(generator, device):
 @dataclass(frozen=True)
 class TensorParallel:
     """One rank's place in a block's SPMD: the ``data`` (FSDP) and
-    ``model`` (tensor-parallel) axes (``launch.mesh.MeshAxis``), ``specs``
-    (the block's parameter specs sanitized on the mesh, no layer dim),
-    which parts run split over ``model``: ``q_split`` (whole q heads on each
-    rank), ``kv_split`` (whole kv heads too) and ``mlp_split`` (the d_ff
-    columns), and ``batch``, the axes the batch is cut over (``data``, and
-    ``pod`` first on the multi-pod mesh: the MoE's load statistics are
-    summed over them)."""
+    ``model`` (tensor-parallel) axes (``launch.mesh.MeshAxis``; ``model`` an
+    axis of size 1 where the rules cut no heads or ffn over the mesh's
+    ``model`` axis), ``specs`` (the block's parameter specs sanitized on the
+    mesh, no layer dim), which parts run split over ``model``: ``q_split``
+    (whole q heads on each rank), ``kv_split`` (whole kv heads too) and
+    ``mlp_split`` (the d_ff columns), ``batch``, the axes the batch is cut
+    over (the MoE's load statistics are summed over them), ``seq``, the axis
+    the decode cache's sequence is cut over (``model``, or an axis of size
+    1), ``expert_split`` (the MoE's experts cut over ``data``, where its
+    spec cuts them: expert parallelism) and ``stored``: the mesh's
+    ``model`` axis where the weights are stored cut over it but no tensor
+    parallelism uses it (the ``fsdp`` rules), over which every weight is
+    gathered whole."""
 
     data: Any
     model: Any
@@ -79,6 +88,9 @@ class TensorParallel:
     kv_split: bool
     mlp_split: bool
     batch: tuple = ()
+    seq: Any = None
+    expert_split: bool = True
+    stored: Any = None
 
     def split(self, spec, dim: int, axis: str = "model") -> bool:
         """Whether a sanitized ``spec`` cuts ``dim`` over ``axis`` (of size
@@ -89,11 +101,15 @@ class TensorParallel:
     def weight(self, w, spec, *, full: bool = False):
         """A weight shard ready to use: gathered over ``data`` where its spec
         shards it (backward: a reduce-scatter of the data ranks' partial
-        gradients), and with ``full`` over ``model`` too (its use is the
-        same on every model rank, backward: this rank's block)."""
+        gradients) and over ``stored`` (backward: a reduce-scatter, its ranks
+        hold other rows of the batch), and with ``full`` over ``model`` too
+        (its use is the same on every model rank, backward: this rank's
+        block)."""
         for dim, entry in enumerate(spec):
             if entry == "data":
                 w = self.data.all_gather(w, dim, kind="weight")
+            elif entry == "model" and self.stored is not None:
+                w = self.stored.all_gather(w, dim, kind="weight")
         if full:
             for dim, entry in enumerate(spec):
                 if entry == "model":
@@ -463,8 +479,8 @@ def _out_proj_tp(p, o, tp: TensorParallel, compute_dtype, *, heads_local: bool):
     divides its rows (an output of every head enters through this rank's
     block of it)."""
     spec = tp.specs["attn"]["wo"]
-    if spec["w"][:1] != ("model",):
-        return dense_apply(tp.dense(p["wo"], spec), o, compute_dtype=compute_dtype)
+    if not tp.split(spec["w"], 0):
+        return dense_apply(tp.dense(p["wo"], spec, full=True), o, compute_dtype=compute_dtype)
     if not heads_local:
         o = tp.model.block(tp.model.copy(o), -1)
     return tp.model.all_reduce(dense_apply(tp.dense(p["wo"], spec), o,
@@ -564,7 +580,7 @@ def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, pos: int, compute_dty
 
 def _attention_decode_tp(p, x, cfg, *, cache_k, cache_v, pos, compute_dtype, ring, tp):
     b = x.shape[0]
-    model = tp.model
+    model, seq = tp.model, tp.seq
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv_tp(p, x, cfg, positions, compute_dtype, tp)
     # every rank scores all heads against its positions: gather the heads
@@ -574,19 +590,19 @@ def _attention_decode_tp(p, x, cfg, *, cache_k, cache_v, pos, compute_dtype, rin
         k = model.all_gather(k, 2, kind="state", replicated=True)
         v = model.all_gather(v, 2, kind="state", replicated=True)
     s_local = cache_k.shape[1]
-    s_cache = s_local * model.size
+    s_cache = s_local * seq.size
     if ring:    # the ring's slot; once it is full every slot is valid
         slot, cache_len = pos % s_cache, min(pos + 1, s_cache)
     else:       # clamped as on one device
         slot, cache_len = min(max(pos, 0), s_cache - 1), pos + 1
-    owner, offset = slot // s_local, model.rank * s_local
-    if model.rank == owner:
+    owner, offset = slot // s_local, seq.rank * s_local
+    if seq.rank == owner:
         cache_k = _write_slot(cache_k, k, slot - offset)
         cache_v = _write_slot(cache_v, v, slot - offset)
-    if model.size == 1:
+    if seq.size == 1:
         out = decode_attention(q, cache_k, cache_v, cache_len=cache_len)
     else:
         out = decode_attention_sharded(q, cache_k, cache_v, cache_len=cache_len, offset=offset,
-                                       model=model)
+                                       model=seq)
     y = _out_proj_tp(p, out.reshape(b, 1, -1), tp, compute_dtype, heads_local=False)
     return y, cache_k, cache_v

@@ -4,11 +4,12 @@ registry, the loss, the train/prefill/serve steps and the input specs.
 Each step is a function of (params/state, batch) as in the JAX package,
 which jits them; here they run eagerly.  With ``mesh=`` (a
 ``launch.mesh.HostMesh``) a step builder returns the SPMD step
-(``transformer.spmd_layout``): every rank calls it alike on its shards
-(``distributed.sharding.shard_tree`` of the global trees under
-``transformer.param_pspecs`` / ``cache_pspecs`` / :func:`batch_pspecs`) and
-gets its shards back -- what the JAX package's step computes when ``jit``
-partitions it over a mesh.  ``make_train_step`` takes the
+(``transformer.spmd_layout``, under the ``preset`` rules: ``base``,
+``fsdp`` or ``zero2``; ``sp`` raises as the reference's steps do): every rank
+calls it alike on its shards (``distributed.sharding.shard_tree`` of the
+global trees under ``Spmd.specs`` / ``Spmd.cache_specs`` and the batch cut
+over ``Spmd.batch_entry``) and gets its shards back -- what the JAX package's
+step computes when ``jit`` partitions it over a mesh.  ``make_train_step`` takes the
 port's ``optim.make_optimizer`` pair and returns a new state (nothing is
 updated in place); the prefill and serve steps run without autograd.  The
 input specs (``batch_struct``, ``cache_struct``) are tensors on the ``meta``
@@ -130,8 +131,9 @@ def value_and_grad(params, batch, cfg: ArchConfig, *, spmd=None):
     """((loss, metrics), grads): :func:`loss_fn` and its gradient tree, of
     ``params``' structure (the JAX package's ``jax.value_and_grad(...,
     has_aux=True)``).  ``params`` are not modified.  Under ``spmd`` the
-    gradient of each shard of the global batch's loss
-    (``Spmd.reduce_grads``)."""
+    gradient of each shard of the global batch's loss (``Spmd.reduce_grads``:
+    under replicated parameters, of each block the optimizer state is cut
+    to)."""
     live = rebuild(params, iter(p.detach().requires_grad_(True) for p in leaves(params)))
     with torch.enable_grad():
         loss, metrics = loss_fn(live, batch, cfg, spmd=spmd)
@@ -153,19 +155,24 @@ def make_train_step(cfg: ArchConfig, optimizer, *, mesh=None, preset: str = "bas
     ``repro_torch.optim.optimizer.make_optimizer`` (an init/update pair).
 
     With ``mesh``: the SPMD step on this rank's shards of the state (the
-    optimizer state sharded as the parameters, Adafactor's factored ``row``
-    and ``col`` moments as their parameter's rows and columns) and of the
-    batch; the update runs on the shard, its global-norm clip summing each
-    leaf's squares over the axes that leaf is sharded over
-    (``Spmd.shard_axes``)."""
+    optimizer state sharded as ``param_pspecs`` cut the parameters,
+    Adafactor's factored ``row`` and ``col`` moments as their parameter's
+    rows and columns) and of the batch; the update runs on the shard, its
+    global-norm clip summing each leaf's squares over the axes that leaf is
+    sharded over (``Spmd.shard_axes``).  Under ``zero2`` the parameters are
+    whole on every rank and the update runs on the optimizer state's blocks
+    of them (``Spmd.update``)."""
     spmd = _spmd(cfg, mesh, preset)
-    kw = {} if spmd is None else {"shard_axes": spmd.shard_axes()}
 
     def train_step(state, batch):
         (_, metrics), grads = value_and_grad(state["params"], batch, cfg, spmd=spmd)
         with torch.no_grad():
-            new_params, new_opt = optimizer.update(
-                grads, state["opt_state"], state["params"], step=state["step"], **kw)
+            if spmd is None:
+                new_params, new_opt = optimizer.update(
+                    grads, state["opt_state"], state["params"], step=state["step"])
+            else:
+                new_params, new_opt = spmd.update(optimizer, grads, state["opt_state"],
+                                                  state["params"], state["step"])
         metrics["grad_norm"] = optimizer.last_grad_norm(new_opt)
         return ({"params": new_params, "opt_state": new_opt, "step": state["step"] + 1},
                 metrics)
@@ -175,8 +182,10 @@ def make_train_step(cfg: ArchConfig, optimizer, *, mesh=None, preset: str = "bas
 
 def make_prefill_step(cfg: ArchConfig, *, mesh=None, preset: str = "base"):
     """prefill_step(params, batch) -> (last logits, cache).  With ``mesh``:
-    on this rank's shards; the logits cut over the vocabulary where
-    ``model`` divides it, the cache this rank's block of ``cache_pspecs``."""
+    on this rank's shards under the ``preset`` rules; the logits cut over
+    the vocabulary where ``Spmd.vocab_split`` says so, the cache this rank's
+    block of ``Spmd.cache_specs``.  ``preset="sp"`` raises ``ValueError``
+    (``transformer.spmd_layout``)."""
     spmd = _spmd(cfg, mesh, preset)
 
     @torch.no_grad()
@@ -190,7 +199,7 @@ def make_prefill_step(cfg: ArchConfig, *, mesh=None, preset: str = "base"):
 def make_serve_step(cfg: ArchConfig, *, mesh=None, preset: str = "base"):
     """serve_step(params, cache, batch, pos) -> (logits, cache').  With
     ``mesh``: as :func:`make_prefill_step`, against this rank's block of the
-    sequence-sharded cache."""
+    cache (``Spmd.cache_specs``)."""
     spmd = _spmd(cfg, mesh, preset)
 
     @torch.no_grad()

@@ -26,8 +26,10 @@ tokens alike).  Where ``data`` divides the experts (``w_gate`` cut over
 ``data``) the (G_local, E, C, D) buffer goes through an all-to-all over
 ``data`` -- E split, G concatenated -- to (G, E/D, C, D), the slots of this
 rank's experts, and back after the experts (expert parallelism); where it
-does not, the experts are whole on every rank and the block stays
-data-local.  The experts' F dim cut over ``model`` runs column- then
+does not, or where the rules cut no experts over ``data`` (``fsdp``,
+``zero2``: ``TensorParallel.expert_split``), the experts are whole on every
+rank (gathered where they are stored cut) and the block stays
+device-local.  The experts' F dim cut over ``model`` runs column- then
 row-parallel (a copy in, a psum out).  The load-balancing loss is the global
 batch's: the expert counts and the mean router probabilities are summed
 over the batch axes before their product is formed.
@@ -124,13 +126,17 @@ def _expert_ffn(p, xe, cfg, compute_dtype):
 def _experts(p, buf, cfg, compute_dtype, tp):
     """The experts on the dispatch buffer (G, E, C, D), expert-major.  Under
     ``tp`` on this rank's buffer: its experts' slots of every group of the
-    ``data`` axis fetched by an all-to-all where ``data`` cuts the experts,
+    ``data`` axis fetched by an all-to-all where ``data`` cuts the experts
+    (else the experts gathered whole, :meth:`layers.TensorParallel.weight`),
     the F dim column- then row-parallel where ``model`` cuts it, the outputs
     sent back."""
     ep = f_split = False
     if tp is not None:
         sp = tp.specs["moe"]
-        ep, f_split = tp.split(sp["w_gate"], 0, "data"), tp.split(sp["w_gate"], 2)
+        ep = tp.expert_split and tp.split(sp["w_gate"], 0, "data")
+        f_split = tp.split(sp["w_gate"], 2)
+        if not ep:
+            p = {k: tp.weight(p[k], sp[k]) for k in ("w_gate", "w_up", "w_down")}
     if ep:
         buf = tp.data.all_to_all(buf, 1, 0)                       # (G, E/D, C, D)
     g, e, c, d = buf.shape

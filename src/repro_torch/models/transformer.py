@@ -35,8 +35,23 @@ body does), and a prefill cache resharded from heads to the
 sequence-sharded cache spec (a sliding window's ring likewise).  A batch the
 batch axes do not divide (``long_500k``'s one row) stays whole on every
 rank, as ``sanitize_spec`` leaves it.  With ``spmd=None`` both run the
-single-device code, op for op.  The presets other than ``base`` have no
-sharded walker yet (``ROADMAP.md`` §1 item 6b part 3).
+single-device code, op for op.
+
+The layout follows the preset's rules (``distributed.sharding.make_rules``),
+one decision to a rule.  Under ``base`` the above.  Under ``fsdp`` and
+``zero2`` the batch is cut over ``(data, model)`` (``(pod, data, model)``
+and, as the reference's multi-pod override leaves ``zero2``, ``(pod,
+data)`` on the multi-pod mesh) and no tensor parallelism runs: every rank
+computes every head, the whole MLP, the whole vocabulary and, as a
+device-local MoE block, every expert on its own rows, and the cache keeps
+its sequence whole.  ``fsdp`` stores the parameters cut as under ``base``
+and gathers each weight whole over ``data`` and ``model`` where it is used
+(the backward a reduce-scatter over both: the ranks hold different rows);
+``zero2`` holds them whole on every rank and cuts only the optimizer state:
+each gradient is reduce-scattered to its optimizer block, updated there and
+all-gathered back (:meth:`Spmd.update`).  ``sp`` raises ``ValueError`` before
+any step runs: its logits' spec ``("batch", "seq", "vocab")`` names
+``model`` twice, which the reference's ``NamedSharding`` refuses.
 
 ``init_lm`` and ``cache_init`` run on the card unless ``device`` says
 otherwise (``bridge.resolve_device``: without a card that raises); on
@@ -55,7 +70,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import layer_params, leaves, rebuild, resolve_device
-from repro_torch.distributed.sharding import dim_axes, entry_axes, map_leaves, sanitized_specs
+from repro_torch.distributed.sharding import (check_spec, dim_axes, entry_axes, gather_tree,
+                                              make_rules, map_leaves, sanitized_specs, shard_tree)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -258,14 +274,16 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len: int,
 
 
 def _kv_to_seq(c, tp: L.TensorParallel):
-    """A prefill's k or v (B, S, KV_local, Dh) as the sequence-sharded cache
-    block (B, S/M, KV, Dh): an all-to-all over ``model`` from heads to
-    sequence, or this rank's block where every rank computed every head."""
-    if tp.model.size == 1:
+    """A prefill's k or v (B, S, KV_local, Dh) as the cache block (B, S/M,
+    KV, Dh) of a sequence cut over ``tp.seq`` (``model``): an all-to-all over
+    ``model`` from heads to sequence, or this rank's block where every rank
+    computed every head; with the sequence whole (``tp.seq`` of size 1, and
+    then ``tp.model`` too), the block as it is."""
+    if tp.seq.size == 1:
         return c
     if tp.kv_split:
-        return tp.model.all_to_all(c, 1, 2, kind="state")
-    return tp.model.block(c, 1)
+        return tp.seq.all_to_all(c, 1, 2, kind="state")
+    return tp.seq.block(c, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -402,23 +420,33 @@ def cache_pspecs(cfg: ArchConfig):
 # the SPMD layout
 # ---------------------------------------------------------------------------
 
-SPMD_TODO = "ROADMAP.md §1 item 6b part 3"
+_ATTN_KINDS = ("attn_mlp", "attn_moe", "attn_local")
+# the JAX package's activation constraints (``constrain``), by logical axes:
+# the residual stream and the logits, and the MoE's dispatch
+_CONSTRAINTS = (("batch", "seq", "embed"), ("batch", "seq", "vocab"))
+_MOE_CONSTRAINTS = (("expert_group", None, None), ("expert_group", "moe_dispatch", None, None),
+                    ("expert", "moe_slots", None))
 
 
 @dataclass(frozen=True)
 class Spmd:
-    """A model's SPMD on a host mesh as one rank runs it (the ``base``
-    rules): ``mesh`` (``launch.mesh.HostMesh``, a real world's or a
-    record-only one), ``specs`` (``param_pspecs`` sanitized on the mesh
-    against the global shapes; a hybrid model's layers a list, by position),
-    ``tps`` (each layer kind's ``layers.TensorParallel``), ``vocab_split``
-    (the vocabulary cut over ``model``: the embedding, the head and the loss
-    run vocab-parallel) and ``batch`` (the axes the batch is cut over:
-    ``data``, and ``pod`` first on the multi-pod mesh)."""
+    """A model's SPMD on a host mesh as one rank runs it: ``mesh``
+    (``launch.mesh.HostMesh``, a real world's or a record-only one),
+    ``rules`` (``distributed.sharding.make_rules`` of the preset on that
+    mesh), ``specs`` (``param_pspecs`` sanitized on the mesh against the
+    global shapes, a hybrid model's layers a list, by position; all
+    replicated where the rules replicate the parameters), ``opt_specs``
+    (those the optimizer state is cut by: ``param_pspecs`` sanitized, under
+    every preset), ``tps`` (each layer kind's ``layers.TensorParallel``),
+    ``vocab_split`` (the vocabulary cut over ``model``: the embedding, the
+    head and the loss run vocab-parallel) and ``batch`` (the axes the batch
+    is cut over, ``rules["batch"]``)."""
 
     cfg: ArchConfig
     mesh: Any
+    rules: dict
     specs: dict
+    opt_specs: dict
     tps: dict
     vocab_split: bool
     batch: tuple
@@ -428,85 +456,161 @@ class Spmd:
         return self.mesh.axis("model")
 
     @property
+    def replicated(self) -> bool:
+        """Whether every rank holds the whole parameters (``zero2``)."""
+        return self.rules.get("params") == "replicated"
+
+    @property
     def batch_entry(self):
-        """The spec entry of a batch dim: ``"data"``, or ``("pod", "data")``."""
+        """The spec entry of a batch dim: an axis name, or a tuple of them."""
         names = tuple(a.name for a in self.batch)
         return names[0] if len(names) == 1 else names
 
     def weight(self, w, spec):
         """A weight outside the blocks (the embedding, the head) gathered
-        over ``data`` where its spec cuts it."""
+        where its spec cuts it (``layers.TensorParallel.weight``)."""
         return next(iter(self.tps.values())).weight(w, spec)
 
     def cache_specs(self, cache):
         """The specs of the cache the sharded steps take and give, sanitized
-        against a global cache tree: ``cache_pspecs`` (the sequence over
-        ``model``) with the batch dim cut like the batch.  On the multi-pod
-        mesh that differs from the reference's spec, which cuts the cache's
-        batch over ``data`` only and so holds it whole on both pods while the
-        tokens it serves are cut over ``pod``; its jitted serve step leaves
-        the cache's output layout to GSPMD."""
-        entry = self.batch_entry
-        specs = _map_spec_tuples(lambda sp: tuple(entry if e == "data" else e for e in sp),
-                                 cache_pspecs(self.cfg))
+        against a global cache tree: ``cache_pspecs`` with the batch dim cut
+        like the batch, a KV cache's sequence over ``model`` only where
+        ``rules["cache_seq"]`` says so, and the Mamba-2 and RG-LRU caches'
+        channels over ``model`` only where the blocks run tensor-parallel
+        over it.  Two divergences from the reference's spec, whose jitted
+        serve step leaves the cache's layout inside the step to GSPMD: on
+        the multi-pod mesh it cuts the cache's batch over ``data`` only, and
+        so holds it whole on both pods while the tokens it serves are cut
+        over ``pod``; under ``fsdp`` and ``zero2`` it cuts the cache as under
+        ``base`` (the batch over ``data``, the sequence over ``model``),
+        where these steps keep the sequence whole and cut the batch over the
+        batch axes."""
+        seq = self.rules["cache_seq"] == "model"
+        tp = next(iter(self.tps.values())).model is self.model
+
+        def block(kind):
+            cut = seq if kind in _ATTN_KINDS else tp
+            return {n: tuple(self.batch_entry if e == "data" else None if e == "model" and not cut
+                             else e for e in sp)
+                    for n, sp in block_cache_pspecs(self.cfg, kind).items()}
+
+        kinds = layer_kinds(self.cfg)
+        specs = (_prepend_layer_dim(block(kinds[0])) if _uniform(self.cfg)
+                 else [block(k) for k in kinds])
         return sanitized_specs(specs, cache, self.mesh)
 
     def shard_axes(self):
-        """For each parameter leaf, per dim, the axes of size above 1 its
-        spec cuts that dim over (the optimizers' ``shard_axes``: the global
-        norm sums each leaf's squares over them, Adafactor's factored means
-        its row and column sums)."""
-        return dim_axes(self.specs, self.mesh)
+        """For each parameter leaf, per dim, the axes of size above 1 the
+        optimizer state cuts that dim over (the optimizers' ``shard_axes``:
+        the global norm sums each leaf's squares over them, Adafactor's
+        factored means its row and column sums)."""
+        return dim_axes(self.opt_specs, self.mesh)
 
     def reduce_grads(self, grads):
         """Each parameter gradient summed over the batch axes its leaf is
-        not sharded over (a leaf sharded over ``data`` was reduce-scattered
-        there by the backward of its gather already, or, an expert's, took
-        the gradient of every token sent to it): the gradient of the global
-        batch's loss."""
-        def reduce(g, spec):
+        not sharded over (a leaf sharded over a batch axis was
+        reduce-scattered there by the backward of its gather already, or,
+        an expert's, took the gradient of every token sent to it): the
+        gradient of the global batch's loss.  Under replicated parameters
+        each gradient is summed to its optimizer block instead: a
+        reduce-scatter over each batch axis its optimizer spec cuts, an
+        all-reduce over the other batch axes, and this rank's block of a
+        dim cut over an axis that is no batch axis (its ranks computed the
+        same rows)."""
+        batch = {a.name for a in self.batch}
+
+        def reduce(g, spec):     # the optimizer's spec: the leaf's own unless replicated
+            if self.replicated:
+                for dim, entry in enumerate(spec):
+                    for name in entry_axes(entry):
+                        ax = self.mesh.axis(name)
+                        g = (ax.reduce_scatter(g, dim, kind="grad") if name in batch
+                             else ax.block(g, dim))
             names = {a for entry in spec for a in entry_axes(entry)}
             for ax in self.batch:
                 if ax.name not in names:
                     g = ax.all_reduce(g, kind="grad")
             return g
 
-        return map_leaves(reduce, grads, self.specs)
+        return map_leaves(reduce, grads, self.opt_specs)
+
+    def opt_init(self, optimizer, params):
+        """``optimizer.init`` of this rank's parameter shards: of the blocks
+        the optimizer state is cut to (under replicated parameters, this
+        rank's blocks of the whole parameters it holds)."""
+        if self.replicated:
+            params = shard_tree(params, self.opt_specs, self.mesh)
+        return optimizer.init(params)
+
+    def update(self, optimizer, grads, opt_state, params, step):
+        """``optimizer.update`` on this rank's shards, ``grads`` from
+        :meth:`reduce_grads`: on the parameters' own shards, or, under
+        replicated parameters, on the blocks the optimizer state is cut to,
+        the new blocks all-gathered back to the whole parameters (the
+        reference's "updated-param all-gather")."""
+        kw = {"step": step, "shard_axes": self.shard_axes()}
+        if not self.replicated:
+            return optimizer.update(grads, opt_state, params, **kw)
+        new, opt_state = optimizer.update(grads, opt_state,
+                                          shard_tree(params, self.opt_specs, self.mesh), **kw)
+        return gather_tree(new, self.opt_specs, self.mesh, kind="weight"), opt_state
 
 
-def _map_spec_tuples(fn, specs):
-    if isinstance(specs, dict):
-        return {k: _map_spec_tuples(fn, v) for k, v in specs.items()}
-    if isinstance(specs, list):
-        return [_map_spec_tuples(fn, v) for v in specs]
-    return fn(specs)
+def _check_constraints(cfg: ArchConfig, rules: dict) -> None:
+    """The JAX package's activation constraints resolved under ``rules``:
+    ``ValueError`` where one names a mesh axis twice, as JAX's
+    ``DuplicateSpecError`` refuses that ``PartitionSpec`` (the ``sp``
+    preset's logits, ``("batch", "seq", "vocab")``, map ``seq`` and
+    ``vocab`` both to ``model``)."""
+    moe = "attn_moe" in layer_kinds(cfg)
+    for names in _CONSTRAINTS + (_MOE_CONSTRAINTS if moe else ()):
+        check_spec(*names, rules=rules)
 
 
 def spmd_layout(cfg: ArchConfig, mesh, *, preset: str = "base") -> Spmd:
     """The :class:`Spmd` of ``cfg`` on ``mesh`` (axes ``data`` and ``model``,
-    and ``pod`` in front on the multi-pod mesh), every layer kind.  Only the
-    ``base`` rules run sharded; another preset raises
-    ``NotImplementedError`` naming the ``ROADMAP.md`` item."""
-    if preset != "base":
-        raise NotImplementedError(
-            f"the sharded executor runs the base rules only; the {preset!r} preset "
-            f"(like fsdp, sp and zero2) is {SPMD_TODO}")
+    and ``pod`` in front on the multi-pod mesh) under the ``preset`` rules
+    (``distributed.sharding.make_rules``), every layer kind; each decision
+    reads one rule: the batch axes ``batch``; the heads, the MLP and the
+    vocabulary cut over ``model`` where ``heads`` / ``kv_heads``, ``ffn`` and
+    ``vocab`` say ``model`` (and ``model`` divides them); the experts over
+    ``data`` where ``expert`` says ``data``; the KV cache's sequence over
+    ``model`` where ``cache_seq`` does; the parameters whole on every rank
+    where ``params`` says ``"replicated"``.  A preset whose activation
+    constraints name one mesh axis twice (``sp``) raises ``ValueError``, as
+    the reference's steps raise."""
     names = tuple(mesh.axis_names)
     if names not in (("data", "model"), ("pod", "data", "model")):
         raise ValueError(f"the sharded executor needs a (data, model) or (pod, data, model) "
                          f"mesh, not {names}")
+    rules = make_rules(multi_pod="pod" in names, preset=preset)
+    _check_constraints(cfg, rules)
     dtype = _dtype(cfg.param_dtype)
-    specs = sanitized_specs(param_pspecs(cfg), init_lm(0, cfg, device="meta"), mesh)
-    m = mesh.axis("model").size
-    q_split = cfg.num_heads % m == 0
-    batch = tuple(mesh.axis(a) for a in names[:-1])
-    tps = {kind: L.TensorParallel(
-               mesh.axis("data"), mesh.axis("model"),
-               sanitized_specs(block_pspecs(cfg, kind),
-                               block_init(None, cfg, kind, dtype, "meta"), mesh),
-               q_split, q_split and cfg.num_kv_heads % m == 0, cfg.d_ff % m == 0, batch)
+    like = init_lm(0, cfg, device="meta")
+    opt_specs = sanitized_specs(param_pspecs(cfg), like, mesh)
+    replicated = rules.get("params") == "replicated"
+    specs = map_leaves(lambda _, sp: (), like, opt_specs) if replicated else opt_specs
+    batch = tuple(mesh.axis(a) for a in entry_axes(rules["batch"]))
+    model = mesh.axis("model")
+    one = mesh.unit("model")
+    tp = model if "model" in (rules["heads"], rules["ffn"]) else one
+    m = tp.size
+    q_split = rules["heads"] == "model" and cfg.num_heads % m == 0
+    kv_split = q_split and rules["kv_heads"] == "model" and cfg.num_kv_heads % m == 0
+    mlp_split = rules["ffn"] == "model" and cfg.d_ff % m == 0
+    seq = model if rules["cache_seq"] == "model" else one
+    stored = model if tp is one and not replicated and model.size > 1 else None
+
+    def block_specs(kind):
+        block = block_init(None, cfg, kind, dtype, "meta")
+        sp = sanitized_specs(block_pspecs(cfg, kind), block, mesh)
+        return map_leaves(lambda _, s: (), block, sp) if replicated else sp
+
+    tps = {kind: L.TensorParallel(mesh.axis("data"), tp, block_specs(kind), q_split, kv_split,
+                                  mlp_split, batch, seq, rules["expert"] == "data", stored)
            for kind in sorted(set(layer_kinds(cfg)))}
-    return Spmd(cfg, mesh, specs, tps, cfg.vocab_size % m == 0, batch)
+    vocab_split = rules["vocab"] == "model" and cfg.vocab_size % model.size == 0
+    return Spmd(cfg, mesh, rules, specs, opt_specs, tps, vocab_split, batch)
 
 
 def _embed_table(params, spmd: Spmd):

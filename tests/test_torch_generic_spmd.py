@@ -24,7 +24,9 @@ serve steps at positions 32 and 33 wrap it) and with 3 heads over an
 lru width of 48 (``rglru-3heads``: the RG-LRU block whole on every rank, its
 caches cut).  Meshes: 1x1, 2x1, 1x2, 2x2 (``data`` x ``model``) and the
 multi-pod 2x1x2 (``pod`` x ``data`` x ``model``); a world of 4 holds
-replicas of the smaller ones.  Steps: one train step under the config's own
+replicas of the smaller ones.  Presets: every case runs under ``base``,
+``fsdp`` and ``zero2`` (``PRESETS``; a ``base`` case keeps its old id),
+from the same single-device references.  Steps: one train step under the config's own
 optimizer (the loss, ``grad_norm``, the gathered new parameters and
 moments), the prefill (the last logits and the gathered cache) and two serve
 steps against a cache of 40 slots; for the SSM and hybrid configs also a
@@ -32,15 +34,16 @@ serve step at batch 1, which the data axes do not divide (every data rank
 decodes the same row, as the dry run's ``long_500k`` records do).
 
 Held: ``torch.equal`` to the single-device port on 1x1.  Elsewhere, within
-(measured gaps in parentheses, largest over the cases):
-* the loss within ``LOSS_RTOL`` 1e-6 relative (1.0e-7);
-* ``grad_norm`` within ``GNORM_RTOL`` 1e-6 relative (2.3e-7);
-* logits within ``ATOL`` 1e-5 (2.6e-6), caches too (2.3e-6), the batch-1
-  serve step's too (1.4e-6);
+(measured gaps in parentheses, largest over the cases; ``fsdp`` and
+``zero2`` alike, after the semicolon):
+* the loss within ``LOSS_RTOL`` 1e-6 relative (1.0e-7; 1.0e-7);
+* ``grad_norm`` within ``GNORM_RTOL`` 1e-6 relative (2.3e-7; 3.4e-7);
+* logits within ``ATOL`` 1e-5 (2.6e-6; 3.0e-6), caches too (2.3e-6; 2.6e-6),
+  the batch-1 serve step's too (1.2e-6; 1.4e-6);
 * the moments within ``LEAF_REL`` 1e-5 of each leaf's largest magnitude
-  (6.4e-6, rglru-3heads' AdamW ``v``);
+  (6.4e-6, rglru-3heads' AdamW ``v``; 1.8e-6);
 * the parameters within ``LEAF_REL`` of each leaf's largest magnitude
-  (4.4e-6) wherever the clipped gradient exceeds ``ADAM_WELL_POSED`` 1e-6 (AdamW's
+  (4.4e-6; 9.3e-7) wherever the clipped gradient exceeds ``ADAM_WELL_POSED`` 1e-6 (AdamW's
   first step is lr * g / (|g| + eps), set by the gradient's sign: where the
   gradient is zero but for rounding, such as the k-projection bias's, it
   turns on rounding noise), and elsewhere within lr * (bound + weight decay *
@@ -53,11 +56,14 @@ single-device steps exceeds ``ROUTER_MARGIN`` 1e-5 (granite 1.9e-5, kimi
 input by ulps.
 Against JAX, on 2x2 and 2x1x2, every config, with the bounds of
 ``tests/test_torch_lm_models.py``: the loss within ``JAX_LOSS_RTOL`` 1e-5
-relative (2.1e-7), ``grad_norm`` within ``JAX_GNORM_RTOL`` 1e-4
-(4.6e-7), the parameters within ``JAX_STEP_ATOL`` 1e-5 (4.8e-7) where the
-clipped gradient exceeds ``ADAM_WELL_POSED`` and elsewhere within one step's
-reach + 1e-5, the prefill's and both serve steps' logits and caches within
-``JAX_ATOL`` 1e-4 (4.4e-6, caches 3.9e-6).
+relative (2.1e-7; 2.1e-7), ``grad_norm`` within ``JAX_GNORM_RTOL`` 1e-4
+(4.6e-7; 5.7e-7), the parameters within ``JAX_STEP_ATOL`` 1e-5 (4.8e-7;
+4.2e-7) where the clipped gradient exceeds ``ADAM_WELL_POSED`` and elsewhere
+within one step's reach + 1e-5, the prefill's and both serve steps' logits
+and caches within ``JAX_ATOL`` 1e-4 (4.4e-6, caches 3.9e-6; 4.5e-6, 3.9e-6).
+Under ``zero2`` on the multi-pod mesh (the batch cut over ``(pod, data)``
+only, as the reference's multi-pod override leaves it) the two ``model``
+ranks of a pod compute the same rows: their own results are ``torch.equal``.
 
 The sharded Adafactor alone: two factored updates (kimi's settings, the
 clip active) of leaves cut over ``data``, ``model``, both, a stacked leaf
@@ -69,18 +75,28 @@ largest magnitude (1.7e-7), the clip's norm within it of ``global_norm``'s
 The recorded collectives: each rank's operand bytes of every collective kind
 in the real world equal, kind by kind, what a record-only mesh of the same
 shape records on meta (``launch.mesh.record_only_mesh``), for a dense, an
-expert-parallel MoE, kimi's Adafactor, Mamba-2 and recurrentgemma step.
-Presets other than ``base`` raise, naming the ROADMAP item.
+expert-parallel MoE, kimi's Adafactor, Mamba-2 and recurrentgemma step,
+under each preset.  Under ``fsdp`` and ``zero2`` no step moves an
+all-to-all, every all-reduce carries a scalar, the MoE's per-expert
+statistics, a gradient the optimizer state leaves whole over a batch axis or
+Adafactor's factored sums, and ``zero2``'s prefill and decode steps gather
+nothing.  The ``sp`` preset fails as the JAX package's steps do: JAX's
+``NamedSharding`` refuses the logits' spec with ``DuplicateSpecError`` and
+the port's step builders raise ``ValueError`` naming ``model``.
 """
 
+import hashlib
 import traceback
 
 import numpy as np
 import pytest
 import torch
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from repro_torch import bridge
-from repro_torch.distributed.sharding import dim_axes, gather_tree, sanitized_specs, shard_tree
+from repro_torch.distributed.sharding import (dim_axes, entry_axes, gather_tree, map_leaves,
+                                              sanitized_specs, shard_tree)
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import lm as tlm
@@ -98,6 +114,7 @@ ROUTER_MARGIN = 1e-5
 ADAFACTOR_RTOL = 1e-6
 JAX_LOSS_RTOL, JAX_GNORM_RTOL, JAX_STEP_ATOL, JAX_ATOL = 1e-5, 1e-4, 1e-5, 1e-4
 JAX_MESHES = ("2x2", "pod2x1x2")
+PRESETS = ("base", "fsdp", "zero2")
 WORLD_TIMEOUT = 400.0
 OPT = dict(warmup_steps=0, total_steps=10)
 # name -> (arch, overrides of its smoke config)
@@ -253,19 +270,22 @@ def _equal_trees(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(bridge.leaves(a), bridge.leaves(b)))
 
 
-def _spmd_case(name, cfg, params, data, ref, shape, jref=None):
-    """Every sharded step of one config on one mesh, held against ``ref``
-    (and against ``jref``, the JAX package's steps, where given)."""
+def _spmd_case(name, cfg, params, data, ref, shape, jref=None, preset="base"):
+    """Every sharded step of one config on one mesh under ``preset``, held
+    against ``ref`` (and against ``jref``, the JAX package's steps, where
+    given); ``local``: a digest of this rank's own results."""
     mesh = _mesh(shape)
-    spmd = T.spmd_layout(cfg, mesh)
+    spmd = T.spmd_layout(cfg, mesh, preset=preset)
     ocfg = _opt_cfg(cfg)
     opt = make_optimizer(ocfg)
     batch = _t(data["batch"])
     lp = shard_tree(params, spmd.specs, mesh)
     lb = shard_tree(batch, _bspecs(spmd, batch, mesh), mesh)
-    state = {"params": lp, "opt_state": opt.init(lp), "step": torch.zeros((), dtype=torch.int32)}
-    new, metrics = tlm.make_train_step(cfg, opt, mesh=mesh)(state, lb)
-    ospecs = D._opt_specs(cfg, new["opt_state"], spmd.specs, params)
+    state = {"params": lp, "opt_state": spmd.opt_init(opt, lp),
+             "step": torch.zeros((), dtype=torch.int32)}
+    new, metrics = tlm.make_train_step(cfg, opt, mesh=mesh, preset=preset)(state, lb)
+    local = [metrics["loss"], metrics["grad_norm"], *bridge.leaves(new["params"])]
+    ospecs = D._opt_specs(cfg, new["opt_state"], spmd.opt_specs, params)
     moments = _moments(new["opt_state"])
     got = {"params": gather_tree(new["params"], spmd.specs, mesh),
            "opt_state": {k: gather_tree(new["opt_state"][k], ospecs[k], mesh) for k in moments}}
@@ -281,7 +301,8 @@ def _spmd_case(name, cfg, params, data, ref, shape, jref=None):
     out["leaves"] = _leaf_gaps(got, want, ref["grads"], params, ocfg.lr, ocfg.weight_decay,
                                _step_bound(ocfg))
 
-    logits, cache = tlm.make_prefill_step(cfg, mesh=mesh)(lp, lb)
+    logits, cache = tlm.make_prefill_step(cfg, mesh=mesh, preset=preset)(lp, lb)
+    local += [logits, *bridge.leaves(cache)]
     want_logits, want_cache = ref["prefill"]
     lspec = sanitized_specs((spmd.batch_entry, None, "model" if spmd.vocab_split else None),
                             want_logits, mesh)
@@ -296,10 +317,11 @@ def _spmd_case(name, cfg, params, data, ref, shape, jref=None):
     full = ref["decode_cache"]
     cspecs = spmd.cache_specs(full)
     c = shard_tree(full, cspecs, mesh)
-    serve, steps = tlm.make_serve_step(cfg, mesh=mesh), []
+    serve, steps = tlm.make_serve_step(cfg, mesh=mesh, preset=preset), []
     for i, (tok, (want_lg, want_c)) in enumerate(zip(data["tokens"], ref["steps"])):
         tok = _t(tok)
         lg, c = serve(lp, c, shard_tree(tok, _bspecs(spmd, tok, mesh), mesh), S + i)
+        local += [lg, *bridge.leaves(c)]
         lg, gc = gather_tree(lg, lspec, mesh), gather_tree(c, cspecs, mesh)
         gathered.append((lg, gc))
         steps.append((float((lg - want_lg).abs().max()),
@@ -308,13 +330,24 @@ def _spmd_case(name, cfg, params, data, ref, shape, jref=None):
                       torch.equal(lg, want_lg) and _equal_trees(gc, want_c)))
     out["serve"] = steps
     if name in ONE_ROW:
-        out["one_row"] = _one_row(cfg, spmd, mesh, lp, ref, data)
+        out["one_row"] = _one_row(cfg, spmd, mesh, lp, ref, data, preset)
     if jref is not None:
         out["jax"] = _against_jax(jref, metrics, got["params"], gathered, ocfg)
+    out["local"] = _digest(local)
+    out["coords"] = {a: mesh.axis(a).rank for a in mesh.axis_names}
     return out
 
 
-def _one_row(cfg, spmd, mesh, lp, ref, data):
+def _digest(tensors) -> str:
+    """sha256 of the tensors' shapes, dtypes and bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(repr((tuple(t.shape), t.dtype)).encode())
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _one_row(cfg, spmd, mesh, lp, ref, data, preset):
     """The first serve step at batch 1 (a batch the data axis does not
     divide: every data rank decodes the same row, as ``long_500k`` does):
     its gathered logits' and cache's largest gaps to row 0 of the batch-4
@@ -326,7 +359,7 @@ def _one_row(cfg, spmd, mesh, lp, ref, data):
         row = lambda tree: bridge.rebuild(tree, iter(x[:, :1] for x in bridge.leaves(tree)))
     one, tok = row(full), _t({k: v[:1] for k, v in data["tokens"][0].items()})
     cspecs = spmd.cache_specs(one)
-    lg, c = tlm.make_serve_step(cfg, mesh=mesh)(lp, shard_tree(one, cspecs, mesh),
+    lg, c = tlm.make_serve_step(cfg, mesh=mesh, preset=preset)(lp, shard_tree(one, cspecs, mesh),
                                                 shard_tree(tok, _bspecs(spmd, tok, mesh), mesh), S)
     lspec = sanitized_specs((spmd.batch_entry, None, "model" if spmd.vocab_split else None),
                             want_lg[:1], mesh)
@@ -370,16 +403,18 @@ def _against_jax(jref, metrics, params, gathered, ocfg):
 
 def _record_case():
     """This rank's collective operand bytes of each ``RECORD_ARCHS`` smoke
-    config's steps at 2x2 in this world (every rank returns its own)."""
+    config's steps at 2x2 in this world under each preset (every rank
+    returns its own)."""
     mesh = _mesh((2, 2))
     out = {}
-    for arch, cells in RECORD_ARCHS.items():
-        for cell in cells:
-            c = D.build_cell(arch + "_smoke", cell, mesh=mesh, device="cpu")
-            rec = D.StepRecorder()
-            with rec:
-                c.call()
-            out[arch, cell.name] = rec.collectives
+    for preset in PRESETS:
+        for arch, cells in RECORD_ARCHS.items():
+            for cell in cells:
+                c = D.build_cell(arch + "_smoke", cell, mesh=mesh, device="cpu", preset=preset)
+                rec = D.StepRecorder()
+                with rec:
+                    c.call()
+                out[_key(arch, cell.name, preset)] = rec.collectives
     return out
 
 
@@ -433,6 +468,12 @@ def _run(out, key, fn):
         out[key] = ("error", traceback.format_exc())
 
 
+def _key(name, mesh_id, preset):
+    """A case's key in a rank's results (a ``base`` case's without its
+    preset)."""
+    return (name, mesh_id) if preset == "base" else (name, mesh_id, preset)
+
+
 def _world(rank, datas, jax_refs):
     out = {}
     for name in CONFIGS:
@@ -441,9 +482,10 @@ def _world(rank, datas, jax_refs):
         ref = _reference(cfg, params, datas[name])
         out[name, "margin"] = ref["margin"]
         for mesh_id, shape in MESHES.items():
-            _run(out, (name, mesh_id),
-                 lambda: _spmd_case(name, cfg, params, datas[name], ref, shape,
-                                    jref if mesh_id in JAX_MESHES else None))
+            for preset in PRESETS:
+                _run(out, _key(name, mesh_id, preset),
+                     lambda: _spmd_case(name, cfg, params, datas[name], ref, shape,
+                                        jref if mesh_id in JAX_MESHES else None, preset))
     _run(out, ("record",), _record_case)
     _run(out, ("adafactor",), _adafactor_case)
     return out
@@ -521,75 +563,110 @@ def _case(world, key):
     return values
 
 
-CASES = [(name, mesh_id) for name in CONFIGS for mesh_id in MESHES]
+def _params(names, meshes):
+    """(name, mesh_id, preset) cases; a ``base`` case keeps the id it had
+    before the presets ran (``name-mesh``)."""
+    return [pytest.param(n, m, p, id=f"{n}-{m}" + ("" if p == "base" else f"-{p}"))
+            for n in names for m in meshes for p in PRESETS]
 
 
-@pytest.mark.parametrize("name,mesh_id", CASES)
-def test_train_step(world, name, mesh_id):
-    for r in _case(world, (name, mesh_id)):
+CASES = _params(CONFIGS, MESHES)
+
+
+@pytest.mark.parametrize("name,mesh_id,preset", CASES)
+def test_train_step(world, name, mesh_id, preset):
+    for r in _case(world, _key(name, mesh_id, preset)):
         if mesh_id == "1x1":
-            assert r["train_equal"], (name, r)
+            assert r["train_equal"], (name, preset, r)
             continue
         (loss, want), (gn, want_gn) = r["loss"], r["grad_norm"]
-        assert abs(loss - want) <= LOSS_RTOL * abs(want), (name, mesh_id, loss, want)
-        assert abs(gn - want_gn) <= GNORM_RTOL * abs(want_gn), (name, mesh_id, gn, want_gn)
+        assert abs(loss - want) <= LOSS_RTOL * abs(want), (name, mesh_id, preset, loss, want)
+        assert abs(gn - want_gn) <= GNORM_RTOL * abs(want_gn), (name, mesh_id, preset, gn,
+                                                                 want_gn)
         moments, posed, noisy_ok = r["leaves"]
-        assert moments <= LEAF_REL and posed <= LEAF_REL and noisy_ok, (name, mesh_id, r["leaves"])
+        assert moments <= LEAF_REL and posed <= LEAF_REL and noisy_ok, (name, mesh_id, preset,
+                                                                         r["leaves"])
 
 
-@pytest.mark.parametrize("name,mesh_id", CASES)
-def test_prefill_and_serve_steps(world, name, mesh_id):
-    for r in _case(world, (name, mesh_id)):
+@pytest.mark.parametrize("name,mesh_id,preset", CASES)
+def test_prefill_and_serve_steps(world, name, mesh_id, preset):
+    for r in _case(world, _key(name, mesh_id, preset)):
         for logits_gap, cache_gap, equal in [r["prefill"], *r["serve"]]:
             if mesh_id == "1x1":
-                assert equal, (name, r)
+                assert equal, (name, preset, r)
             else:
-                assert logits_gap <= ATOL and cache_gap <= ATOL, (name, mesh_id, r)
+                assert logits_gap <= ATOL and cache_gap <= ATOL, (name, mesh_id, preset, r)
 
 
 def test_ranks_agree(world):
     """Every rank of a mesh gets the same loss, grad_norm and gathered gaps."""
-    for key in [(n, m) for n, m in CASES]:
-        values = _case(world, key)
+    for case in CASES:
+        values = _case(world, _key(*case.values))
         assert all(v["loss"] == values[0]["loss"] and v["grad_norm"] == values[0]["grad_norm"]
-                   for v in values), key
+                   for v in values), case.values
 
 
-JAX_CASES = [(name, mesh_id) for name in CONFIGS for mesh_id in JAX_MESHES]
+@pytest.mark.parametrize("name", CONFIGS)
+def test_zero2_model_ranks_equal_on_multi_pod(world, name):
+    """Under ``zero2`` on the multi-pod mesh the batch is cut over ``(pod,
+    data)`` only (the reference's multi-pod override), so the two ``model``
+    ranks of a pod compute the same rows: their own results (loss,
+    grad_norm, the new parameters, the prefill's and the serve steps'
+    logits and caches) are ``torch.equal`` (equal digests of their bytes)."""
+    by_pod: dict = {}
+    for r in _case(world, _key(name, "pod2x1x2", "zero2")):
+        by_pod.setdefault((r["coords"]["pod"], r["coords"]["data"]), {})[
+            r["coords"]["model"]] = r["local"]
+    assert len(by_pod) == 2
+    for pod, digests in by_pod.items():
+        assert sorted(digests) == [0, 1] and len(set(digests.values())) == 1, (name, pod)
 
 
-@pytest.mark.parametrize("name,mesh_id", JAX_CASES)
-def test_train_step_against_jax(world, name, mesh_id):
+JAX_CASES = _params(CONFIGS, JAX_MESHES)
+
+
+@pytest.mark.parametrize("name,mesh_id,preset", JAX_CASES)
+def test_train_step_against_jax(world, name, mesh_id, preset):
     """The sharded train step from the JAX package's weights against the JAX
     package's own single-device step."""
-    for r in _case(world, (name, mesh_id)):
+    for r in _case(world, _key(name, mesh_id, preset)):
         j = r["jax"]
-        assert j["loss"] <= JAX_LOSS_RTOL and j["grad_norm"] <= JAX_GNORM_RTOL, (name, mesh_id, j)
-        assert j["posed"] <= JAX_STEP_ATOL and j["noisy_ok"], (name, mesh_id, j)
+        assert j["loss"] <= JAX_LOSS_RTOL and j["grad_norm"] <= JAX_GNORM_RTOL, (
+            name, mesh_id, preset, j)
+        assert j["posed"] <= JAX_STEP_ATOL and j["noisy_ok"], (name, mesh_id, preset, j)
 
 
-@pytest.mark.parametrize("name,mesh_id", JAX_CASES)
-def test_prefill_and_serve_steps_against_jax(world, name, mesh_id):
+@pytest.mark.parametrize("name,mesh_id,preset", JAX_CASES)
+def test_prefill_and_serve_steps_against_jax(world, name, mesh_id, preset):
     """The sharded prefill and two serve steps, gathered, against the JAX
     package's single-device ones on the same weights and inputs."""
-    for r in _case(world, (name, mesh_id)):
+    for r in _case(world, _key(name, mesh_id, preset)):
         j = r["jax"]
-        assert j["logits"] <= JAX_ATOL and j["cache"] <= JAX_ATOL, (name, mesh_id, j)
+        assert j["logits"] <= JAX_ATOL and j["cache"] <= JAX_ATOL, (name, mesh_id, preset, j)
+
+
+def _record_only(preset):
+    """Rank 0's collective operand bytes of each ``RECORD_ARCHS`` cell on a
+    record-only 2x2 mesh on meta under ``preset``."""
+    want = {}
+    for arch, cells in RECORD_ARCHS.items():
+        for cell in cells:
+            c = D.build_cell(arch + "_smoke", cell, mesh=tmesh.record_only_mesh((2, 2)),
+                             preset=preset)
+            rec = D.StepRecorder()
+            with rec:
+                c.call()
+            want[_key(arch, cell.name, preset)] = rec.collectives
+    return want
 
 
 def test_recorded_bytes_equal_record_only_mesh(world):
     """Each rank's collective operand bytes, kind by kind, equal rank 0's of
     a record-only 2x2 mesh on meta, for the train, prefill and decode steps
     of a dense, an expert-parallel MoE (its all-to-all), kimi's Adafactor
-    train step, Mamba-2 and recurrentgemma (and their decode at batch 1)."""
-    want = {}
-    for arch, cells in RECORD_ARCHS.items():
-        for cell in cells:
-            c = D.build_cell(arch + "_smoke", cell, mesh=tmesh.record_only_mesh((2, 2)))
-            rec = D.StepRecorder()
-            with rec:
-                c.call()
-            want[arch, cell.name] = rec.collectives
+    train step, Mamba-2 and recurrentgemma (and their decode at batch 1),
+    under each preset."""
+    want = {k: v for preset in PRESETS for k, v in _record_only(preset).items()}
     assert set(want["llama3.2-1b", "t"]) == {"all-gather", "all-reduce", "reduce-scatter"}
     assert "all-to-all" in want["llama3.2-1b", "p"]
     for arch in ("granite-moe-3b-a800m", "kimi-k2-1t-a32b"):   # 8 experts on data = 2
@@ -598,15 +675,94 @@ def test_recorded_bytes_equal_record_only_mesh(world):
         assert got == want
 
 
-@pytest.mark.parametrize("preset", ["fsdp", "sp", "zero2"])
-def test_other_presets_raise(preset):
-    cfg = _cfg("llama3.2-1b")
+class _Collectives(TorchDispatchMode):
+    """Every collective entry a step reports (``launch.mesh``'s report),
+    each operation passed straight through."""
+
+    def __init__(self):
+        super().__init__()
+        self.entries: list = []
+
+    def record_collective(self, entry: dict) -> None:
+        self.entries.append(entry)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+def _summed_shapes(cfg, mesh, preset):
+    """The shapes an all-reduce may carry under a preset without tensor
+    parallelism: a scalar (the loss's sums, the clip's norm), the MoE's
+    per-expert statistics (E,), the gradient block of a leaf the optimizer
+    state leaves whole over a batch axis (summed over it) and, under
+    Adafactor, the factored sums of a cut leaf's block (its row and column
+    sums and their normaliser's)."""
+    spmd = T.spmd_layout(cfg, mesh, preset=preset)
+    batch = {a.name for a in spmd.batch if a.size > 1}
+    blocks = shard_tree(T.init_lm(0, cfg, device="meta"), spmd.opt_specs, mesh)
+    shapes = {(), (cfg.num_experts,)}
+    map_leaves(lambda b, sp: batch <= {a for e in sp for a in entry_axes(e)}
+               or shapes.add(tuple(b.shape)), blocks, spmd.opt_specs)
+    if cfg.opt_kind == "adafactor":
+        for blk in bridge.leaves(blocks):
+            if blk.ndim >= 2:
+                b = tuple(blk.shape)
+                shapes |= {b[:-1], b[:-2] + b[-1:], b[:-2]}
+    return shapes
+
+
+@pytest.mark.parametrize("preset", ["fsdp", "zero2"])
+@pytest.mark.parametrize("arch", RECORD_ARCHS)
+def test_preset_collective_structure(arch, preset):
+    """Rank 0 of a record-only 2x2 mesh under ``fsdp`` and ``zero2``: no
+    step moves an all-to-all (no expert parallelism, the cache's sequence
+    whole); every all-reduce carries a scalar, the MoE's per-expert
+    statistics, the gradient of a leaf the optimizer state does not cut or,
+    under Adafactor, a cut leaf's factored sums (no tensor-parallel psum
+    remains); ``zero2``'s prefill and decode steps move no all-gather or
+    reduce-scatter either (no weight is gathered)."""
     mesh = tmesh.record_only_mesh((2, 2))
-    for make in (lambda: tlm.make_prefill_step(cfg, mesh=mesh, preset=preset),
-                 lambda: tlm.make_serve_step(cfg, mesh=mesh, preset=preset),
+    cfg = tlm.get_config(arch + "_smoke")
+    allowed = _summed_shapes(cfg, mesh, preset)
+    for cell in RECORD_ARCHS[arch]:
+        rec = _Collectives()
+        c = D.build_cell(arch + "_smoke", cell, mesh=mesh, preset=preset)
+        with rec:
+            c.call()
+        hlos = {e["hlo"] for e in rec.entries}
+        assert "all-to-all" not in hlos, (arch, cell.name, preset, hlos)
+        if preset == "zero2" and cell.kind != "train":
+            assert hlos <= {"all-reduce"}, (arch, cell.name, hlos)
+        summed = {e["shape"] for e in rec.entries if e["hlo"] == "all-reduce"}
+        assert summed <= allowed, (arch, cell.name, preset, summed - allowed)
+
+
+@pytest.mark.parametrize("mesh_id", JAX_MESHES)
+def test_sp_preset_fails_as_reference(mesh_id):
+    """The ``sp`` preset maps ``seq`` and ``vocab`` both to ``model``: JAX
+    refuses the logits' spec ``("batch", "seq", "vocab")`` with
+    ``DuplicateSpecError`` (on an ``AbstractMesh``, no devices needed), so
+    the JAX package's steps fail under it in every layer kind; the port's
+    three step builders raise ``ValueError`` naming the ``model`` axis."""
+    from jax.sharding import AbstractMesh
+    from jax.sharding import NamedSharding as JNamedSharding
+
+    from repro.distributed.sharding import make_rules as j_make_rules
+    from repro.distributed.sharding import spec as j_spec
+
+    shape = MESHES[mesh_id]
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    rules = j_make_rules(multi_pod=len(shape) == 3, preset="sp")
+    with pytest.raises(Exception, match="duplicate entries for `model`") as err:
+        JNamedSharding(AbstractMesh(shape, axes), j_spec("batch", "seq", "vocab", rules=rules))
+    assert type(err.value).__name__ == "DuplicateSpecError"
+    cfg = _cfg("llama3.2-1b")
+    mesh = tmesh.record_only_mesh(shape, axes)
+    for make in (lambda: tlm.make_prefill_step(cfg, mesh=mesh, preset="sp"),
+                 lambda: tlm.make_serve_step(cfg, mesh=mesh, preset="sp"),
                  lambda: tlm.make_train_step(cfg, make_optimizer(OptimizerConfig()), mesh=mesh,
-                                             preset=preset)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6b part 3"):
+                                             preset="sp")):
+        with pytest.raises(ValueError, match="duplicate entries for `model`"):
             make()
 
 
@@ -620,14 +776,14 @@ def test_router_margin(world, name):
         assert margin > ROUTER_MARGIN and under == 0, (name, margin, under)
 
 
-@pytest.mark.parametrize("name,mesh_id", [(n, m) for n in ONE_ROW for m in ("2x2", "pod2x1x2")])
-def test_serve_step_at_one_row(world, name, mesh_id):
-    """A decode step at batch 1, which the data axes do not divide (every
-    data rank decodes the same row, as ``long_500k``'s records do), gives
-    row 0 of the batch-4 single-device step."""
-    for r in _case(world, (name, mesh_id)):
+@pytest.mark.parametrize("name,mesh_id,preset", _params(ONE_ROW, JAX_MESHES))
+def test_serve_step_at_one_row(world, name, mesh_id, preset):
+    """A decode step at batch 1, which the batch axes do not divide (every
+    rank decodes the same row, as ``long_500k``'s records do), gives row 0
+    of the batch-4 single-device step."""
+    for r in _case(world, _key(name, mesh_id, preset)):
         logits_gap, cache_gap = r["one_row"]
-        assert logits_gap <= ATOL and cache_gap <= ATOL, (name, mesh_id, r["one_row"])
+        assert logits_gap <= ATOL and cache_gap <= ATOL, (name, mesh_id, preset, r["one_row"])
 
 
 @pytest.mark.parametrize("leaf", ["data", "model", "both", "stacked", "vector"])
