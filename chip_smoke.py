@@ -202,32 +202,31 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
  16. the generic LM's SPMD steps of the dense kind (``lm.make_*_step(mesh=)``;
      no hand kernel may launch): ``llama3.2-1b`` at full width cut to
      SPMD_DEPTH (2) layers, in f32 (TF32 off), an AdamW step of 4 x 512
-     tokens, a 4 x 32 prefill and 8 greedy steps on one device, then the
-     same state handed by IPC to a 2x2 gloo world of 4 ranks on this card,
-     each rank's loss, grad_norm, block of the new state, logits and tokens
-     held against the single device's, its collective operand bytes
-     against a record-only 2x2 mesh's on meta;
+     tokens, a 4 x 32 prefill and SPMD_STEPS (2) greedy steps on one device,
+     then the same state handed by IPC to a 2x2 gloo world of 4 ranks on
+     this card, which runs the steps under the ``base``, ``fsdp`` and
+     ``zero2`` presets in turn (SPMD_PRESETS), each rank's loss, grad_norm,
+     block of the new state, logits and tokens held against the single
+     device's, its collective operand bytes against a record-only 2x2
+     mesh's on meta under that preset;
  17. the same for the MoE, SSM and hybrid kinds, one config at a time
-     (``SPMD17``): ``granite-moe-3b-a800m`` at full width cut to 8 layers
-     (40 experts split 20/20 over ``data``: the all-to-all runs), also one
-     train step under kimi's Adafactor settings; ``mamba2-130m`` whole;
-     ``recurrentgemma-9b`` at full width cut to one rec, rec, attn_local
-     period, its 2 x 2048-token prompt as long as its window so that the 8
-     decode steps wrap the ring; caches held too.  Every rank compares the
-     experts it picked with the single device's: an MoE step in which none
-     flipped is held in full (else SPMD_FLIP_SHARE); Adafactor's elements
-     where the single device's row x col underflows are counted, not held;
- 18. the same under the ``fsdp`` and ``zero2`` presets (``SPMD18``:
-     ``llama3.2-1b`` at SPMD_DEPTH layers and ``granite-moe-3b-a800m`` at 4,
-     its MoE device-local with the experts gathered whole, also under
-     Adafactor), both presets in turn in one world per config, each held
-     against the single-device steps and the record-only mesh's bytes under
-     that preset; the three step builders under ``sp`` must raise
-     ``ValueError`` naming ``model``, as the reference's ``NamedSharding``
-     refuses the spec; meanwhile a process of its own records a rank's
-     collective operand bytes of ``llama3.2-1b``'s train_4k cell on the
-     production 16x16 mesh under ``base``, ``fsdp`` and ``zero2`` (meta).
-     Phases 16, 17 and 18 share one runner, ``phase_spmd``.
+     (``SPMD17``): ``granite-moe-3b-a800m`` at full width cut to 2 layers
+     (under ``base`` its 40 experts split 20/20 over ``data``: the
+     all-to-all runs; under ``fsdp`` and ``zero2`` its MoE is device-local,
+     the experts gathered whole), also one train step under kimi's Adafactor
+     settings; ``mamba2-130m`` at 4 layers; ``recurrentgemma-9b`` at full
+     width cut to one rec, rec, attn_local period, its 2 x 2048-token prompt
+     as long as its window so that the decode steps wrap the ring; caches
+     held too.  Every rank compares the experts it picked with the single
+     device's: an MoE step in which none flipped is held in full (else
+     SPMD_FLIP_SHARE); Adafactor's elements where the single device's
+     row x col underflows are counted, not held;
+ 18. the three step builders under ``sp`` must raise ``ValueError`` naming
+     ``model``, as the reference's ``NamedSharding`` refuses the spec; and,
+     in a process of its own beside the worlds of phases 16 and 17, a
+     rank's collective operand bytes of ``llama3.2-1b``'s train_4k cell on
+     the production 16x16 mesh under ``base``, ``fsdp`` and ``zero2``
+     (meta).  Phases 16 and 17 share one runner, ``phase_spmd``.
 Phase 2 also holds K7 (the LIF backward) ``torch.equal`` to its plain
 version at the six LIF shapes of the training batch, chain_len 1/2/4, both
 resets, and the LM path's kernels at its shapes: K3, K6 and K9 at Dh=512
@@ -242,7 +241,12 @@ version, each row also
 against the same row at another row count; K1, K4 and K7 on bf16 drives at
 the 8-384 shapes (``torch.equal``, timed against their byte bounds, then
 the bf16 path -- ``core.lif.lif`` on bf16 drives, one forward and one
-training step's LIFs -- with its launches counted); and K3, K6 and K9 past
+training step's LIFs -- with its launches counted and each run profiled);
+K1 and K4 over the edges of their vector design (``_lif_edges``: f32 and
+bf16, T = 1, 4, 32, 33, 40, every chain_len of 1, 2, 3, 4, 8 dividing T,
+both resets, IAND off and on, N of every residue mod 8 and an operand at a
+one-element offset, and K4's occupancy map of rows of D = 48, 96, 192, 200,
+384, 1536, 2048 and 130, each ``torch.equal`` its plain version); and K3, K6 and K9 past
 the 2^24 edge (N = M = 33,024, Dh = 512, causal, near-all-ones operands,
 every row ``torch.equal`` the plain version in 1024-row slices); and K2, K5
 and K8 at a model shard's 192 and 96 columns and a data shard's half rows,
@@ -263,11 +267,12 @@ model's own operands.  The entries named ``*@llama3.2-1b`` are the LM
 path's: per prefill forward at its shapes (``... decode``: K2 per decode
 step), ``launches`` over the prefills (the decode steps) of phase 6's
 ``serve_spiking_lm`` run on the kernel's route, ``device_ms`` from one
-profiled prefill (step).  The entries after those are this slice's: the
-bf16 forms of K1, K4, K7 (per forward, K7 per training step; ``launches``
-from the bf16 path), K3/K6/K9 past 2^24 (per launch; ``launches`` from phase
-8's prefills) and K2 at the bitplane input's shape (``launches`` from phase
-9); their ``device_ms`` is not measured (null).  The last three entries,
+profiled prefill (step).  The entries after those: the bf16 forms of K1,
+K4, K7 (per forward, K7 per training step; ``launches`` from the bf16 path,
+``device_ms`` from its profiled forward and step), K3/K6/K9 past 2^24 (per
+launch; ``launches`` from phase 8's prefills) and K2 at the bitplane input's
+shape (``launches`` from phase 9), whose ``device_ms`` is not measured
+(null).  The last three entries,
 ``*@lm-train``, are phase 13's: K1, K7 and K3 per training step of the
 full-width LM (``launches`` over its ``train_fixture_params`` run,
 ``launches_per_forward`` per step, ``device_ms`` from its profiled step).
@@ -294,7 +299,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = Path(__file__).resolve().parent
 ARCH = "spike-iand-former-8-384"
 SLOTS, REQUESTS = 8, 24
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at 700 W
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores, same source
 TC_FLOP_PER_S = 989e12         # f16/bf16 tensor cores, dense, f32 accumulation, same source
 GEMM_TOL = dict(rtol=1e-5, atol=1e-4)   # f32 sums of up to 1728 terms, reordered
@@ -403,6 +407,8 @@ def bound_ms(nbytes: float, flops: float, peak: float = TC_FLOP_PER_S) -> tuple[
     f16/bf16 tensor cores for the SSA kernels and the GEMMs, exact on binary
     operands, the GEMMs with three bf16 products each; float32 for the LIF
     kernels' elementwise work)."""
+    from repro_torch.launch.timing import HBM_BYTES_PER_S
+
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -2836,19 +2842,15 @@ def _lif_bf16(dev, gen):
     from repro_torch.kernels.lif_parallel import ops as lif_ops
     from repro_torch.kernels.lif_parallel.ref import (
         lif_pack_ref, lif_parallel_ref, lif_parallel_ref_grad)
+    from repro_torch.launch.timing import LIF_T as t, VISION_LIFS
 
-    t, ntok, d, hid = 4, 196, 384, 1536
     src = "src/repro_torch/kernels/lif_parallel/csrc/lif_parallel.cu"
     tpu = "src/repro/kernels/lif_parallel/kernel.py:{}"
     reps = {"K1": KernelReport("lif_parallel bf16", src, tpu.format(144)),
             "K4": KernelReport("lif_pack bf16", src, tpu.format(174)),
             "K7": KernelReport("lif_parallel_bwd bf16", src, tpu.format(211))}
-    fwd_cases = [(SLOTS * 112 * 112 * 48, False, 1), (SLOTS * 56 * 56 * 96, False, 1 + 8),
-                 (SLOTS * 28 * 28 * 192, False, 1), (SLOTS * ntok * d, False, 1 + 4 * 8),
-                 (SLOTS * ntok * d, True, 2 * 8)]
-    bwd_cases = [(TRAIN_BATCH * 112 * 112 * 48, 1), (TRAIN_BATCH * 56 * 56 * 96, 1),
-                 (TRAIN_BATCH * 28 * 28 * 192, 1), (TRAIN_BATCH * ntok * d, 1 + 6 * 8),
-                 (TRAIN_BATCH * ntok * hid, 8)]
+    fwd_cases = [(SLOTS * n, iand, count) for n, iand, count, _ in VISION_LIFS]
+    bwd_cases = [(TRAIN_BATCH * n, count) for n, _, count, _ in VISION_LIFS]
     big = max(n for n, _ in bwd_cases)
     drive = torch.randn((t, big), generator=gen).to(dev)
     drive[:, ::3] = torch.round(drive[:, ::3] * 8) / 8      # membranes exactly on theta too
@@ -2910,30 +2912,33 @@ def _lif_bf16_path(dev, gen, reps):
     before and read just after: 60 K1, 60 K4 and 60 K7."""
     from repro_torch.core import packing
     from repro_torch.core.lif import lif
+    from repro_torch.launch.timing import LIF_T as t, VISION_LIFS
 
-    t, ntok, d, hid = 4, 196, 384, 1536
-    units = ("q", "k", "v", "attn", "proj", "fc1", "fc2")
-    block = [(ntok * (hid if u == "fc1" else d), u in ("proj", "fc2")) for u in units] * 8
-    per_image = [(112 * 112 * 48, False), (56 * 56 * 96, False), (28 * 28 * 192, False),
-                 (ntok * d, False)] + block
+    per_image = [(n, iand) for n, iand, count, _ in VISION_LIFS for _ in range(count)]
     fwd = [(SLOTS * n, iand) for n, iand in per_image]
     bwd = [TRAIN_BATCH * n for n, _ in per_image]
     drive = torch.randn((t, max(bwd)), generator=gen).to(dev).bfloat16()
     skip = (torch.rand((t, max(n for n, _ in fwd)), generator=gen) > 0.5).to(dev).bfloat16()
     skip_words = packing.PackedSpikes(packing.pack(skip.float()).words, t)
+    def forward():
+        for n, j in fwd:
+            out = lif(drive[:, :n], use_kernel=True, iand_skip=skip[:, :n] if j else None)
+            check(out.dtype == torch.bfloat16, f"bf16 lif returned {out.dtype}")
+            lif(drive[:, :n], use_kernel=True, pack_output=True,
+                iand_skip=packing.PackedSpikes(skip_words.words[:, :n], t) if j else None)
+
+    def step():
+        for n in bwd:
+            x = drive[:, :n].clone().requires_grad_(True)
+            with torch.enable_grad():
+                (dx,) = torch.autograd.grad(lif(x, use_kernel=True), x, torch.ones_like(x))
+            check(dx.dtype == torch.bfloat16, f"bf16 lif backward returned {dx.dtype}")
+
     counters = _counters()
     for f in counters.values():
         f.launches = 0
-    for n, j in fwd:
-        out = lif(drive[:, :n], use_kernel=True, iand_skip=skip[:, :n] if j else None)
-        check(out.dtype == torch.bfloat16, f"bf16 lif returned {out.dtype}")
-        lif(drive[:, :n], use_kernel=True, pack_output=True,
-            iand_skip=packing.PackedSpikes(skip_words.words[:, :n], t) if j else None)
-    for n in bwd:
-        x = drive[:, :n].clone().requires_grad_(True)
-        with torch.enable_grad():
-            (dx,) = torch.autograd.grad(lif(x, use_kernel=True), x, torch.ones_like(x))
-        check(dx.dtype == torch.bfloat16, f"bf16 lif backward returned {dx.dtype}")
+    forward()
+    step()
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     want = dict.fromkeys(counters, 0)
@@ -2944,6 +2949,130 @@ def _lif_bf16_path(dev, gen, reps):
     for key, rep in reps.items():
         rep.entry["launches"] = launches[key]
         rep.entry["launches_per_forward"] = launches[key] / (1 + (key == "K1"))
+    # device time: K1 and K4 of the forward, K7 of the step (each run profiled
+    # after a traced warm-up run, as every route's forward is)
+    fwd_ms = _profile("bf16 lif path forward", forward, {"K1": len(fwd), "K4": len(fwd)})
+    step_ms = _profile("bf16 lif path step", step, {"K1": len(bwd), "K7": len(bwd)},
+                       inference=False)
+    for key, times in (("K1", fwd_ms), ("K4", fwd_ms), ("K7", step_ms)):
+        reps[key].entry["device_ms"] = times.get(key)
+        log(f"  bf16 {key} device ms per {'step' if key == 'K7' else 'forward'} on the path "
+            f"{times.get(key, float('nan')):.4f} against a {reps[key].entry['bound_ms']:.4f} "
+            f"ms byte bound ({reps[key].entry['bound_ms'] / times.get(key, float('nan')):.1%})")
+
+
+# -- K1 and K4 over the edges of their design (phase 2) -------------------------------
+
+LIF_EDGE_STEPS = (1, 4, 32, 33, 40)        # one step, the unrolled T, words full and ragged
+LIF_EDGE_CHAINS = (1, 2, 3, 4, 8)
+LIF_EDGE_N = 8 * 129                       # columns, plus 0...7: every residue of VEC
+LIF_EDGE_OCC = (48, 96, 192, 200, 384, 1536, 2048, 130)   # map row widths D
+LIF_EDGE_ROWS = 5                          # rows of D: a partial last warp at D = 384
+
+
+def _lif_edges(dev, gen):
+    """K1 and K4 (with and without its occupancy map) ``torch.equal`` their
+    plain versions over the edges of the vector design, each call one
+    launch: f32 and bf16; T of LIF_EDGE_STEPS (T = 4 the unrolled body, the
+    rest the chunked loop); every chain_len of LIF_EDGE_CHAINS that divides T;
+    hard and soft reset; IAND off and on; N = LIF_EDGE_N + 0...7 (every
+    residue of the 4 f32 and 8 bf16 columns a thread: the wide body where
+    N allows it, else the scalar one; the plain versions once on the widest
+    drive, each launch held against its first N columns) and a drive (and
+    skip) at a one-element offset (the scalar body); then K4's map of LIF_EDGE_ROWS rows
+    of each D in LIF_EDGE_OCC (a third of the rows silent: zero tiles), T 4
+    and 33, IAND off and on, both dtypes, also at an offset, each map equal
+    to ``packing.occupancy_map`` of the plain words.  Logs the bodies taken
+    (``ops.forward_body``)."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.lif_parallel import ops as lif_ops
+    from repro_torch.kernels.lif_parallel.ref import lif_pack_ref, lif_parallel_ref
+
+    t0 = time.perf_counter()
+    bodies, bad, calls = {}, [], 0
+    counters = (lif_ops.lif_parallel_fwd, lif_ops.lif_parallel_pack_fwd)
+    before = [f.launches for f in counters]
+
+    def operands(t, n, dtype, offset):
+        """A (t, n) drive (a third on the 1/8 grid: membranes on theta), a
+        dense skip and skip words, each at ``offset`` elements into its buffer."""
+        def at(x):
+            buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+            view = buf[offset:].view(x.shape)
+            view.copy_(x)
+            return view
+
+        drive = torch.randn((t, n), generator=gen).to(dev)
+        drive[:, ::3] = torch.round(drive[:, ::3] * 8) / 8
+        spikes = (torch.rand((t, n), generator=gen) > 0.5).to(dev)
+        return (at(drive.to(dtype)), at(spikes.to(dtype)),
+                at(packing.pack(spikes.float()).words))
+
+    def body(x, *others, occ_cols=0):
+        key = lif_ops.forward_body(x.dtype, x.shape[1], [a.data_ptr() for a in (x, *others)],
+                                   occ_cols)
+        bodies[key] = bodies.get(key, 0) + 1
+
+    # the plain versions run once on the widest drive: the LIF is independent
+    # across columns, so a launch of the first n columns is held against the
+    # plain result's first n columns
+    widths = [LIF_EDGE_N + r for r in range(8)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in LIF_EDGE_STEPS:
+            for chain in (c for c in LIF_EDGE_CHAINS if t % c == 0):
+                for offset in (0, 1):
+                    ns = widths if offset == 0 else [LIF_EDGE_N]
+                    xw, skip, skw = operands(t, ns[-1], dtype, offset)
+                    cut = ((lambda a, n: a[:, :n].contiguous()) if offset == 0 else
+                           (lambda a, n: a))       # at an offset: the operands as made
+                    for reset in ("hard", "soft"):
+                        kw = dict(chain_len=chain, lam=0.25, theta=0.5, reset=reset)
+                        for iand in (False, True):
+                            sk, sw = (skip, skw) if iand else (None, None)
+                            spikes = lif_parallel_ref(xw, skip=sk, **kw)
+                            words = lif_pack_ref(xw, skip_words=sw, **kw)
+                            for n in ns:
+                                x = cut(xw, n)
+                                skn, swn = (cut(sk, n), cut(sw, n)) if iand else (None, None)
+                                label = (f"{dtype} T={t} chain_len={chain} N={n} "
+                                         f"offset={offset} {reset} iand={iand}")
+                                if not torch.equal(lif_ops.lif_parallel_fwd(x, skip=skn, **kw),
+                                                   spikes[:, :n]):
+                                    bad.append(f"K1 {label}")
+                                if not torch.equal(
+                                        lif_ops.lif_parallel_pack_fwd(x, skip_words=swn, **kw),
+                                        words[:, :n]):
+                                    bad.append(f"K4 {label}")
+                                body(x, *([skn] if iand else []))
+                                calls += 2
+        for d in LIF_EDGE_OCC:
+            for t in (4, 33):
+                n = LIF_EDGE_ROWS * d
+                for offset in (0, 1):
+                    x, _, skw = operands(t, n, dtype, offset)
+                    x.view(t, LIF_EDGE_ROWS, d)[:, ::3] -= 9.0   # silent rows: zero tiles
+                    kw = dict(chain_len=t, lam=0.25, theta=0.5, reset="hard")
+                    for iand in (False, True):
+                        sw = skw if iand else None
+                        words, occ = lif_ops.lif_parallel_pack_fwd(x, skip_words=sw, occ_cols=d,
+                                                                   **kw)
+                        want = lif_pack_ref(x, skip_words=sw, **kw)
+                        if not (torch.equal(words, want) and torch.equal(
+                                occ, packing.occupancy_map(want.reshape(-1, LIF_EDGE_ROWS, d)))):
+                            bad.append(f"K4+map {dtype} D={d} T={t} offset={offset} iand={iand}")
+                        body(x, *([sw] if iand else []), occ_cols=d)
+                        calls += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launched = sum(f.launches - b for f, b in zip(counters, before))
+    check(launched == (calls if dev.type == "cuda" else 0),
+          f"K1/K4 edges: {launched} launches for {calls} calls")
+    check(not bad, f"K1/K4 differ from their plain versions at {len(bad)} edge case(s): "
+          f"{bad[:12]}")
+    log(f"K1, K4 (+ occupancy map) over their edges: {calls} calls, {launched} launches, "
+        f"{len(bad)} differ from the plain versions; bodies (vec, map summed in the warp): "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(bodies.items()))
+        + f"; {time.perf_counter() - t0:.1f} s")
 
 
 # -- K3, K6, K9 past M * Dh = 2^24 (phase 2) --------------------------------------------
@@ -3361,7 +3490,7 @@ def phase_learning(dev, smi):
 MESH_RANKS = 4
 VISION_MESHES = ((1, 2), (2, 1), (2, 2))
 LM_MESHES = ((1, 2), (2, 2))
-MESH_STEPS = 4                  # decode steps after the prefill of the LM check
+MESH_STEPS = 2                  # decode steps after the prefill of the LM check (cut from 4: the 1200 s limit)
 MESH_TIMEOUT = 480.0            # seconds the 4-rank world may take
 PROBE_TIMEOUT = 90.0
 
@@ -4887,14 +5016,14 @@ def phase_generic_train(dev, smi):
 
 
 # ---------------------------------------------------------------------------
-# phases 16, 17 and 18: the generic LM's SPMD steps on a gloo world
+# phases 16 and 17: the generic LM's SPMD steps on a gloo world; phase 18: the sp preset
 # ---------------------------------------------------------------------------
 
 SPMD_RANKS, SPMD_MESH = 4, (2, 2)
 SPMD_DEPTH = 2                  # llama3.2-1b's 16 layers cut to 2 (phase 17 shares the time limit)
 SPMD_TRAIN = (4, 512)           # batch x tokens of the train steps
 SPMD_PREFILL = (4, 32)          # batch x prompt tokens
-SPMD_STEPS = 8                  # greedy decode steps after the prefill
+SPMD_STEPS = 2                  # greedy decode steps after the prefill (cut from 8: the 1200 s limit)
 SPMD_SEED = 0
 SPMD_TIMEOUT = 600.0
 # The sharded steps against the single-device ones on the card, same weights,
@@ -4915,28 +5044,31 @@ SPMD_LOSS_RTOL = 1e-5
 SPMD_WELL_POSED = 1e-6
 SPMD_MARGIN = 1e-4
 SPMD_OPT = dict(warmup_steps=0, total_steps=10)   # the default lr 5e-4 from step 0
-# (arch, depth kept or None for the whole config, prefill batch x tokens).
-# Phase 16 the dense kind; phase 17 the MoE, SSM and hybrid kinds,
-# recurrentgemma first, whose single-device step needs most of the card.
-# granite at 8 of its 32 layers (its AdamW state at full depth is ~53 GB on
-# one device), recurrentgemma at one rec, rec, attn_local period with a
-# prompt as long as its window, so that the decode steps wrap the ring.  An
+# (arch, depth kept or None for the whole config, prefill batch x tokens,
+# presets run in turn in its one world; phase_spmd's ``presets`` where the
+# tuple has three entries).  Phase 16 the dense kind; phase 17 the MoE, SSM
+# and hybrid kinds, recurrentgemma first, whose single-device step needs
+# most of the card.  llama3.2-1b and granite run under base, fsdp and zero2
+# in one world each (under fsdp and zero2 granite's MoE is device-local,
+# each rank's experts gathered whole): one world start and one
+# single-device reference serve all three presets.
+# granite at 2 of its 32 layers and mamba2-130m at 4 of its 24 (cut from 8
+# and all: the script's 1200 s limit; every layer of each is of one kind),
+# recurrentgemma at one rec, rec, attn_local period with a prompt as
+# long as its window, so that the decode steps wrap the ring.  An
 # MoE also takes one train step under kimi's Adafactor settings (factored
 # second moment, no first moment).
-SPMD16 = ((GEN_ARCH, SPMD_DEPTH, SPMD_PREFILL),)
-SPMD17 = (("recurrentgemma-9b", 3, (2, 2048)), ("granite-moe-3b-a800m", 8, (4, 32)),
-          ("mamba2-130m", None, (4, 32)))
+SPMD_PRESETS = ("base", "fsdp", "zero2")
+SPMD16 = ((GEN_ARCH, SPMD_DEPTH, SPMD_PREFILL, SPMD_PRESETS),)
+SPMD17 = (("recurrentgemma-9b", 3, (2, 2048), ("base",)),
+          ("granite-moe-3b-a800m", 2, (4, 32), SPMD_PRESETS), ("mamba2-130m", 4, (4, 32), ("base",)))
 SPMD_ADAFACTOR = dict(kind="adafactor", b1=0.0)
-# Phase 18: the same runner under the fsdp and zero2 presets, one world per
-# config running both in turn: llama3.2-1b at SPMD_DEPTH, granite at 4 of its
-# 32 layers (under both presets its MoE is device-local, each rank's experts
-# gathered whole).  The sp preset is refused before any step: its logits'
-# spec ("batch", "seq", "vocab") names ``model`` twice, as the reference's
-# NamedSharding refuses it.  Beside the world, a process of its own records
-# on meta the collective operand bytes of a rank of GEN_ARCH's train_4k cell
-# on the production mesh (PRESET_BYTES_MESH) under base and both presets.
-SPMD18 = ((GEN_ARCH, SPMD_DEPTH, SPMD_PREFILL), ("granite-moe-3b-a800m", 4, (4, 32)))
-SPMD18_PRESETS = ("fsdp", "zero2")
+# Phase 18: the sp preset is refused before any step: its logits' spec
+# ("batch", "seq", "vocab") names ``model`` twice, as the reference's
+# NamedSharding refuses it.  Beside the worlds of phases 16 and 17, a process
+# of its own records on meta the collective operand bytes of a rank of
+# GEN_ARCH's train_4k cell on the production mesh (PRESET_BYTES_MESH) under
+# each of SPMD_PRESETS.
 PRESET_BYTES_MESH = (16, 16)
 # The mesh's psums move an MoE block's input by ulps, so a token whose k-th
 # and (k+1)-th router probabilities nearly tie may pick another expert there:
@@ -5288,7 +5420,7 @@ def _spmd_train(cfg, mesh, spmd, params, batch, ref, ocfg, timed, rows, preset):
 
 
 def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps, presets):
-    """One rank of a phase 16, 17 or 18 world for one config: under each of
+    """One rank of a phase 16 or 17 world for one config: under each of
     ``presets`` the parent's initial weights (``ref["init"]``, on the card or
     in shared host memory) cut to this rank's shards of the 2x2 mesh, the
     sharded train step(s), prefill and greedy decode, each under a
@@ -5559,10 +5691,11 @@ def _spmd_log(label, ranks, ref, want, train_tokens, steps, tag, phase):
 
 
 def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS, presets=("base",)):
-    """Phases 16, 17 and 18: the generic LM's sharded steps (``lm.make_*_step(
+    """Phases 16 and 17: the generic LM's sharded steps (``lm.make_*_step(
     mesh=, preset=)``), one config at a time (``configs``: arch, depth, prefill
-    shape), f32 compute: the single-device steps on this device, then SPMD
-    under each of ``presets`` in turn on one 2x2 gloo world of SPMD_RANKS
+    shape and, optionally, the config's own presets), f32 compute: the
+    single-device steps on this device, then SPMD under each of the config's
+    presets (else ``presets``) in turn on one 2x2 gloo world of SPMD_RANKS
     ranks sharing it, which cut their
     shards from this process's initial weights (on the card, or in shared
     host memory where the ranks need the card: four ranks re-drawing a
@@ -5578,7 +5711,9 @@ def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS, pre
     t_phase = time.perf_counter()
     rec_mesh = record_only_mesh(SPMD_MESH)
     tag = "x".join(map(str, SPMD_MESH))
-    for arch, depth, prefill in configs:
+    default_presets = presets
+    for arch, depth, prefill, *own in configs:
+        presets = own[0] if own else default_presets
         t_cfg = time.perf_counter()
         cfg = _spmd_cfg(arch, depth)
         tokens, prompts = _spmd_inputs(cfg, train, prefill)
@@ -5661,93 +5796,95 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
 
-    log("phase 1: card and build")
+    def stage(msg: str) -> None:
+        log(f"{msg} (at {time.perf_counter() - t0:.1f} s)")
+
+    stage("phase 1: card and build")
     smi = phase_card_and_build()
-    log("phase 2: kernels vs plain at the spike-iand-former-8-384 main path's shapes")
+    stage("phase 2: kernels vs plain at the spike-iand-former-8-384 main path's shapes")
     reports = phase_kernels(dev, torch.Generator().manual_seed(0))
-    log(f"phase 2 (continued): the kernels at the spiking {LM_ARCH}'s shapes")
+    stage(f"phase 2 (continued): the kernels at the spiking {LM_ARCH}'s shapes")
     lm_reports = _lm_kernels(dev, torch.Generator().manual_seed(1))
-    log("phase 2 (continued): the kernels at phase 7's admission, chunk and step shapes")
+    stage("phase 2 (continued): the kernels at phase 7's admission, chunk and step shapes")
     _admission_kernels(dev, torch.Generator().manual_seed(2))
-    log("phase 2 (continued): K1, K4, K7 on bf16 drives at the 8-384 shapes")
+    stage("phase 2 (continued): K1, K4, K7 on bf16 drives at the 8-384 shapes")
     bf16_reports = _lif_bf16(dev, torch.Generator().manual_seed(3))
     _lif_bf16_path(dev, torch.Generator().manual_seed(4), bf16_reports)
-    log(f"phase 2 (continued): K3, K6, K9 past M * Dh = 2^24 at Dh = {LM_DH}")
+    stage("phase 2 (continued): K1, K4 and K4's map over the edges of their design")
+    _lif_edges(dev, torch.Generator().manual_seed(7))
+    stage(f"phase 2 (continued): K3, K6, K9 past M * Dh = 2^24 at Dh = {LM_DH}")
     past_reports = _ssa_past_edge(dev, torch.Generator().manual_seed(5))
-    log("phase 2 (continued): K2, K5, K8 at a model shard's columns and a data shard's rows; "
+    stage("phase 2 (continued): K2, K5, K8 at a model shard's columns and a data shard's rows; "
         "K4's occupancy map at a shard's width")
     _gemm_columns(dev, torch.Generator().manual_seed(6))
     fail_if_any("phase 2")
-    log(f"phase 3: serve the live {ARCH} on {', '.join(BACKENDS)}, "
+    stage(f"phase 3: serve the live {ARCH} on {', '.join(BACKENDS)}, "
         f"{REQUESTS // SLOTS} slot batches of {SLOTS} each")
     launches, forwards = phase_model(dev, smi, reports)
-    log("phase 4: the other vision configs at full size, live weights, 2 images each")
+    stage("phase 4: the other vision configs at full size, live weights, 2 images each")
     phase_other_configs(dev)
-    log(f"phase 5: train {ARCH}, batch {TRAIN_BATCH}, kernel and plain routes")
+    stage(f"phase 5: train {ARCH}, batch {TRAIN_BATCH}, kernel and plain routes")
     torch.cuda.empty_cache()
     launches["K7"], forwards["K7"], reports["K7"].entry["device_ms"] = phase_train(dev, smi)
-    log(f"phase 6: serve the spiking {LM_ARCH} at full width, {LM_REQUESTS} requests, prompt "
+    stage(f"phase 6: serve the spiking {LM_ARCH} at full width, {LM_REQUESTS} requests, prompt "
         f"{LM_PROMPT}, {LM_NEW} new tokens, {LM_SLOTS} slots")
     torch.cuda.empty_cache()
     sync_cuda = phase_lm(dev, smi, lm_reports)
-    log(f"phase 7: continuous serving of the spiking {LM_ARCH}, {CONT_REQUESTS} requests, "
+    stage(f"phase 7: continuous serving of the spiking {LM_ARCH}, {CONT_REQUESTS} requests, "
         f"prompts {CONT_LENS}, {LM_NEW} new tokens (spread {CONT_SPREAD}), {LM_SLOTS} slots")
     torch.cuda.empty_cache()
     phase_continuous(dev, smi, sync_cuda)
-    log(f"phase 8: a {PAST_EDGE_LEN}-token prompt (past M * Dh = 2^24) through the spiking "
+    stage(f"phase 8: a {PAST_EDGE_LEN}-token prompt (past M * Dh = 2^24) through the spiking "
         f"{LM_ARCH}'s prefill, {LONG_LAYERS} layers")
     torch.cuda.empty_cache()
     phase_long_prompt(dev, smi, past_reports)
-    log(f"phase 9: the 8-bit bitplane input of the {ARCH}'s encoding conv on K2")
+    stage(f"phase 9: the 8-bit bitplane input of the {ARCH}'s encoding conv on K2")
     torch.cuda.empty_cache()
     bitplane_report = phase_bitplane(dev, smi)
-    log("phase 10: graph checks on the kernel routes at full width")
+    stage("phase 10: graph checks on the kernel routes at full width")
     torch.cuda.empty_cache()
     phase_graph_checks(dev)
-    log("phase 11: learning parity, the JAX example's training run on both routes")
+    stage("phase 11: learning parity, the JAX example's training run on both routes")
     phase_learning(dev, smi)
-    log(f"phase 12: the mesh, a gloo world of {MESH_RANKS} ranks on this card")
+    stage(f"phase 12: the mesh, a gloo world of {MESH_RANKS} ranks on this card")
     torch.cuda.empty_cache()
     phase_mesh(dev, smi)
-    log(f"phase 13: train the spiking {LM_ARCH} at full width ({LM_TRAIN_STEPS} SGD steps of "
+    stage(f"phase 13: train the spiking {LM_ARCH} at full width ({LM_TRAIN_STEPS} SGD steps of "
         f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens), an AdamW update, the trained fixture")
     torch.cuda.empty_cache()
     train_reports = phase_lm_train(dev, smi)
-    log(f"phase 14: the generic LM families at full width: serve and train {GEN_ARCH}, "
+    stage(f"phase 14: the generic LM families at full width: serve and train {GEN_ARCH}, "
         f"prefill and decode {', '.join(GEN_OTHERS)}")
     torch.cuda.empty_cache()
     phase_generic_lm(dev, smi)
-    log(f"phase 15: the generic trainer: train({GEN_ARCH!r}) at full width ({GT_STEPS} steps of "
+    stage(f"phase 15: the generic trainer: train({GEN_ARCH!r}) at full width ({GT_STEPS} steps of "
         f"{GT_BATCH} x {GT_SEQ} tokens, plain and with compress_grads), the "
         f"restart and card vs CPU at {GT_CUT_LAYERS} layers, the dry run on meta")
     torch.cuda.empty_cache()
     phase_generic_train(dev, smi)
-    log(f"phase 16: the generic LM's SPMD steps: {GEN_ARCH} at full width, {SPMD_DEPTH} layers, on a "
-        f"{'x'.join(map(str, SPMD_MESH))} gloo world of {SPMD_RANKS} ranks on this card (a train "
-        f"step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens, a prefill of {SPMD_PREFILL[0]} x "
-        f"{SPMD_PREFILL[1]}, {SPMD_STEPS} greedy steps) against the single-device steps")
-    torch.cuda.empty_cache()
-    phase_spmd(dev, smi, SPMD16, "phase 16")
-    log("phase 17: the generic LM's SPMD steps of the MoE, SSM and hybrid kinds on the "
-        f"{'x'.join(map(str, SPMD_MESH))} gloo world: "
-        + ", ".join(f"{a} ({'all' if d is None else d} layers, prefill {p[0]} x {p[1]})"
-                    for a, d, p in SPMD17)
-        + f", each a train step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens (granite also under "
-        f"Adafactor) and {SPMD_STEPS} greedy steps, against the single-device steps")
-    torch.cuda.empty_cache()
-    phase_spmd(dev, smi, SPMD17, "phase 17")
-    log("phase 18: the generic LM's SPMD steps under the "
-        + " and ".join(SPMD18_PRESETS) + f" presets on the {'x'.join(map(str, SPMD_MESH))} gloo "
-        "world: " + ", ".join(f"{a} ({d} layers, prefill {p[0]} x {p[1]})" for a, d, p in SPMD18)
-        + f", each a train step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens (granite also under "
-        f"Adafactor) and {SPMD_STEPS} greedy steps, against the single-device steps; the sp "
-        "preset refused")
-    torch.cuda.empty_cache()
+    tag = "x".join(map(str, SPMD_MESH))
+    spmd_kw = (f"a train step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens (granite also under "
+               f"Adafactor) and {SPMD_STEPS} greedy steps, against the single-device steps")
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        pod = {p: pool.submit(_preset_collectives, p) for p in ("base",) + SPMD18_PRESETS}
+        pod = {p: pool.submit(_preset_collectives, p) for p in SPMD_PRESETS}
+        stage(f"phase 16: the generic LM's SPMD steps: {GEN_ARCH} at full width, {SPMD_DEPTH} "
+              f"layers, on a {tag} gloo world of {SPMD_RANKS} ranks on this card under "
+              f"{', '.join(SPMD_PRESETS)} in turn (a train step of {SPMD_TRAIN[0]} x "
+              f"{SPMD_TRAIN[1]} tokens, a prefill of {SPMD_PREFILL[0]} x {SPMD_PREFILL[1]}, "
+              f"{SPMD_STEPS} greedy steps) against the single-device steps")
+        torch.cuda.empty_cache()
+        phase_spmd(dev, smi, SPMD16, "phase 16")
+        stage("phase 17: the generic LM's SPMD steps of the MoE, SSM and hybrid kinds on the "
+              f"{tag} gloo world: "
+              + ", ".join(f"{a} ({'all' if d is None else d} layers, prefill {p[0]} x {p[1]}; "
+                          f"{', '.join(ps)})" for a, d, p, ps in SPMD17)
+              + f", each {spmd_kw}")
+        torch.cuda.empty_cache()
+        phase_spmd(dev, smi, SPMD17, "phase 17")
+        stage("phase 18: the sp preset refused; the collective operand bytes of the presets on "
+              "the production mesh")
         _spmd_sp_refused(GEN_ARCH)
         fail_if_any("phase 18 (sp)")
-        phase_spmd(dev, smi, SPMD18, "phase 18", presets=SPMD18_PRESETS)
         mesh_tag = "x".join(map(str, PRESET_BYTES_MESH))
         for p, f in pod.items():
             log(f"  {GEN_ARCH} train_4k on the record-only {mesh_tag} mesh ({p}): collective "
@@ -5755,7 +5892,8 @@ def main() -> int:
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()},
-                                **{f"{k}@lm-train": r for k, r in train_reports.items()}}.items()
+                                **{f"{k}@lm-train": r for k, r in train_reports.items()},
+                                **{f"{k} bf16": r for k, r in bf16_reports.items()}}.items()
                if rep.entry["device_ms"] is None]
     if missing:
         fail(f"no complete profile gave the device time of {missing}")

@@ -25,13 +25,25 @@
 // The least traffic is: read the drive once, read the skip once, write the
 // output once; the packed form cuts the write (and the skip read) by T/ceil(T/32).
 //
-// Design: one thread per neuron column; the T-step chain runs in a register,
-// so the membrane never reaches device memory (the analogue of the paper
-// eliminating the membrane SRAM), and in the packed form the word is built in
-// a register too.  At step t, adjacent threads touch adjacent n, so every load
-// and store of a warp is one coalesced 128-byte line.  The ragged tail is
-// masked, not padded.  Both forms run the one chain step lif_step, so their
-// spikes are the same bit for bit.
+// Design of the two forward kernels: the T-step chain of a neuron column runs
+// in a register, so the membrane never reaches device memory (the analogue of
+// the paper eliminating the membrane SRAM), and in the packed form the word
+// is built in a register too.  What bounds them is bytes in flight: the
+// packed form is a pure read stream.  So each thread takes VEC adjacent
+// columns, 16 bytes of the drive a step (VEC = 4 in f32, 8 in bf16), moved
+// by one 16-byte access; a warp's access of a step is 512 contiguous bytes,
+// and K1's spikes and K4's words are stored the same way (words 4 to an
+// access).  Before a step's arithmetic runs, the thread issues the loads of
+// a whole chunk of steps: all T of them when T == 4 (the main paths' T,
+// unrolled at compile time), else 8 at a time (a word of 32 steps is four
+// chunks), so a thread has up to 8 x 16 bytes in flight.  The chain's
+// arithmetic is lif_step, column by column.
+// Where N (or a map's D) is not a multiple of VEC, or an operand's address is
+// not 16-byte aligned (a view at an offset), the wrapper picks VEC = 1: the same kernel's
+// scalar body, with the same chunked loads.  Small launches (an LM decode
+// step's 4 x 2048 neurons) take smaller blocks, so that they still spread
+// over the SMs.  Both forms run the one chain step lif_step, so their spikes
+// are the same bit for bit.
 //
 // Occupancy epilogue of the packed form (the sparse datapath's skip index;
 // replaces the jnp map that src/repro/kernels/lif_parallel/ops.py::
@@ -39,12 +51,19 @@
 // (T, N) drive is read as N / D rows of D features, and occ[w][row][tile]
 // receives the popcount of the final words (IAND applied) of the D-feature
 // row's 128-feature tile `tile`, per word plane w -- a ragged tail counts as
-// a short tile.  Each lane popcounts its own word; the lanes of a warp that
-// share a tile (consecutive columns, so contiguous runs of lanes) sum their
-// counts with a segmented shuffle scan, and the last lane of each run adds
-// the sum to the map with one atomicAdd (the map is zeroed on the stream
-// first).  Integer sums, so the order of the atomics does not matter.  The
-// scan needs every lane of the warp, so lanes past N stay alive and count 0.
+// a short tile.  Each lane popcounts its VEC words.  Where D is a multiple of
+// 128 and VEC >= 4, the tiles are the global 128-column blocks and the lanes
+// of a tile are a fixed group of 128 / VEC lanes (the whole warp in f32, a
+// half warp in bf16): one warp reduction (__reduce_add_sync, or a half
+// warp's shuffles) and one plain store by the group's first lane give every
+// tile its count, so the map needs no memset and no atomics.  Otherwise
+// (the tokenizer's D = 48, 96, 192, a ragged D) a lane's VEC columns still
+// lie in one tile (D is a multiple of VEC, or VEC = 1); the lanes of a warp
+// that share a tile (contiguous runs) sum their counts with a segmented
+// shuffle scan, and the last lane of each run adds the sum to the map with
+// one atomicAdd, the map zeroed on the stream first.  Integer sums, so the
+// order of the atomics does not matter.  A warp wholly past N returns; the
+// lanes past N of the last warp stay for the warp's sums and count 0.
 //
 // Backward (lif_parallel_bwd): given the drive and the spike cotangent g,
 // both (T, N) of the drive's dtype, it writes dx = d(spikes)/d(drive)^T g, the surrogate of
@@ -64,8 +83,8 @@
 // rounds them, so nvcc contracts none of them into an FMA and the result
 // equals the plain version's autograd bit for bit.  Bound on this card:
 // bytes -- read the drive and g once, write dx once, 12*T bytes per neuron
-// against ~10 flops per step; every access of a warp is one coalesced
-// 128-byte line, as in the forward kernels.
+// against ~10 flops per step; one column a thread, so every access of a warp
+// is one coalesced 128-byte line.
 //
 // Bit-exactness with the plain PyTorch version: built without
 // --use_fast_math (no flush-to-zero), the spike compares u >= theta (under
@@ -90,11 +109,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // threads a block (the forward kernels: at most)
 constexpr int kOccTile = 128;           // features per occupancy tile
 constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kVecBytes = 16;           // one vector access of the forward kernels
+constexpr int kChunk = 8;               // steps loaded together where T != 4
+constexpr int kMaxDevices = 64;         // devices whose SM count is kept
+
+// Occupancy epilogue of the packed forward: none, summed in the warp and
+// stored (D % 128 == 0, VEC >= 4), or a segmented scan and atomics.
+enum OccMode { kOccNone = 0, kOccWarp = 1, kOccAtomic = 2 };
 
 // The element types: f32 and bf16 drives (and spikes, skips, cotangents).
 // rnd<T> rounds one operation's f32 result to T (the identity for f32), and
@@ -111,6 +139,31 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+
+// An element's bits as the forward kernels move them, and their value: a
+// bf16 is the top half of its f32 (so get is exact), and put rounds to
+// nearest even, as from_f32 does.
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  using Bits = float;
+  static __device__ __forceinline__ float get(float b) { return b; }
+  static __device__ __forceinline__ float put(float x) { return x; }
+};
+template <> struct Elem<__nv_bfloat16> {
+  using Bits = unsigned short;
+  static __device__ __forceinline__ float get(unsigned short b) {
+    return __uint_as_float(static_cast<unsigned>(b) << 16);
+  }
+  static __device__ __forceinline__ unsigned short put(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+};
+
+// VEC adjacent elements, moved by one access (16 bytes at full width).
+template <typename B, int VEC>
+struct alignas(sizeof(B) * VEC) Vec {
+  B e[VEC];
+};
 
 // One step of the chain: returns the membrane u_t = lam * v + drive and
 // advances v to v_t, reset by the spike s_t = (u_t >= theta); each operation
@@ -155,19 +208,50 @@ __device__ __forceinline__ float lif_bwd_step(float& dv, float u, float g, float
   return du;
 }
 
-template <typename T, bool kIand, bool kSoft>
+// K1: VEC columns a thread; kT == 4: T is 4, unrolled; kT == 0: any T, in
+// chunks of kChunk steps.  n % VEC == 0 (the wrapper's choice of VEC).
+template <typename T, int VEC, int kT, bool kIand, bool kSoft>
 __global__ void __launch_bounds__(kThreads)
-lif_parallel_kernel(const T* __restrict__ drive, const T* __restrict__ skip,
-                    T* __restrict__ out, int t_total, int n, int chain_len,
-                    float lam, float theta) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  float v = 0.0f;
-  for (int t = 0; t < t_total; ++t) {
-    if (t % chain_len == 0) v = 0.0f;  // mux: chain boundary -> fresh membrane
-    const long long idx = static_cast<long long>(t) * n + i;
-    const float s = lif_step<T, kSoft>(v, to_f32(drive[idx]), lam, theta) ? 1.0f : 0.0f;
-    out[idx] = from_f32<T>(kIand ? __fmul_rn(to_f32(skip[idx]), __fsub_rn(1.0f, s)) : s);
+lif_parallel_kernel(const typename Elem<T>::Bits* __restrict__ drive,
+                    const typename Elem<T>::Bits* __restrict__ skip,
+                    typename Elem<T>::Bits* __restrict__ out, int t_total, int n,
+                    int chain_len, float lam, float theta) {
+  using E = Elem<T>;
+  using V = Vec<typename E::Bits, VEC>;
+  constexpr int kC = kT > 0 ? kT : kChunk;
+  const long long c0 = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+  if (c0 >= n) return;
+  const int steps = kT > 0 ? kT : t_total;
+  float v[VEC];
+  int left = 0;                      // steps left in the current chain
+  for (int t0 = 0; t0 < steps; t0 += kC) {
+    V x[kC], k[kC];
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {     // the chunk's loads, all issued first
+      if (kT > 0 || t0 + j < steps) {
+        const long long idx = static_cast<long long>(t0 + j) * n + c0;
+        x[j] = *reinterpret_cast<const V*>(drive + idx);
+        if (kIand) k[j] = *reinterpret_cast<const V*>(skip + idx);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      if (kT > 0 || t0 + j < steps) {
+        if (left == 0) {               // mux: chain boundary -> fresh membrane
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) v[e] = 0.0f;
+          left = chain_len;
+        }
+        --left;
+        V o;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float s = lif_step<T, kSoft>(v[e], E::get(x[j].e[e]), lam, theta) ? 1.0f : 0.0f;
+          o.e[e] = E::put(kIand ? __fmul_rn(E::get(k[j].e[e]), __fsub_rn(1.0f, s)) : s);
+        }
+        *reinterpret_cast<V*>(out + static_cast<long long>(t0 + j) * n + c0) = o;
+      }
+    }
   }
 }
 
@@ -187,34 +271,105 @@ __device__ __forceinline__ void occ_add(uint32_t* occ, long long tile, uint32_t 
   if (last && sum != 0u) atomicAdd(occ + tile, sum);
 }
 
-template <typename T, bool kIand, bool kSoft, bool kOcc>
-__global__ void __launch_bounds__(kThreads)
-lif_pack_kernel(const T* __restrict__ drive, const uint32_t* __restrict__ skip_words,
-                uint32_t* __restrict__ out_words, uint32_t* __restrict__ occ, int t_total,
-                int n, int chain_len, float lam, float theta, int occ_cols) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool valid = i < n;
-  if (!kOcc && !valid) return;
-  long long tile = 0, plane_tiles = 0;   // this column's tile, and tiles per word plane
-  if (kOcc) {
-    const int nt = (occ_cols + kOccTile - 1) / kOccTile;
-    const long long row = i / occ_cols;
-    tile = row * nt + (i - row * occ_cols) / kOccTile;
-    plane_tiles = static_cast<long long>(n / occ_cols) * nt;
+// Stores into occ[tile] the sum of cnt over the tile's 128 / VEC lanes, an
+// aligned group of the warp; `store`: the group lies within N.  Every lane
+// of the warp must call it, at the same point.
+template <int VEC>
+__device__ __forceinline__ void occ_warp(uint32_t* occ, long long tile, uint32_t cnt,
+                                         bool store) {
+  constexpr int kLanes = kOccTile / VEC;
+  static_assert(kLanes <= 32 && 32 % kLanes == 0, "a tile's lanes must divide the warp");
+  uint32_t sum;
+  if constexpr (kLanes == 32) {
+    sum = __reduce_add_sync(kFullWarp, cnt);
+  } else {
+    sum = cnt;
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFullWarp, sum, off);
   }
-  float v = 0.0f;
-  uint32_t word = 0u;
-  for (int t = 0; t < t_total; ++t) {
-    if (t % chain_len == 0) v = 0.0f;  // mux: chain boundary -> fresh membrane
-    const float x = valid ? to_f32(drive[static_cast<long long>(t) * n + i]) : 0.0f;
-    const bool s = lif_step<T, kSoft>(v, x, lam, theta) && valid;
-    word |= static_cast<uint32_t>(s) << (t & 31);
-    if ((t & 31) == 31 || t == t_total - 1) {  // word full, or the train ends
-      const long long w = static_cast<long long>(t >> 5) * n + i;
-      const uint32_t out = kIand ? ((valid ? skip_words[w] : 0u) & ~word) : word;
-      if (valid) out_words[w] = out;
-      if (kOcc) occ_add(occ + (t >> 5) * plane_tiles, tile, valid ? __popc(out) : 0u);
-      word = 0u;
+  if (store && (threadIdx.x & (kLanes - 1)) == 0) occ[tile] = sum;
+}
+
+// K4: VEC columns a thread as K1, its words stored 4 (or VEC) to an access;
+// kOcc: the occupancy epilogue (OccMode).
+template <typename T, int VEC, int kT, bool kIand, bool kSoft, int kOcc>
+__global__ void __launch_bounds__(kThreads)
+lif_pack_kernel(const typename Elem<T>::Bits* __restrict__ drive,
+                const uint32_t* __restrict__ skip_words, uint32_t* __restrict__ out_words,
+                uint32_t* __restrict__ occ, int t_total, int n, int chain_len, float lam,
+                float theta, int occ_cols) {
+  using E = Elem<T>;
+  using V = Vec<typename E::Bits, VEC>;
+  constexpr int kWV = VEC < 4 ? VEC : 4;   // words an access
+  using W = Vec<uint32_t, kWV>;
+  constexpr int kC = kT > 0 ? kT : kChunk;
+  const long long c0 = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+  if (c0 - static_cast<long long>(threadIdx.x & 31) * VEC >= n) return;  // the warp is past N
+  const bool valid = c0 < n;
+  long long tile = 0, plane_tiles = 0;   // this thread's tile, and tiles per word plane
+  if (kOcc == kOccAtomic) {
+    const int nt = (occ_cols + kOccTile - 1) / kOccTile;
+    const long long row = c0 / occ_cols;
+    tile = row * nt + (c0 - row * occ_cols) / kOccTile;
+    plane_tiles = static_cast<long long>(n / occ_cols) * nt;
+  } else if (kOcc == kOccWarp) {         // D % 128 == 0: a row's tiles are 128-column blocks
+    tile = c0 / kOccTile;
+    plane_tiles = n / kOccTile;
+  }
+  const int steps = kT > 0 ? kT : t_total;
+  float v[VEC];
+  uint32_t word[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) word[e] = 0u;
+  int left = 0;                          // steps left in the current chain
+  for (int t0 = 0; t0 < steps; t0 += kC) {
+    V x[kC];
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {         // the chunk's loads, all issued first
+      if (kT > 0 || t0 + j < steps) {
+        x[j] = valid ? *reinterpret_cast<const V*>(drive + static_cast<long long>(t0 + j) * n + c0)
+                     : V{};
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int t = t0 + j;
+      if (kT > 0 || t < steps) {
+        if (left == 0) {                   // mux: chain boundary -> fresh membrane
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) v[e] = 0.0f;
+          left = chain_len;
+        }
+        --left;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          word[e] |= static_cast<uint32_t>(lif_step<T, kSoft>(v[e], E::get(x[j].e[e]), lam,
+                                                              theta)) << (t & 31);
+        }
+        if ((t & 31) == 31 || t == steps - 1) {  // word full, or the train ends
+          const long long w = static_cast<long long>(t >> 5) * n + c0;
+          uint32_t cnt = 0u;
+#pragma unroll
+          for (int p = 0; p < VEC / kWV; ++p) {
+            W o, sk{};
+            if (kIand && valid) sk = *reinterpret_cast<const W*>(skip_words + w + p * kWV);
+#pragma unroll
+            for (int e = 0; e < kWV; ++e) {
+              o.e[e] = kIand ? (sk.e[e] & ~word[p * kWV + e]) : word[p * kWV + e];
+              cnt += __popc(o.e[e]);
+            }
+            if (valid) *reinterpret_cast<W*>(out_words + w + p * kWV) = o;
+          }
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) word[e] = 0u;
+          if (!valid) cnt = 0u;
+          if constexpr (kOcc == kOccWarp) {
+            occ_warp<VEC>(occ + static_cast<long long>(t >> 5) * plane_tiles, tile, cnt, valid);
+          } else if constexpr (kOcc == kOccAtomic) {
+            occ_add(occ + static_cast<long long>(t >> 5) * plane_tiles, tile, cnt);
+          }
+        }
+      }
     }
   }
 }
@@ -264,77 +419,123 @@ lif_bwd_kernel(const T* __restrict__ drive, const T* __restrict__ g,
 
 unsigned grid_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
-template <typename T, bool kIand>
-void launch_dense(const void* drive, const void* skip, void* out, int t_total, int n,
-                  int chain_len, float lam, float theta, int soft, cudaStream_t stream) {
-  const auto* d = static_cast<const T*>(drive);
-  const auto* k = static_cast<const T*>(skip);
-  auto* o = static_cast<T*>(out);
-  if (soft) {
-    lif_parallel_kernel<T, kIand, true><<<grid_for(n), kThreads, 0, stream>>>(
-        d, k, o, t_total, n, chain_len, lam, theta);
+// A forward launch's arguments, as the C entry points take them.
+struct FwdArgs {
+  const void* drive;
+  const void* skip;                      // K1: the skip; K4: the skip words
+  void* out;
+  uint32_t* occ;                         // K4's map, or nullptr
+  int t_total, n, chain_len;
+  float lam, theta;
+  int soft, occ_cols, vec, occ_warp;
+};
+
+// The current device's streaming multiprocessors, asked once a device (1
+// where the runtime cannot say: the launch that follows then reports the
+// error).
+int sm_count() {
+  static std::atomic<int> counts[kMaxDevices];   // zero: not yet asked
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 1;
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 1;
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
+
+// Threads a block of a forward launch of `threads` threads: kThreads, halved
+// (down to 64) while the grid would give fewer than two blocks an SM.
+int block_threads(long long threads) {
+  const int sms = sm_count();
+  int b = kThreads;
+  while (b > 64 && (threads + b - 1) / b < 2 * sms) b >>= 1;
+  return b;
+}
+
+template <typename T, int VEC, int kT, bool kIand, bool kSoft>
+void launch_dense(const FwdArgs& a, cudaStream_t stream) {
+  using B = typename Elem<T>::Bits;
+  const long long threads = a.n / VEC;
+  const int b = block_threads(threads);
+  lif_parallel_kernel<T, VEC, kT, kIand, kSoft>
+      <<<static_cast<unsigned>((threads + b - 1) / b), b, 0, stream>>>(
+          static_cast<const B*>(a.drive), static_cast<const B*>(a.skip), static_cast<B*>(a.out),
+          a.t_total, a.n, a.chain_len, a.lam, a.theta);
+}
+
+template <typename T, int VEC, int kT, bool kIand, bool kSoft, int kOcc>
+void launch_pack(const FwdArgs& a, cudaStream_t stream) {
+  using B = typename Elem<T>::Bits;
+  const long long threads = a.n / VEC;
+  const int b = block_threads(threads);
+  lif_pack_kernel<T, VEC, kT, kIand, kSoft, kOcc>
+      <<<static_cast<unsigned>((threads + b - 1) / b), b, 0, stream>>>(
+          static_cast<const B*>(a.drive), static_cast<const uint32_t*>(a.skip),
+          static_cast<uint32_t*>(a.out), a.occ, a.t_total, a.n, a.chain_len, a.lam, a.theta,
+          a.occ_cols);
+}
+
+// The runtime flags of a forward launch, turned into template arguments one
+// at a time: the reset, the IAND, T == 4, the vector width, the element type.
+template <bool kPack, typename T, int VEC, int kT, bool kIand, bool kSoft>
+void launch_fwd(const FwdArgs& a, cudaStream_t s) {
+  if constexpr (kPack) {
+    if (a.occ == nullptr) {
+      launch_pack<T, VEC, kT, kIand, kSoft, kOccNone>(a, s);
+    } else if (a.occ_warp) {
+      if constexpr (VEC >= 4) launch_pack<T, VEC, kT, kIand, kSoft, kOccWarp>(a, s);
+    } else {
+      launch_pack<T, VEC, kT, kIand, kSoft, kOccAtomic>(a, s);
+    }
   } else {
-    lif_parallel_kernel<T, kIand, false><<<grid_for(n), kThreads, 0, stream>>>(
-        d, k, o, t_total, n, chain_len, lam, theta);
+    launch_dense<T, VEC, kT, kIand, kSoft>(a, s);
   }
 }
 
-template <typename T>
-void launch_dense_t(const void* drive, const void* skip, void* out, int t_total, int n,
-                    int chain_len, float lam, float theta, int soft, cudaStream_t stream) {
-  if (skip != nullptr) {
-    launch_dense<T, true>(drive, skip, out, t_total, n, chain_len, lam, theta, soft, stream);
-  } else {
-    launch_dense<T, false>(drive, skip, out, t_total, n, chain_len, lam, theta, soft, stream);
-  }
+template <bool kPack, typename T, int VEC, int kT, bool kIand>
+void fwd_soft(const FwdArgs& a, cudaStream_t s) {
+  if (a.soft) launch_fwd<kPack, T, VEC, kT, kIand, true>(a, s);
+  else launch_fwd<kPack, T, VEC, kT, kIand, false>(a, s);
 }
 
-template <typename T, bool kIand, bool kOcc>
-void launch_pack(const T* drive, const uint32_t* skip_words, uint32_t* out_words,
-                 uint32_t* occ, int t_total, int n, int chain_len, float lam, float theta,
-                 int soft, int occ_cols, cudaStream_t stream) {
-  if (soft) {
-    lif_pack_kernel<T, kIand, true, kOcc><<<grid_for(n), kThreads, 0, stream>>>(
-        drive, skip_words, out_words, occ, t_total, n, chain_len, lam, theta, occ_cols);
-  } else {
-    lif_pack_kernel<T, kIand, false, kOcc><<<grid_for(n), kThreads, 0, stream>>>(
-        drive, skip_words, out_words, occ, t_total, n, chain_len, lam, theta, occ_cols);
-  }
+template <bool kPack, typename T, int VEC, int kT>
+void fwd_iand(const FwdArgs& a, cudaStream_t s) {
+  if (a.skip != nullptr) fwd_soft<kPack, T, VEC, kT, true>(a, s);
+  else fwd_soft<kPack, T, VEC, kT, false>(a, s);
 }
 
-template <typename T, bool kIand>
-int launch_pack_occ(const T* drive, const uint32_t* skip_words, uint32_t* out_words,
-                    uint32_t* occ, int t_total, int n, int chain_len, float lam,
-                    float theta, int soft, int occ_cols, cudaStream_t stream) {
-  if (occ == nullptr) {
-    launch_pack<T, kIand, false>(drive, skip_words, out_words, occ, t_total, n, chain_len,
-                                 lam, theta, soft, occ_cols, stream);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (occ_cols < 1 || n % occ_cols) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t tiles = static_cast<size_t>((t_total + 31) / 32) * (n / occ_cols) *
-                       ((occ_cols + kOccTile - 1) / kOccTile);
-  const cudaError_t err = cudaMemsetAsync(occ, 0, tiles * sizeof(uint32_t), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch_pack<T, kIand, true>(drive, skip_words, out_words, occ, t_total, n, chain_len, lam,
-                              theta, soft, occ_cols, stream);
-  return static_cast<int>(cudaGetLastError());
+template <bool kPack, typename T, int VEC>
+void fwd_steps(const FwdArgs& a, cudaStream_t s) {
+  if (a.t_total == 4) fwd_iand<kPack, T, VEC, 4>(a, s);
+  else fwd_iand<kPack, T, VEC, 0>(a, s);
 }
 
-template <typename T>
-int launch_pack_t(const void* drive, const void* skip_words, void* out_words, void* occ,
-                  int t_total, int n, int chain_len, float lam, float theta, int soft,
-                  int occ_cols, cudaStream_t stream) {
-  const auto* d = static_cast<const T*>(drive);
-  const auto* k = static_cast<const uint32_t*>(skip_words);
-  auto* o = static_cast<uint32_t*>(out_words);
-  auto* m = static_cast<uint32_t*>(occ);
-  if (k != nullptr) {
-    return launch_pack_occ<T, true>(d, k, o, m, t_total, n, chain_len, lam, theta, soft,
-                                    occ_cols, stream);
+template <bool kPack, typename T>
+void fwd_vec(const FwdArgs& a, cudaStream_t s) {
+  if (a.vec > 1) fwd_steps<kPack, T, kVecBytes / static_cast<int>(sizeof(T))>(a, s);
+  else fwd_steps<kPack, T, 1>(a, s);
+}
+
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % kVecBytes == 0; }
+
+// cudaSuccess if the wrapper's choice of body is one this launch allows: vec
+// is 1, or the full width (16 bytes of the drive) where N (and D) are
+// multiples of it and every operand is 16-byte aligned; occ_warp only with a
+// map whose D is a multiple of 128 at vec >= 4.
+cudaError_t check_body(const FwdArgs& a, int elem_bytes) {
+  const int full = kVecBytes / elem_bytes;
+  if (a.vec != 1 && a.vec != full) return cudaErrorInvalidValue;
+  if (a.vec > 1 && (a.n % a.vec || !aligned(a.drive) || !aligned(a.out) ||
+                    (a.skip != nullptr && !aligned(a.skip)) ||
+                    (a.occ != nullptr && a.occ_cols % a.vec))) {
+    return cudaErrorMisalignedAddress;
   }
-  return launch_pack_occ<T, false>(d, k, o, m, t_total, n, chain_len, lam, theta, soft,
-                                   occ_cols, stream);
+  if (a.occ_warp && (a.occ == nullptr || a.vec < 4 || a.occ_cols % kOccTile)) {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int kChain>
@@ -368,33 +569,53 @@ void launch_bwd_t(const void* drive, const void* g, void* dx, int t_total, int n
 
 }  // namespace
 
-// bf16 != 0: drive, skip and out are bf16; otherwise f32.
+// bf16 != 0: drive, skip and out are bf16; otherwise f32.  vec: columns a
+// thread, 1 or 16 bytes' worth (4 f32, 8 bf16; see check_body).
 extern "C" int lif_parallel_fwd(const void* drive, const void* skip, void* out,
                                 int t_total, int n, int chain_len, float lam,
-                                float theta, int soft, int bf16, void* stream) {
+                                float theta, int soft, int bf16, int vec, void* stream) {
+  const FwdArgs a{drive, skip, out, nullptr, t_total, n, chain_len, lam, theta, soft, 0, vec, 0};
+  cudaError_t err = check_body(a, bf16 ? 2 : 4);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    launch_dense_t<__nv_bfloat16>(drive, skip, out, t_total, n, chain_len, lam, theta, soft, s);
+    fwd_vec<false, __nv_bfloat16>(a, s);
   } else {
-    launch_dense_t<float>(drive, skip, out, t_total, n, chain_len, lam, theta, soft, s);
+    fwd_vec<false, float>(a, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // occ == nullptr: no occupancy map (occ_cols is ignored).  Otherwise occ holds
-// ceil(T/32) * (n / occ_cols) * ceil(occ_cols / 128) counts; it is zeroed here.
-// bf16 != 0: the drive is bf16; otherwise f32.
+// ceil(T/32) * (n / occ_cols) * ceil(occ_cols / 128) counts, every one of them
+// written here: stored by the warps where occ_warp != 0, else zeroed on the
+// stream and summed into by atomics.  bf16 != 0: the drive is bf16; otherwise
+// f32.  vec, occ_warp: the body (see check_body).
 extern "C" int lif_parallel_pack_fwd(const void* drive, const void* skip_words,
                                      void* out_words, void* occ, int t_total, int n,
                                      int chain_len, float lam, float theta, int soft,
-                                     int occ_cols, int bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return launch_pack_t<__nv_bfloat16>(drive, skip_words, out_words, occ, t_total, n,
-                                        chain_len, lam, theta, soft, occ_cols, s);
+                                     int occ_cols, int bf16, int vec, int occ_warp,
+                                     void* stream) {
+  const FwdArgs a{drive, skip_words, out_words, static_cast<uint32_t*>(occ), t_total, n,
+                  chain_len, lam, theta, soft, occ_cols, vec, occ_warp};
+  if (occ != nullptr && (occ_cols < 1 || n % occ_cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_pack_t<float>(drive, skip_words, out_words, occ, t_total, n, chain_len, lam,
-                              theta, soft, occ_cols, s);
+  cudaError_t err = check_body(a, bf16 ? 2 : 4);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (occ != nullptr && !occ_warp) {
+    const size_t tiles = static_cast<size_t>((t_total + 31) / 32) * (n / occ_cols) *
+                         ((occ_cols + kOccTile - 1) / kOccTile);
+    err = cudaMemsetAsync(occ, 0, tiles * sizeof(uint32_t), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (bf16) {
+    fwd_vec<true, __nv_bfloat16>(a, s);
+  } else {
+    fwd_vec<true, float>(a, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dx: (t_total, n), the drive cotangent; chain_len must divide t_total.

@@ -38,12 +38,15 @@ from repro_torch.kernels.lif_parallel.ref import (
 SURROGATE_WIDTH = 1.0   # the backward kernel's boxcar, as the JAX package's _SURR_WIDTH
 DRIVE_DTYPES = (torch.float32, torch.bfloat16)
 
+VEC_BYTES = 16       # one vector access of the forward kernels (K1, K4)
+
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _PACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+                  ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_void_p)
 _BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                  ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                  ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
@@ -62,6 +65,23 @@ def _check_args(what, drive, skip, skip_rows, chain_len, reset):
                          f"{(skip_rows, n)} for drive {tuple(drive.shape)}")
 
 
+def forward_body(dtype: torch.dtype, n: int, addresses, occ_cols: int = 0) -> tuple[int, bool]:
+    """``(vec, occ_warp)``: the body a K1/K4 launch of ``n`` columns takes.
+    ``vec`` is the columns a thread moves with one 16-byte access a step
+    (``VEC_BYTES`` of the drive: 4 float32, 8 bfloat16) where ``n`` and the
+    map's row width ``occ_cols`` are multiples of it and every operand's
+    address in ``addresses`` (drive, skip, output) is 16-byte aligned; else
+    1, the same kernel's scalar body.  ``occ_warp``: K4's map is summed in
+    the warp and stored, with no memset and no atomics, which needs a map
+    whose rows are whole 128-feature tiles (``occ_cols`` a multiple of
+    ``OCC_TILE``) and a warp spanning whole tiles (``vec`` >= 4)."""
+    full = VEC_BYTES // (torch.finfo(dtype).bits // 8)
+    wide = (n % full == 0 and occ_cols % full == 0
+            and all(a % VEC_BYTES == 0 for a in addresses))
+    vec = full if wide else 1
+    return vec, bool(occ_cols) and vec >= 4 and occ_cols % OCC_TILE == 0
+
+
 def _launch(name, argtypes, drive, skip, skip_dtype, out, chain_len, lam, theta, reset,
             occ=None):
     """Launch the C entry point ``name`` of lif_parallel.cu into ``out``.
@@ -75,10 +95,14 @@ def _launch(name, argtypes, drive, skip, skip_dtype, out, chain_len, lam, theta,
     ptr = lambda x: None if x is None else x.data_ptr()
     pointers = [ptr(drive), ptr(skip), out.data_ptr()]
     sizes = [t_total, n, chain_len, lam, theta, int(reset == "soft")]
+    occ_cols = 0
     if occ is not None:
         pointers.append(ptr(occ[0]))
         sizes.append(occ[1])
-    sizes.append(int(drive.dtype == torch.bfloat16))
+        occ_cols = occ[1]
+    vec, occ_warp = forward_body(drive.dtype, n, [p for p in pointers[:3] if p is not None],
+                                 occ_cols)
+    sizes += [int(drive.dtype == torch.bfloat16), vec] + ([int(occ_warp)] if occ is not None else [])
     with torch.cuda.device(drive.device):
         err = fn(*pointers, *sizes, _build.stream(drive.device))
     _build.check(err, "lif_parallel", name)

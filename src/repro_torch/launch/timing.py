@@ -31,6 +31,16 @@ Three measurements:
            events over back-to-back calls (as ``chip_smoke.py`` times a
            kernel) and the device time per launch of the kernels the call
            runs under ``torch.profiler``.
+``lif``    the LIF kernels (K1 ``lif_parallel_fwd``, K4
+           ``lif_parallel_pack_fwd`` with and without its occupancy map,
+           K7 ``lif_parallel_bwd``) at the launches of one forward (K7: of
+           one training step) of each form in LIF_FORMS: the 8-384 serving
+           forward at slot batch 8, the spiking LM's prefill (4 x 32
+           tokens), decode step (4 slots) and training step (4 x 64), and
+           the bf16 drives; each launch held ``torch.equal`` to its plain
+           version, then CUDA events over back-to-back calls and the device
+           time per launch under ``torch.profiler`` (the map's memset
+           apart), summed over the form's launches beside its byte bound.
 
 Run it as a file, so that ``--src`` decides which checkout's
 ``repro_torch`` is imported (another checkout's ``src`` directory, or by
@@ -42,6 +52,7 @@ default the one holding this file)::
     python src/repro_torch/launch/timing.py --src ../other/src prefill --slots 4 --prompt 32
     python src/repro_torch/launch/timing.py --src ../other/src ssa --g 384 --n 64 --dh 32
     python src/repro_torch/launch/timing.py ssa --g 64 --n 32,2048 --dh 512 --causal --route dense,packed,sparse
+    python src/repro_torch/launch/timing.py --src ../other/src lif --reps 20
 
 Every line printed starts with ``[timing]`` and names the ``repro_torch``
 it ran.  It runs on the card unless ``--device cpu`` asks for the host.
@@ -267,6 +278,178 @@ def time_ssa(g: int, n: int, dh: int, reps: int, device, *, route: str = "dense"
     return {"events_ms": events_ms, "device_ms": device_us / 1e3 / reps or None}
 
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at 700 W
+LIF_T = 4                   # time steps of every LIF on the main paths
+# The LIFs of one 8-384 forward: per image (neurons, IAND fused, launches,
+# feature width D of the occupancy map): the tokenizer's four, then per
+# block q, k, v, attn, the IAND of proj, fc1, the IAND of fc2.
+VISION_LIFS = ((112 * 112 * 48, False, 1, 48), (56 * 56 * 96, False, 1, 96),
+                (28 * 28 * 192, False, 1, 192), (196 * 384, False, 1 + 4 * 8, 384),
+                (196 * 384, True, 2 * 8, 384), (196 * 1536, False, 8, 1536))
+
+
+def _lm_lifs(tokens: int, train: bool = False):
+    """The LIFs of one llama3.2-1b-width spiking LM forward over ``tokens``
+    tokens (d_model 2048, d_ff 8192, 16 layers): the embedding's and per
+    block q, k, v, attn, proj, fc1, fc2 (proj and fc2 fuse the IAND when
+    serving)."""
+    if train:
+        return ((tokens * 2048, False, 1 + 6 * 16, 2048), (tokens * 8192, False, 16, 8192))
+    return ((tokens * 2048, False, 1 + 4 * 16, 2048), (tokens * 2048, True, 2 * 16, 2048),
+            (tokens * 8192, False, 16, 8192))
+
+
+# form -> (kernel, dtype, per forward (neurons, iand, launches, D)); "K4+map"
+# is K4 with its occupancy map of D-feature rows (the sparse route's form)
+LIF_FORMS = {
+    "K1 8-384": ("K1", torch.float32, tuple((8 * n, i, c, d) for n, i, c, d in VISION_LIFS)),
+    "K4 8-384": ("K4", torch.float32, tuple((8 * n, i, c, d) for n, i, c, d in VISION_LIFS)),
+    "K4+map 8-384": ("K4+map", torch.float32,
+                     tuple((8 * n, i, c, d) for n, i, c, d in VISION_LIFS)),
+    "K7 8-384 train": ("K7", torch.float32,
+                       tuple((16 * n, False, c, d) for n, _, c, d in VISION_LIFS)),
+    "K1 LM prefill": ("K1", torch.float32, _lm_lifs(4 * 32)),
+    "K4 LM prefill": ("K4", torch.float32, _lm_lifs(4 * 32)),
+    "K4+map LM prefill": ("K4+map", torch.float32, _lm_lifs(4 * 32)),
+    "K1 LM decode": ("K1", torch.float32, _lm_lifs(4)),
+    "K4 LM decode": ("K4", torch.float32, _lm_lifs(4)),
+    "K4+map LM decode": ("K4+map", torch.float32, _lm_lifs(4)),
+    "K1 LM train": ("K1", torch.float32, _lm_lifs(4 * 64, train=True)),
+    "K1 8-384 bf16": ("K1", torch.bfloat16, tuple((8 * n, i, c, d) for n, i, c, d in VISION_LIFS)),
+    "K4 8-384 bf16": ("K4", torch.bfloat16, tuple((8 * n, i, c, d) for n, i, c, d in VISION_LIFS)),
+    "K7 8-384 train bf16": ("K7", torch.bfloat16,
+                            tuple((16 * n, False, c, d) for n, _, c, d in VISION_LIFS)),
+}
+
+
+def _lif_case(kernel: str, dtype, n: int, iand: bool, cols: int, reps: int, device,
+              seed: int) -> dict[str, float | None]:
+    """One launch of ``kernel`` (``LIF_FORMS``' kernel names) on a seeded
+    (LIF_T, n) drive: held ``torch.equal`` to its plain version, then
+    ``events_ms`` (CUDA events over ``reps`` calls after 3 warm-ups; host
+    clock on the CPU), ``device_ms`` (its kernel's device time per call
+    under ``torch.profiler``) and ``memset_ms`` (the device memsets per
+    call), both None on the CPU or where three profiles in a row missed some
+    of the ``reps`` kernels, and its ``bytes``: each input read and each
+    output written once."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.lif_parallel import ops
+    from repro_torch.kernels.lif_parallel.ref import (
+        lif_pack_ref, lif_parallel_ref, lif_parallel_ref_grad)
+
+    t, size = LIF_T, torch.finfo(dtype).bits // 8
+    gen = torch.Generator(device).manual_seed(seed)
+    drive = torch.randn((t, n), generator=gen, device=device)
+    drive[:, ::3] = torch.round(drive[:, ::3] * 8) / 8      # membranes exactly on theta too
+    drive = drive.to(dtype)
+    spikes = (torch.rand((t, n), generator=gen, device=device) > 0.5).to(dtype)
+    kw = dict(chain_len=t, lam=0.25, theta=0.5, reset="hard")
+    words = packing.num_words(t) * n * 4
+    if kernel == "K1":
+        skip = spikes if iand else None
+        run = lambda: ops.lif_parallel_fwd(drive, skip=skip, **kw)
+        plain = lambda: lif_parallel_ref(drive, skip=skip, **kw)
+        nbytes = size * t * n * (3 if iand else 2)
+    elif kernel == "K7":
+        g = spikes - 0.5
+        run = lambda: ops.lif_parallel_bwd(drive, g, **kw)
+        plain = lambda: lif_parallel_ref_grad(drive, g, chain_len=t)
+        nbytes = 3 * size * t * n
+    else:
+        skip = packing.pack(spikes.float()).words if iand else None
+        occ_cols = cols if kernel == "K4+map" else 0
+        run = lambda: ops.lif_parallel_pack_fwd(drive, skip_words=skip, occ_cols=occ_cols, **kw)
+
+        def plain():
+            w = lif_pack_ref(drive, skip_words=skip, **kw)
+            return (w, packing.occupancy_map(w.reshape(w.shape[0], -1, cols))) if occ_cols else w
+
+        nbytes = size * t * n + words * (2 if iand else 1)
+        if occ_cols:
+            nbytes += packing.num_words(t) * (n // cols) * -(-cols // packing.OCC_TILE) * 4
+    got, want = run(), plain()
+    same = (all(map(torch.equal, got, want)) if isinstance(got, tuple)
+            else torch.equal(got, want))
+    if not same:
+        raise AssertionError(f"{kernel} {dtype} N={n} iand={iand}: differs from its plain "
+                             "version")
+    del got, want
+    for _ in range(3):
+        run()
+    out = {"bytes": nbytes, "device_ms": None, "memset_ms": None}
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        out["events_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+        return out
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    out["events_ms"] = start.elapsed_time(end) / reps
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):          # the profiler at times drops kernels: retake an incomplete one
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        mine = [e for e in events if "lif_" in e.key]
+        if sum(e.count for e in mine) == reps:
+            out["device_ms"] = sum(e.self_device_time_total for e in mine) / 1e3 / reps
+            out["memset_ms"] = sum(e.self_device_time_total for e in events
+                                   if "memset" in e.key.lower()) / 1e3 / reps
+            break
+    return out
+
+
+def time_lif(forms, reps: int, device, log=None) -> dict[str, dict[str, float | None]]:
+    """Each form of ``forms`` (keys of LIF_FORMS): its launches of one forward
+    (K7: of one training step) measured by :func:`_lif_case`, summed with
+    their counts: ``launches``, ``events_ms``, ``device_ms``, ``memset_ms``
+    (None on the CPU) and ``bound_ms``, the bytes over the card's memory
+    rate (the LIF's few operations an element are far below the f32 peak).
+    ``log(line)`` gets one line per launch shape."""
+    out = {}
+    for form in forms:
+        kernel, dtype, cases = LIF_FORMS[form]
+        st = {"launches": 0, "events_ms": 0.0, "device_ms": 0.0, "memset_ms": 0.0,
+              "bound_ms": 0.0}
+        for i, (n, iand, count, cols) in enumerate(cases):
+            c = _lif_case(kernel, dtype, n, iand, cols, reps, device, seed=i)
+            bound = c["bytes"] / HBM_BYTES_PER_S * 1e3
+            st["launches"] += count
+            st["events_ms"] += count * c["events_ms"]
+            st["bound_ms"] += count * bound
+            for k in ("device_ms", "memset_ms"):
+                st[k] = None if c[k] is None or st[k] is None else st[k] + count * c[k]
+            if log:
+                dev_ms = ("not measured" if c["device_ms"] is None else
+                          f"{c['device_ms']:.5f} (memset {c['memset_ms']:.5f})")
+                log(f"lif {form} N={n} iand={iand} D={cols} x{count}: torch.equal the plain "
+                    f"version; ms per launch: events {c['events_ms']:.5f}, device {dev_ms}, "
+                    f"bound {bound:.5f}")
+        out[form] = st
+    return out
+
+
+def lif_line(form: str, st: dict[str, float | None]) -> str:
+    """One form's line of :func:`time_lif`'s results."""
+    fmt = lambda k: "not measured" if st[k] is None else f"{st[k]:.5f}"
+    share = ("not measured" if st["device_ms"] is None
+             else f"{st['bound_ms'] / st['device_ms']:.1%}")
+    return (f"lif {form}: {st['launches']} launches; ms per forward: events "
+            f"{st['events_ms']:.5f}, device {fmt('device_ms')} (memset {fmt('memset_ms')}), "
+            f"bound {st['bound_ms']:.5f} (bytes), device share {share}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
@@ -310,6 +493,8 @@ def main(argv=None) -> None:
     ss.add_argument("--route", default="dense",
                     help=f"one of {', '.join(SSA_ROUTES)}, or a comma-separated list")
     ss.add_argument("--causal", action="store_true")
+    lf = sub.add_parser("lif", help="ms per forward of every form of the LIF kernels")
+    lf.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
 
     sys.path.insert(0, args.src)
@@ -341,6 +526,10 @@ def main(argv=None) -> None:
             print(f"{head} prefill {args.arch} backend={route} {args.slots} slots, prompt "
                   f"{args.prompt}, {args.reps} reps: ms per prefill: events "
                   f"{st['events_ms']:.5f}; device, median of {args.reps} profiles: {kinds}")
+    elif args.what == "lif":
+        for form, st in time_lif(LIF_FORMS, args.reps, dev,
+                                 log=lambda x: print(f"{head} {x}")).items():
+            print(f"{head} {lif_line(form, st)}")
     elif args.what == "train":
         s = time_train(args.arch, args.steps, args.warmup, args.batch, dev)
         print(f"{head} train {args.arch} batch {args.batch}, {args.steps} steps after "

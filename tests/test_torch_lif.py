@@ -66,12 +66,20 @@ def test_lif_wrapper_bit_exact_vs_pallas_kernel(ref, chain_len, reset, iand):
     assert set(np.unique(got.numpy())) <= {0.0, 1.0}
 
 
-@pytest.mark.parametrize("iand", [False, True])
-@pytest.mark.parametrize("reset", ["hard", "soft"])
-@pytest.mark.parametrize("chain_len", [1, 2, 4])
-def test_lif_parallel_bit_exact_vs_jax_oracle(ref, chain_len, reset, iand):
-    drive = _drive(20 + chain_len, (T, 3, 100))
-    skip = _skip(30 + chain_len, (T, 3, 100)) if iand else None
+# The CUDA forward kernels' edges (chunked loads where T != 4, a word of 32
+# steps, 4 f32 or 8 bf16 columns a thread): (chain_len, T, columns, reset,
+# iand), N of several residues mod 8.
+EDGES = [(3, 33, 203, "hard", True), (8, 40, 206, "soft", False), (1, 1, 201, "hard", False)]
+
+
+@pytest.mark.parametrize("chain_len,shape,reset,iand",
+                         [pytest.param(c, (T, 3, 100), r, i, id=f"{c}-{r}-{i}")
+                          for i in (False, True) for r in ("hard", "soft") for c in (1, 2, 4)]
+                         + [pytest.param(c, (t, n), r, i, id=f"{c}-T{t}-N{n}-{r}-{i}")
+                            for c, t, n, r, i in EDGES])
+def test_lif_parallel_bit_exact_vs_jax_oracle(ref, chain_len, shape, reset, iand):
+    drive = _drive(20 + chain_len, shape)
+    skip = _skip(30 + chain_len, shape) if iand else None
     want = ref.lif.lif_parallel(drive, chain_len=chain_len, reset=reset,
                                 iand_skip=skip)
     got = tlif.lif_parallel(torch.from_numpy(drive), chain_len=chain_len, reset=reset,
@@ -139,6 +147,27 @@ def test_non_cpu_tensor_never_takes_plain_version():
     drive = torch.empty((T, N), device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         tops.lif_parallel_op(drive)
+
+
+@pytest.mark.parametrize("dtype,n,addresses,occ_cols,want", [
+    (torch.float32, 1024, (0, 4096, 8192), 0, (4, False)),        # 16 bytes = 4 f32
+    (torch.bfloat16, 1024, (0, 4096, 8192), 0, (8, False)),       # 16 bytes = 8 bf16
+    (torch.float32, 1026, (0, 4096), 0, (1, False)),              # N % 4 != 0
+    (torch.bfloat16, 1028, (0, 4096), 0, (1, False)),             # N % 8 != 0
+    (torch.float32, 1024, (4, 4096), 0, (1, False)),              # drive at an offset
+    (torch.float32, 1024, (0, 4100, 8192), 0, (1, False)),        # skip at an offset
+    (torch.float32, 5 * 384, (0, 4096), 384, (4, True)),          # the map summed in the warp
+    (torch.bfloat16, 5 * 2048, (0, 4096), 2048, (8, True)),       # a half warp a tile
+    (torch.float32, 5 * 200, (0, 4096), 200, (4, False)),         # ragged tiles: atomics
+    (torch.float32, 5 * 48, (0, 4096), 48, (4, False)),           # rows shorter than a tile
+    (torch.bfloat16, 5 * 196, (0, 4096), 196, (1, False)),        # D % 8 != 0
+    (torch.float32, 5 * 384, (2, 4096), 384, (1, False)),         # offset: scalar, atomics
+])
+def test_forward_body(dtype, n, addresses, occ_cols, want):
+    """The body a K1/K4 launch takes: 16 bytes of the drive a thread where N,
+    D and every address allow it, else the scalar body; the map summed in the
+    warp only where a warp spans whole 128-feature tiles of D."""
+    assert tops.forward_body(dtype, n, addresses, occ_cols) == want
 
 
 def test_wrapper_rejects_bad_chain_len():

@@ -61,12 +61,20 @@ def _np(a):
     return np.array(a.astype("float32"))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_bf16_forward_vs_pallas_kernel(ref, shape):
+# The CUDA forward kernels' edges in bf16 (8 columns a thread, chunked loads
+# where T != 4): (shape, chain_len), N of several residues mod 8.
+EDGES = [((33, 205), 3), ((40, 207), 8), ((1, 204), 1)]
+
+
+@pytest.mark.parametrize("shape,chain_len", [pytest.param(s, None, id=f"shape{i}")
+                                             for i, s in enumerate(SHAPES)]
+                         + [pytest.param(s, c, id=f"T{s[0]}-N{s[1]}-chain{c}")
+                            for s, c in EDGES])
+def test_bf16_forward_vs_pallas_kernel(ref, shape, chain_len):
     drive = _bf16(sum(shape), shape)
-    got = tops.lif_parallel_op(drive)
+    got = tops.lif_parallel_op(drive, chain_len=chain_len)
     assert got.dtype == torch.bfloat16
-    want = ref.ops.lif_parallel_op(_jax(ref, drive), interpret=True)
+    want = ref.ops.lif_parallel_op(_jax(ref, drive), chain_len=chain_len, interpret=True)
     assert want.dtype == ref.jnp.bfloat16
     assert torch.equal(got, torch.from_numpy(_np(want)).bfloat16())
 

@@ -138,14 +138,33 @@ def test_bridge_words_round_trip():
 
 # -- K4: LIF with the pack epilogue --------------------------------------------------
 
-@pytest.mark.parametrize("iand", [False, True])
-@pytest.mark.parametrize("reset", ["hard", "soft"])
-@pytest.mark.parametrize("t,chain_len", [(4, 1), (4, 2), (4, 4), (40, 8)])
-def test_lif_pack_plain_vs_pallas_kernel(ref, t, chain_len, reset, iand):
-    drive = _drive(t + chain_len, (t, 3, 100))
+# The CUDA pack kernel's edges, each with its occupancy map: chunked loads
+# where T != 4, a ragged last word, and rows of 48 and 200 features (ragged
+# tiles, the atomic epilogue) and 2048 (whole tiles, summed in the warp), a
+# third of the rows silent so that some tiles count 0:
+# (t, chain_len, elems, reset, iand).
+PACK_EDGES = [(33, 3, (5, 48), "hard", True), (40, 8, (3, 200), "soft", False),
+              (1, 1, (2, 2048), "hard", True)]
+
+
+@pytest.mark.parametrize("t,chain_len,elems,reset,iand,occ",
+                         [pytest.param(t, c, (3, 100), r, i, False, id=f"{t}-{c}-{r}-{i}")
+                          for i in (False, True) for r in ("hard", "soft")
+                          for t, c in [(4, 1), (4, 2), (4, 4), (40, 8)]]
+                         + [pytest.param(*e, True, id=f"{e[0]}-{e[1]}-D{e[2][-1]}-{e[3]}-{e[4]}")
+                            for e in PACK_EDGES])
+def test_lif_pack_plain_vs_pallas_kernel(ref, t, chain_len, elems, reset, iand, occ):
+    """The words, and with ``occ`` their occupancy map (rows of the last
+    axis's features)."""
+    drive = _drive(t + chain_len, (t,) + elems)
     kw = dict(chain_len=chain_len, reset=reset)
+    if occ:
+        drive[:, ::3] -= 9.0                    # silent rows: zero tiles
+        kw["occupancy"] = True
     if iand:
-        skip = _spikes(7, (t, 3, 100))
+        skip = _spikes(7, (t,) + elems)
+        if occ:
+            skip[:, ::3] = 0.0
         jskip = ref.pk.pack(skip).words
         want = ref.lops.lif_iand_pack_op(drive, jskip, interpret=True, **kw)
         got = tlops.lif_iand_pack_op(torch.from_numpy(drive),
@@ -153,8 +172,12 @@ def test_lif_pack_plain_vs_pallas_kernel(ref, t, chain_len, reset, iand):
     else:
         want = ref.lops.lif_pack_op(drive, interpret=True, **kw)
         got = tlops.lif_pack_op(torch.from_numpy(drive), **kw)
-    assert got.shape == (tpk.num_words(t), 3, 100)
-    np.testing.assert_array_equal(_jwords(got), np.asarray(want))
+    words, jwords = (got[0], want[0]) if occ else (got, want)
+    assert words.shape == (tpk.num_words(t),) + elems
+    np.testing.assert_array_equal(_jwords(words), np.asarray(jwords))
+    if occ:
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]).astype(np.int32))
+        assert (got[1] == 0).any()
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])

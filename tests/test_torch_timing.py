@@ -83,6 +83,25 @@ def test_prefill_on_the_cpu(capsys):
                for x in lines)
 
 
+def test_lif_on_the_cpu():
+    """A line per launch shape, then the form's line: its launches of one
+    forward, host-clock ms, no device time off the card, the byte bound."""
+    lines = []
+    forms = ["K1 LM decode", "K4+map LM decode"]
+    got = timing.time_lif(forms, 1, torch.device("cpu"), log=lines.append)
+    assert len(lines) == 6
+    assert all("torch.equal the plain version" in x and "device not measured" in x
+               for x in lines)
+    assert list(got) == forms
+    for form, st in got.items():
+        assert st["launches"] == 113 and st["events_ms"] > 0 and st["bound_ms"] > 0
+        assert st["device_ms"] is None and st["memset_ms"] is None
+        line = timing.lif_line(form, st)
+        assert line.startswith(f"lif {form}: 113 launches; ms per forward: events ")
+        assert "device not measured (memset not measured)" in line
+        assert line.endswith("device share not measured")
+
+
 def test_no_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
