@@ -194,7 +194,9 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      wall time) and the first 3 losses on the card against the CPU from the
      same weights (relative 1e-4, TF32 off); then the dry run
      (``launch/dryrun.py``) of all 10 archs x 4 cells x 2 production meshes on
-     the meta device (OK / SKIP / FAIL counts: no FAIL, SKIP only where
+     the meta device, made in a process of its own from the start of phase
+     8 on, beside phases 8-13 (a failure there fails this phase with its
+     traceback; OK / SKIP / FAIL counts: no FAIL, SKIP only where
      ``cell_supported`` says so) and its one-device record of llama3.2-1b's
      4 x 512 training step: argument bytes within 0.1% of what that state
      and batch allocate on the card, temporaries beside the measured peak of
@@ -204,18 +206,21 @@ Phases (each failure exits non-zero; nothing falls back to the CPU):
      SPMD_DEPTH (2) layers, in f32 (TF32 off), an AdamW step of 4 x 512
      tokens, a 4 x 32 prefill and SPMD_STEPS (2) greedy steps on one device,
      then the same state handed by IPC to a 2x2 gloo world of 4 ranks on
-     this card, which runs the steps under the ``base``, ``fsdp`` and
+     this card (``launch.mesh.World``, started with this phase and kept for
+     phase 17's configs), which runs the steps under the ``base``, ``fsdp`` and
      ``zero2`` presets in turn (SPMD_PRESETS), each rank's loss, grad_norm,
      block of the new state, logits and tokens held against the single
      device's, its collective operand bytes against a record-only 2x2
      mesh's on meta under that preset;
  17. the same for the MoE, SSM and hybrid kinds, one config at a time
-     (``SPMD17``): ``granite-moe-3b-a800m`` at full width cut to 2 layers
+     (``SPMD17``) on the same world, each after the ranks released the
+     config before: ``granite-moe-3b-a800m`` at full width cut to 2 layers
      (under ``base`` its 40 experts split 20/20 over ``data``: the
      all-to-all runs; under ``fsdp`` and ``zero2`` its MoE is device-local,
      the experts gathered whole), also one train step under kimi's Adafactor
      settings; ``mamba2-130m`` at 4 layers; ``recurrentgemma-9b`` at full
-     width cut to one rec, rec, attn_local period, its 2 x 2048-token prompt
+     width cut to one rec, rec, attn_local period (its reference handed to
+     the ranks in one shared host segment), its 2 x 2048-token prompt
      as long as its window so that the decode steps wrap the ring; caches
      held too.  Every rank compares the experts it picked with the single
      device's: an MoE step in which none flipped is held in full (else
@@ -252,7 +257,8 @@ every row ``torch.equal`` the plain version in 1024-row slices); and K2, K5
 and K8 at a model shard's 192 and 96 columns and a data shard's half rows,
 each launch ``torch.equal`` the full launch's block, and K4's occupancy map
 at 192 and 384 columns equal to the map recomputed from its words.  The last
-lines are the card's ``nvidia-smi`` name and power limit,
+lines are ``seconds:`` (each phase's seconds and each library's ``nvcc``
+seconds, JSON), the card's ``nvidia-smi`` name and power limit,
 a JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 In the JSON line ``launches`` is the count over the live main-path run of
 the kernel's path (warm-up forward included) and ``launches_per_forward``
@@ -289,6 +295,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
@@ -376,6 +383,15 @@ def check(ok: bool, msg: str) -> None:
     if not ok:
         print(f"[chip_smoke] CHECK FAILED: {msg}", flush=True)
         _FAILED.append(msg)
+
+
+def _result(future, what: str):
+    """The result of a task in another process; fails the run with the
+    task's traceback if it raised or its process died."""
+    try:
+        return future.result()
+    except Exception as e:   # the task raised, or its pool broke (BrokenProcessPool)
+        fail(f"{what} failed:\n" + "".join(traceback.format_exception(e)))
 
 
 def fail_if_any(phase: str) -> None:
@@ -505,20 +521,26 @@ def phase_card_and_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build([*_build.SOURCES, *_build.CONTROLS])
-    log(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s "
+    built = _build.build([*_build.SOURCES, *_build.CONTROLS])
+    log(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}; the control builds with "
-        + ", ".join(f"{n}: -D{' -D'.join(d)}" for n, (_, d) in _build.CONTROLS.items()) + ")")
-    for name, text in logs.items():
+        + ", ".join(f"{n}: -D{' -D'.join(d)}" for n, (_, d) in _build.CONTROLS.items())
+        + "; in parts, each part -c for -shared and linked: "
+        + ", ".join(f"{n}: -D{m}=0...{k - 1}" for n, (m, k) in _build.PARTS.items()) + ")")
+    log("  nvcc seconds a library, all started together: " + ", ".join(
+        f"{n} {b.seconds:.1f}" + (f" (parts {', '.join(f'{x:.1f}' for x in b.parts)}, then "
+                                  "the link)" if b.parts else "")
+        for n, b in sorted(built.items(), key=lambda nb: -nb[1].seconds)))
+    for name, b in built.items():
         if name in _build.CONTROLS:
             continue
-        for line in text.splitlines():
+        for line in b.log.splitlines():
             if "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.split(chr(39))[1] if chr(39) in line else line}")
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {name}: {line.strip()}")
     _tensor_core_sass(_build)
-    return smi
+    return smi, {n: b.seconds for n, b in built.items()}
 
 
 def _tensor_core_sass(_build):
@@ -4895,15 +4917,34 @@ def _gt_vs_cpu(dev, smi):
         f"steps {cpu_s:.1f} s; {smi} against the host's CPU")
 
 
-SWEEP_WORKERS = 8   # processes of the dry-run sweep, an (arch, mesh) pair to each (meta only; 8 cores)
+# Processes of the dry-run sweep, an (arch, mesh) pair to each (meta only).
+# It runs beside phases 8-13, which time nothing on the host clock that the
+# sweep's cores would move (started beside phase 2, it slowed phase 3's slot
+# batches up to 3x): 3 of the host's 8 cores.
+SWEEP_WORKERS = 3
 
 
-def _gt_dryrun(dev, smi):
-    """The whole dry-run sweep on meta (counts; SKIP only where
-    ``cell_supported`` says so, no FAIL), then the one-device record of the
-    GT_BATCH x GT_SEQ training step of GEN_ARCH against the card: its argument
-    bytes against the allocation of that state and batch, its temporaries
-    beside the measured peak of one step."""
+def _dry_sweep():
+    """The whole dry-run sweep on meta (every assigned arch and cell, both
+    meshes) and its seconds on the host clock: phase 15's records, made in a
+    process of its own (``main`` submits it before phase 8)."""
+    from repro_torch.configs import ASSIGNED_ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPE_CELLS
+
+    t0 = time.perf_counter()
+    records = dryrun.sweep(ASSIGNED_ARCHS, [c.name for c in SHAPE_CELLS], [False, True],
+                           verbose=False, workers=SWEEP_WORKERS)
+    return records, time.perf_counter() - t0
+
+
+def _gt_dryrun(dev, smi, sweep):
+    """The whole dry-run sweep on meta (``sweep``: the future of
+    :func:`_dry_sweep`; counts, SKIP only where ``cell_supported`` says so,
+    no FAIL), then the one-device record of the GT_BATCH x GT_SEQ training
+    step of GEN_ARCH against the card: its argument bytes against the
+    allocation of that state and batch, its temporaries beside the measured
+    peak of one step."""
     from repro_torch.configs import ASSIGNED_ARCHS
     from repro_torch.data.pipeline import make_batch
     from repro_torch.launch import dryrun
@@ -4913,9 +4954,8 @@ def _gt_dryrun(dev, smi):
     from repro_torch.optim.optimizer import OptimizerConfig, make_optimizer
 
     t0 = time.perf_counter()
-    records = dryrun.sweep(ASSIGNED_ARCHS, [c.name for c in SHAPE_CELLS], [False, True],
-                           verbose=False, workers=SWEEP_WORKERS)
-    sweep_s = time.perf_counter() - t0
+    records, sweep_s = _result(sweep, "phase 15: the dry-run sweep's process")
+    wait_s = time.perf_counter() - t0
     n = {st: sum(r["status"] == st for r in records) for st in ("OK", "SKIP", "FAIL")}
     for r in records:
         if r["status"] == "FAIL":
@@ -4930,7 +4970,8 @@ def _gt_dryrun(dev, smi):
     slow = sorted((r for r in records if "trace_s" in r), key=lambda r: -r["trace_s"])[:3]
     log(f"  dry run: {len(ASSIGNED_ARCHS)} archs x {len(SHAPE_CELLS)} cells x 2 meshes on meta "
         f"in {SWEEP_WORKERS} processes: "
-        f"{n['OK']} OK, {n['SKIP']} SKIP, {n['FAIL']} FAIL in {sweep_s:.1f} s (host clock; the "
+        f"{n['OK']} OK, {n['SKIP']} SKIP, {n['FAIL']} FAIL in {sweep_s:.1f} s (host clock, "
+        f"beside phases 8-15; {wait_s:.1f} s waited for here; the "
         "slowest: " + ", ".join(f"{r['arch']} x {r['cell']} {r['trace_s']:.1f} s" for r in slow)
         + ")")
 
@@ -4988,9 +5029,10 @@ def _empty(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_generic_train(dev, smi):
+def phase_generic_train(dev, smi, sweep):
     """Phase 15: :func:`_gt_train` plain and compressed, a profiled step,
-    :func:`_gt_restart`, :func:`_gt_vs_cpu`, :func:`_gt_dryrun`."""
+    :func:`_gt_restart`, :func:`_gt_vs_cpu`, :func:`_gt_dryrun` (``sweep``:
+    the future of :func:`_dry_sweep`)."""
     t_phase = time.perf_counter()
     counters = _counters()
     ms, losses, state = _gt_train(dev, smi, counters, compress=False)
@@ -5010,7 +5052,7 @@ def phase_generic_train(dev, smi):
     _empty(dev)
     _gt_vs_cpu(dev, smi)
     fail_if_any("phase 15 (restart, card vs CPU)")
-    _gt_dryrun(dev, smi)
+    _gt_dryrun(dev, smi, sweep)
     fail_if_any("phase 15 (dry run)")
     log(f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
 
@@ -5346,16 +5388,43 @@ def _spmd_reference(cfg, dev, tokens, prompts, steps):
     return ref
 
 
+SHARED_ALIGN = 64   # bytes: each leaf's offset in the shared buffer
+
+
 def _to_shared_host(tree):
     """Every tensor of a tree of dicts, lists and tuples copied once into
-    shared host memory (what a spawned rank maps rather than copies)."""
-    if isinstance(tree, dict):
-        return {k: _to_shared_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_shared_host(v) for v in tree)
-    if not isinstance(tree, torch.Tensor):
-        return tree
-    return torch.empty(tree.shape, dtype=tree.dtype).share_memory_().copy_(tree)
+    one shared host allocation (what a spawned rank maps rather than
+    copies, one segment for the whole tree), each leaf a contiguous view of
+    it at an offset aligned to SHARED_ALIGN bytes."""
+    def walk(x, fn):
+        if isinstance(x, dict):
+            return {k: walk(v, fn) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v, fn) for v in x)
+        return fn(x) if isinstance(x, torch.Tensor) else x
+
+    offsets, total = [], 0
+
+    def place(t):
+        nonlocal total
+        offsets.append(total)
+        total += -(-t.numel() * t.element_size() // SHARED_ALIGN) * SHARED_ALIGN
+        return t
+
+    walk(tree, place)
+    flat = torch.empty(0, dtype=torch.uint8).set_(torch.UntypedStorage._new_shared(max(total, 1)))
+    # fault the segment's pages in here, on every core, before the copies from
+    # the card: copied into pages not yet faulted in, recurrentgemma's 24.5 GiB
+    # reference took 101-138 s on an H100 host, 52-65 s after this
+    flat.zero_()
+    at = iter(offsets)
+
+    def copy(t):
+        o = next(at)
+        view = flat[o:o + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+        return view.copy_(t)
+
+    return walk(tree, copy)
 
 
 def _tree_bytes(tree) -> int:
@@ -5428,9 +5497,10 @@ def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps, presets):
     ``moe.routings()``, and held here against the same block of the
     single-device results ``ref``; the hand kernels' launches of this rank's
     steps.  Returns a dict of each preset's results."""
-    t_rank = time.perf_counter()
+    t_rank, began = time.perf_counter(), time.time()
     torch.set_num_threads(2)      # 8 cores, 4 ranks: host-side slicing of the reference
-    sys.path.insert(0, str(ROOT / "src"))
+    if str(ROOT / "src") not in sys.path:   # the world's ranks take one config after another
+        sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -5443,7 +5513,7 @@ def _spmd_rank(rank, arch, depth, device, ref, tokens, prompts, steps, presets):
     mesh = make_host_mesh(SPMD_MESH)
     out = {p: _spmd_preset(cfg, mesh, p, dev, ref, tokens, prompts, steps) for p in presets}
     _release(ref)
-    out["rank_s"] = time.perf_counter() - t_rank
+    out["rank_s"], out["began"] = time.perf_counter() - t_rank, began
     return out
 
 
@@ -5690,13 +5760,16 @@ def _spmd_log(label, ranks, ref, want, train_tokens, steps, tag, phase):
         f"mesh's on meta): " + "; ".join(f"{k} {fmt(v)}" for k, v in want.items()))
 
 
-def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS, presets=("base",)):
+def phase_spmd(dev, smi, configs, phase, world, train=SPMD_TRAIN, steps=SPMD_STEPS,
+               presets=("base",)):
     """Phases 16 and 17: the generic LM's sharded steps (``lm.make_*_step(
     mesh=, preset=)``), one config at a time (``configs``: arch, depth, prefill
     shape and, optionally, the config's own presets), f32 compute: the
     single-device steps on this device, then SPMD under each of the config's
-    presets (else ``presets``) in turn on one 2x2 gloo world of SPMD_RANKS
-    ranks sharing it, which cut their
+    presets (else ``presets``) in turn on ``world``, a 2x2 gloo world of
+    SPMD_RANKS ranks sharing it (``launch.mesh.World``: one world takes the
+    configs of both phases in turn, each after the ranks released the one
+    before), which cut their
     shards from this process's initial weights (on the card, or in shared
     host memory where the ranks need the card: four ranks re-drawing a
     1.7 B tree would not fit the host's 96 GiB), every rank's results held
@@ -5705,7 +5778,7 @@ def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS, pre
     record-only mesh's on meta; no hand kernel may launch.  With a CPU
     ``dev`` and smoke archs it rehearses the checks."""
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import record_only_mesh, spawn_world
+    from repro_torch.launch.mesh import record_only_mesh
     from repro_torch.models.config import ShapeCell
 
     t_phase = time.perf_counter()
@@ -5752,17 +5825,18 @@ def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS, pre
                                                        mesh=rec_mesh, preset=p).argument_bytes()
             for p in presets for k in ("adamw", "adafactor") if k in cells) + 4 * 2**30
         on_card = dev.type == "cuda" and need <= torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
         if not on_card:
             ref = _to_shared_host(ref)
             _empty(dev)
         log(f"  {arch}: the reference ({_tree_bytes(ref) / 2**30:.1f} GiB) "
-            + ("stays on the card" if on_card else "in shared host memory")
+            + ("stays on the card" if on_card else
+               f"in shared host memory ({time.perf_counter() - t0:.1f} s to copy it there)")
             + f"; the ranks' estimate {need / 2**30:.1f} GiB")
-        t0 = time.perf_counter()
+        t0, t0_wall = time.perf_counter(), time.time()
         try:
-            ranks = spawn_world(_spmd_rank, SPMD_RANKS, (arch, depth, str(dev), ref, tokens,
-                                                          prompts, steps, presets),
-                                timeout=SPMD_TIMEOUT)
+            ranks = world.run(_spmd_rank, (arch, depth, str(dev), ref, tokens, prompts, steps,
+                                           presets), timeout=SPMD_TIMEOUT)
         except (RuntimeError, TimeoutError) as e:
             fail(f"{phase}: the {SPMD_RANKS}-rank world of {arch} failed: {e}")
         world_s = time.perf_counter() - t0
@@ -5773,7 +5847,8 @@ def phase_spmd(dev, smi, configs, phase, train=SPMD_TRAIN, steps=SPMD_STEPS, pre
             per_rank = [got[preset] for got in ranks]
             _spmd_log(label, per_rank, ref, want[preset], train[0] * train[1], steps, tag,
                       phase)
-        log(f"  {arch} rank 0: {ranks[0]['rank_s']:.1f} s in its function")
+        log(f"  {arch} rank 0: {ranks[0]['rank_s']:.1f} s in its function, which began "
+            f"{ranks[0]['began'] - t0_wall:.1f} s after the call")
         log(f"  {arch}: {SPMD_RANKS}-rank world ({tag} mesh, gloo, every rank on {dev}) in "
             f"{world_s:.1f} s; {arch} in {time.perf_counter() - t_cfg:.1f} s")
         del ref, ranks
@@ -5795,12 +5870,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    starts: dict[str, float] = {}   # each phase's first stage line, seconds from t0
 
     def stage(msg: str) -> None:
-        log(f"{msg} (at {time.perf_counter() - t0:.1f} s)")
+        at = time.perf_counter() - t0
+        starts.setdefault(msg.split()[1].rstrip(":"), at)
+        log(f"{msg} (at {at:.1f} s)")
 
     stage("phase 1: card and build")
-    smi = phase_card_and_build()
+    smi, build_s = phase_card_and_build()
     stage("phase 2: kernels vs plain at the spike-iand-former-8-384 main path's shapes")
     reports = phase_kernels(dev, torch.Generator().manual_seed(0))
     stage(f"phase 2 (continued): the kernels at the spiking {LM_ARCH}'s shapes")
@@ -5834,6 +5912,10 @@ def main() -> int:
         f"prompts {CONT_LENS}, {LM_NEW} new tokens (spread {CONT_SPREAD}), {LM_SLOTS} slots")
     torch.cuda.empty_cache()
     phase_continuous(dev, smi, sync_cuda)
+    # phase 15's dry-run sweep, on meta in a process of its own beside phases
+    # 8-13 (a failure there fails phase 15; an exit before joins the pool)
+    background = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    sweep = background.submit(_dry_sweep)
     stage(f"phase 8: a {PAST_EDGE_LEN}-token prompt (past M * Dh = 2^24) through the spiking "
         f"{LM_ARCH}'s prefill, {LONG_LAYERS} layers")
     torch.cuda.empty_cache()
@@ -5861,7 +5943,10 @@ def main() -> int:
         f"{GT_BATCH} x {GT_SEQ} tokens, plain and with compress_grads), the "
         f"restart and card vs CPU at {GT_CUT_LAYERS} layers, the dry run on meta")
     torch.cuda.empty_cache()
-    phase_generic_train(dev, smi)
+    phase_generic_train(dev, smi, sweep)
+    background.shutdown()
+    from repro_torch.launch.mesh import World
+
     tag = "x".join(map(str, SPMD_MESH))
     spmd_kw = (f"a train step of {SPMD_TRAIN[0]} x {SPMD_TRAIN[1]} tokens (granite also under "
                f"Adafactor) and {SPMD_STEPS} greedy steps, against the single-device steps")
@@ -5873,14 +5958,17 @@ def main() -> int:
               f"{SPMD_TRAIN[1]} tokens, a prefill of {SPMD_PREFILL[0]} x {SPMD_PREFILL[1]}, "
               f"{SPMD_STEPS} greedy steps) against the single-device steps")
         torch.cuda.empty_cache()
-        phase_spmd(dev, smi, SPMD16, "phase 16")
-        stage("phase 17: the generic LM's SPMD steps of the MoE, SSM and hybrid kinds on the "
-              f"{tag} gloo world: "
-              + ", ".join(f"{a} ({'all' if d is None else d} layers, prefill {p[0]} x {p[1]}; "
-                          f"{', '.join(ps)})" for a, d, p, ps in SPMD17)
-              + f", each {spmd_kw}")
-        torch.cuda.empty_cache()
-        phase_spmd(dev, smi, SPMD17, "phase 17")
+        # one world for phases 16 and 17: its ranks start while the parent
+        # computes the first single-device reference
+        with World(SPMD_RANKS, timeout=SPMD_TIMEOUT) as world:
+            phase_spmd(dev, smi, SPMD16, "phase 16", world)
+            stage("phase 17: the generic LM's SPMD steps of the MoE, SSM and hybrid kinds on "
+                  f"the {tag} gloo world: "
+                  + ", ".join(f"{a} ({'all' if d is None else d} layers, prefill {p[0]} x "
+                              f"{p[1]}; {', '.join(ps)})" for a, d, p, ps in SPMD17)
+                  + f", each {spmd_kw}")
+            torch.cuda.empty_cache()
+            phase_spmd(dev, smi, SPMD17, "phase 17", world)
         stage("phase 18: the sp preset refused; the collective operand bytes of the presets on "
               "the production mesh")
         _spmd_sp_refused(GEN_ARCH)
@@ -5888,8 +5976,14 @@ def main() -> int:
         mesh_tag = "x".join(map(str, PRESET_BYTES_MESH))
         for p, f in pod.items():
             log(f"  {GEN_ARCH} train_4k on the record-only {mesh_tag} mesh ({p}): collective "
-                f"operand bytes a rank {f.result()}")
-    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+                f"operand bytes a rank {_result(f, f'phase 18: the {p} preset bytes')}")
+    total = time.perf_counter() - t0
+    log(f"all phases passed in {total:.1f} s")
+    ends = [*list(starts.values())[1:], total]
+    log("seconds: " + json.dumps({"phases": {k: round(e - a, 1) for (k, a), e in
+                                             zip(starts.items(), ends)},
+                                  "build": {k: round(v, 1) for k, v in build_s.items()},
+                                  "total": round(total, 1)}))
 
     missing = [k for k, rep in {**reports, **{f"{k}@lm": r for k, r in lm_reports.items()},
                                 **{f"{k}@lm-train": r for k, r in train_reports.items()},

@@ -6,8 +6,10 @@ interface and is compiled by ``nvcc`` into its own shared library under
 A library's file name carries a hash of its source and of the compiler flags,
 so an edited source is rebuilt at its next use and a stale library is never
 loaded.  :func:`build` compiles every stale library in parallel (one ``nvcc``
-per source, all started together); a kernel wrapper's first launch builds
-its own library if nothing has yet.  Processes that share the build
+per source, all started together; a source listed in :data:`PARTS` is
+compiled once per part, all parts at once, and the objects linked into its
+one library); a kernel wrapper's first launch builds its own library if
+nothing has yet.  Processes that share the build
 directory (the ranks of a mesh reaching first use together) build once: the
 build holds a file lock on the directory, and a process that waited for it
 finds the libraries built.
@@ -27,7 +29,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
@@ -54,6 +59,23 @@ CONTROLS = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Libraries whose source is compiled in parts: (macro, parts).  Part i is the
+# source compiled to an object with NVCC_FLAGS, ``-c`` for ``-shared`` and
+# ``-D<macro>=i``; one link of NVCC_FLAGS joins the objects into the library.
+# The SSA library's kernels take the longest to compile; its four parts
+# (``ssa.cu``'s header) compile at once.
+PARTS = {"ssa": ("SSA_PART", 4)}
+
+
+class Built(NamedTuple):
+    """A library's build: the compiler output of every ``nvcc`` call
+    (``-Xptxas -v``: registers, shared memory, spills), the seconds from the
+    start of the build to the library's end, and each part's seconds to its
+    object (empty for a library of one unit)."""
+    log: str
+    seconds: float
+    parts: tuple[float, ...] = ()
+
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
@@ -77,17 +99,39 @@ def _recipe(name: str) -> tuple[Path, tuple[str, ...]]:
     return SOURCES[name], NVCC_FLAGS
 
 
+def _parts(name: str) -> tuple[str, int] | None:
+    """(macro, parts) of a library or control build compiled in parts."""
+    return PARTS.get(CONTROLS[name][0] if name in CONTROLS else name)
+
+
+def _commands(nvcc: str, name: str, out: Path) -> tuple[list[list[str]], list[str] | None]:
+    """The ``nvcc`` compile commands of library ``name`` into ``out`` and, for a
+    library built in parts, the link of their objects (else None)."""
+    source, flags = _recipe(name)
+    parts = _parts(name)
+    if parts is None:
+        return [[nvcc, *flags, "-o", str(out), str(source)]], None
+    macro, n = parts
+    compile_flags = ["-c" if f == "-shared" else f for f in flags]
+    objects = [str(out.with_name(f"{out.stem}.part{i}.o")) for i in range(n)]
+    return ([[nvcc, *compile_flags, f"-D{macro}={i}", "-o", obj, str(source)]
+             for i, obj in enumerate(objects)],
+            [nvcc, *flags, "-o", str(out), *objects])
+
+
 def library_path(name: str) -> Path:
     source, flags = _recipe(name)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    parts = _parts(name)
+    recipe = " ".join(flags) + ("" if parts is None else " parts {}={}".format(*parts))
+    digest = hashlib.sha256(source.read_bytes() + recipe.encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names=None) -> dict[str, str]:
+def build(names=None) -> dict[str, Built]:
     """Compile every library in ``names`` (default: all, no control build)
     whose current build is missing, all ``nvcc`` processes at once.  Returns
-    the compiler output (``-Xptxas -v``: registers, shared memory, spills) of
-    each library built; raises with that output if any compile fails."""
+    each built library's :class:`Built` (compiler output and seconds);
+    raises with the compiler output if any compile or link fails."""
     names = list(names or SOURCES)
     if all(library_path(n).exists() for n in names):
         return {}
@@ -97,30 +141,51 @@ def build(names=None) -> dict[str, str]:
         return _build_missing([n for n in names if not library_path(n).exists()])
 
 
-def _build_missing(todo) -> dict[str, str]:
+def _run(cmd: list[str], t0: float) -> tuple[int, str, float]:
+    """Run one ``nvcc`` command: its exit code, output, and seconds since ``t0``."""
+    done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return done.returncode, done.stdout, time.perf_counter() - t0
+
+
+def _build_one(pool, nvcc: str, name: str, t0: float) -> tuple[bool, Built]:
+    """Library ``name``: its compiles at once on ``pool``, then its link; the
+    library replaces its path atomically (a concurrent process never sees
+    half a file) only if every step succeeded."""
+    out = library_path(name)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    compiles, link = _commands(nvcc, name, tmp)
+    runs = [f.result() for f in [pool.submit(_run, cmd, t0) for cmd in compiles]]
+    ok = all(rc == 0 for rc, _, _ in runs)
+    logs = [text for _, text, _ in runs]
+    if ok and link:
+        rc, text, _ = _run(link, t0)
+        ok = rc == 0
+        logs.append(text)
+    if link:
+        for obj in link[len(link) - len(compiles):]:
+            Path(obj).unlink(missing_ok=True)
+    if ok:
+        os.replace(tmp, out)
+    else:
+        tmp.unlink(missing_ok=True)
+    parts = tuple(s for _, _, s in runs) if link else ()
+    return ok, Built("".join(logs), time.perf_counter() - t0, parts)
+
+
+def _build_missing(todo) -> dict[str, Built]:
     if not todo:
         return {}
     nvcc = _nvcc()
-    jobs = []
-    for name in todo:
-        out = library_path(name)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        source, flags = _recipe(name)
-        proc = subprocess.Popen(
-            [nvcc, *flags, "-o", str(tmp), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, tmp, out, proc))
-    logs, failed = {}, []
-    for name, tmp, out, proc in jobs:
-        logs[name], _ = proc.communicate()
-        if proc.returncode:
-            failed.append(name)
-        else:
-            os.replace(tmp, out)     # atomic: a concurrent process never sees half a file
+    t0 = time.perf_counter()
+    n_compiles = sum(len(_commands(nvcc, name, BUILD_DIR / name)[0]) for name in todo)
+    with ThreadPoolExecutor(len(todo) + n_compiles) as pool:
+        done = {name: f.result() for name, f in
+                [(name, pool.submit(_build_one, pool, nvcc, name, t0)) for name in todo]}
+    failed = [name for name, (ok, _) in done.items() if not ok]
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
+                           + "\n".join(done[n][1].log for n in failed))
+    return {name: built for name, (_, built) in done.items()}
 
 
 def kernel(lib: str, fn: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPtr:

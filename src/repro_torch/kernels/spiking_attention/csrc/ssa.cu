@@ -152,10 +152,28 @@
 // gated result equals the ungated one bit for bit.  Without kGated the liveness
 // pointer is never read (packed_ssa_fwd passes none) and the plane mask holds
 // exactly the planes below T.
+//
+// Parts.  The build (kernels/_build.py, PARTS) compiles this file four times
+// at once, with -DSSA_PART=0 ... 3, and links the objects into the one
+// library: part 0 holds the dense kernel and ssa_fwd, part 1 the packed
+// kernel and the two packed entry points, parts 2 and 3 the wide kernel at
+// DQ = 256 and 512 (ssa_launch_wide<DQ>, reached from parts 0 and 1).  Each
+// kernel is instantiated in one part only, so the parts compile in about the
+// time of the longest.  Without SSA_PART the file is one unit holding all four.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef SSA_PART
+#if SSA_PART < 0 || SSA_PART > 3
+#error "SSA_PART selects one of the parts 0 ... 3"
+#endif
+#define SSA_IN_PART(p) (SSA_PART == (p))
+#pragma nv_diag_suppress 177  // a part leaves some of the shared helpers unused
+#else
+#define SSA_IN_PART(p) 1
+#endif
 
 namespace {
 
@@ -821,6 +839,20 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+}  // namespace
+
+// The wide kernel's launch at DQ = 256 (part 2) or 512 (part 3) for every
+// entry point (launch_wide_dq below).  Hidden: the library exports what one
+// unit of this file would.
+template <int DQ>
+__attribute__((visibility("hidden"))) int ssa_launch_wide(
+    bool packed, bool gated, bool split, const void* q, const void* k, const void* v,
+    const int* live, float* out, int g, int n, int m, int d, int t_total, float scale,
+    int causal, cudaStream_t stream);
+
+namespace {
+
+#if SSA_IN_PART(0)
 template <int DP, int WARPS, bool kSplit>
 int launch_dense(const float* q, const float* k, const float* v, float* out, int g, int n,
                  int m, int d, float scale, int causal, cudaStream_t stream) {
@@ -859,7 +891,9 @@ int launch_dense_split(const float* q, const float* k, const float* v, float* ou
   }
   return launch_dense_rows<DP, false>(q, k, v, out, g, n, m, d, scale, causal, stream);
 }
+#endif  // part 0
 
+#if SSA_IN_PART(1)
 template <int DP, bool kGated, bool kSplit>
 int launch_packed_tc(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
                      const int* live, float* out, int g, int n, int m, int d, int t_total,
@@ -877,19 +911,20 @@ int launch_packed_tc(const uint32_t* qw, const uint32_t* kw, const uint32_t* vw,
       qw, kw, vw, live, out, g, n, m, d, t_total, key_range(m, d), scale, causal, vec, pair);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // part 1
 
 // Past D = 128: ssa_wide_tc_kernel, D rounded up to 256 or 512 for the
 // scores.  One block per (fold, 64 query rows[, plane]); where those blocks
 // number at most a quarter (a half) of the SMs, four (two) groups of blocks
 // each compute the scores and a quarter (a half) of the output features, so
 // that a small grid still fills the card.  Above the SM count: one group.
-template <bool kPacked, bool kGated, bool kSplit>
-int launch_wide(const void* q, const void* k, const void* v, const int* live, float* out, int g,
-                int n, int m, int d, int t_total, float scale, int causal, cudaStream_t stream) {
-  const bool half = d <= 256;
-  const auto kernel = half ? ssa_wide_tc_kernel<256, kPacked, kGated, kSplit>
-                           : ssa_wide_tc_kernel<512, kPacked, kGated, kSplit>;
-  const size_t smem = half ? wide_smem_bytes<256>() : wide_smem_bytes<512>();
+#if SSA_IN_PART(2) || SSA_IN_PART(3)
+template <int DQ, bool kPacked, bool kGated, bool kSplit>
+int launch_wide_dq(const void* q, const void* k, const void* v, const int* live, float* out,
+                   int g, int n, int m, int d, int t_total, float scale, int causal,
+                   cudaStream_t stream) {
+  const auto kernel = ssa_wide_tc_kernel<DQ, kPacked, kGated, kSplit>;
+  const size_t smem = wide_smem_bytes<DQ>();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   static const int sms = [] {  // the card's SM count, read once
@@ -910,12 +945,24 @@ int launch_wide(const void* q, const void* k, const void* v, const int* live, fl
       q, k, v, live, out, g, n, m, d, t_total, groups, key_range(m, d), scale, causal, vec, pair);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // parts 2 and 3
+
+#if SSA_IN_PART(0) || SSA_IN_PART(1)
+int launch_wide(bool packed, bool gated, bool split, const void* q, const void* k,
+                const void* v, const int* live, float* out, int g, int n, int m, int d,
+                int t_total, float scale, int causal, cudaStream_t stream) {
+  const auto launch = d <= 256 ? ssa_launch_wide<256> : ssa_launch_wide<512>;
+  return launch(packed, gated, split, q, k, v, live, out, g, n, m, d, t_total, scale, causal,
+                stream);
+}
 
 // The operand contract's shape half (see the header): 1 <= D <= 512 (every
 // score exact in f16, and the wide kernel's shared memory) and M >= 1.
 // Operands past it are refused.
 bool exact_shape(int m, int d) { return d >= 1 && d <= kMaxD && m >= 1; }
+#endif  // parts 0 and 1
 
+#if SSA_IN_PART(1)
 template <bool kGated, bool kSplit>
 int launch_packed_dp(const uint32_t* q, const uint32_t* k, const uint32_t* v, const int* lv,
                      float* o, int g, int n, int m, int d, int t_total, float scale, int causal,
@@ -924,7 +971,7 @@ int launch_packed_dp(const uint32_t* q, const uint32_t* k, const uint32_t* v, co
   if (d <= 32) return launch_packed_tc<32, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
   if (d <= 64) return launch_packed_tc<64, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
   if (d <= 128) return launch_packed_tc<128, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
-  return launch_wide<true, kGated, kSplit>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
+  return launch_wide(true, kGated, kSplit, q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
 }
 
 template <bool kGated>
@@ -943,9 +990,39 @@ int launch_packed_d(const void* qw, const void* kw, const void* vw, const void* 
   }
   return launch_packed_dp<kGated, false>(q, k, v, lv, o, g, n, m, d, t_total, scale, causal, s);
 }
+#endif  // part 1
 
 }  // namespace
 
+#if SSA_IN_PART(2) || SSA_IN_PART(3)
+template <int DQ>
+int ssa_launch_wide(bool packed, bool gated, bool split, const void* q, const void* k,
+                    const void* v, const int* live, float* out, int g, int n, int m, int d,
+                    int t_total, float scale, int causal, cudaStream_t stream) {
+  if (!packed) {
+    return split ? launch_wide_dq<DQ, false, false, true>(q, k, v, live, out, g, n, m, d, t_total, scale, causal, stream)
+                 : launch_wide_dq<DQ, false, false, false>(q, k, v, live, out, g, n, m, d, t_total, scale, causal, stream);
+  }
+  if (gated) {
+    return split ? launch_wide_dq<DQ, true, true, true>(q, k, v, live, out, g, n, m, d, t_total, scale, causal, stream)
+                 : launch_wide_dq<DQ, true, true, false>(q, k, v, live, out, g, n, m, d, t_total, scale, causal, stream);
+  }
+  return split ? launch_wide_dq<DQ, true, false, true>(q, k, v, live, out, g, n, m, d, t_total, scale, causal, stream)
+               : launch_wide_dq<DQ, true, false, false>(q, k, v, live, out, g, n, m, d, t_total, scale, causal, stream);
+}
+#endif
+#if SSA_IN_PART(2)
+template int ssa_launch_wide<256>(bool, bool, bool, const void*, const void*, const void*,
+                                  const int*, float*, int, int, int, int, int, float, int,
+                                  cudaStream_t);
+#endif
+#if SSA_IN_PART(3)
+template int ssa_launch_wide<512>(bool, bool, bool, const void*, const void*, const void*,
+                                  const int*, float*, int, int, int, int, int, float, int,
+                                  cudaStream_t);
+#endif
+
+#if SSA_IN_PART(1)
 // K6: every plane computed; the ungated kernel never reads live, so none is passed.
 extern "C" int packed_ssa_fwd(const void* qw, const void* kw, const void* vw, void* out,
                               int g, int n, int m, int d, int t_total, float scale,
@@ -962,7 +1039,9 @@ extern "C" int sparse_packed_ssa_fwd(const void* qw, const void* kw, const void*
   return launch_packed_d<true>(qw, kw, vw, live, out, g, n, m, d, t_total, scale, causal,
                                stream);
 }
+#endif  // part 1
 
+#if SSA_IN_PART(0)
 extern "C" int ssa_fwd(const void* q, const void* k, const void* v, void* out, int g,
                        int n, int m, int d, float scale, int causal, void* stream) {
   if (!exact_shape(m, d)) return static_cast<int>(cudaErrorInvalidValue);
@@ -975,12 +1054,11 @@ extern "C" int ssa_fwd(const void* q, const void* k, const void* v, void* out, i
   if (d <= 32) return launch_dense_split<32>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
   if (d <= 64) return launch_dense_split<64>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
   if (d <= 128) return launch_dense_split<128>(qf, kf, vf, o, g, n, m, d, scale, causal, s);
-  if (key_range(m, d) < m) {
-    return launch_wide<false, false, true>(qf, kf, vf, nullptr, o, g, n, m, d, 1, scale, causal, s);
-  }
-  return launch_wide<false, false, false>(qf, kf, vf, nullptr, o, g, n, m, d, 1, scale, causal, s);
+  return launch_wide(false, false, key_range(m, d) < m, qf, kf, vf, nullptr, o, g, n, m, d, 1,
+                     scale, causal, s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif  // part 0

@@ -502,55 +502,133 @@ def batch_axes(multi_pod: bool):
 
 def spawn_world(fn, nprocs: int, args=(), *, timeout: float = 600.0) -> list:
     """Run ``fn(rank, *args)`` on a fresh gloo world of ``nprocs`` local
-    processes and return each rank's result, in rank order.
+    processes and return each rank's result, in rank order: one call of a
+    :class:`World` that ends with it.
 
     ``fn`` must be importable by a child (a module-level function) and its
-    result picklable.  The world meets through a ``FileStore`` in a fresh
-    temporary directory (no port is taken); each rank runs one CPU thread.
-    The world must end within ``timeout`` seconds, or every rank is killed
-    and ``TimeoutError`` raised; a rank that raises fails the call with its
-    traceback.  Collectives time out after ``timeout`` seconds too, so a
-    rank blocked on a failed peer ends."""
-    import torch.multiprocessing as mp
+    result picklable.  The world must end within ``timeout`` seconds, or every
+    rank is killed and ``TimeoutError`` raised; a rank that raises fails the
+    call with its traceback."""
+    with World(nprocs, timeout=timeout) as w:
+        return w.run(fn, args)
 
-    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+
+class World:
+    """A gloo world of ``nprocs`` local processes that takes one call after
+    another: :meth:`run` runs ``fn(rank, *args)`` on every rank and returns
+    each rank's result, in rank order; :meth:`close` (or the end of its
+    ``with`` block) ends it.  The processes start at once and meet while the
+    caller goes on, so a world started early is ready by its first call.
+
+    The world meets through a ``FileStore`` in a fresh temporary directory
+    (no port is taken); each rank runs one CPU thread.  ``args`` reach the
+    ranks as ``torch.multiprocessing`` pickles them (CUDA tensors by IPC,
+    shared host tensors by their segment); a rank drops them before it takes
+    the next call.  A call must end within its ``timeout`` (default: the
+    world's), or every rank is killed and ``TimeoutError`` raised; a rank
+    that raises ends the world and fails the call with every rank's
+    traceback.  Collectives time out after the world's ``timeout`` too, so a
+    rank blocked on a failed peer ends.  A world that failed takes no more
+    calls."""
+
+    def __init__(self, nprocs: int, *, timeout: float = 600.0):
+        import torch.multiprocessing as mp
+
+        self.nprocs, self.timeout, self._calls = nprocs, timeout, 0
+        self._tmp = tempfile.TemporaryDirectory(prefix="repro_torch_world_")
         ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_rank_main, args=(fn, r, nprocs, tmp, timeout, args))
-                 for r in range(nprocs)]
-        for p in procs:
+        self._done = ctx.Queue()
+        self._jobs = [ctx.Queue() for _ in range(nprocs)]
+        self._procs = [ctx.Process(target=_world_rank, args=(r, nprocs, self._tmp.name, timeout,
+                                                             self._jobs[r], self._done))
+                       for r in range(nprocs)]
+        self._failed: str | None = None
+        for p in self._procs:
             p.start()
-        deadline = time.monotonic() + timeout
-        for p in procs:
+
+    def __enter__(self) -> World:
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def run(self, fn, args=(), *, timeout: float | None = None) -> list:
+        import queue
+
+        if self._failed:
+            raise RuntimeError(f"this {self.nprocs}-rank world failed before: {self._failed}")
+        timeout = self.timeout if timeout is None else timeout
+        call, self._calls = self._calls, self._calls + 1
+        for jobs in self._jobs:
+            jobs.put((call, fn, args))
+        deadline, done = time.monotonic() + timeout, set()
+        while len(done) < self.nprocs:
+            try:
+                done.add(self._done.get(timeout=max(0.01, min(1.0, deadline - time.monotonic()))))
+                continue
+            except queue.Empty:
+                pass
+            if any(p.exitcode is not None for r, p in enumerate(self._procs) if r not in done):
+                self._end(deadline)
+                bad = [r for r, p in enumerate(self._procs) if p.exitcode]
+                raise RuntimeError(self._fail(f"ranks {bad} of a {self.nprocs}-rank world "
+                                              "failed"))
+            if time.monotonic() >= deadline:
+                hung = [r for r in range(self.nprocs) if r not in done]
+                self._end(deadline)
+                raise TimeoutError(self._fail(f"ranks {hung} of a {self.nprocs}-rank world "
+                                              f"still ran after {timeout} s"))
+        results = []
+        for r in range(self.nprocs):
+            path = Path(self._tmp.name) / f"rank{r}.{call}.pkl"
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+            path.unlink()
+        return results
+
+    def _fail(self, what: str) -> str:
+        """``what`` and every rank's traceback; the world takes no more calls."""
+        errors = [Path(self._tmp.name) / f"rank{r}.err" for r in range(self.nprocs)]
+        self._failed = what
+        return what + "\n" + "\n".join(f"rank {r}:\n{e.read_text()}"
+                                        for r, e in enumerate(errors) if e.exists())
+
+    def _end(self, deadline: float) -> None:
+        """Ask every rank to stop, wait for them until ``deadline``, kill the rest."""
+        for jobs in self._jobs:
+            jobs.put(None)
+        for p in self._procs:
             p.join(max(0.0, deadline - time.monotonic()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
+        for p in self._procs:
             if p.is_alive():
                 p.kill()
                 p.join()
-        errors = [(Path(tmp) / f"rank{r}.err") for r in range(nprocs)]
-        text = "\n".join(f"rank {r}:\n{e.read_text()}" for r, e in enumerate(errors)
-                         if e.exists())
-        if hung:
-            raise TimeoutError(f"ranks {hung} of a {nprocs}-rank world still ran after "
-                               f"{timeout} s\n{text}")
-        bad = [r for r, p in enumerate(procs) if p.exitcode]
-        if bad:
-            raise RuntimeError(f"ranks {bad} of a {nprocs}-rank world failed\n{text}")
-        results = []
-        for r in range(nprocs):
-            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
-                results.append(pickle.load(f))
-        return results
+
+    def close(self) -> None:
+        """End the world: every rank leaves its loop (killed if it has not
+        within the world's ``timeout``), and the temporary directory goes."""
+        if any(p.is_alive() for p in self._procs):
+            self._end(time.monotonic() + self.timeout)
+        for q in (self._done, *self._jobs):
+            q.cancel_join_thread()   # a job a killed rank never read must not block the exit
+            q.close()
+        self._tmp.cleanup()
 
 
-def _rank_main(fn, rank, nprocs, tmp, timeout, args):
+def _world_rank(rank, nprocs, tmp, timeout, jobs, done):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
                             world_size=nprocs, timeout=datetime.timedelta(seconds=timeout))
     try:
-        result = fn(rank, *args)
-        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
-            pickle.dump(result, f)
+        while (job := jobs.get()) is not None:
+            call, fn, args = job
+            del job
+            result = fn(rank, *args)
+            del args        # the caller's tensors, released before the next call
+            with open(Path(tmp) / f"rank{rank}.{call}.pkl", "wb") as f:
+                pickle.dump(result, f)
+            del result
+            done.put(rank)
     except BaseException:
         (Path(tmp) / f"rank{rank}.err").write_text(traceback.format_exc())
         raise SystemExit(1)

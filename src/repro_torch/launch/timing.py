@@ -41,6 +41,10 @@ Three measurements:
            version, then CUDA events over back-to-back calls and the device
            time per launch under ``torch.profiler`` (the map's memset
            apart), summed over the form's launches beside its byte bound.
+``build`` the kernel libraries' ``nvcc`` builds (``kernels/_build.py``) into a
+           fresh temporary directory: each library and control build alone,
+           then all of them started together as ``chip_smoke.py`` phase 1
+           builds them; host-clock seconds of each.
 
 Run it as a file, so that ``--src`` decides which checkout's
 ``repro_torch`` is imported (another checkout's ``src`` directory, or by
@@ -53,6 +57,7 @@ default the one holding this file)::
     python src/repro_torch/launch/timing.py --src ../other/src ssa --g 384 --n 64 --dh 32
     python src/repro_torch/launch/timing.py ssa --g 64 --n 32,2048 --dh 512 --causal --route dense,packed,sparse
     python src/repro_torch/launch/timing.py --src ../other/src lif --reps 20
+    python src/repro_torch/launch/timing.py --src ../other/src build
 
 Every line printed starts with ``[timing]`` and names the ``repro_torch``
 it ran.  It runs on the card unless ``--device cpu`` asks for the host.
@@ -450,6 +455,31 @@ def lif_line(form: str, st: dict[str, float | None]) -> str:
             f"bound {st['bound_ms']:.5f} (bytes), device share {share}")
 
 
+def time_build() -> dict[str, float]:
+    """Seconds of each library's build alone (``_build.build([name])``, its
+    parts at once where it has parts) and of all of them together (``all``),
+    each into a fresh temporary build directory."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import _build
+
+    names = [*_build.SOURCES, *_build.CONTROLS]
+    out: dict[str, float] = {}
+    saved = _build.BUILD_DIR
+    with tempfile.TemporaryDirectory(prefix="repro_torch_build_") as tmp:
+        _build.BUILD_DIR = Path(tmp) / "build"
+        try:
+            for group in [[n] for n in names] + [names]:
+                shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+                t0 = time.perf_counter()
+                _build.build(group)
+                out[group[0] if len(group) == 1 else "all"] = time.perf_counter() - t0
+        finally:
+            _build.BUILD_DIR = saved
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
@@ -495,6 +525,7 @@ def main(argv=None) -> None:
     ss.add_argument("--causal", action="store_true")
     lf = sub.add_parser("lif", help="ms per forward of every form of the LIF kernels")
     lf.add_argument("--reps", type=int, default=20)
+    sub.add_parser("build", help="seconds of each kernel library's nvcc build")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, args.src)
@@ -530,6 +561,9 @@ def main(argv=None) -> None:
         for form, st in time_lif(LIF_FORMS, args.reps, dev,
                                  log=lambda x: print(f"{head} {x}")).items():
             print(f"{head} {lif_line(form, st)}")
+    elif args.what == "build":
+        for name, secs in time_build().items():
+            print(f"{head} build {name}: seconds {secs:.1f}")
     elif args.what == "train":
         s = time_train(args.arch, args.steps, args.warmup, args.batch, dev)
         print(f"{head} train {args.arch} batch {args.batch}, {args.steps} steps after "

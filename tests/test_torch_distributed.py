@@ -9,6 +9,7 @@ import os
 import stat
 import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -269,3 +270,122 @@ def test_build_runs_once_for_racing_processes(tmp_path, monkeypatch):
     assert calls.read_text() == "x"
     assert sorted(len(x) for x in logs) == [0, 0, 0, 1]
     assert _build.library_path("k").read_text() == "lib"
+
+
+# -- a library built in parts ---------------------------------------------------------
+
+SSA_PART_OF = {"ssa_fwd": 0, "repro_cuda_error_string": 0, "launch_dense": 0,
+               "packed_ssa_fwd": 1, "sparse_packed_ssa_fwd": 1, "launch_packed_tc": 1,
+               "ssa_launch_wide<256>": 2, "ssa_launch_wide<512>": 3}
+
+
+def _fake_nvcc(tmp_path, fail_on=None):
+    """An nvcc that logs its arguments, writes its -o file (an object under
+    -c, else a library) and prints a ptxas line; it fails when ``fail_on``
+    is among its arguments."""
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\n"
+                    "import sys, pathlib\n"
+                    f"pathlib.Path({str(calls)!r}).open('a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+                    f"if {fail_on!r} in sys.argv:\n"
+                    "    print('nvcc fatal: this step failed'); sys.exit(1)\n"
+                    "out = sys.argv[sys.argv.index('-o') + 1]\n"
+                    "pathlib.Path(out).write_text('obj' if '-c' in sys.argv else 'lib')\n"
+                    "print('ptxas info    : Used 40 registers,', sys.argv[sys.argv.index('-o') - 1])\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    return fake, calls
+
+
+def test_parts_recipe():
+    """Each part of ``ssa`` is its own nvcc command with NVCC_FLAGS (``-c``
+    for ``-shared``) and its part's ``-D``; one link line of NVCC_FLAGS names
+    every part's object.  The other libraries and the control builds stay one
+    command each."""
+    out = Path("/b/ssa-x.tmp.so")
+    compiles, link = _build._commands("nvcc", "ssa", out)
+    macro, n = _build.PARTS["ssa"]
+    flags = ["-c" if f == "-shared" else f for f in _build.NVCC_FLAGS]
+    assert "-shared" in _build.NVCC_FLAGS and len(compiles) == n == 4
+    objects = []
+    for i, cmd in enumerate(compiles):
+        assert cmd[:len(flags) + 2] == ["nvcc", *flags, f"-D{macro}={i}"]
+        assert cmd[-1] == str(_build.SOURCES["ssa"]) and cmd[-3] == "-o"
+        objects.append(cmd[-2])
+    assert len(set(objects)) == n and all(o.startswith("/b/ssa-x.tmp.part") for o in objects)
+    assert link == ["nvcc", *_build.NVCC_FLAGS, "-o", str(out), *objects]
+    for name in ("lif_parallel", "spike_matmul", *_build.CONTROLS):
+        source, want = _build._recipe(name)
+        assert _build._commands("nvcc", name, out) == ([["nvcc", *want, "-o", str(out),
+                                                         str(source)]], None)
+
+
+def test_library_path_tracks_every_part(tmp_path, monkeypatch):
+    """The SSA library's path changes with its source's bytes, its part
+    count and the flags of any command."""
+    source = tmp_path / "ssa.cu"
+    source.write_bytes(_build.SOURCES["ssa"].read_bytes())
+    monkeypatch.setattr(_build, "SOURCES", {**_build.SOURCES, "ssa": source})
+    paths = [_build.library_path("ssa")]
+    source.write_bytes(source.read_bytes().replace(b"#if SSA_IN_PART(3)", b"#if SSA_IN_PART(3) "))
+    paths.append(_build.library_path("ssa"))
+    monkeypatch.setattr(_build, "PARTS", {"ssa": ("SSA_PART", 3)})
+    paths.append(_build.library_path("ssa"))
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-lineinfo"))
+    paths.append(_build.library_path("ssa"))
+    assert len(set(paths)) == 4
+
+
+def test_parts_build_one_library(tmp_path, monkeypatch):
+    fake, calls = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    built = _build.build(["ssa", "lif_parallel"])
+    ssa = built["ssa"]
+    assert len(ssa.parts) == 4 and all(0 < s <= ssa.seconds for s in ssa.parts)
+    assert built["lif_parallel"].parts == () and built["lif_parallel"].seconds > 0
+    assert ssa.log.count("ptxas info") == 5      # four parts and the link
+    lines = calls.read_text().splitlines()
+    links = [x for x in lines if "-shared" in x and "ssa" in x]
+    assert len(lines) == 6 and len(links) == 1 and links[0].count(".o") == 4
+    assert _build.library_path("ssa").read_text() == "lib"
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        ["build.lock", _build.library_path("ssa").name, _build.library_path("lif_parallel").name])
+
+
+@pytest.mark.parametrize("step", ["-DSSA_PART=0", "-DSSA_PART=1", "-DSSA_PART=2",
+                                  "-DSSA_PART=3", "-shared"])
+def test_failed_part_fails_the_build(tmp_path, monkeypatch, step):
+    """nvcc failing on any part (or on the link) raises with its output and
+    leaves no library, object or temporary file behind."""
+    fake, _ = _fake_nvcc(tmp_path, fail_on=step)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="nvcc failed for ssa:") as err:
+        _build.build(["ssa"])
+    assert "nvcc fatal: this step failed" in str(err.value)
+    assert [p.name for p in (tmp_path / "build").iterdir()] == ["build.lock"]
+
+
+def test_ssa_parts_split_the_source(tmp_path):
+    """Preprocessed with each ``-DSSA_PART``, ``ssa.cu`` holds each entry
+    point, launcher and wide instantiation in its one part, and all of them
+    without SSA_PART."""
+    import re
+    import subprocess
+
+    for header in ("cuda_fp16.h", "cuda_runtime.h"):
+        (tmp_path / header).write_text("")
+
+    def defined(*defines):
+        text = subprocess.run(["gcc", "-E", "-P", "-x", "c++", f"-I{tmp_path}", *defines,
+                               str(_build.SOURCES["ssa"])], capture_output=True, text=True,
+                              check=True).stdout
+        found = re.findall(r'^(?:extern "C" (?:int|const char\*) |int |template int )'
+                           r"(\w+(?:<\d+>)?)\(", text, flags=re.M)
+        return [f for f in found if f in SSA_PART_OF]
+
+    for part in range(_build.PARTS["ssa"][1]):
+        assert sorted(defined(f"-DSSA_PART={part}")) == sorted(
+            f for f, p in SSA_PART_OF.items() if p == part)
+    assert sorted(defined()) == sorted(SSA_PART_OF)

@@ -126,3 +126,26 @@ def test_serve_on_the_cpu(capsys):
         s = {k: float(v) for k, v in stats.items()}
         assert 0 < s["min"] <= s["q1"] <= s["median"] <= s["q3"] <= s["max"]
 
+
+
+def test_build_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """``build`` times each library alone and all together, each into a fresh
+    directory (an nvcc stand-in that writes its -o file), and restores the
+    build directory."""
+    import stat
+    import sys
+
+    from repro_torch.kernels import _build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\nimport sys, pathlib\n"
+                    "pathlib.Path(sys.argv[sys.argv.index('-o') + 1]).write_text('x')\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    before = _build.BUILD_DIR
+    timing.main(["--device", "cpu", "build"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    names = [*_build.SOURCES, *_build.CONTROLS, "all"]
+    assert [line.split(" build ")[1].split(":")[0] for line in lines] == names
+    assert all(line.startswith("[timing] ") and ": seconds " in line for line in lines)
+    assert _build.BUILD_DIR == before
